@@ -7,7 +7,9 @@ keyed as the JAX module names them) into a `state_dict` for the port's
 becomes `weight`.  `init_causal_lm_params` builds such a tree from a
 seed with numpy alone — the same structure and shapes as the JAX
 module's `init`, so a machine without JAX can make random weights in
-the reference's layout.
+the reference's layout.  `bert_from_flax` and `init_bert_params` do
+the same for the BERT family (`models/bert.py`), in both of the JAX
+encoder's block layouts.
 """
 
 from __future__ import annotations
@@ -107,3 +109,147 @@ def init_causal_lm_params(config: Mapping, seed: int = 0
             tree[f"block_{i}_{n}"] = norm()
     tree["lm_head"] = dense(hid, config["vocab"])
     return tree
+
+
+#: BERT heads by their flax module name, and the config field that
+#: gives each one's width (SQuAD's span head is always 2 wide)
+_BERT_HEADS = {"classifier": ("num_classes", 2),
+               "ner_head": ("num_entities", 9),
+               "span_head": (None, 2)}
+#: (flax sub-path, port sub-path, `_dense_shapes` key) of each block's
+#: dense modules
+_BERT_BLOCK = (("attn/qkv", "attn.qkv", "qkv"),
+               ("attn/proj", "attn.proj", "proj"),
+               ("fc1", "fc1", "fc1"),
+               ("fc2", "fc2", "fc2"))
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, path + "/"))
+        else:
+            flat[path] = np.asarray(v)
+    return flat
+
+
+def bert_from_flax(params: Mapping, config: Mapping
+                   ) -> Dict[str, torch.Tensor]:
+    """The state_dict of the port's `BERTClassifier`, `BERTNER` or
+    `BERTSQuAD` (whichever head the tree holds: `classifier`,
+    `ner_head` or `span_head`) from a flax param tree.  Takes both
+    block layouts of the JAX `TransformerEncoder`: scan-stacked
+    (`bert/blocks/...` with a leading n_block axis, the default) and
+    unrolled (`bert/block_{i}/...`).  `config` holds the constructor
+    fields (vocab, hidden_size, n_block, intermediate_size,
+    max_position_len, and num_classes / num_entities where it sets a
+    head's width).  Raises on a missing or unknown entry and on a shape
+    that disagrees with `config`."""
+    heads = [k for k in params if k in _BERT_HEADS]
+    if len(heads) != 1:
+        raise ValueError(f"expected one head of {sorted(_BERT_HEADS)} in the "
+                         f"param tree, found {heads}")
+    head = heads[0]
+    flat = _flatten(params)
+    hid, n_block = config["hidden_size"], config["n_block"]
+    dense = _dense_shapes(config)
+    out: Dict[str, np.ndarray] = {}
+
+    def take(path, shape):
+        if path not in flat:
+            raise ValueError(f"missing {path} in the param tree")
+        arr = flat.pop(path)
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{path} has shape {arr.shape}, config says "
+                             f"{tuple(shape)}")
+        return arr
+
+    out["bert.token_embed.weight"] = take(
+        "bert/token_embed/embedding", (config["vocab"], hid))
+    out["bert.position_embed.weight"] = take(
+        "bert/position_embed/embedding", (config["max_position_len"], hid))
+    out["bert.segment_embed.weight"] = take(
+        "bert/segment_embed/embedding", (2, hid))
+    out["bert.embed_ln.weight"] = take("bert/embed_ln/scale", (hid,))
+    out["bert.embed_ln.bias"] = take("bert/embed_ln/bias", (hid,))
+
+    stacked = any(p.startswith("bert/blocks/") for p in flat)
+    leaves = []     # (flax sub-path, port name, per-block shape, transpose)
+    for src, dst, key in _BERT_BLOCK:
+        fan_in, fan_out = dense[key]
+        leaves += [(f"{src}/kernel", f"{dst}.weight", (fan_in, fan_out),
+                    True), (f"{src}/bias", f"{dst}.bias", (fan_out,), False)]
+    for n in _NORMS:
+        leaves += [(f"{n}/scale", f"{n}.weight", (hid,), False),
+                   (f"{n}/bias", f"{n}.bias", (hid,), False)]
+    for src, dst, shape, transpose in leaves:
+        if stacked:
+            whole = take(f"bert/blocks/{src}", (n_block, *shape))
+            per_block = [whole[i] for i in range(n_block)]
+        else:
+            per_block = [take(f"bert/block_{i}/{src}", shape)
+                         for i in range(n_block)]
+        for i, arr in enumerate(per_block):
+            out[f"bert.blocks.{i}.{dst}"] = arr.T if transpose else arr
+
+    if head == "classifier":
+        out["bert.pooler.weight"] = take("bert/pooler/kernel", (hid, hid)).T
+        out["bert.pooler.bias"] = take("bert/pooler/bias", (hid,))
+    field, default = _BERT_HEADS[head]
+    width = config.get(field, default) if field else default
+    out[f"{head}.weight"] = take(f"{head}/kernel", (hid, width)).T
+    out[f"{head}.bias"] = take(f"{head}/bias", (width,))
+    if flat:
+        raise ValueError(f"unknown entries in the param tree: "
+                         f"{sorted(flat)}")
+    return {k: torch.from_numpy(np.array(v, order="C"))
+            for k, v in out.items()}
+
+
+def init_bert_params(config: Mapping, seed: int = 0,
+                     head: str = "classifier"
+                     ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Random f32 weights in the flax layout of the JAX `BERTClassifier`
+    (head "classifier"), `BERTNER` ("ner_head") or `BERTSQuAD`
+    ("span_head"), from `seed`, with numpy alone: the same tree and
+    shapes as the module's `init` (scan-stacked blocks).  Embeddings ~
+    N(0, 1/hidden), Dense kernels ~ N(0, 1/fan_in), biases ~ N(0,
+    0.02^2) (so a bias path is exercised), LayerNorm scale ones and bias
+    zeros."""
+    if head not in _BERT_HEADS:
+        raise ValueError(f"unknown BERT head {head!r}; one of "
+                         f"{sorted(_BERT_HEADS)}")
+    rng = np.random.default_rng(seed)
+    hid, n_block = config["hidden_size"], config["n_block"]
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    def dense(fan_in, fan_out, lead=()):
+        return {"kernel": normal((*lead, fan_in, fan_out), fan_in ** -0.5),
+                "bias": normal((*lead, fan_out), 0.02)}
+
+    def norm(lead=()):
+        return {"scale": np.ones((*lead, hid), np.float32),
+                "bias": np.zeros((*lead, hid), np.float32)}
+
+    shapes = _dense_shapes(config)
+    lead = (n_block,)
+    blocks = {"attn": {"qkv": dense(*shapes["qkv"], lead),
+                       "proj": dense(*shapes["proj"], lead)},
+              "fc1": dense(*shapes["fc1"], lead),
+              "fc2": dense(*shapes["fc2"], lead),
+              "ln1": norm(lead), "ln2": norm(lead)}
+    bert = {"token_embed": {"embedding": normal((config["vocab"], hid),
+                                                hid ** -0.5)},
+            "position_embed": {"embedding": normal(
+                (config["max_position_len"], hid), hid ** -0.5)},
+            "segment_embed": {"embedding": normal((2, hid), hid ** -0.5)},
+            "embed_ln": norm(), "blocks": blocks}
+    if head == "classifier":
+        bert["pooler"] = dense(hid, hid)
+    field, default = _BERT_HEADS[head]
+    width = config.get(field, default) if field else default
+    return {"bert": bert, head: dense(hid, width)}

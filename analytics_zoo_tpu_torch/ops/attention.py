@@ -4,6 +4,12 @@
 the full path (causal and/or additive mask) and the KV-cache read path
 (`ctx_k/ctx_v/ctx_len`), masked fills at -1e9, f32 softmax, f32 out.
 
+`flash_attention` is the tiled online-softmax attention (key mask,
+broadcast bias, causal, positional-hash dropout, logsumexp) and its one
+dispatch point: a CUDA tensor goes to the CUDA kernel
+(`ops/kernels/flash_attention.py`), a CPU tensor to the plain version,
+the JAX package's `_reference_attn`.
+
 `paged_decode_attention` is the serving decode path (q_len=1 per lane
 against a paged KV block pool) and its one dispatch point: a CUDA
 tensor goes to the CUDA kernel (`ops/kernels/paged_attention.py`), a
@@ -17,6 +23,11 @@ import math
 
 import torch
 
+from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+    flash_fwd,
+    flash_fwd_reference,
+    kernel_layout_ok,
+)
 from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
     paged_decode,
     paged_decode_reference,
@@ -117,3 +128,78 @@ def paged_decode_attention(q, new_k, new_v, k_pool, v_pool, block_tables,
         block_tables.to(torch.int32).contiguous(),
         ctx_len.to(torch.int32).contiguous(), k_scale=k_scale,
         v_scale=v_scale)
+
+
+def flash_attention(q, k, v, *, kv_mask=None, bias=None, causal: bool = False,
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    dropout_generator=None, dropout_pos=None,
+                    return_lse: bool = False, impl: str = "auto"):
+    """Flash attention over [batch, t, heads, head_dim] (BTHD, as
+    `dot_product_attention`), with the JAX `flash_attention`'s
+    arguments and checks.  Returns out [b, t, h, d] at q's dtype, and
+    with `return_lse` also the pre-dropout logsumexp [b, t, h] f32.
+
+    kv_mask: [b, t] key validity (cast to int32, then nonzero = attend),
+    broadcast over heads; a fully masked row gives zeros.  bias: additive
+    [1|b, 1|h, t, t], broadcast in place.  dropout_rate > 0 needs
+    `dropout_seed` (an int32 scalar or [1] tensor) or a
+    `dropout_generator` (a torch.Generator) that draws one;
+    `dropout_pos=(q_off, k_off)` shifts the hash to global positions.
+
+    impl: "auto" (the kernel for CUDA tensors, the plain version for
+    CPU tensors) | "kernel" | "reference".  The kernel takes any t and
+    head_dim 32, 64 or 128."""
+    b, t, h, d = q.shape
+    dropout_rate = float(dropout_rate)
+    if dropout_rate < 0.0 or dropout_rate >= 1.0:
+        raise ValueError(f"dropout_rate {dropout_rate} not in [0, 1)")
+    seed3 = None
+    if dropout_rate > 0.0:
+        if dropout_seed is not None:
+            seed = torch.as_tensor(dropout_seed, device=q.device).to(
+                torch.int32).reshape(1)
+        elif dropout_generator is not None:
+            seed = torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
+                                 generator=dropout_generator,
+                                 dtype=torch.int32,
+                                 device=dropout_generator.device
+                                 ).to(q.device)
+        else:
+            raise ValueError("dropout_rate > 0 needs dropout_seed or "
+                             "dropout_generator")
+        q_off, k_off = dropout_pos if dropout_pos is not None else (0, 0)
+        seed3 = torch.cat([seed] + [
+            torch.as_tensor(off, device=q.device).to(torch.int32).reshape(1)
+            for off in (q_off, k_off)])
+    if kv_mask is not None:
+        if tuple(kv_mask.shape) != (b, t):
+            raise ValueError(
+                f"kv_mask shape {tuple(kv_mask.shape)} != (batch, t) = "
+                f"({b}, {t}); note q/k/v are [batch, t, heads, d] (BTHD), "
+                "not BHTD")
+        kv_mask = kv_mask.to(torch.int32)
+    if bias is not None:
+        if bias.dim() != 4 or bias.shape[0] not in (1, b) \
+                or tuple(bias.shape[2:]) != (t, t) \
+                or bias.shape[1] not in (1, h):
+            raise ValueError(
+                f"bias shape {tuple(bias.shape)} != (1|batch, 1|heads, t, t)"
+                f" = (1|{b}, 1|{h}, {t}, {t})")
+    if impl == "auto":
+        impl = "kernel" if q.is_cuda else "reference"
+    if impl == "reference":
+        out, lse = flash_fwd_reference(q, k, v, kv_mask, bias, seed3,
+                                       causal, dropout_rate)
+    elif impl == "kernel":
+        if not kernel_layout_ok(q, k, v):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_fwd(
+            q, k, v, None if kv_mask is None else kv_mask.contiguous(),
+            None if bias is None else bias.float().contiguous(), seed3,
+            causal, dropout_rate)
+    else:
+        raise ValueError(f"unknown flash_attention impl {impl!r}; use "
+                         "'auto', 'kernel' or 'reference'")
+    if not return_lse:
+        return out
+    return out, lse.reshape(b, h, t).permute(0, 2, 1)

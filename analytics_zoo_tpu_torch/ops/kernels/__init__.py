@@ -1,12 +1,19 @@
 """Hand-written Hopper kernels and their launch wrappers.
 
 Each wrapper checks its inputs, launches on the current stream, and
-counts its launches in a plain integer attribute (`<wrapper>.launches`),
-so a run can show that the main path went through the kernel.
+counts its launches in a plain integer attribute (`<wrapper>.launches`,
+raised by `_build.count_launch`), so a run can show that the main path
+went through the kernel.
 Nothing here imports `triton` or builds a kernel at import time: that
 happens on the first launch (`_build.py` for the CUDA sources).
 """
 
+from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401,E501
+    flash_fwd,
+)
+from analytics_zoo_tpu_torch.ops.kernels.fused_dense import (  # noqa: F401
+    fused_dense_gelu,
+)
 from analytics_zoo_tpu_torch.ops.kernels.layer_norm import (  # noqa: F401
     layer_norm_fwd,
 )
@@ -15,7 +22,9 @@ from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (  # noqa: F401,
 )
 
 #: every kernel wrapper of the port, by kernel name
-KERNELS = {"layer_norm_fwd": layer_norm_fwd, "paged_decode": paged_decode}
+KERNELS = {"layer_norm_fwd": layer_norm_fwd,
+           "fused_dense_gelu": fused_dense_gelu, "flash_fwd": flash_fwd,
+           "paged_decode": paged_decode}
 
 
 def reset_launch_counts() -> None:

@@ -135,6 +135,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`.  Under a lock: callers such as
+    `InferenceModel.predict` launch from several threads, and a bare
+    `+= 1` on an attribute can lose counts between threads."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def cuda_sources() -> List[str]:
     """Names of every CUDA source of the port."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))

@@ -92,7 +92,7 @@ def paged_decode(q, new_k, new_v, k_pool, v_pool, block_tables, ctx_len,
     if rc != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA "
                            f"error {rc}")
-    paged_decode.launches += 1
+    _build.count_launch(paged_decode)
     return out
 
 

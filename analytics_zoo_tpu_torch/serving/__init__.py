@@ -1,1 +1,2 @@
-"""Serving layer of the port (generation engine only, for now)."""
+"""Serving layer of the port: the generation engine and
+`InferenceModel`."""

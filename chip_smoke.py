@@ -6,22 +6,36 @@
 Run from the root of a checkout on a machine with a CUDA card, `nvcc`
 and `triton`.  It builds the port's kernels from the sources in the
 checkout (into `.kernel_build/`), holds each kernel against its plain
-PyTorch version at the serving path's shapes, times both beside the
+PyTorch version at its serving paths' shapes, times both beside the
 kernel's bound and one PyTorch library call computing the same function,
-then serves requests through the port's `GenerationEngine` at GPT-2
-small's widths with random weights from a seed, and checks the served
-logits against a recompute through the plain versions.
+then drives the port's two serving paths with random weights from a
+seed: generation through `GenerationEngine` at GPT-2 small's widths, and
+BERT-base classification through `InferenceModel`; each path's served
+outputs are checked against a recompute through the plain versions.
 
 Phases (each one failing exits non-zero, with no result line):
   1. setup: card name and power limit, versions, kernel build, TF32 off;
   2. K1 LayerNorm forward (Triton) vs its plain version;
   3. K6 paged decode attention (CUDA) vs its plain version, f32 and
      int8 pools;
-  4. the slice: warm the engine, serve concurrent greedy requests
-     through the background loop, check the kernels' launch counts and
-     the logits; again with an int8 KV pool;
-  5. device times of phases 2-3 and of one decode step (by device op)
-     from torch.profiler, taken after the timed serving.
+  4. K2 fused dense + bias + GELU (CUDA) vs its plain version, bf16 and
+     f32, at the BERT fc1 shapes and a ragged one;
+  5. K3 flash attention forward (CUDA) vs its plain version, bf16 and
+     f32: kv_mask with a fully padded row, a bias at each of
+     [1|b, 1|h, t, t], causal, dropout, and q/k/v read in place from a
+     fused qkv projection; out and lse;
+  6. slice 1: warm the generation engine, serve concurrent greedy
+     requests through the background loop, check K1/K6 launch counts
+     and the logits; again with an int8 KV pool;
+  7. slice 2: BERTClassifier at BERT-base's widths (bf16, flash) behind
+     InferenceModel, predict calls from 4 threads at t = 128 and 512;
+     sequences/s, valid tokens/s, latency p50 per (batch, t); K1/K2/K3
+     launch counts exact per forward; logits vs the plain recompute; an
+     f32 model at a tight tolerance; the same traffic with
+     attn_impl="einsum" as a comparison line;
+  8. device times of phases 2-5 (profiler), one decode step and one
+     BERT forward (t = 512, batch 32) by device op, after the timed
+     serving.
 The line before the last is a JSON object of every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
 
@@ -40,9 +54,10 @@ import time
 from functools import partial
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside
-#: the tensor cores
+#: the tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 D_MODEL = 768
 
 
@@ -97,8 +112,10 @@ def device_ms(fn, iters: int = 50):
     every kernel, copy and fill `fn` puts on the card, from a
     torch.profiler trace: per op name, the median duration times the
     launches per call (a median, because single microsecond-long
-    launches vary).  The total is None when the trace holds no device
-    events."""
+    launches vary; the launches per call rounded to a whole number,
+    because a trace can drop events).  The total is None when the trace
+    holds no whole launch per call, and the caller then keeps its
+    CUDA-event time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -114,7 +131,7 @@ def device_ms(fn, iters: int = 50):
         if e.device_type == DeviceType.CUDA:
             runs.setdefault(e.name, []).append(
                 e.time_range.elapsed_us() / 1e3)
-    per = {name: statistics.median(d) * len(d) / iters
+    per = {name: statistics.median(d) * round(len(d) / iters)
            for name, d in runs.items()}
     total = sum(per.values())
     return (total if total > 0 else None), per, prof
@@ -147,11 +164,11 @@ def device_times(shape: dict) -> None:
     shape["ms_from"] = src
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, peak: float = F32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    f32 operations over the f32 peak."""
+    operations over the peak for their type (f32 by default)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -168,8 +185,8 @@ def phase_layer_norm(torch, gen):
     )
     shapes = []
     # rows 8: the decode step at 8 lanes; rows 1024: the largest
-    # prefill bucket
-    for rows in (8, 1024):
+    # prefill bucket; rows 16384: a BERT batch of 32 x 512
+    for rows in (8, 1024, 16384):
         x = torch.randn(rows, D_MODEL, generator=gen, device="cuda")
         scale = 1 + 0.1 * torch.randn(D_MODEL, generator=gen, device="cuda")
         bias = 0.1 * torch.randn(D_MODEL, generator=gen, device="cuda")
@@ -307,7 +324,404 @@ def phase_paged(torch, gen):
 
 
 # ----------------------------------------------------------------------
-# phase 4: the slice
+# phase 4: K2
+# ----------------------------------------------------------------------
+
+def phase_fused_dense(torch, gen):
+    from analytics_zoo_tpu_torch.ops.kernels.fused_dense import (
+        dense_bias_gelu_reference,
+        fused_dense_gelu,
+    )
+    shapes = []
+    # m = 8 x 128 and 32 x 512: BERT fc1 at the served batches; m = 100:
+    # a ragged edge in every dimension but k
+    for m, k, n in ((8 * 128, 768, 3072), (32 * 512, 768, 3072),
+                    (100, 768, 3072)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(n, k, generator=gen, device="cuda")
+                 / k ** 0.5).to(dtype)
+            b = (0.5 * torch.randn(n, generator=gen, device="cuda")
+                 ).to(dtype)
+            got = fused_dense_gelu(x, w, b)
+            want = dense_bias_gelu_reference(x, w, b)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.bfloat16:
+                # both accumulate in f32 and cast once; a value on a
+                # rounding boundary may land one bf16 ulp apart: 2^-7
+                # relative
+                tol = 2.0 ** -7 * want.float().abs() + 1e-6
+            else:
+                # f32 throughout, k = 768 products summed in another
+                # order
+                tol = torch.full_like(diff, 1e-4)
+            check(bool((diff <= tol).all()),
+                  f"K2 {dtype} ({m}, {k}, {n}): max abs err {err}, "
+                  f"beyond its tolerance")
+            item = x.element_size()
+            b_ms, b_by = bound((m * k + n * k + n + m * n) * item,
+                               2 * m * k * n,
+                               BF16_FLOPS if dtype == torch.bfloat16
+                               else F32_FLOPS)
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            shape = dict(name="fused_dense_gelu", dtype=name, m=m, k=k, n=n,
+                         max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+            wt = w.t()
+            shapes.append(call_times(shape, dict(
+                ms=partial(fused_dense_gelu, x, w, b),
+                plain_ms=partial(dense_bias_gelu_reference, x, w, b),
+                library_ms=partial(torch._addmm_activation, b, x, wt,
+                                   use_gelu=True))))
+            print(f"K2 fused_dense_gelu {name} ({m}, {k}, {n}): max_abs_err="
+                  f"{err:.3e}; per call with launch gaps: kernel "
+                  f"{shape['call_ms']:.5f} ms, plain "
+                  f"{shape['plain_call_ms']:.5f} ms, _addmm_activation "
+                  f"{shape['library_call_ms']:.5f} ms; bound {b_ms:.5f} ms "
+                  f"({b_by})", flush=True)
+    return shapes
+
+
+# ----------------------------------------------------------------------
+# phase 5: K3
+# ----------------------------------------------------------------------
+
+def flash_scene(torch, gen, b, t, h, d, dtype):
+    """q, k, v [b, t, h, d]; the same three read as strided thirds of
+    one fused [b, t, 3*h*d] projection, as MultiHeadAttention reads them;
+    a kv_mask with valid lengths uniform in [t/4, t] and batch 0 fully
+    padded; a bias at each of the four broadcast shapes [1|b, 1|h, t, t];
+    the dropout seed triple (seed, q offset, k offset)."""
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    qkv = torch.randn(b, t, 3 * h * d, generator=gen, device="cuda"
+                      ).to(dtype)
+    fused = tuple(a.reshape(b, t, h, d) for a in qkv.split(h * d, dim=-1))
+    lens = torch.randint(t // 4, t + 1, (b,), generator=gen, device="cuda")
+    lens[0] = 0
+    mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(
+        torch.int32)
+    biases = {f"{bb}x{hh}": 0.5 * torch.randn(bb, hh, t, t, generator=gen,
+                                                device="cuda")
+              for bb, hh in ((1, h), (b, 1), (b, h), (1, 1))}
+    seed3 = torch.tensor([1234, 3, 7], dtype=torch.int32, device="cuda")
+    return (q, k, v), fused, mask, biases, seed3, int(lens.sum())
+
+
+def phase_flash(torch, gen):
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_fwd,
+        flash_fwd_reference,
+    )
+    shapes = []
+    h, d = 12, 64
+    for b, t in ((8, 128), (32, 512)):
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, fused, mask, biases, seed3, n_valid = flash_scene(
+                torch, gen, b, t, h, d, dtype)
+            q, k, v = qkv
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            variants = {"mask": (qkv, dict(kv_mask=mask))}
+            for shp, bias in biases.items():
+                variants[f"bias[{shp}]+mask"] = (qkv, dict(kv_mask=mask,
+                                                           bias=bias))
+            variants["causal+mask"] = (qkv, dict(kv_mask=mask, causal=True))
+            variants["dropout0.1+mask"] = (qkv, dict(
+                kv_mask=mask, seed3=seed3, dropout=0.1))
+            variants["fused-qkv+mask"] = (fused, dict(kv_mask=mask))
+            variants[f"fused-qkv+bias[{b}x1]+causal+dropout0.1+mask"] = (
+                fused, dict(kv_mask=mask, bias=biases[f"{b}x1"],
+                            causal=True, seed3=seed3, dropout=0.1))
+            errs, shares = {}, {}
+            for label, (args, kw) in variants.items():
+                out, lse = flash_fwd(*args, **kw)
+                rout, rlse = flash_fwd_reference(*args, **kw)
+                torch.cuda.synchronize()
+                diff = (out.float() - rout.float()).abs()
+                e_out = float(diff.max())
+                e_lse = float((lse - rlse).abs().max())
+                if dtype == torch.bfloat16:
+                    # each side rounds the probabilities to bf16 (the
+                    # kernel unnormalized, the plain version normalized:
+                    # up to 2^-8 relative each, so 2^-7 of sum_j p_j|v_j|
+                    # between them) and the output once (2^-7 of |out|
+                    # between them); lse comes from f32 scores either way
+                    mag, _ = flash_fwd_reference(
+                        *(a.float() for a in args[:2]), args[2].float().abs(),
+                        **kw)
+                    tol = 2.0 ** -7 * (rout.float().abs() + mag) + 1e-6
+                else:
+                    # the same f32 arithmetic, the softmax summed online
+                    # in another order
+                    tol = torch.full_like(diff, 1e-4)
+                share = float((diff / tol).max())
+                check(share <= 1.0 and e_lse <= 1e-4,
+                      f"K3 {name} b={b} t={t} {label}: out err {e_out} "
+                      f"({share:.3f} of its tolerance), lse err {e_lse} "
+                      f"(tol 1e-4)")
+                check(bool((out[0] == 0).all()),
+                      f"K3 {name} {label}: a fully padded row must give "
+                      "zeros")
+                errs[label] = (e_out, e_lse)
+                shares[label] = share
+            item = q.element_size()
+            n_bytes = 4 * b * t * h * d * item + b * h * t * 4 + b * t * 4
+            # the products over the valid keys only
+            b_ms, b_by = bound(n_bytes, 4 * h * d * t * n_valid,
+                               BF16_FLOPS if dtype == torch.bfloat16
+                               else F32_FLOPS)
+            bool_mask = mask.bool()[:, None, None, :]
+            shape = dict(name="flash_fwd", dtype=name, b=b, t=t, h=h, d=d,
+                         variant="mask", max_abs_err=max(
+                             max(e) for e in errs.values()),
+                         errors={k_: list(e) for k_, e in errs.items()},
+                         out_err_share_of_tol=shares,
+                         bound_ms=b_ms, bound_by=b_by)
+            shapes.append(call_times(shape, dict(
+                ms=partial(flash_fwd, q, k, v, kv_mask=mask),
+                plain_ms=partial(flash_fwd_reference, q, k, v,
+                                 kv_mask=mask),
+                library_ms=partial(
+                    F.scaled_dot_product_attention, q.transpose(1, 2),
+                    k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=bool_mask))))
+            print(f"K3 flash_fwd {name} b={b} t={t} h={h} d={d}: (out, lse) "
+                  f"max abs err {errs}; out err as a share of its "
+                  f"tolerance {shares}; per call with launch gaps (mask): "
+                  f"kernel {shape['call_ms']:.5f} ms, plain "
+                  f"{shape['plain_call_ms']:.5f} ms, sdpa "
+                  f"{shape['library_call_ms']:.5f} ms; bound {b_ms:.5f} ms "
+                  f"({b_by})", flush=True)
+    return shapes
+
+
+# ----------------------------------------------------------------------
+# phase 7: slice 2, BERT classification serving
+# ----------------------------------------------------------------------
+
+BERT_BATCHES = (1, 5, 32, 48)
+BERT_LENGTHS = (128, 512)
+#: rounds of every (batch, t) each of the 4 threads sends
+BERT_REPS = 5
+
+
+def bert_request(rng, n: int, t: int, vocab: int):
+    """n sequences of t tokens (ids, segments, mask) with valid lengths
+    uniform in [t/4, t] and the padding masked; returns (inputs, valid
+    tokens)."""
+    import numpy as np
+    ids = rng.integers(0, vocab, (n, t)).astype(np.int32)
+    seg = (np.arange(t)[None] >= t // 2).astype(np.int32).repeat(n, 0)
+    lens = rng.integers(t // 4, t + 1, n)
+    mask = (np.arange(t)[None] < lens[:, None]).astype(np.int32)
+    return (ids, seg, mask), int(lens.sum())
+
+
+def serve_bert(torch, im, model, seed: int, label: str, flash: bool):
+    """Send BERT_REPS rounds of every (batch, t) from 4 threads through
+    `im.predict`; check the launch counts per forward; returns the
+    summary and the requests with their served outputs."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from analytics_zoo_tpu_torch.ops import kernels
+    rng = np.random.default_rng(seed)
+    vocab = model.bert.token_embed.num_embeddings
+    plans = [[(n, t) + bert_request(rng, n, t, vocab)
+              for _ in range(BERT_REPS) for t in BERT_LENGTHS
+              for n in BERT_BATCHES] for _ in range(4)]
+    for plan in plans:
+        rng.shuffle(plan)
+
+    def run(plan):
+        done = []
+        for n, t, inputs, valid in plan:
+            t0 = time.perf_counter()
+            out = im.predict(*inputs)
+            done.append((n, t, inputs, valid, out,
+                         time.perf_counter() - t0))
+        return done
+
+    served0 = im.records_served
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        done = [r for f in [pool.submit(run, p) for p in plans]
+                for r in f.result()]
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    mb = im.max_batch_size
+    forwards = sum(-(-n // mb) for n, *_ in done)
+    n_seq = sum(n for n, *_ in done)
+    check(im.records_served - served0 == n_seq,
+          f"{label}: records_served moved by {im.records_served - served0},"
+          f" {n_seq} sequences were sent")
+    n_blk = len(model.bert.blocks)
+    want = {"layer_norm_fwd": (2 * n_blk + 1) * forwards,
+            "fused_dense_gelu": n_blk * forwards,
+            "flash_fwd": n_blk * forwards if flash else 0,
+            "paged_decode": 0}
+    check(counts == want, f"{label}: launches {counts}, expected {want} "
+          f"for {forwards} forwards")
+    lat = {}
+    for n, t, _, _, _, sec in done:
+        lat.setdefault(f"{n}x{t}", []).append(sec * 1e3)
+    summary = dict(
+        label=label, predict_calls=len(done), sequences=n_seq,
+        forwards=forwards, valid_tokens=sum(r[3] for r in done),
+        wall_s=wall, sequences_per_s=n_seq / wall,
+        valid_tokens_per_s=sum(r[3] for r in done) / wall,
+        predict_ms_p50={k_: statistics.median(v)
+                        for k_, v in sorted(lat.items())},
+        launches=counts)
+    return summary, done
+
+
+def check_bert_logits(torch, model, done, tol: float, label: str):
+    """Recompute one request of each (batch, t) through the plain
+    versions; the served logits must agree within `tol`, and the argmax
+    wherever the top-2 gap exceeds it."""
+    seen, worst, n_cmp, n_top = set(), 0.0, 0, 0
+    with torch.inference_mode():
+        for n, t, inputs, _, out, _ in done:
+            if (n, t) in seen:
+                continue
+            seen.add((n, t))
+            ref = model(*(torch.from_numpy(a).cuda() for a in inputs),
+                        impl="reference").float()
+            got = torch.from_numpy(out).cuda()
+            check(bool(torch.isfinite(got).all()),
+                  f"{label}: non-finite served logits")
+            worst = max(worst, float((got - ref).abs().max()))
+            top2 = torch.topk(ref, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol
+            check(bool((got.argmax(-1) == ref.argmax(-1))[clear].all()),
+                  f"{label}: a served argmax differs from the recompute's "
+                  f"where the top-2 gap exceeds {tol}")
+            n_cmp += n
+            n_top += int(clear.sum())
+    check(worst <= tol, f"{label}: served logits differ from the plain "
+          f"recompute by {worst} > {tol}")
+    return dict(logits_max_abs_err=worst, logits_tol=tol,
+                rows_compared=n_cmp, argmax_checked=n_top)
+
+
+def phase_bert(torch, seed: int, card: str):
+    from analytics_zoo_tpu_torch.convert import (
+        bert_from_flax,
+        init_bert_params,
+    )
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE, BERTClassifier
+    from analytics_zoo_tpu_torch.serving.inference_model import (
+        InferenceModel,
+    )
+    import numpy as np
+    cfg = dict(BERT_BASE, num_classes=2)
+    t0 = time.perf_counter()
+    state = bert_from_flax(init_bert_params(cfg, seed=seed), cfg)
+    models = {}
+    for label, kw in (("bf16 flash", dict(attn_impl="flash")),
+                      ("bf16 einsum", dict(attn_impl="einsum")),
+                      ("f32 flash", dict(attn_impl="flash",
+                                         compute_dtype=torch.float32))):
+        m = BERTClassifier(**cfg, device="cuda", **kw)
+        m.load_state_dict(state)
+        models[label] = m.eval()
+    del state
+    n_params = sum(p.numel() for p in models["bf16 flash"].parameters())
+    print(f"slice 2: BERTClassifier at BERT-base widths, {n_params} params "
+          f"(f32), built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    runs = []
+    for label, tol in (("bf16 flash", 0.05), ("bf16 einsum", None)):
+        im = InferenceModel(supported_concurrent_num=4, max_batch_size=32
+                            ).load_module(models[label])
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(seed + 1)
+        for t in BERT_LENGTHS:             # every bucket the traffic uses
+            for n in (1, 8, 32, 16):
+                im.predict(*bert_request(rng, n, t, cfg["vocab"])[0])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        summary, done = serve_bert(torch, im, models[label], seed + 2,
+                                   label, label.endswith("flash"))
+        summary["warmup_s"] = warm_s
+        if tol is not None:
+            summary.update(check_bert_logits(torch, models[label], done,
+                                             tol, label))
+        runs.append(summary)
+        p50 = {k_: round(v, 3) for k_, v in summary["predict_ms_p50"].items()}
+        print(f"slice 2 [{card}] {label}{'' if tol else ' (comparison)'}: "
+              f"{summary['predict_calls']} predict calls from 4 threads, "
+              f"{summary['sequences']} sequences, {summary['forwards']} "
+              f"forwards in {summary['wall_s']:.3f} s = "
+              f"{summary['sequences_per_s']:.1f} sequences/s, "
+              f"{summary['valid_tokens_per_s']:.0f} valid tokens/s; "
+              f"predict p50 ms by batch x t {p50}; launches "
+              f"{summary['launches']}"
+              + (f"; logits max abs err {summary['logits_max_abs_err']:.3e}"
+                 f" over {summary['rows_compared']} rows (tol {tol})"
+                 if tol else ""), flush=True)
+
+    # f32 compute: the same path with f32 kernels, at a tight tolerance
+    im = InferenceModel(supported_concurrent_num=4, max_batch_size=32
+                        ).load_module(models["f32 flash"])
+    rng = np.random.default_rng(seed + 3)
+    done = []
+    for n, t in zip((5, 32), BERT_LENGTHS):
+        inputs, valid = bert_request(rng, n, t, cfg["vocab"])
+        done.append((n, t, inputs, valid, im.predict(*inputs), 0.0))
+    # f32 throughout; the kernels sum in other orders than cuBLAS and
+    # the plain softmax, through 12 post-LN blocks: 1e-4, about 60x the
+    # 1.7e-6 read on an H100
+    f32 = check_bert_logits(torch, models["f32 flash"], done, 1e-4,
+                            "f32 flash")
+    print(f"slice 2 [{card}] f32 flash: logits max abs err "
+          f"{f32['logits_max_abs_err']:.3e} over {f32['rows_compared']} "
+          "rows (tol 0.0001)", flush=True)
+    runs.append(dict(label="f32 flash", **f32))
+    del models["f32 flash"], models["bf16 einsum"], im
+    return runs, models["bf16 flash"]
+
+
+def bert_profile(torch, model, seed: int, iters: int = 5):
+    """Where one t = 512, batch-32 forward's time goes: host wall per
+    forward without the profiler, then device time by device op from a
+    profiled window."""
+    import numpy as np
+    (ids, seg, mask), _ = bert_request(np.random.default_rng(seed), 32,
+                                       512, model.bert.token_embed
+                                       .num_embeddings)
+    args = [torch.from_numpy(a).cuda() for a in (ids, seg, mask)]
+
+    def fwd():
+        with torch.inference_mode():
+            return model(*args)
+
+    fwd()
+    walls = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    dev, per, _ = device_ms(fwd, iters=iters)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    return dict(batch=32, t=512, wall_ms_per_forward=wall,
+                device_ms_per_forward=dev,
+                device_busy_share=(dev / wall if dev else None),
+                top_device_ops_ms_per_forward=[(n[:100], v)
+                                               for n, v in top])
+
+
+# ----------------------------------------------------------------------
+# phase 6: slice 1, generation serving
 # ----------------------------------------------------------------------
 
 def decode_profile(torch, engine, vocab: int, seed: int, steps: int = 5):
@@ -478,6 +892,19 @@ def phase_slice(torch, n_requests: int, seed: int, card: str):
     return runs, engine
 
 
+def kernel_entry(name, route, source, replaces, launches, shapes,
+                 main: int):
+    """One kernel's record of the result line: the numbers at its main
+    path's shape (`shapes[main]`), every shape beside them."""
+    m = shapes[main]
+    return dict(name=name, route=route, source=source, replaces=replaces,
+                launches=launches,
+                max_abs_err=max(s["max_abs_err"] for s in shapes),
+                ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                bound_by=m["bound_by"], library_ms=m["library_ms"],
+                shapes=shapes)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -517,47 +944,62 @@ def main(argv=None) -> int:
     clocks("before phase 2")
     ln = phase_layer_norm(torch, gen)
     pd = phase_paged(torch, gen)
-    clocks("after phase 3")
+    fd = phase_fused_dense(torch, gen)
+    fa = phase_flash(torch, gen)
+    clocks("after phase 5")
     runs, engine = phase_slice(torch, args.requests, args.seed, card)
-    clocks("after phase 4")
+    clocks("after phase 6")
+    bert_runs, bert_model = phase_bert(torch, args.seed, card)
+    clocks("after phase 7")
 
-    # phase 5: device times from the profiler, after the timed serving
+    # phase 8: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
-    for shape in ln + pd:
+    for shape in ln + pd + fd + fa:
         device_times(shape)
-        what = shape.get("rows", shape.get("pool"))
-        print(f"{shape['name']} [{what}] device time per call [{card}] "
+        what = {k: shape[k] for k in ("rows", "pool", "dtype", "m", "b", "t")
+                if k in shape}
+        print(f"{shape['name']} {what} device time per call [{card}] "
               f"({shape['ms_from']}): kernel {shape['ms']:.5f} ms, plain "
               f"{shape['plain_ms']:.5f} ms, library "
               f"{shape['library_ms']:.5f} ms, bound {shape['bound_ms']:.5f} "
               f"ms", flush=True)
-    clocks("after phase 5 kernel timings")
+    clocks("after phase 8 kernel timings")
     engine.keep_logits = False
     runs[0]["decode_profile"] = decode_profile(
         torch, engine, engine.model.vocab, args.seed + 7)
     print(f"decode step profile [{card}]: "
           f"{json.dumps(runs[0]['decode_profile'])}", flush=True)
+    bert_runs[0]["forward_profile"] = bert_profile(torch, bert_model,
+                                                   args.seed + 9)
+    print(f"BERT forward profile [{card}]: "
+          f"{json.dumps(bert_runs[0]['forward_profile'])}", flush=True)
 
-    main_run = runs[0]
+    gpt2, bert = runs[0]["launches"], bert_runs[0]["launches"]
     kernels = [
-        dict(name="layer_norm_fwd", route="triton",
-             source="analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
-             replaces="analytics_zoo_tpu/ops/pallas/layer_norm.py:78",
-             launches=main_run["launches"]["layer_norm_fwd"],
-             max_abs_err=max(s["max_abs_err"] for s in ln),
-             ms=ln[0]["ms"], plain_ms=ln[0]["plain_ms"],
-             bound_ms=ln[0]["bound_ms"], bound_by=ln[0]["bound_by"],
-             library_ms=ln[0]["library_ms"], shapes=ln),
-        dict(name="paged_decode", route="cuda",
-             source="analytics_zoo_tpu_torch/csrc/paged_decode.cu",
-             replaces="analytics_zoo_tpu/ops/pallas/paged_attention.py:155",
-             launches=main_run["launches"]["paged_decode"],
-             max_abs_err=max(s["max_abs_err"] for s in pd),
-             ms=pd[0]["ms"], plain_ms=pd[0]["plain_ms"],
-             bound_ms=pd[0]["bound_ms"], bound_by=pd[0]["bound_by"],
-             library_ms=pd[0]["library_ms"], shapes=pd),
+        kernel_entry("layer_norm_fwd", "triton",
+                     "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
+                     "analytics_zoo_tpu/ops/pallas/layer_norm.py:78",
+                     bert["layer_norm_fwd"], ln, 2),
+        kernel_entry("fused_dense_gelu", "cuda",
+                     "analytics_zoo_tpu_torch/csrc/fused_dense.cu",
+                     "analytics_zoo_tpu/ops/pallas/fused_dense.py:79",
+                     bert["fused_dense_gelu"], fd, 2),
+        kernel_entry("flash_fwd", "cuda",
+                     "analytics_zoo_tpu_torch/csrc/flash_fwd.cu",
+                     "analytics_zoo_tpu/ops/pallas/flash_attention.py:408",
+                     bert["flash_fwd"], fa, 2),
+        kernel_entry("paged_decode", "cuda",
+                     "analytics_zoo_tpu_torch/csrc/paged_decode.cu",
+                     "analytics_zoo_tpu/ops/pallas/paged_attention.py:155",
+                     gpt2["paged_decode"], pd, 0),
     ]
-    print(json.dumps({"card": card, "slice": runs}), flush=True)
+    kernels[0]["launches_by_path"] = {
+        "generation": gpt2["layer_norm_fwd"], "bert": bert["layer_norm_fwd"]}
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on its "
+              "serving path")
+    print(json.dumps({"card": card, "slice": runs, "bert": bert_runs}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

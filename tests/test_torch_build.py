@@ -2,11 +2,14 @@
 _build.py) with a stand-in compiler: the command line it runs, the
 source-hash naming that rebuilds an edited source, the cache that skips
 a built one, and a failed build raising with the compiler's output and
-leaving no partial library behind.  (The real nvcc runs on the card, in
+leaving no partial library behind; and the launch counters staying
+exact under concurrent launches.  (The real nvcc runs on the card, in
 chip_smoke.py.)"""
 
 import os
 import stat
+import sys
+import threading
 
 import pytest
 
@@ -65,6 +68,32 @@ def test_failed_build_raises_and_leaves_nothing(src_tree, monkeypatch):
     assert os.listdir(src_tree / "build") == []
     with pytest.raises(FileNotFoundError):
         _build.build(["missing"])
+
+
+def test_launch_counts_are_exact_across_threads():
+    """Wrappers count launches from several threads at once (predict
+    calls of InferenceModel); chip_smoke.py checks the counts exactly,
+    so none may be lost."""
+    from analytics_zoo_tpu_torch.ops import kernels
+
+    assert sorted(kernels.KERNELS) == ["flash_fwd", "fused_dense_gelu",
+                                       "layer_norm_fwd", "paged_decode"]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)          # switch threads as often as possible
+    try:
+        def wrapper():
+            pass
+        wrapper.launches = 0
+        threads = [threading.Thread(target=lambda: [
+            _build.count_launch(wrapper) for _ in range(20000)])
+            for _ in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sys.setswitchinterval(interval)
+    assert wrapper.launches == 8 * 20000
 
 
 def test_no_compiler_raises(monkeypatch):

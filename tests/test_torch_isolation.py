@@ -42,6 +42,19 @@ for quant in (None, "int8"):
     eng = GenerationEngine(m, max_slots=2, block_size=4, max_context=32,
                            kv_quantization=quant, device="cpu")
     assert len(eng.generate([1, 2, 3], max_new_tokens=4)) == 4
+import numpy as np
+from analytics_zoo_tpu_torch.convert import bert_from_flax, init_bert_params
+from analytics_zoo_tpu_torch.models.bert import BERTClassifier
+from analytics_zoo_tpu_torch.serving.inference_model import InferenceModel
+bcfg = dict(vocab=31, hidden_size=32, n_head=2, n_block=1,
+            intermediate_size=64, max_position_len=16, num_classes=2)
+for impl in ("einsum", "flash"):
+    bm = BERTClassifier(**bcfg, attn_impl=impl, device="cpu")
+    bm.load_state_dict(bert_from_flax(init_bert_params(bcfg, 0), bcfg))
+    out = InferenceModel(max_batch_size=2).load_module(bm).predict(
+        np.ones((3, 8), np.int32), np.zeros((3, 8), np.int32),
+        np.ones((3, 8), np.int32))
+    assert out.shape == (3, 2)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "flax"
              or n == "analytics_zoo_tpu"
