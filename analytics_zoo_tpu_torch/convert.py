@@ -9,7 +9,8 @@ seed with numpy alone — the same structure and shapes as the JAX
 module's `init`, so a machine without JAX can make random weights in
 the reference's layout.  `bert_from_flax` and `init_bert_params` do
 the same for the BERT family (`models/bert.py`), in both of the JAX
-encoder's block layouts.
+encoder's block layouts, and `bert_to_flax` goes back: trained port
+weights in the flax tree, to compare with the JAX Estimator's.
 """
 
 from __future__ import annotations
@@ -206,6 +207,85 @@ def bert_from_flax(params: Mapping, config: Mapping
                          f"{sorted(flat)}")
     return {k: torch.from_numpy(np.array(v, order="C"))
             for k, v in out.items()}
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for path, arr in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = arr
+    return tree
+
+
+def bert_to_flax(state_dict: Mapping, config: Mapping,
+                 stacked: bool = True) -> Dict[str, Dict]:
+    """The flax param tree (numpy f32) of the JAX `BERTClassifier`,
+    `BERTNER` or `BERTSQuAD` from the state_dict of the port's model
+    with the same head: the inverse of `bert_from_flax`.  `stacked`
+    gives the scan-stacked block layout (`bert/blocks/...`, the JAX
+    default), else the unrolled one (`bert/block_{i}/...`).  Raises on
+    a missing or unknown entry and on a shape that disagrees with
+    `config`."""
+    sd = {k: np.asarray(v.detach().cpu().float() if torch.is_tensor(v)
+                        else v, dtype=np.float32)
+          for k, v in state_dict.items()}
+    heads = [h for h in _BERT_HEADS if f"{h}.weight" in sd]
+    if len(heads) != 1:
+        raise ValueError(f"expected one head of {sorted(_BERT_HEADS)} in the "
+                         f"state_dict, found {heads}")
+    head = heads[0]
+    hid, n_block = config["hidden_size"], config["n_block"]
+    dense = _dense_shapes(config)
+    flat: Dict[str, np.ndarray] = {}
+
+    def take(name, shape, transpose=False):
+        if name not in sd:
+            raise ValueError(f"missing {name} in the state_dict")
+        arr = sd.pop(name)
+        arr = arr.T if transpose else arr
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {arr.shape} (as flax), "
+                             f"config says {tuple(shape)}")
+        return np.ascontiguousarray(arr)
+
+    flat["bert/token_embed/embedding"] = take(
+        "bert.token_embed.weight", (config["vocab"], hid))
+    flat["bert/position_embed/embedding"] = take(
+        "bert.position_embed.weight", (config["max_position_len"], hid))
+    flat["bert/segment_embed/embedding"] = take(
+        "bert.segment_embed.weight", (2, hid))
+    flat["bert/embed_ln/scale"] = take("bert.embed_ln.weight", (hid,))
+    flat["bert/embed_ln/bias"] = take("bert.embed_ln.bias", (hid,))
+    leaves = []     # (flax sub-path, port name, flax shape, transpose)
+    for src_, dst, key in _BERT_BLOCK:
+        fan_in, fan_out = dense[key]
+        leaves += [(f"{src_}/kernel", f"{dst}.weight", (fan_in, fan_out),
+                    True), (f"{src_}/bias", f"{dst}.bias", (fan_out,), False)]
+    for n in _NORMS:
+        leaves += [(f"{n}/scale", f"{n}.weight", (hid,), False),
+                   (f"{n}/bias", f"{n}.bias", (hid,), False)]
+    for src_, dst, shape, transpose in leaves:
+        per_block = [take(f"bert.blocks.{i}.{dst}", shape, transpose)
+                     for i in range(n_block)]
+        if stacked:
+            flat[f"bert/blocks/{src_}"] = np.stack(per_block)
+        else:
+            for i, arr in enumerate(per_block):
+                flat[f"bert/block_{i}/{src_}"] = arr
+    if head == "classifier":
+        flat["bert/pooler/kernel"] = take("bert.pooler.weight", (hid, hid),
+                                          True)
+        flat["bert/pooler/bias"] = take("bert.pooler.bias", (hid,))
+    field, default = _BERT_HEADS[head]
+    width = config.get(field, default) if field else default
+    flat[f"{head}/kernel"] = take(f"{head}.weight", (hid, width), True)
+    flat[f"{head}/bias"] = take(f"{head}.bias", (width,))
+    if sd:
+        raise ValueError(f"unknown entries in the state_dict: {sorted(sd)}")
+    return _unflatten(flat)
 
 
 def init_bert_params(config: Mapping, seed: int = 0,

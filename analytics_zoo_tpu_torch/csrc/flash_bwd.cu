@@ -1,0 +1,806 @@
+// Flash attention backward for Hopper (sm_90a): three kernels, one per
+// gradient, each recomputing the probabilities from the forward's
+// logsumexp so the [t, t] matrices never reach device memory.
+//
+// Replaces the TPU kernels of `_flash_bwd` in
+// analytics_zoo_tpu/ops/pallas/flash_attention.py:
+//   K4a `_bwd_dq_kernel` (pallas_call at :741):  dq = sum_k ds k * scale;
+//   K4b `_bwd_dkv_kernel` (:825):  dk = sum_q ds^T q * scale, dv = sum_q
+//        p~^T dO;
+//   K5  `_bwd_dbias_kernel` (:807): dbias = sum over the bias's broadcast
+//        replicas of ds, at the collapsed bias's [lead, t, t] shape;
+// with p = exp(s - lse) recomputed as `_recompute_p` (:465) does (masked
+// entries exactly 0: a fully masked row has lse near -1e30, where exp
+// would give 1), dp = dO v^T, the forward's positional-hash dropout keep
+// mask (bit for bit: the same (seed, bh = batch * h + head, q_off + q,
+// k_off + k)) applied to dp and to p for dV (p~), and ds = p (dp - delta)
+// with delta = rowsum(dO * O) - dlse computed outside.  As on the TPU,
+// each gradient has its own pass, so no pass needs atomics and every
+// gradient is deterministic; the dbias pass runs only when the bias needs
+// a gradient.
+//
+// Layouts: q, k, v [b, t, h, d] views sharing the strides (sb, sh, st)
+// with unit stride in d (the thirds of a fused qkv read in place); dO,
+// dq, dk, dv [b, t, h, d] contiguous; lse, delta [b*h, t] f32; kv_mask
+// [b, t] int32; bias [lead, t, t] f32 (leading index as the forward's
+// bias_mode); dbias [lead, t, t] f32; seed3 int32 [3].  Any t; head_dim
+// 32, 64 or 128.
+//
+// Bounds at b = 32, h = 12, t = 512, d = 64 in bf16 with every key valid:
+// dQ does three products (S, dP, dQ), 6 b h t^2 d = 38.7 GFLOP, 39 us at
+// 989 TFLOP/s, against 126 MB of q, k, v, dO, dq (25 MB each) and lse,
+// delta, 38 us at 3.35 TB/s; dK/dV four products (S^T, dP^T, dV, dK), 52
+// us; dbias at a [1, h, t, t] f32 bias two products (26 us) against the
+// 101 MB of q, k, v, dO plus the bias read and its gradient written
+// (25 MB), 38 us.  A kv_mask that pads keys leaves fewer products.
+//
+// Design (simple first), the TPU grid's innermost sequential axis becomes
+// a loop inside one block:
+//   * dQ: one block per (b*h, 64 query rows), a loop over 64-key tiles
+//     (causal: tiles past the diagonal skipped); the Q and dO tiles stay in
+//     shared memory for the whole loop, each K and V tile is staged beside
+//     them; S = Q K^T and dP = dO V^T on mma.sync m16n8k16 (ldmatrix from
+//     rows padded by 8) with f32 accumulators; ds is
+//     re-packed in registers as the bf16 A operand of dQ += dS K (the
+//     TPU kernel rounds ds to the operands' dtype the same way);
+//   * dK/dV: one block per (b*h, 64 key rows), a loop over 64-query tiles
+//     (causal: tiles before the diagonal skipped); it computes S^T = K Q^T
+//     and dP^T = V dO^T, so p~^T and ds^T come out in the accumulator
+//     layout that re-packs as the A operand of dV += p~^T dO and dK +=
+//     ds^T Q (Q and dO read transposed by ldmatrix.trans);
+//   * dbias: one block per (lead, 64 query rows, 64 keys), a loop over the
+//     broadcast replicas (bh = mul_l * lead + mul_r * rep) summing ds in
+//     registers; a causal-dead tile writes its zeros;
+//   * f32: no TF32 (the TPU kernels ask Precision.HIGHEST for f32): 32-row
+//     tiles, 4 warps of 8 rows, lanes over 32 columns for the scores and
+//     over d for the products, FFMA throughout.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::acc_to_a;
+using flash::bias_lead;
+using flash::drop_keep;
+using flash::kThreads;
+using flash::load_a;
+using flash::load_b;
+using flash::load_bt;
+using flash::mma_bf16;
+using flash::stage_rows_bf16;
+using bf16 = __nv_bfloat16;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  const int32_t* kv_mask;
+  const float* bias;
+  const int32_t* seed3;
+  void* dq;
+  void* dk;
+  void* dv;
+  float* dbias;
+  int b, h, t;
+  long long sb, sh, st;
+  int causal, bias_mode, dropout, drop_threshold;
+  float drop_scale, scale;
+  int reps, mul_l, mul_r;
+};
+
+__device__ __forceinline__ const float* bias_plane(const Params& p, int lead) {
+  return p.bias + static_cast<long long>(lead) * p.t * p.t;
+}
+
+// the positional hash's seed and offsets (zeros without dropout)
+struct Seeds {
+  int32_t seed = 0, q_off = 0, k_off = 0;
+  __device__ explicit Seeds(const Params& p) {
+    if (p.dropout) {
+      seed = p.seed3[0];
+      q_off = p.seed3[1];
+      k_off = p.seed3[2];
+    }
+  }
+};
+
+__device__ __forceinline__ bool key_valid(const Params& p, int bi, int col) {
+  return col < p.t &&
+         (p.kv_mask == nullptr ||
+          p.kv_mask[static_cast<long long>(bi) * p.t + col] != 0);
+}
+
+// ds for one score: s the raw q.k product, dp the raw dO.v product;
+// writes p~ (the dropped, rescaled probability dV uses) to *pd
+__device__ __forceinline__ float grad_score(const Params& p, const Seeds& sd,
+                                            const float* bplane, int bh,
+                                            int row, int col, float s,
+                                            float dp, float lse, float delta,
+                                            float* pd) {
+  float x = s * p.scale;
+  if (bplane != nullptr) x += bplane[static_cast<long long>(row) * p.t + col];
+  const float pv = expf(x - lse);
+  float pdrop = pv;
+  if (p.dropout) {
+    const bool kd =
+        drop_keep(sd.seed, bh, sd.q_off + row, sd.k_off + col, p.drop_threshold);
+    pdrop = kd ? pv * p.drop_scale : 0.f;
+    dp = kd ? dp * p.drop_scale : 0.f;
+  }
+  *pd = pdrop;
+  return pv * (dp - delta);
+}
+
+// ---------------------------------------------------------------- bf16
+
+constexpr int kT = flash::kTile16;
+
+template <int D>
+constexpr int smem_bf16() {
+  return 4 * kT * (D + 8) * 2;
+}
+
+// rows of the dO head of (bi, hi): contiguous [b, t, h, d]
+__device__ __forceinline__ long long dout_head(const Params& p, int bi,
+                                               int hi, int d) {
+  return (static_cast<long long>(bi) * p.t * p.h + hi) * d;
+}
+
+// S = X Y^T and dP = U W^T of one warp's 16 rows [r0, r0 + 16) of the
+// staged tiles xs, us against the 64 rows of ys, ws (all [64][D + 8]):
+// Q K^T and dO V^T for dQ and dbias, K Q^T and V dO^T for dK/dV
+template <int D>
+__device__ __forceinline__ void scores_bf16(float (&s)[8][4], float (&dp)[8][4],
+                                            const bf16* xs, const bf16* us,
+                                            int r0, const bf16* ys,
+                                            const bf16* ws) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t xa[4], ua[4];
+    load_a<D>(xa, xs, r0, kk * 16);
+    load_a<D>(ua, us, r0, kk * 16);
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t b[4];
+      load_bt<D>(b, ys, jp * 16, kk * 16);
+      mma_bf16(s[2 * jp], xa, b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], xa, b[2], b[3]);
+      load_bt<D>(b, ws, jp * 16, kk * 16);
+      mma_bf16(dp[2 * jp], ua, b[0], b[1]);
+      mma_bf16(dp[2 * jp + 1], ua, b[2], b[3]);
+    }
+  }
+}
+
+// acc[ND][4] += A (the [16][64] accumulator a_src as bf16) times the
+// staged [64][D+8] tile xs read as B = X
+template <int D>
+__device__ __forceinline__ void acc_product(float (*acc)[4],
+                                            float (&a_src)[8][4],
+                                            const bf16* xs) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    acc_to_a(a, a_src, kk);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t b[4];
+      load_b<D>(b, xs, kk * 16, dp * 16);
+      mma_bf16(acc[2 * dp], a, b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// one warp's [16][D] accumulator to rows [r0, r0 + 16) of a contiguous
+// [b, t, h, D] bf16 tensor, times `mul`; rows past t dropped
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(void* out, const Params& p,
+                                                int bi, int hi, int r0,
+                                                float (*acc)[4],
+                                                float mul) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + (lane >> 2) + hh * 8;
+    if (row >= p.t) continue;
+    bf16* orow = static_cast<bf16*>(out) +
+                 ((static_cast<long long>(bi) * p.t + row) * p.h + hi) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + (lane & 3) * 2) =
+          __floats2bfloat162_rn(acc[i][hh * 2] * mul,
+                                acc[i][hh * 2 + 1] * mul);
+  }
+}
+
+// K4a
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dq_bf16(Params p) {
+  constexpr int LD = D + 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kT * LD;
+  bf16* ks = dos + kT * LD;
+  bf16* vs = ks + kT * LD;
+  __shared__ int kvalid[kT];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int q0 = blockIdx.x * kT;
+  const long long head = bi * p.sb + hi * p.sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + head;
+  const bf16* vg = static_cast<const bf16*>(p.v) + head;
+
+  stage_rows_bf16<D>(qs, static_cast<const bf16*>(p.q) + head, q0, p.t, p.st);
+  stage_rows_bf16<D>(dos, static_cast<const bf16*>(p.dout) + dout_head(p, bi, hi, D),
+                     q0, p.t, static_cast<long long>(p.h) * D);
+  const int row0 = q0 + warp * 16 + (lane >> 2);   // and row0 + 8
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + hh * 8;
+    const long long at = static_cast<long long>(bh) * p.t + row;
+    lse_r[hh] = row < p.t ? p.lse[at] : 0.f;
+    delta_r[hh] = row < p.t ? p.delta[at] : 0.f;
+  }
+  float dq[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+  const Seeds sd(p);
+  const float* bplane =
+      p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
+
+  int n_kv = (p.t + kT - 1) / kT;
+  if (p.causal) n_kv = min(n_kv, (q0 + kT - 1) / kT + 1);
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kT;
+    __syncthreads();   // the previous tile is no longer read
+    stage_rows_bf16<D>(ks, kg, k0, p.t, p.st);
+    stage_rows_bf16<D>(vs, vg, k0, p.t, p.st);
+    if (threadIdx.x < kT) kvalid[threadIdx.x] = key_valid(p, bi, k0 + threadIdx.x);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    scores_bf16<D>(s, dp, qs, dos, warp * 16, ks, vs);
+    // this thread's elements: rows row0 (e < 2) and row0 + 8, cols
+    // nt * 8 + (lane & 3) * 2 + (e & 1); s becomes ds
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1, row = row0 + hh * 8;
+        const int cl = nt * 8 + (lane & 3) * 2 + (e & 1), col = k0 + cl;
+        float pd, ds = 0.f;
+        if (row < p.t && kvalid[cl] && (!p.causal || col <= row))
+          ds = grad_score(p, sd, bplane, bh, row, col, s[nt][e], dp[nt][e],
+                          lse_r[hh], delta_r[hh], &pd);
+        s[nt][e] = ds;
+      }
+    }
+    acc_product<D>(dq, s, ks);   // dQ += dS K
+  }
+  store_rows_bf16<D>(p.dq, p, bi, hi, q0 + warp * 16, dq, p.scale);
+}
+
+// K4b
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dkv_bf16(Params p) {
+  constexpr int LD = D + 8, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kT * LD;
+  bf16* qs = vs + kT * LD;
+  bf16* dos = qs + kT * LD;
+  __shared__ float lse_s[kT], delta_s[kT];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int k0 = blockIdx.x * kT;
+  const long long head = bi * p.sb + hi * p.sh;
+  const bf16* qg = static_cast<const bf16*>(p.q) + head;
+  const bf16* dog = static_cast<const bf16*>(p.dout) + dout_head(p, bi, hi, D);
+
+  stage_rows_bf16<D>(ks, static_cast<const bf16*>(p.k) + head, k0, p.t, p.st);
+  stage_rows_bf16<D>(vs, static_cast<const bf16*>(p.v) + head, k0, p.t, p.st);
+  const int row0 = k0 + warp * 16 + (lane >> 2);   // key rows, and row0 + 8
+  const bool kval[2] = {key_valid(p, bi, row0), key_valid(p, bi, row0 + 8)};
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  const Seeds sd(p);
+  const float* bplane =
+      p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
+
+  const int n_q = (p.t + kT - 1) / kT;
+  for (int i = p.causal ? k0 / kT : 0; i < n_q; ++i) {
+    const int q0 = i * kT;
+    __syncthreads();   // the previous tile is no longer read
+    stage_rows_bf16<D>(qs, qg, q0, p.t, p.st);
+    stage_rows_bf16<D>(dos, dog, q0, p.t, static_cast<long long>(p.h) * D);
+    if (threadIdx.x < kT) {
+      const int q = q0 + threadIdx.x;
+      const long long at = static_cast<long long>(bh) * p.t + q;
+      lse_s[threadIdx.x] = q < p.t ? p.lse[at] : 0.f;
+      delta_s[threadIdx.x] = q < p.t ? p.delta[at] : 0.f;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T, dP^T = V dO^T: the warp's 16 keys against 64 queries
+    float s[8][4], dp[8][4];
+    scores_bf16<D>(s, dp, ks, vs, warp * 16, qs, dos);
+    // rows are keys, cols queries; s becomes p~, dp becomes ds
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1, key = row0 + hh * 8;
+        const int cl = nt * 8 + (lane & 3) * 2 + (e & 1), q = q0 + cl;
+        float pd = 0.f, ds = 0.f;
+        if (kval[hh] && q < p.t && (!p.causal || key <= q))
+          ds = grad_score(p, sd, bplane, bh, q, key, s[nt][e], dp[nt][e],
+                          lse_s[cl], delta_s[cl], &pd);
+        s[nt][e] = pd;
+        dp[nt][e] = ds;
+      }
+    }
+    acc_product<D>(dv, s, dos);   // dV += p~^T dO
+    acc_product<D>(dk, dp, qs);   // dK += dS^T Q
+  }
+  store_rows_bf16<D>(p.dk, p, bi, hi, k0 + warp * 16, dk, p.scale);
+  store_rows_bf16<D>(p.dv, p, bi, hi, k0 + warp * 16, dv, 1.f);
+}
+
+// K5
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dbias_bf16(Params p) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kT * LD;
+  bf16* ks = dos + kT * LD;
+  bf16* vs = ks + kT * LD;
+  __shared__ int kvalid[kT];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * kT, q0 = blockIdx.y * kT, lead = blockIdx.z;
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const float* bplane = bias_plane(p, lead);
+  const Seeds sd(p);
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  if (!p.causal || k0 <= q0 + kT - 1) {
+    for (int rep = 0; rep < p.reps; ++rep) {
+      const int bh = p.mul_l * lead + p.mul_r * rep, bi = bh / p.h,
+                hi = bh % p.h;
+      const long long head = bi * p.sb + hi * p.sh;
+      __syncthreads();   // the previous replica's tiles are no longer read
+      stage_rows_bf16<D>(qs, static_cast<const bf16*>(p.q) + head, q0, p.t,
+                         p.st);
+      stage_rows_bf16<D>(dos,
+                         static_cast<const bf16*>(p.dout) + dout_head(p, bi, hi, D),
+                         q0, p.t, static_cast<long long>(p.h) * D);
+      stage_rows_bf16<D>(ks, static_cast<const bf16*>(p.k) + head, k0, p.t,
+                         p.st);
+      stage_rows_bf16<D>(vs, static_cast<const bf16*>(p.v) + head, k0, p.t,
+                         p.st);
+      if (threadIdx.x < kT)
+        kvalid[threadIdx.x] = key_valid(p, bi, k0 + threadIdx.x);
+      __syncthreads();
+      float lse_r[2], delta_r[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + hh * 8;
+        const long long at = static_cast<long long>(bh) * p.t + row;
+        lse_r[hh] = row < p.t ? p.lse[at] : 0.f;
+        delta_r[hh] = row < p.t ? p.delta[at] : 0.f;
+      }
+      float s[8][4], dp[8][4];
+      scores_bf16<D>(s, dp, qs, dos, warp * 16, ks, vs);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, row = row0 + hh * 8;
+          const int cl = nt * 8 + (lane & 3) * 2 + (e & 1), col = k0 + cl;
+          float pd;
+          if (row < p.t && kvalid[cl] && (!p.causal || col <= row))
+            acc[nt][e] += grad_score(p, sd, bplane, bh, row, col, s[nt][e],
+                                     dp[nt][e], lse_r[hh], delta_r[hh], &pd);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + (e >> 1) * 8;
+      const int col = k0 + nt * 8 + (lane & 3) * 2 + (e & 1);
+      if (row < p.t && col < p.t)
+        p.dbias[(static_cast<long long>(lead) * p.t + row) * p.t + col] =
+            acc[nt][e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------- f32
+
+constexpr int kT32 = 32;
+
+// rows [r0, r0 + 32) of a [t, D] f32 head into sm[32][ld], zero past t
+template <int D>
+__device__ __forceinline__ void stage_rows_f32(float* sm, int ld,
+                                               const float* g, int r0, int t,
+                                               long long st) {
+  for (int i = threadIdx.x; i < kT32 * D; i += kThreads) {
+    const int r = i / D, dd = i % D;
+    sm[r * ld + dd] = r0 + r < t ? g[(r0 + r) * st + dd] : 0.f;
+  }
+}
+
+template <int D>
+constexpr int smem_f32(int tiles_of_32) {
+  return (2 * kT32 * D + 2 * kT32 * (D + 1) + tiles_of_32 * kT32 * kT32) * 4;
+}
+
+// one warp's [8][D] accumulator (lane + 32 e over d) to rows [r0, r0 + 8)
+// of a contiguous [b, t, h, D] f32 tensor, times `mul`
+template <int D>
+__device__ __forceinline__ void store_rows_f32(void* out, const Params& p,
+                                               int bi, int hi, int r0,
+                                               float (*acc)[D / 32],
+                                               float mul) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + i;
+    if (row >= p.t) continue;
+    float* orow = static_cast<float*>(out) +
+                  ((static_cast<long long>(bi) * p.t + row) * p.h + hi) * D;
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) orow[lane + 32 * e] = acc[i][e] * mul;
+  }
+}
+
+// sc[i] = x_i . ys[lane] and dc[i] = u_i . ws[lane] for the warp's 8 rows
+// x_i, u_i of xs/us ([32][D]) against lane-indexed rows of ys/ws
+// ([32][D + 1])
+template <int D>
+__device__ __forceinline__ void scores_f32(float (&sc)[8], float (&dc)[8],
+                                           const float* xs, const float* us,
+                                           const float* ys, const float* ws) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sc[i] = dc[i] = 0.f;
+  for (int dd = 0; dd < D; ++dd) {
+    const float y = ys[lane * (D + 1) + dd], w = ws[lane * (D + 1) + dd];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sc[i] = fmaf(xs[(warp * 8 + i) * D + dd], y, sc[i]);
+      dc[i] = fmaf(us[(warp * 8 + i) * D + dd], w, dc[i]);
+    }
+  }
+}
+
+// K4a, f32
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dq_f32(Params p) {
+  constexpr int E = D / 32;
+  extern __shared__ float fsm[];
+  float* qs = fsm;                      // [32][D]
+  float* dos = qs + kT32 * D;           // [32][D]
+  float* ks = dos + kT32 * D;           // [32][D + 1]: lane-indexed rows
+  float* vs = ks + kT32 * (D + 1);      // [32][D + 1]
+  float* dss = vs + kT32 * (D + 1);     // [32][32]: warp w owns rows 8w..
+  __shared__ int kvalid[kT32];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int q0 = blockIdx.x * kT32;
+  const long long head = bi * p.sb + hi * p.sh;
+  const float* kg = static_cast<const float*>(p.k) + head;
+  const float* vg = static_cast<const float*>(p.v) + head;
+  stage_rows_f32<D>(qs, D, static_cast<const float*>(p.q) + head, q0, p.t,
+                    p.st);
+  stage_rows_f32<D>(dos, D,
+                    static_cast<const float*>(p.dout) + dout_head(p, bi, hi, D),
+                    q0, p.t, static_cast<long long>(p.h) * D);
+  float lse_r[8], delta_r[8], dq[8][E];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + warp * 8 + i;
+    const long long at = static_cast<long long>(bh) * p.t + row;
+    lse_r[i] = row < p.t ? p.lse[at] : 0.f;
+    delta_r[i] = row < p.t ? p.delta[at] : 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) dq[i][e] = 0.f;
+  }
+  const Seeds sd(p);
+  const float* bplane =
+      p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
+
+  int n_kv = (p.t + kT32 - 1) / kT32;
+  if (p.causal) n_kv = min(n_kv, (q0 + kT32 - 1) / kT32 + 1);
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kT32;
+    __syncthreads();
+    stage_rows_f32<D>(ks, D + 1, kg, k0, p.t, p.st);
+    stage_rows_f32<D>(vs, D + 1, vg, k0, p.t, p.st);
+    if (threadIdx.x < kT32)
+      kvalid[threadIdx.x] = key_valid(p, bi, k0 + threadIdx.x);
+    __syncthreads();
+    float sc[8], dc[8];
+    scores_f32<D>(sc, dc, qs, dos, ks, vs);
+    const int col = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + warp * 8 + i;
+      float pd, ds = 0.f;
+      if (row < p.t && kvalid[lane] && (!p.causal || col <= row))
+        ds = grad_score(p, sd, bplane, bh, row, col, sc[i], dc[i], lse_r[i],
+                        delta_r[i], &pd);
+      dss[(warp * 8 + i) * kT32 + lane] = ds;
+    }
+    __syncwarp();
+    for (int c = 0; c < kT32; ++c) {   // dQ += dS K, lanes over d
+      float kv[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) kv[e] = ks[c * (D + 1) + lane + 32 * e];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float d = dss[(warp * 8 + i) * kT32 + c];
+#pragma unroll
+        for (int e = 0; e < E; ++e) dq[i][e] = fmaf(d, kv[e], dq[i][e]);
+      }
+    }
+  }
+  store_rows_f32<D>(p.dq, p, bi, hi, q0 + warp * 8, dq, p.scale);
+}
+
+// K4b, f32
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dkv_f32(Params p) {
+  constexpr int E = D / 32;
+  extern __shared__ float fsm[];
+  float* ks = fsm;                      // [32][D]: the block's keys
+  float* vs = ks + kT32 * D;            // [32][D]
+  float* qs = vs + kT32 * D;            // [32][D + 1]: lane-indexed queries
+  float* dos = qs + kT32 * (D + 1);     // [32][D + 1]
+  float* ps = dos + kT32 * (D + 1);     // [32][32] p~, warp w owns keys 8w..
+  float* dss = ps + kT32 * kT32;        // [32][32] ds
+  __shared__ float lse_s[kT32], delta_s[kT32];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int k0 = blockIdx.x * kT32;
+  const long long head = bi * p.sb + hi * p.sh;
+  const float* qg = static_cast<const float*>(p.q) + head;
+  const float* dog = static_cast<const float*>(p.dout) + dout_head(p, bi, hi, D);
+  stage_rows_f32<D>(ks, D, static_cast<const float*>(p.k) + head, k0, p.t,
+                    p.st);
+  stage_rows_f32<D>(vs, D, static_cast<const float*>(p.v) + head, k0, p.t,
+                    p.st);
+  bool kval[8];
+  float dk[8][E], dv[8][E];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    kval[i] = key_valid(p, bi, k0 + warp * 8 + i);
+#pragma unroll
+    for (int e = 0; e < E; ++e) dk[i][e] = dv[i][e] = 0.f;
+  }
+  const Seeds sd(p);
+  const float* bplane =
+      p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
+
+  const int n_q = (p.t + kT32 - 1) / kT32;
+  for (int qi = p.causal ? k0 / kT32 : 0; qi < n_q; ++qi) {
+    const int q0 = qi * kT32;
+    __syncthreads();
+    stage_rows_f32<D>(qs, D + 1, qg, q0, p.t, p.st);
+    stage_rows_f32<D>(dos, D + 1, dog, q0, p.t, static_cast<long long>(p.h) * D);
+    if (threadIdx.x < kT32) {
+      const int q = q0 + threadIdx.x;
+      const long long at = static_cast<long long>(bh) * p.t + q;
+      lse_s[threadIdx.x] = q < p.t ? p.lse[at] : 0.f;
+      delta_s[threadIdx.x] = q < p.t ? p.delta[at] : 0.f;
+    }
+    __syncthreads();
+    float sc[8], dc[8];   // S^T and dP^T: the warp's keys against lane queries
+    scores_f32<D>(sc, dc, ks, vs, qs, dos);
+    const int q = q0 + lane;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int key = k0 + warp * 8 + i;
+      float pd = 0.f, ds = 0.f;
+      if (kval[i] && q < p.t && (!p.causal || key <= q))
+        ds = grad_score(p, sd, bplane, bh, q, key, sc[i], dc[i], lse_s[lane],
+                        delta_s[lane], &pd);
+      ps[(warp * 8 + i) * kT32 + lane] = pd;
+      dss[(warp * 8 + i) * kT32 + lane] = ds;
+    }
+    __syncwarp();
+    for (int c = 0; c < kT32; ++c) {   // dV += p~^T dO, dK += dS^T Q
+      float qv[E], ov[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        qv[e] = qs[c * (D + 1) + lane + 32 * e];
+        ov[e] = dos[c * (D + 1) + lane + 32 * e];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float pc = ps[(warp * 8 + i) * kT32 + c];
+        const float dc_ = dss[(warp * 8 + i) * kT32 + c];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          dv[i][e] = fmaf(pc, ov[e], dv[i][e]);
+          dk[i][e] = fmaf(dc_, qv[e], dk[i][e]);
+        }
+      }
+    }
+  }
+  store_rows_f32<D>(p.dk, p, bi, hi, k0 + warp * 8, dk, p.scale);
+  store_rows_f32<D>(p.dv, p, bi, hi, k0 + warp * 8, dv, 1.f);
+}
+
+// K5, f32
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dbias_f32(Params p) {
+  extern __shared__ float fsm[];
+  float* qs = fsm;                      // [32][D]
+  float* dos = qs + kT32 * D;           // [32][D]
+  float* ks = dos + kT32 * D;           // [32][D + 1]
+  float* vs = ks + kT32 * (D + 1);      // [32][D + 1]
+  __shared__ int kvalid[kT32];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.x * kT32, q0 = blockIdx.y * kT32, lead = blockIdx.z;
+  const float* bplane = bias_plane(p, lead);
+  const Seeds sd(p);
+  const int col = k0 + lane;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+
+  if (!p.causal || k0 <= q0 + kT32 - 1) {
+    for (int rep = 0; rep < p.reps; ++rep) {
+      const int bh = p.mul_l * lead + p.mul_r * rep, bi = bh / p.h,
+                hi = bh % p.h;
+      const long long head = bi * p.sb + hi * p.sh;
+      __syncthreads();
+      stage_rows_f32<D>(qs, D, static_cast<const float*>(p.q) + head, q0, p.t,
+                        p.st);
+      stage_rows_f32<D>(dos, D,
+                        static_cast<const float*>(p.dout) + dout_head(p, bi, hi, D),
+                        q0, p.t, static_cast<long long>(p.h) * D);
+      stage_rows_f32<D>(ks, D + 1, static_cast<const float*>(p.k) + head, k0,
+                        p.t, p.st);
+      stage_rows_f32<D>(vs, D + 1, static_cast<const float*>(p.v) + head, k0,
+                        p.t, p.st);
+      if (threadIdx.x < kT32)
+        kvalid[threadIdx.x] = key_valid(p, bi, k0 + threadIdx.x);
+      __syncthreads();
+      float sc[8], dc[8];
+      scores_f32<D>(sc, dc, qs, dos, ks, vs);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = q0 + warp * 8 + i;
+        if (row < p.t && kvalid[lane] && (!p.causal || col <= row)) {
+          const long long at = static_cast<long long>(bh) * p.t + row;
+          float pd;
+          acc[i] += grad_score(p, sd, bplane, bh, row, col, sc[i], dc[i],
+                               p.lse[at], p.delta[at], &pd);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + warp * 8 + i;
+    if (row < p.t && col < p.t)
+      p.dbias[(static_cast<long long>(lead) * p.t + row) * p.t + col] = acc[i];
+  }
+}
+
+// kind: 0 dQ (K4a), 1 dK/dV (K4b), 2 dbias (K5); grid per the design above
+template <int D>
+int launch(const Params& p, int kind, int dtype, int lead, cudaStream_t st) {
+  const int bh = p.b * p.h;
+  void (*kernel)(Params);
+  int smem, tile;
+  if (dtype == 1) {
+    tile = kT;
+    smem = smem_bf16<D>();
+    kernel = kind == 0 ? bwd_dq_bf16<D> : kind == 1 ? bwd_dkv_bf16<D>
+                                                    : bwd_dbias_bf16<D>;
+  } else {
+    tile = kT32;
+    smem = smem_f32<D>(kind == 0 ? 1 : kind == 1 ? 2 : 0);
+    kernel = kind == 0 ? bwd_dq_f32<D> : kind == 1 ? bwd_dkv_f32<D>
+                                                   : bwd_dbias_f32<D>;
+  }
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  const int n_tiles = (p.t + tile - 1) / tile;
+  const dim3 grid = kind == 2 ? dim3(n_tiles, n_tiles, lead)
+                              : dim3(n_tiles, bh);
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// See the layouts above.  kind: 0 writes dq, 1 dk and dv, 2 dbias (lead
+// planes; replica rep of plane l is bh = mul_l * l + mul_r * rep, reps of
+// them).  dtype: 0 = f32, 1 = bf16 (q, k, v, dO and the gradients).
+// kv_mask, bias and seed3 may be null (bias_mode 0, dropout 0); the dbias
+// pass needs the bias.  Returns cudaGetLastError() after the launch;
+// cudaErrorInvalidValue for a head_dim other than 32, 64 or 128, another
+// dtype or kind, or b*h > 65535.
+extern "C" int flash_bwd(int kind, const void* q, const void* k,
+                         const void* v, const void* dout, const void* lse,
+                         const void* delta, const void* kv_mask,
+                         const void* bias, const void* seed3, void* dq,
+                         void* dk, void* dv, void* dbias, int B, int H, int T,
+                         int D, long long sb, long long sh, long long st,
+                         int dtype, int causal, int bias_mode, int dropout,
+                         int drop_threshold, float drop_scale, float scale,
+                         int lead, int reps, int mul_l, int mul_r,
+                         void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0) return 0;
+  if ((dtype != 0 && dtype != 1) || kind < 0 || kind > 2 ||
+      static_cast<long long>(B) * H > 65535 ||
+      (kind == 2 && (bias == nullptr || lead <= 0 || lead > 65535)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.kv_mask = static_cast<const int32_t*>(kv_mask);
+  p.bias = static_cast<const float*>(bias);
+  p.seed3 = static_cast<const int32_t*>(seed3);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.dbias = static_cast<float*>(dbias);
+  p.b = B;
+  p.h = H;
+  p.t = T;
+  p.sb = sb;
+  p.sh = sh;
+  p.st = st;
+  p.causal = causal;
+  p.bias_mode = bias_mode;
+  p.dropout = dropout;
+  p.drop_threshold = drop_threshold;
+  p.drop_scale = drop_scale;
+  p.scale = scale;
+  p.reps = reps;
+  p.mul_l = mul_l;
+  p.mul_r = mul_r;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(p, kind, dtype, lead, s);
+    case 64: return launch<64>(p, kind, dtype, lead, s);
+    case 128: return launch<128>(p, kind, dtype, lead, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

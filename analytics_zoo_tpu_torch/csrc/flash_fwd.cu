@@ -41,13 +41,20 @@
 //     scores and over d for the output, FFMA throughout;
 //   * head_dim 32, 64 or 128 (template); others are refused.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;   // as the TPU kernel's NEG_INF
+using flash::bias_lead;
+using flash::drop_keep;
+using flash::kNegInf;
+using flash::ldmatrix_x4;
+using flash::ldmatrix_x4_trans;
+using flash::mma_bf16;
+using flash::pack_bf16;
+using flash::shfl_max;
+using flash::shfl_sum;
+using flash::stage_rows_bf16;
 
 struct Params {
   const void* q;
@@ -64,100 +71,20 @@ struct Params {
   float drop_scale, scale;
 };
 
-// the positional hash of `_hash_bits`: multiplies wrap as uint32, shifts
-// are arithmetic as on int32
-__device__ __forceinline__ bool drop_keep(int32_t seed, int32_t bh, int32_t qp,
-                                          int32_t kp, int32_t threshold) {
-  const uint32_t u = static_cast<uint32_t>(seed) +
-                     static_cast<uint32_t>(bh) * 0x27D4EB2Fu +
-                     static_cast<uint32_t>(qp) * 0x9E3779B9u +
-                     static_cast<uint32_t>(kp) * 0x2545F491u;
-  int32_t x = static_cast<int32_t>(u);
-  x ^= x >> 15;
-  x = static_cast<int32_t>(static_cast<uint32_t>(x) * 0x2C1B3C6Du);
-  x ^= x >> 12;
-  x = static_cast<int32_t>(static_cast<uint32_t>(x) * 0x297A2D39u);
-  x ^= x >> 15;
-  return (x & 0x7FFFFFFF) >= threshold;
-}
-
 // bias_mode: 0 none, 1 [b*h, t, t], 2 [h, t, t], 3 [b, t, t], 4 [1, t, t]
 __device__ __forceinline__ const float* bias_plane(const Params& p, int bh) {
   if (p.bias_mode == 0) return nullptr;
-  const int lead = p.bias_mode == 1 ? bh
-                   : p.bias_mode == 2 ? bh % p.h
-                   : p.bias_mode == 3 ? bh / p.h
-                                      : 0;
-  return p.bias + static_cast<long long>(lead) * p.t * p.t;
-}
-
-__device__ __forceinline__ float shfl_max(float v, int width_mask) {
-  for (int off = 1; off <= width_mask; off <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float shfl_sum(float v, int width_mask) {
-  for (int off = 1; off <= width_mask; off <<= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+  return p.bias +
+         static_cast<long long>(bias_lead(p.bias_mode, bh, p.h)) * p.t * p.t;
 }
 
 // ---------------------------------------------------------------- bf16
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-constexpr int kBQ16 = 64, kBK16 = 64;
+constexpr int kBQ16 = flash::kTile16, kBK16 = flash::kTile16;
 
 template <int D>
 constexpr int smem_bf16() {
   return 3 * kBQ16 * (D + 8) * 2;
-}
-
-// rows [r0, r0 + 64) of a [t, D] bf16 head (row stride st) into
-// sm[64][D + 8], rows past t zero-filled; 16-byte loads
-template <int D>
-__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* sm,
-                                                const __nv_bfloat16* g,
-                                                int r0, int t, long long st) {
-  constexpr int LD = D + 8, CH = D / 8;
-  for (int c = threadIdx.x; c < kBQ16 * CH; c += 128) {
-    const int r = c / CH, dc = (c % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t)
-      val = *reinterpret_cast<const uint4*>(g + (r0 + r) * st + dc);
-    *reinterpret_cast<uint4*>(sm + r * LD + dc) = val;
-  }
 }
 
 template <int D>

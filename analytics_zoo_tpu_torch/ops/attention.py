@@ -6,9 +6,12 @@ the full path (causal and/or additive mask) and the KV-cache read path
 
 `flash_attention` is the tiled online-softmax attention (key mask,
 broadcast bias, causal, positional-hash dropout, logsumexp) and its one
-dispatch point: a CUDA tensor goes to the CUDA kernel
-(`ops/kernels/flash_attention.py`), a CPU tensor to the plain version,
-the JAX package's `_reference_attn`.
+dispatch point: a CUDA tensor goes to the CUDA kernels
+(`ops/kernels/flash_attention.py`: the forward, and the dQ, dK/dV and
+dbias backward passes), a CPU tensor to their plain versions (the
+forward a copy of the JAX package's `_reference_attn`).  One autograd
+Function carries both passes on both devices, as the JAX custom_vjp
+does (`_flash_vjp_fwd` / `_bwd`, flash_attention.py:901-926).
 
 `paged_decode_attention` is the serving decode path (q_len=1 per lane
 against a paged KV block pool) and its one dispatch point: a CUDA
@@ -24,6 +27,8 @@ import math
 import torch
 
 from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+    flash_bwd,
+    flash_bwd_reference,
     flash_fwd,
     flash_fwd_reference,
     kernel_layout_ok,
@@ -35,11 +40,17 @@ from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
 
 
 def dot_product_attention(q, k, v, mask=None, causal: bool = False,
+                          dropout_rate: float = 0.0, generator=None,
                           compute_dtype=torch.float32, ctx_k=None,
                           ctx_v=None, ctx_len=None):
     """q, k, v: [batch, time, heads, head_dim].  `mask` is an additive
     float mask broadcastable to [batch, heads, q_time, k_time].
     Returns [batch, time, heads, head_dim] f32.
+
+    dropout_rate > 0 with a `generator` (a torch.Generator on q's device)
+    drops attention probabilities, kept ones scaled by 1 / (1 - rate),
+    as the JAX function does with its rng (its masks come from another
+    generator, so the two agree as distributions only).
 
     KV-cache read path: `ctx_k`/`ctx_v` [batch, ctx, heads, head_dim]
     hold the cached keys/values of the tokens preceding q (garbage past
@@ -54,6 +65,9 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
     v = v.to(compute_dtype)
 
     if ctx_k is not None:
+        if dropout_rate > 0.0:
+            raise ValueError("dropout is not supported on the KV-cache "
+                             "read path (decode is inference-only)")
         c = ctx_k.shape[1]
         ctx_len = torch.as_tensor(ctx_len, device=q.device).long()
         keys = torch.cat([ctx_k.to(compute_dtype), k], dim=1)
@@ -79,6 +93,10 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
     if mask is not None:
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0 and generator is not None:
+        keep = torch.empty_like(probs).bernoulli_(1.0 - dropout_rate,
+                                                  generator=generator)
+        probs = probs * keep / (1.0 - dropout_rate)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(compute_dtype), v)
     return out.float()
 
@@ -130,6 +148,41 @@ def paged_decode_attention(q, new_k, new_v, k_pool, v_pool, block_tables,
         v_scale=v_scale)
 
 
+class _Flash(torch.autograd.Function):
+    """Differentiable in q, k, v and the bias, through both outputs: an
+    lse cotangent folds into delta (d lse_i / d s_ij = p_ij)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_mask, seed3, causal, dropout, impl):
+        fwd = flash_fwd if impl == "kernel" else flash_fwd_reference
+        out, lse = fwd(q, k, v, kv_mask, bias, seed3, causal, dropout)
+        ctx.save_for_backward(q, k, v, bias, kv_mask, seed3, out, lse)
+        ctx.set_materialize_grads(False)
+        ctx.args = (causal, dropout, impl)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, bias, kv_mask, seed3, out, lse = ctx.saved_tensors
+        causal, dropout, impl = ctx.args
+        b, t, h, _ = q.shape
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dout = dout.to(q.dtype).contiguous()
+        # delta = rowsum(dO * O) - dlse, [b*h, t]: a plain op, as in JAX
+        delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1) \
+            .reshape(b * h, t)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        bwd = flash_bwd if impl == "kernel" else flash_bwd_reference
+        dq, dk, dv, dbias = bwd(q, k, v, dout, lse, delta.contiguous(),
+                                kv_mask, bias, seed3, causal, dropout,
+                                bias_grad=ctx.needs_input_grad[3])
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, dbias, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, kv_mask=None, bias=None, causal: bool = False,
                     dropout_rate: float = 0.0, dropout_seed=None,
                     dropout_generator=None, dropout_pos=None,
@@ -146,9 +199,12 @@ def flash_attention(q, k, v, *, kv_mask=None, bias=None, causal: bool = False,
     `dropout_generator` (a torch.Generator) that draws one;
     `dropout_pos=(q_off, k_off)` shifts the hash to global positions.
 
-    impl: "auto" (the kernel for CUDA tensors, the plain version for
-    CPU tensors) | "kernel" | "reference".  The kernel takes any t and
-    head_dim 32, 64 or 128."""
+    impl: "auto" (the kernels for CUDA tensors, the plain versions for
+    CPU tensors) | "kernel" | "reference".  The kernels take any t and
+    head_dim 32, 64 or 128.  Differentiable in q, k, v and the bias
+    (whose gradient comes back at its own shape and dtype), through out
+    and lse; the kernels read q, k, v in place on both passes, so views
+    of one fused qkv projection stay views."""
     b, t, h, d = q.shape
     dropout_rate = float(dropout_rate)
     if dropout_rate < 0.0 or dropout_rate >= 1.0:
@@ -168,8 +224,12 @@ def flash_attention(q, k, v, *, kv_mask=None, bias=None, causal: bool = False,
             raise ValueError("dropout_rate > 0 needs dropout_seed or "
                              "dropout_generator")
         q_off, k_off = dropout_pos if dropout_pos is not None else (0, 0)
+        # int offsets are filled on the device: a copy from the host
+        # would synchronize the stream on every call
         seed3 = torch.cat([seed] + [
-            torch.as_tensor(off, device=q.device).to(torch.int32).reshape(1)
+            off.to(device=q.device, dtype=torch.int32).reshape(1)
+            if torch.is_tensor(off) else
+            torch.full((1,), int(off), dtype=torch.int32, device=q.device)
             for off in (q_off, k_off)])
     if kv_mask is not None:
         if tuple(kv_mask.shape) != (b, t):
@@ -187,19 +247,18 @@ def flash_attention(q, k, v, *, kv_mask=None, bias=None, causal: bool = False,
                 f" = (1|{b}, 1|{h}, {t}, {t})")
     if impl == "auto":
         impl = "kernel" if q.is_cuda else "reference"
-    if impl == "reference":
-        out, lse = flash_fwd_reference(q, k, v, kv_mask, bias, seed3,
-                                       causal, dropout_rate)
-    elif impl == "kernel":
+    if impl == "kernel":
         if not kernel_layout_ok(q, k, v):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_fwd(
-            q, k, v, None if kv_mask is None else kv_mask.contiguous(),
-            None if bias is None else bias.float().contiguous(), seed3,
-            causal, dropout_rate)
-    else:
+        if kv_mask is not None:
+            kv_mask = kv_mask.contiguous()
+        if bias is not None:
+            bias = bias.float().contiguous()
+    elif impl != "reference":
         raise ValueError(f"unknown flash_attention impl {impl!r}; use "
                          "'auto', 'kernel' or 'reference'")
+    out, lse = _Flash.apply(q, k, v, bias, kv_mask, seed3, causal,
+                            dropout_rate, impl)
     if not return_lse:
         return out
     return out, lse.reshape(b, h, t).permute(0, 2, 1)

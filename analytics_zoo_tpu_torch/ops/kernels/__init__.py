@@ -9,12 +9,16 @@ happens on the first launch (`_build.py` for the CUDA sources).
 """
 
 from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (  # noqa: F401,E501
+    flash_bwd_dbias,
+    flash_bwd_dkv,
+    flash_bwd_dq,
     flash_fwd,
 )
 from analytics_zoo_tpu_torch.ops.kernels.fused_dense import (  # noqa: F401
     fused_dense_gelu,
 )
 from analytics_zoo_tpu_torch.ops.kernels.layer_norm import (  # noqa: F401
+    layer_norm_bwd,
     layer_norm_fwd,
 )
 from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (  # noqa: F401,E501
@@ -23,7 +27,10 @@ from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (  # noqa: F401,
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"layer_norm_fwd": layer_norm_fwd,
+           "layer_norm_bwd": layer_norm_bwd,
            "fused_dense_gelu": fused_dense_gelu, "flash_fwd": flash_fwd,
+           "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+           "flash_bwd_dbias": flash_bwd_dbias,
            "paged_decode": paged_decode}
 
 

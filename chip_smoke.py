@@ -6,12 +6,13 @@
 Run from the root of a checkout on a machine with a CUDA card, `nvcc`
 and `triton`.  It builds the port's kernels from the sources in the
 checkout (into `.kernel_build/`), holds each kernel against its plain
-PyTorch version at its serving paths' shapes, times both beside the
+PyTorch version at its paths' shapes, times both beside the
 kernel's bound and one PyTorch library call computing the same function,
-then drives the port's two serving paths with random weights from a
-seed: generation through `GenerationEngine` at GPT-2 small's widths, and
-BERT-base classification through `InferenceModel`; each path's served
-outputs are checked against a recompute through the plain versions.
+then drives the port's paths with random weights from a seed:
+generation through `GenerationEngine` at GPT-2 small's widths,
+BERT-base classification through `InferenceModel`, and BERT-base
+fine-tuning through `Estimator.fit`; each path's outputs (or first
+gradients) are checked against a recompute through the plain versions.
 
 Phases (each one failing exits non-zero, with no result line):
   1. setup: card name and power limit, versions, kernel build, TF32 off;
@@ -24,6 +25,12 @@ Phases (each one failing exits non-zero, with no result line):
      f32: kv_mask with a fully padded row, a bias at each of
      [1|b, 1|h, t, t], causal, dropout, and q/k/v read in place from a
      fused qkv projection; out and lse;
+  5b. K1b LayerNorm backward (Triton) vs its plain version at the
+     fine-tune's 16384 x 768 f32 and at row counts that fill no block;
+  5c. K4a, K4b and K5, the flash backward (CUDA), vs their plain
+     version, bf16 and f32, in every case of phase 5 plus a loss on the
+     lse and the fine-tune's own case (fused qkv, dropout, key mask); dq,
+     dk, dv and the bias's gradient at each broadcast;
   6. slice 1: warm the generation engine, serve concurrent greedy
      requests through the background loop, check K1/K6 launch counts
      and the logits; again with an int8 KV pool;
@@ -33,9 +40,21 @@ Phases (each one failing exits non-zero, with no result line):
      launch counts exact per forward; logits vs the plain recompute; an
      f32 model at a tight tolerance; the same traffic with
      attn_impl="einsum" as a comparison line;
-  8. device times of phases 2-5 (profiler), one decode step and one
-     BERT forward (t = 512, batch 32) by device op, after the timed
-     serving.
+  8. slice 3: BERTClassifier at BERT-base's widths fine-tuned through
+     `Estimator.from_torch(...).fit(...)` (bf16, flash, dropout 0.1,
+     Adam 2e-5, batch 32 x t = 512): the first step's gradients through
+     the kernels vs the plain path (bf16, and an f32 model at a tight
+     gate), 2 warm-up and 10 timed steps in one `fit`, step p50 (CUDA
+     events recorded as each step is queued), tokens/s,
+     `bert_train_mfu`, launches per step exact, an evaluate call that
+     launches no backward kernel;
+  9. the learnable-bias path: a 2-block encoder at BERT-base widths fed
+     a `RelativePositionBias` [1, 12, 512, 512], trained a few steps,
+     K5 launched once per attention layer per step, the bias table's
+     gradient vs the plain path;
+  10. device times of phases 2-5c (profiler), one decode step, one BERT
+     forward and one fine-tune step (t = 512, batch 32) by device op,
+     after the timed serving.
 The line before the last is a JSON object of every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
 
@@ -52,6 +71,8 @@ import subprocess
 import sys
 import time
 from functools import partial
+
+import numpy as np
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside
 #: the tensor cores, dense bf16 FLOP/s on the tensor cores
@@ -82,10 +103,11 @@ def card_line() -> str:
     return smi("name,power.limit")
 
 
-def clocks(when: str) -> None:
+def clocks(when: str, start: float) -> None:
     """Print the card's clocks, power draw and temperature beside a
-    timing window (a card below its peak clocks times slower)."""
-    print(f"clocks {when}: " + smi(
+    timing window (a card below its peak clocks times slower), and the
+    seconds since `start` (a perf_counter reading)."""
+    print(f"clocks {when} ({time.perf_counter() - start:.1f} s in): " + smi(
         "clocks.sm,clocks.mem,power.draw,temperature.gpu,"
         "clocks_throttle_reasons.active"), flush=True)
 
@@ -128,7 +150,9 @@ def device_ms(fn, iters: int = 50):
         torch.cuda.synchronize()
     runs = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # a GPU user annotation (the range of `Optimizer.step`) spans
+        # kernels counted on their own
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             runs.setdefault(e.name, []).append(
                 e.time_range.elapsed_us() / 1e3)
     per = {name: statistics.median(d) * round(len(d) / iters)
@@ -156,7 +180,7 @@ def device_times(shape: dict) -> None:
     fns = shape.pop("_fns")
     src = "profiler"
     for key, fn in fns.items():
-        dev, _, _ = device_ms(fn)
+        dev, _, _ = device_ms(fn, iters=20)
         if dev is None:
             src = "cuda_events"
         shape[key] = dev if dev is not None \
@@ -499,6 +523,308 @@ def phase_flash(torch, gen):
 
 
 # ----------------------------------------------------------------------
+# phase 5b: K1b
+# ----------------------------------------------------------------------
+
+def sum_gate(diff, mag):
+    """Per-element gate for an f32 sum of many terms taken in another
+    order: 1e-6 of the magnitude of the terms summed, plus 1e-6."""
+    return bool((diff <= 1e-6 * mag + 1e-6).all())
+
+
+def phase_layer_norm_bwd(torch, gen):
+    from analytics_zoo_tpu_torch.ops.kernels.layer_norm import (
+        layer_norm_bwd,
+        layer_norm_bwd_reference,
+        layer_norm_fwd,
+    )
+    shapes = []
+    # rows 16384: the BERT fine-tune batch of 32 x 512 (the main path);
+    # 100 and 8: rows that fill no block of the kernel
+    for rows in (16384, 100, 8):
+        x = torch.randn(rows, D_MODEL, generator=gen, device="cuda")
+        scale = 1 + 0.1 * torch.randn(D_MODEL, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(D_MODEL, generator=gen, device="cuda")
+        g = torch.randn(rows, D_MODEL, generator=gen, device="cuda")
+        _, mean, rstd = layer_norm_fwd(x, scale, bias, 1e-6)
+        got = layer_norm_bwd(x, scale, mean, rstd, g)
+        want = layer_norm_bwd_reference(x, scale, mean, rstd, g)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        xhat = (x - mean) * rstd
+        # dx: f32 row reductions of d = 768 terms in another order;
+        # dscale/dbias: f32 sums over the rows in another order, gated
+        # per column against the magnitude of the terms summed
+        check(errs[0] <= 1e-5
+              and sum_gate((got[1] - want[1]).abs(), (g * xhat).abs().sum(0))
+              and sum_gate((got[2] - want[2]).abs(), g.abs().sum(0)),
+              f"K1b rows={rows}: max abs err (dx, dscale, dbias) {errs}")
+        n_bytes = 3 * rows * D_MODEL * 4 + 3 * D_MODEL * 4 + 2 * rows * 4
+        b_ms, b_by = bound(n_bytes, 12 * rows * D_MODEL)
+        shape = dict(name="layer_norm_bwd", rows=rows, d=D_MODEL,
+                     max_abs_err=max(errs), errors=errs, bound_ms=b_ms,
+                     bound_by=b_by)
+        shapes.append(call_times(shape, dict(
+            ms=partial(layer_norm_bwd, x, scale, mean, rstd, g),
+            plain_ms=partial(layer_norm_bwd_reference, x, scale, mean, rstd,
+                             g),
+            library_ms=partial(torch.ops.aten.native_layer_norm_backward, g,
+                               x, [D_MODEL], mean, rstd, scale, bias,
+                               [True, True, True]))))
+        print(f"K1b layer_norm_bwd rows={rows} d={D_MODEL}: max_abs_err "
+              f"(dx, dscale, dbias) {errs}; per call with launch gaps: "
+              f"kernel {shape['call_ms']:.5f} ms, plain "
+              f"{shape['plain_call_ms']:.5f} ms, native_layer_norm_backward "
+              f"{shape['library_call_ms']:.5f} ms; bound {b_ms:.5f} ms "
+              f"({b_by})", flush=True)
+    return shapes
+
+
+# ----------------------------------------------------------------------
+# phase 5c: K4a, K4b, K5
+# ----------------------------------------------------------------------
+
+def bwd_magnitudes(torch, q, k, v, dout, lse, delta, kv_mask=None, bias=None,
+                   seed3=None, causal=False, dropout=0.0):
+    """Sums of |terms| of each backward product in f32 (dq: |ds||k| scale,
+    dk: |ds||q| scale, dv: |p~||dO|, dbias: |ds| over the replicas), for
+    the bf16 gates."""
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        drop_keep_mask,
+    )
+    b, t, h, d = q.shape
+    scale = d ** -0.5
+
+    def bh(x):
+        return x.permute(0, 2, 1, 3).reshape(b * h, t, d).float()
+
+    qf, kf, vf, gf = bh(q), bh(k), bh(v), bh(dout)
+    s = torch.einsum("btd,bsd->bts", qf, kf) * scale
+    if bias is not None:
+        s = s + bias.expand(b, h, t, t).reshape(b * h, t, t)
+    keep = (kv_mask != 0).repeat_interleave(h, 0)[:, None, :] \
+        if kv_mask is not None else torch.ones_like(s, dtype=torch.bool)
+    if causal:
+        keep = keep & torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("btd,bsd->bts", gf, vf)
+    # sum_d |dO||v|, the scale of dp's own f32 rounding
+    dp_abs = torch.einsum("btd,bsd->bts", gf.abs(), vf.abs())
+    pv = p
+    if dropout > 0.0:
+        ar = torch.arange(t, device="cuda")
+        kd = drop_keep_mask(seed3[0].long(), torch.arange(
+            b * h, device="cuda")[:, None, None], seed3[1].long() + ar[:, None],
+            seed3[2].long() + ar[None], dropout)
+        pv = torch.where(kd, p / (1 - dropout), 0.0)
+        dp = torch.where(kd, dp / (1 - dropout), 0.0)
+        dp_abs = torch.where(kd, dp_abs / (1 - dropout), 0.0)
+    # |ds| plus its f32 rounding: where a row attends one key (causal row
+    # 0), dp - delta cancels to ~0 and what is left is the rounding of
+    # the d-term sum dp on each side, at most d 2^-24 sum|dO||v|; 2^-8
+    # of that sum, times the gate's 2^-7, covers it 8-fold at d = 64
+    ds = p * ((dp - delta[..., None]).abs() + 2.0 ** -8 * dp_abs)
+
+    def back(x):
+        return x.reshape(b, h, t, d).permute(0, 2, 1, 3)
+
+    mags = [back(torch.einsum("bts,bsd->btd", ds, kf.abs()) * scale),
+            back(torch.einsum("bts,btd->bsd", ds, qf.abs()) * scale),
+            back(torch.einsum("bts,btd->bsd", pv.abs(), gf.abs()))]
+    if bias is not None:
+        full = ds.reshape(b, h, t, t)
+        dims = [i for i in (0, 1) if bias.shape[i] == 1]
+        mags.append(full.sum(dim=dims, keepdim=True) if dims else full)
+    return mags
+
+
+def phase_flash_bwd(torch, gen):
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_bwd,
+        flash_bwd_dbias,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_bwd_reference,
+        flash_fwd,
+    )
+    shapes = {"flash_bwd_dq": [], "flash_bwd_dkv": [],
+              "flash_bwd_dbias": []}
+    h, d = 12, 64
+    for b, t in ((8, 128), (32, 512)):
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, fused, mask, biases, seed3, n_valid = flash_scene(
+                torch, gen, b, t, h, d, dtype)
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            variants = {"mask": (qkv, dict(kv_mask=mask))}
+            for shp, bias in biases.items():
+                variants[f"bias[{shp}]+mask"] = (qkv, dict(kv_mask=mask,
+                                                           bias=bias))
+            variants["causal+mask"] = (qkv, dict(kv_mask=mask, causal=True))
+            variants["dropout0.1+mask"] = (qkv, dict(
+                kv_mask=mask, seed3=seed3, dropout=0.1))
+            variants["lse-loss+mask"] = (qkv, dict(kv_mask=mask))
+            variants["fused-qkv+mask"] = (fused, dict(kv_mask=mask))
+            # the fine-tune's own case: fused qkv, dropout and a key mask
+            variants["fused-qkv+dropout0.1+mask"] = (fused, dict(
+                kv_mask=mask, seed3=seed3, dropout=0.1))
+            variants[f"fused-qkv+bias[{b}x1]+causal+dropout0.1+mask"] = (
+                fused, dict(kv_mask=mask, bias=biases[f"{b}x1"],
+                            causal=True, seed3=seed3, dropout=0.1))
+            errs, shares = {}, {}
+            for label, (args, kw) in variants.items():
+                out, lse = flash_fwd(*args, **kw)
+                dout = torch.randn(out.shape, generator=gen,
+                                   device="cuda").to(dtype)
+                delta = (dout.float() * out.float()).sum(-1).permute(
+                    0, 2, 1).reshape(b * h, t)
+                if label.startswith("lse-loss"):
+                    delta = delta - torch.randn(delta.shape, generator=gen,
+                                                device="cuda")
+                delta = delta.contiguous()
+                grad_bias = "bias" in kw
+                got = flash_bwd(*args, dout, lse, delta, **kw,
+                                bias_grad=grad_bias)
+                want = flash_bwd_reference(*args, dout, lse, delta, **kw,
+                                           bias_grad=grad_bias)
+                torch.cuda.synchronize()
+                got, want = got[:3 + grad_bias], want[:3 + grad_bias]
+                diffs = [(a.float() - w.float()).abs()
+                         for a, w in zip(got, want)]
+                if dtype == torch.bfloat16:
+                    # both sides round ds and p~ to bf16 before their
+                    # products (from f32 values computed in other orders:
+                    # at most one ulp apart, 2^-7 relative) and the
+                    # gradient once (one ulp of |ref|); dbias stays f32
+                    mags = bwd_magnitudes(torch, *args, dout, lse, delta,
+                                          **kw)
+                    tols = [2.0 ** -7 * (w.float().abs() + m) + 1e-6
+                            for w, m in zip(want, mags)]
+                else:
+                    # the same f32 arithmetic summed in other orders
+                    tols = [torch.full_like(x, 1e-4) for x in diffs]
+                ratios = [float((x / tl).max()) for x, tl in zip(diffs, tols)]
+                share = max(ratios)
+                e = [float(x.max()) for x in diffs]
+                worst = ratios.index(share)
+                at = int((diffs[worst] / tols[worst]).argmax())
+                check(share <= 1.0, f"K4a/K4b/K5 {name} b={b} t={t} {label}: "
+                      f"max abs err (dq, dk, dv[, dbias]) {e}, {share:.3f} of "
+                      f"the tolerance, worst in output {worst} at flat index "
+                      f"{at}: kernel {float(got[worst].flatten()[at])}, plain "
+                      f"{float(want[worst].flatten()[at])}, tolerance "
+                      f"{float(tols[worst].flatten()[at])}")
+                check(all(bool((a[0] == 0).all()) for a in got[:3]),
+                      f"flash bwd {name} {label}: a fully padded batch row "
+                      "must give zero dq, dk, dv")
+                errs[label] = e
+                shares[label] = share
+            q, k, v = qkv
+            item = q.element_size()
+            out, lse = flash_fwd(q, k, v, kv_mask=mask)
+            dout = torch.randn(out.shape, generator=gen, device="cuda"
+                               ).to(dtype)
+            delta = (dout.float() * out.float()).sum(-1).permute(
+                0, 2, 1).reshape(b * h, t).contiguous()
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            head_bytes = b * t * h * d * item
+            # products over the valid keys only (this run's kv_mask)
+            prods = 2 * h * d * t * n_valid
+            bargs = (q, k, v, dout, lse, delta)
+            bool_mask = mask.bool()[:, None, None, :]
+            lib = sdpa_backward(torch, F, q, k, v, dout, bool_mask)
+            for kname, fn, n_prod, n_bytes, kw in (
+                    ("flash_bwd_dq", flash_bwd_dq, 3,
+                     5 * head_bytes + 2 * b * h * t * 4 + b * t * 4,
+                     dict(kv_mask=mask)),
+                    ("flash_bwd_dkv", flash_bwd_dkv, 4,
+                     6 * head_bytes + 2 * b * h * t * 4 + b * t * 4,
+                     dict(kv_mask=mask))):
+                errs_k = {lb: e[:3] for lb, e in errs.items()}
+                b_ms, b_by = bound(n_bytes, n_prod * prods, peak)
+                shape = dict(name=kname, dtype=name, b=b, t=t, h=h, d=d,
+                             variant="mask",
+                             max_abs_err=max(max(e) for e in errs_k.values()),
+                             errors=errs_k, err_share_of_tol=shares,
+                             bound_ms=b_ms, bound_by=b_by,
+                             library="SDPA backward (dq, dk, dv together), "
+                                     "boolean mask, forward subtracted")
+                shapes[kname].append(call_times(shape, dict(
+                    ms=partial(fn, *bargs, **kw),
+                    plain_ms=partial(flash_bwd_reference, *bargs, **kw),
+                    **lib)))
+            # K5 at the learnable-bias path's shape: a [1, h, t, t] f32
+            # bias, no kv_mask
+            bias = biases[f"1x{h}"]
+            out, lse = flash_fwd(q, k, v, bias=bias)
+            delta = (dout.float() * out.float()).sum(-1).permute(
+                0, 2, 1).reshape(b * h, t).contiguous()
+            bargs = (q, k, v, dout, lse, delta)
+            b_ms, b_by = bound(4 * head_bytes + 2 * b * h * t * 4
+                               + 2 * bias.numel() * 4, 2 * 2 * h * d * t * t
+                               * b, peak)
+            db_errs = {lb: e[3] for lb, e in errs.items() if len(e) == 4}
+            shape = dict(name="flash_bwd_dbias", dtype=name, b=b, t=t, h=h,
+                         d=d, variant=f"bias[1x{h}]",
+                         max_abs_err=max(db_errs.values()), errors=db_errs,
+                         bound_ms=b_ms, bound_by=b_by,
+                         library="SDPA backward with a float bias needing "
+                                 "its gradient (dq, dk, dv, dbias), "
+                                 "forward subtracted")
+            shapes["flash_bwd_dbias"].append(call_times(shape, dict(
+                ms=partial(flash_bwd_dbias, *bargs, bias=bias),
+                plain_ms=partial(flash_bwd_reference, *bargs, bias=bias,
+                                 bias_grad=True),
+                **sdpa_backward(torch, F, q, k, v, dout,
+                                bias.to(dtype, copy=True).requires_grad_(
+                                    True)))))
+            for s in shapes.values():
+                subtract_forward(s[-1], "library_call_ms")
+            tail = {kn: (f"kernel {s[-1]['call_ms']:.5f}, plain "
+                         f"{s[-1]['plain_call_ms']:.5f}, sdpa bwd "
+                         f"{s[-1]['library_call_ms']:.5f}")
+                    for kn, s in shapes.items()}
+            print(f"K4a/K4b/K5 flash backward {name} b={b} t={t} h={h} d={d}:"
+                  f" max abs err (dq, dk, dv[, dbias]) {errs}; share of the "
+                  f"tolerance {shares}; per call with launch gaps (ms) "
+                  f"{tail}", flush=True)
+    return shapes
+
+
+def sdpa_backward(torch, F, q, k, v, dout, mask):
+    """{"library_ms": forward + backward, "library_fwd_ms": forward} of
+    F.scaled_dot_product_attention at these inputs, for `call_times`:
+    the library yardstick of the flash backward kernels is their
+    difference (`subtract_forward`; timed only, the port never calls
+    it).  A float `mask` that needs its gradient asks SDPA for the
+    bias's gradient too.  q, k, v and dout go in SDPA's own contiguous
+    [b, h, t, d] layout."""
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    go = dout.transpose(1, 2).contiguous()
+    ins = (qs, ks, vs) + ((mask,) if mask.requires_grad else ())
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        torch.autograd.grad(o, ins, go)
+
+    return {"library_ms": fwd_bwd, "library_fwd_ms": fwd}
+
+
+def subtract_forward(shape: dict, key: str) -> None:
+    """shape[key], timed as SDPA forward + backward, minus the forward
+    alone (kept beside it), where the shape has such a pair."""
+    fwd = key.replace("library", "library_fwd")
+    if fwd in shape:
+        shape[key] -= shape[fwd]
+
+
+# ----------------------------------------------------------------------
 # phase 7: slice 2, BERT classification serving
 # ----------------------------------------------------------------------
 
@@ -561,10 +887,10 @@ def serve_bert(torch, im, model, seed: int, label: str, flash: bool):
           f"{label}: records_served moved by {im.records_served - served0},"
           f" {n_seq} sequences were sent")
     n_blk = len(model.bert.blocks)
-    want = {"layer_norm_fwd": (2 * n_blk + 1) * forwards,
-            "fused_dense_gelu": n_blk * forwards,
-            "flash_fwd": n_blk * forwards if flash else 0,
-            "paged_decode": 0}
+    want = dict({name: 0 for name in counts},
+                layer_norm_fwd=(2 * n_blk + 1) * forwards,
+                fused_dense_gelu=n_blk * forwards,
+                flash_fwd=n_blk * forwards if flash else 0)
     check(counts == want, f"{label}: launches {counts}, expected {want} "
           f"for {forwards} forwards")
     lat = {}
@@ -718,6 +1044,338 @@ def bert_profile(torch, model, seed: int, iters: int = 5):
                 device_busy_share=(dev / wall if dev else None),
                 top_device_ops_ms_per_forward=[(n[:100], v)
                                                for n, v in top])
+
+
+# ----------------------------------------------------------------------
+# phases 8 and 9: slice 3, BERT-base fine-tune through Estimator.fit,
+# and the learnable-bias path
+# ----------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_T = 32, 512
+#: warm-up steps, then timed steps, all on the same batch
+TRAIN_WARM, TRAIN_TIMED = 2, 10
+
+
+def train_batch(rng, n: int, t: int, vocab: int):
+    """bert_request's inputs with labels of a learnable rule: 1 where
+    the first token id is below vocab / 2."""
+    (ids, seg, mask), valid = bert_request(rng, n, t, vocab)
+    return (ids, seg, mask), (ids[:, 0] < vocab // 2).astype(np.int32), \
+        valid
+
+
+def first_step_grads(torch, model, inputs, labels, impl, gen_state):
+    """{param name: gradient} of one fine-tune step's loss through
+    `impl`, dropout drawn from a generator at `gen_state` (a fork, so
+    the kernel and plain paths draw the same masks and flash seeds)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.set_state(gen_state)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    logits = model(*inputs, impl=impl, generator=gen)
+    F.cross_entropy(logits, labels).backward()
+    torch.cuda.synchronize()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def grad_rel_err(torch, got, want):
+    """max over parameters of max|got - want| / max|want|, and the
+    parameter where it is reached.  The q, k and v thirds of a fused
+    qkv projection count as parameters of their own, so a fault in one
+    third (dK lands in the key third alone) is held to that third's
+    largest gradient.  The key third of a qkv bias is the exception: the
+    softmax cancels it, so its gradient is rounding on both sides and is
+    held to the whole bias's largest gradient.  Also the worst error of
+    each kind: the q, k and v thirds, and the other parameters."""
+    check(got.keys() == want.keys(), "the kernel and plain paths gave "
+          "gradients to different parameters")
+    worst, where = 0.0, None
+    by_kind = dict.fromkeys(("q", "k", "v", "other"), 0.0)
+    for n, w in want.items():
+        check(bool(torch.isfinite(got[n]).all()), f"non-finite grad of {n}")
+        parts = zip(("q", "k", "v"), got[n].chunk(3), w.chunk(3)) \
+            if n.split(".")[-2] == "qkv" else [("", got[n], w)]
+        for third, g, w3 in parts:
+            scale = w if n.endswith("qkv.bias") and third == "k" else w3
+            err = float((g - w3).abs().max()) / max(float(scale.abs().max()),
+                                                    1e-30)
+            kind = third or "other"
+            by_kind[kind] = max(by_kind[kind], err)
+            if err >= worst:
+                worst, where = err, f"{n}[{third}]" if third else n
+    return worst, where, by_kind
+
+
+def check_first_step(torch, model, inputs, labels, tol, label):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    state = gen.get_state()
+    got = first_step_grads(torch, model, inputs, labels, "auto", state)
+    want = first_step_grads(torch, model, inputs, labels, "reference", state)
+    err, where, by_kind = grad_rel_err(torch, got, want)
+    check(err <= tol, f"{label}: first-step gradients through the kernels "
+          f"differ from the plain path by {err:.3e} of the largest "
+          f"gradient (at {where}; worst by kind {by_kind}), over the gate "
+          f"{tol}")
+    model.zero_grad(set_to_none=True)
+    return dict(grad_rel_err=err, grad_worst_param=where,
+                grad_rel_err_by_kind=by_kind, grad_tol=tol,
+                params_with_grad=len(want))
+
+
+def phase_train(torch, seed: int, card: str):
+    from analytics_zoo_tpu_torch.convert import (
+        bert_from_flax,
+        init_bert_params,
+    )
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE, BERTClassifier
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    cfg = dict(BERT_BASE, num_classes=2)
+    vocab = cfg["vocab"]
+    state = bert_from_flax(init_bert_params(cfg, seed=seed), cfg)
+    rng = np.random.default_rng(seed + 11)
+    inputs, y, valid = train_batch(rng, TRAIN_BATCH, TRAIN_T, vocab)
+    on_card = [torch.from_numpy(a).cuda() for a in inputs]
+    y_card = torch.from_numpy(y).long().cuda()
+
+    # first-step gradients, kernels vs plain versions, same masks: an
+    # f32-compute model (batch 8) at a tight gate, then the bf16 model
+    f32 = BERTClassifier(**cfg, attn_impl="flash",
+                         compute_dtype=torch.float32, device="cuda")
+    f32.load_state_dict(state)
+    # f32 throughout; the kernels sum in other orders than cuBLAS and the
+    # plain softmax, through 12 blocks forward and back: 1e-4 of the
+    # largest gradient, about 30x the 3.2e-6 read on an H100
+    f32_check = check_first_step(torch, f32, [a[:8] for a in on_card],
+                                 y_card[:8], 1e-4, "f32 model")
+    del f32
+    model = BERTClassifier(**cfg, attn_impl="flash", device="cuda")
+    model.load_state_dict(state)
+    del state
+    # bf16 rounds the dense outputs and attention operands at other
+    # places on each side (the flash kernels round unnormalized
+    # probabilities, the plain version normalized ones), compounded
+    # through 12 blocks forward and back.  The worst part is the last
+    # block's query third: only the [CLS] query reaches the loss there,
+    # so its gradient is one row's sum of bf16-rounded ds, which cancels
+    # to near 0 (read at 0.156 of that third's largest gradient on an
+    # H100): 0.3 of each part's largest gradient, about 2x that.  The f32
+    # model and phase 5c's per-element gates hold the kernels tightly.
+    bf16_check = check_first_step(torch, model, on_card, y_card, 0.3,
+                                  "bf16 model")
+    print(f"slice 3 [{card}] first-step gradients vs the plain path: f32 "
+          f"model {f32_check}; bf16 model {bf16_check}", flush=True)
+
+    n_steps = TRAIN_WARM + TRAIN_TIMED
+    data = {"x": [np.concatenate([a] * n_steps) for a in inputs],
+            "y": np.concatenate([y] * n_steps)}
+    est = Estimator.from_torch(model, loss="sparse_categorical_crossentropy",
+                               optimizer="adam", learning_rate=2e-5,
+                               metrics=["accuracy"], seed=seed)
+    # a CUDA event as each step is queued, without a host wait: the
+    # gaps between them are the steps' periods as fit runs them
+    eng = est.engine
+    marks = []
+
+    def marked_step(batch, step=eng.train_step):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return step(batch)
+
+    eng.train_step = marked_step
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    est.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    del eng.train_step
+    n_blk = cfg["n_block"]
+    want = {"layer_norm_fwd": (2 * n_blk + 1) * n_steps,
+            "layer_norm_bwd": (2 * n_blk + 1) * n_steps,
+            "fused_dense_gelu": n_blk * n_steps, "flash_fwd": n_blk * n_steps,
+            "flash_bwd_dq": n_blk * n_steps, "flash_bwd_dkv": n_blk * n_steps,
+            "flash_bwd_dbias": 0, "paged_decode": 0}
+    check(counts == want, f"slice 3: launches {counts}, expected {want} for "
+          f"{n_steps} steps")
+    steps = eng.last_steps
+    losses = [s["loss"] for s in steps]
+    check(all(np.isfinite(losses)) and len(steps) == n_steps,
+          f"slice 3: step losses {losses}")
+    # a sanity check on the repeated batch, not a measure
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"slice 3: the loss did not fall on the repeated batch: {losses}")
+    times = [a.elapsed_time(b) / 1e3
+             for a, b in zip(marks[TRAIN_WARM:-1], marks[TRAIN_WARM + 1:])]
+    p50 = statistics.median(times)
+    padded = TRAIN_BATCH * TRAIN_T
+    n_params = sum(p.numel() for p in model.parameters())
+    flops_per_token = 6 * n_params + 12 * n_blk * cfg["hidden_size"] \
+        * TRAIN_T
+    summary = dict(
+        label="bf16 flash fine-tune", batch=TRAIN_BATCH, t=TRAIN_T,
+        params=n_params, steps=n_steps, timed_steps=len(times),
+        wall_s=wall, step_ms_p50=p50 * 1e3,
+        step_ms=[s * 1e3 for s in times],
+        padded_tokens_per_s=padded / p50, valid_tokens_per_s=valid / p50,
+        losses=losses, accuracy=est.train_summary[-1]["accuracy"],
+        launches=counts,
+        launches_per_step={k: v / n_steps for k, v in counts.items()},
+        bert_train_mfu=flops_per_token * padded / p50 / BF16_FLOPS,
+        first_step_f32=f32_check, first_step_bf16=bf16_check)
+
+    # evaluate: forward kernels only
+    kernels.reset_launch_counts()
+    ev = est.evaluate({"x": list(inputs), "y": y}, batch_size=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    ev_counts = kernels.launch_counts()
+    want_ev = dict(want, layer_norm_fwd=2 * n_blk + 1, layer_norm_bwd=0,
+                   fused_dense_gelu=n_blk, flash_fwd=n_blk, flash_bwd_dq=0,
+                   flash_bwd_dkv=0)
+    check(ev_counts == want_ev, f"slice 3 evaluate: launches {ev_counts}, "
+          f"expected {want_ev}")
+    summary["evaluate"] = dict(ev, launches=ev_counts)
+    print(f"slice 3 [{card}] BERT-base fine-tune, batch {TRAIN_BATCH} x t = "
+          f"{TRAIN_T} ({valid} valid tokens), Adam 2e-5: step p50 "
+          f"{summary['step_ms_p50']:.3f} ms over {len(times)} timed steps = "
+          f"{summary['padded_tokens_per_s']:.0f} padded tokens/s, "
+          f"{summary['valid_tokens_per_s']:.0f} valid tokens/s, "
+          f"bert_train_mfu {summary['bert_train_mfu']:.4f} (of 989 TFLOP/s "
+          f"bf16); losses {[round(x, 4) for x in losses]}; launches per step "
+          f"{summary['launches_per_step']}; evaluate {summary['evaluate']}",
+          flush=True)
+    return summary, est, (on_card, y_card)
+
+
+def train_profile(torch, est, batch, iters: int = 3):
+    """Where one fine-tune step's time goes: host wall per step without
+    the profiler, then device time by device op and the host's top ops
+    from a profiled window."""
+    on_card, y_card = batch
+    eng = est.engine
+    host = {"features": tuple(a.cpu().numpy() for a in on_card),
+            "labels": (y_card.int().cpu().numpy(),),
+            "mask": np.ones(len(y_card), np.float32)}
+
+    def step():
+        eng.train_step(eng.put_batch(host))
+
+    step()
+    walls = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    dev, per, prof = device_ms(step, iters=iters)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:14]
+    # every device event summed: the per-op medians undercount ops whose
+    # launches differ in size (copies, adds over tensors of every shape)
+    from torch.autograd import DeviceType
+    dev_all = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3 / iters
+    # host reads inside the step (the window's own closing
+    # cudaDeviceSynchronize is not counted)
+    syncs = sum(e.count for e in prof.key_averages()
+                if e.key in ("cudaStreamSynchronize",
+                             "aten::_local_scalar_dense")) / iters
+    host_ops = sorted(((e.key, e.self_cpu_time_total / 1e3 / iters,
+                        e.count / iters) for e in prof.key_averages()),
+                      key=lambda t: -t[1])[:10]
+    return dict(batch=len(y_card), t=on_card[0].shape[1],
+                wall_ms_per_step=wall, device_ms_per_step=dev,
+                device_busy_share=(dev / wall if dev else None),
+                device_ms_per_step_all_events=dev_all,
+                host_syncs_per_step=syncs,
+                top_device_ops_ms_per_step=[(n[:100], v) for n, v in top],
+                top_host_ops_self_ms_and_calls_per_step=[
+                    (n[:100], ms, c) for n, ms, c in host_ops])
+
+
+def phase_bias_path(torch, seed: int, card: str):
+    """K5 on its path: a learnable T5 bias (`RelativePositionBias`,
+    [1, 12, 512, 512]) fed as the attention mask of a 2-block encoder at
+    BERT-base widths (flash, bf16, dropout 0.1) with a pooled head,
+    trained a few Adam steps."""
+    import torch.nn.functional as F
+    from torch import nn
+
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        RelativePositionBias,
+        TransformerEncoder,
+    )
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    widths = {k: BERT_BASE[k] for k in ("vocab", "hidden_size", "n_head",
+                                         "intermediate_size",
+                                         "max_position_len")}
+
+    class BiasedEncoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.rel = RelativePositionBias(widths["n_head"], device="cuda")
+            self.enc = TransformerEncoder(**widths, n_block=2,
+                                          with_pooler=True,
+                                          attn_impl="flash", device="cuda")
+            self.head = nn.Linear(widths["hidden_size"], 2, device="cuda")
+
+        def forward(self, ids, impl="auto", generator=None):
+            bias = self.rel(ids.shape[1])
+            _, pooled = self.enc(ids, None, None, bias, impl, generator)
+            return self.head(pooled)
+
+    torch.manual_seed(seed)
+    model = BiasedEncoder()
+    rng = np.random.default_rng(seed + 13)
+    (ids, _, _), y, _ = train_batch(rng, TRAIN_BATCH, TRAIN_T,
+                                    widths["vocab"])
+    ids_card = torch.from_numpy(ids).cuda()
+    y_card = torch.from_numpy(y).long().cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    grads = {}
+    for impl in ("auto", "reference"):
+        g = torch.Generator(device="cuda")
+        g.set_state(gen.get_state())
+        model.zero_grad(set_to_none=True)
+        F.cross_entropy(model(ids_card, impl=impl, generator=g),
+                        y_card).backward()
+        grads[impl] = model.rel.weight.grad.detach().clone()
+    diff = (grads["auto"] - grads["reference"]).abs().max()
+    err = float(diff) / max(float(grads["reference"].abs().max()), 1e-30)
+    # bf16 operands rounded at other places on each side (as the BERT
+    # model's gate); the table's gradient sums every [t, t] cell's dbias
+    check(err <= 0.1, f"bias path: the bias table's gradient differs from "
+          f"the plain path by {err:.3e} of its largest element")
+    model.zero_grad(set_to_none=True)
+    n_steps = 3
+    est = Estimator.from_torch(model, loss="sparse_categorical_crossentropy",
+                               optimizer="adam", learning_rate=1e-4,
+                               seed=seed)
+    kernels.reset_launch_counts()
+    est.fit((np.concatenate([ids] * n_steps), np.concatenate([y] * n_steps)),
+            epochs=1, batch_size=TRAIN_BATCH, shuffle=False)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts["flash_bwd_dbias"] == 2 * n_steps
+          and counts["flash_bwd_dq"] == 2 * n_steps,
+          f"bias path: launches {counts}, expected 2 K5 and 2 K4a per step "
+          f"over {n_steps} steps")
+    out = dict(label="learnable bias, 2 blocks", steps=n_steps,
+               table_grad_rel_err=err, launches=counts,
+               losses=[s["loss"] for s in est.engine.last_steps])
+    print(f"bias path [{card}]: {out}", flush=True)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -918,6 +1576,7 @@ def main(argv=None) -> int:
     from analytics_zoo_tpu_torch.ops.kernels import _build
 
     # phase 1: setup
+    start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -941,21 +1600,28 @@ def main(argv=None) -> int:
     print(f"built the Triton LayerNorm kernel in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    clocks("before phase 2")
+    clocks("before phase 2", start)
     ln = phase_layer_norm(torch, gen)
     pd = phase_paged(torch, gen)
     fd = phase_fused_dense(torch, gen)
     fa = phase_flash(torch, gen)
-    clocks("after phase 5")
+    lnb = phase_layer_norm_bwd(torch, gen)
+    fab = phase_flash_bwd(torch, gen)
+    clocks("after phase 5c", start)
     runs, engine = phase_slice(torch, args.requests, args.seed, card)
-    clocks("after phase 6")
+    clocks("after phase 6", start)
     bert_runs, bert_model = phase_bert(torch, args.seed, card)
-    clocks("after phase 7")
+    clocks("after phase 7", start)
+    train, est, train_batch_ = phase_train(torch, args.seed, card)
+    bias_run = phase_bias_path(torch, args.seed, card)
+    clocks("after phase 9", start)
 
-    # phase 8: device times from the profiler, after the timed serving
+    # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
-    for shape in ln + pd + fd + fa:
+    for shape in ln + pd + fd + fa + lnb + [s for v in fab.values()
+                                             for s in v]:
         device_times(shape)
+        subtract_forward(shape, "library_ms")
         what = {k: shape[k] for k in ("rows", "pool", "dtype", "m", "b", "t")
                 if k in shape}
         print(f"{shape['name']} {what} device time per call [{card}] "
@@ -963,7 +1629,7 @@ def main(argv=None) -> int:
               f"{shape['plain_ms']:.5f} ms, library "
               f"{shape['library_ms']:.5f} ms, bound {shape['bound_ms']:.5f} "
               f"ms", flush=True)
-    clocks("after phase 8 kernel timings")
+    clocks("after phase 10 kernel timings", start)
     engine.keep_logits = False
     runs[0]["decode_profile"] = decode_profile(
         torch, engine, engine.model.vocab, args.seed + 7)
@@ -973,33 +1639,69 @@ def main(argv=None) -> int:
                                                    args.seed + 9)
     print(f"BERT forward profile [{card}]: "
           f"{json.dumps(bert_runs[0]['forward_profile'])}", flush=True)
+    train["step_profile"] = train_profile(torch, est, train_batch_)
+    # the fit's steps run back to back, with no host wait between them
+    train["step_profile"]["device_share_of_fit_step_p50"] = \
+        train["step_profile"]["device_ms_per_step_all_events"] \
+        / train["step_ms_p50"]
+    print(f"BERT train step profile [{card}]: "
+          f"{json.dumps(train['step_profile'])}", flush=True)
 
+    clocks("at the end", start)
     gpt2, bert = runs[0]["launches"], bert_runs[0]["launches"]
+    tr = train["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
                      "analytics_zoo_tpu/ops/pallas/layer_norm.py:78",
-                     bert["layer_norm_fwd"], ln, 2),
+                     tr["layer_norm_fwd"], ln, 2),
+        kernel_entry("layer_norm_bwd", "triton",
+                     "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
+                     "analytics_zoo_tpu/ops/pallas/layer_norm.py:108",
+                     tr["layer_norm_bwd"], lnb, 0),
         kernel_entry("fused_dense_gelu", "cuda",
                      "analytics_zoo_tpu_torch/csrc/fused_dense.cu",
                      "analytics_zoo_tpu/ops/pallas/fused_dense.py:79",
-                     bert["fused_dense_gelu"], fd, 2),
+                     tr["fused_dense_gelu"], fd, 2),
         kernel_entry("flash_fwd", "cuda",
                      "analytics_zoo_tpu_torch/csrc/flash_fwd.cu",
                      "analytics_zoo_tpu/ops/pallas/flash_attention.py:408",
-                     bert["flash_fwd"], fa, 2),
+                     tr["flash_fwd"], fa, 2),
+        kernel_entry("flash_bwd_dq", "cuda",
+                     "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
+                     "analytics_zoo_tpu/ops/pallas/flash_attention.py:741",
+                     tr["flash_bwd_dq"], fab["flash_bwd_dq"], 2),
+        kernel_entry("flash_bwd_dkv", "cuda",
+                     "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
+                     "analytics_zoo_tpu/ops/pallas/flash_attention.py:825",
+                     tr["flash_bwd_dkv"], fab["flash_bwd_dkv"], 2),
+        kernel_entry("flash_bwd_dbias", "cuda",
+                     "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
+                     "analytics_zoo_tpu/ops/pallas/flash_attention.py:807",
+                     bias_run["launches"]["flash_bwd_dbias"],
+                     fab["flash_bwd_dbias"], 2),
         kernel_entry("paged_decode", "cuda",
                      "analytics_zoo_tpu_torch/csrc/paged_decode.cu",
                      "analytics_zoo_tpu/ops/pallas/paged_attention.py:155",
                      gpt2["paged_decode"], pd, 0),
     ]
-    kernels[0]["launches_by_path"] = {
-        "generation": gpt2["layer_norm_fwd"], "bert": bert["layer_norm_fwd"]}
+    by_path = {"layer_norm_fwd": {"generation": gpt2, "bert_serving": bert,
+                                  "bert_fine_tune": tr},
+               "fused_dense_gelu": {"bert_serving": bert,
+                                    "bert_fine_tune": tr},
+               "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
+                             "learnable_bias": bias_run["launches"]},
+               "flash_bwd_dq": {"bert_fine_tune": tr,
+                                "learnable_bias": bias_run["launches"]},
+               "flash_bwd_dkv": {"bert_fine_tune": tr,
+                                 "learnable_bias": bias_run["launches"]}}
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} was not launched on its "
-              "serving path")
-    print(json.dumps({"card": card, "slice": runs, "bert": bert_runs}),
-          flush=True)
+        paths = by_path.get(k["name"])
+        if paths:
+            k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
+    print(json.dumps({"card": card, "slice": runs, "bert": bert_runs,
+                      "train": train, "bias_path": bias_run}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

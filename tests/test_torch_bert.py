@@ -26,7 +26,11 @@ from analytics_zoo_tpu.keras.layers.self_attention import (
 from analytics_zoo_tpu.models.bert import BERTClassifier as JaxClassifier
 from analytics_zoo_tpu.models.bert import BERTNER as JaxNER
 from analytics_zoo_tpu.models.bert import BERTSQuAD as JaxSQuAD
-from analytics_zoo_tpu_torch.convert import bert_from_flax, init_bert_params
+from analytics_zoo_tpu_torch.convert import (
+    bert_from_flax,
+    bert_to_flax,
+    init_bert_params,
+)
 from analytics_zoo_tpu_torch.keras.layers.self_attention import (
     MultiHeadAttention,
 )
@@ -152,6 +156,42 @@ def test_both_param_layouts_convert():
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("head", sorted(HEADS))
+def test_to_flax_round_trips_exactly(head, stacked):
+    """bert_to_flax inverts bert_from_flax: every tensor comes back bit
+    for bit, in the scan-stacked and in the unrolled block layout, and
+    the stacked tree is the one the weights came from."""
+    cfg, tree = _params(head, seed=5)
+    sd = bert_from_flax(tree, cfg)
+    back = bert_to_flax(sd, cfg, stacked=stacked)
+    if stacked:
+        assert jax.tree_util.tree_structure(back) == \
+            jax.tree_util.tree_structure(tree)
+        for a, b in zip(jax.tree_util.tree_leaves(back),
+                        jax.tree_util.tree_leaves(tree)):
+            assert a.dtype == np.float32 and np.array_equal(a, b)
+    else:
+        assert "blocks" not in back["bert"]
+        assert f"block_{CFG['n_block'] - 1}" in back["bert"]
+    again = bert_from_flax(back, cfg)
+    assert again.keys() == sd.keys()
+    for k in sd:
+        assert torch.equal(again[k], sd[k]), k
+
+
+def test_to_flax_rejects_bad_state_dicts():
+    cfg, tree = _params("classifier")
+    sd = bert_from_flax(tree, cfg)
+    with pytest.raises(ValueError, match="config says"):
+        bert_to_flax(sd, dict(cfg, hidden_size=32))
+    with pytest.raises(ValueError, match="unknown entries"):
+        bert_to_flax(dict(sd, extra=torch.zeros(2)), cfg)
+    with pytest.raises(ValueError, match="one head"):
+        bert_to_flax({k: v for k, v in sd.items()
+                      if not k.startswith("classifier")}, cfg)
 
 
 def test_conversion_rejects_bad_trees():

@@ -76,8 +76,10 @@ def test_launch_counts_are_exact_across_threads():
     so none may be lost."""
     from analytics_zoo_tpu_torch.ops import kernels
 
-    assert sorted(kernels.KERNELS) == ["flash_fwd", "fused_dense_gelu",
-                                       "layer_norm_fwd", "paged_decode"]
+    assert sorted(kernels.KERNELS) == [
+        "flash_bwd_dbias", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
+        "fused_dense_gelu", "layer_norm_bwd", "layer_norm_fwd",
+        "paged_decode"]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)          # switch threads as often as possible
     try:

@@ -55,6 +55,12 @@ for impl in ("einsum", "flash"):
         np.ones((3, 8), np.int32), np.zeros((3, 8), np.int32),
         np.ones((3, 8), np.int32))
     assert out.shape == (3, 2)
+from analytics_zoo_tpu_torch.orca.learn import Estimator
+bm = BERTClassifier(**bcfg, attn_impl="flash", device="cpu")
+est = Estimator.from_torch(bm, learning_rate=1e-3).fit(
+    {"x": [np.ones((6, 8), np.int32), np.zeros((6, 8), np.int32),
+           np.ones((6, 8), np.int32)], "y": np.arange(6) % 2}, batch_size=4)
+assert est.engine.host_step == 2 and "accuracy" in est.train_summary[-1]
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "flax"
              or n == "analytics_zoo_tpu"
@@ -104,7 +110,7 @@ def test_static_scan_of_port_and_chip_smoke():
                 root = name.split(".")[0]
                 assert root not in ("jax", "flax", "analytics_zoo_tpu"), \
                     f"{path} imports {name}"
-    assert n >= 15
+    assert n >= 22
 
 
 def test_no_device_and_no_cuda_raises(monkeypatch):
