@@ -34,8 +34,8 @@
 // 101 MB of q, k, v, dO plus the bias read and its gradient written
 // (25 MB), 38 us.  A kv_mask that pads keys leaves fewer products.
 //
-// Design (simple first), the TPU grid's innermost sequential axis becomes
-// a loop inside one block:
+// Design, the TPU grid's innermost sequential axis becomes a loop inside
+// one block (dQ and dbias are still the first, simple mma.sync design):
 //   * dQ: one block per (b*h, 64 query rows), a loop over 64-key tiles
 //     (causal: tiles past the diagonal skipped); the Q and dO tiles stay in
 //     shared memory for the whole loop, each K and V tile is staged beside
@@ -43,11 +43,34 @@
 //     rows padded by 8) with f32 accumulators; ds is
 //     re-packed in registers as the bf16 A operand of dQ += dS K (the
 //     TPU kernel rounds ds to the operands' dtype the same way);
-//   * dK/dV: one block per (b*h, 64 key rows), a loop over 64-query tiles
-//     (causal: tiles before the diagonal skipped); it computes S^T = K Q^T
-//     and dP^T = V dO^T, so p~^T and ds^T come out in the accumulator
-//     layout that re-packs as the A operand of dV += p~^T dO and dK +=
-//     ds^T Q (Q and dO read transposed by ldmatrix.trans);
+//   * dK/dV (bf16: the Hopper body `bwd_dkv_sm90`): one block per (b*h,
+//     128 keys), three warpgroups.  The block first reads its keys'
+//     kv_mask: when all 128 are padding it writes zero dk, dv rows and
+//     returns (exact: p = 0 at a masked key, so ds = p~ = 0 there), and a
+//     consumer warpgroup whose 64 keys are all padding computes nothing.
+//     One producer thread loads the block's K and V once and then the Q,
+//     dO tiles (64 queries) with their lse and delta into a 3-stage ring,
+//     all by TMA (4-D tensor maps over (d, h, t, b) with the views'
+//     strides, so the thirds of a fused qkv are read in place; 128- or
+//     64-byte swizzle) completing on full/empty mbarriers.  Each consumer
+//     warpgroup owns 64 keys and runs all four products as wgmma with f32
+//     accumulators: S^T = K Q^T and dP^T = V dO^T from shared memory,
+//     then, after the elementwise p~ and ds (one SFU exp2, masks, the
+//     hash dropout), dV += p~^T dO and dK += ds^T Q with A from registers
+//     (p~, ds rounded to bf16) and B the staged dO / Q read MN-major.  The
+//     elementwise pass only reads the accumulators and writes the bf16 A
+//     registers, and every tile issues the same products and waits for
+//     them before the next tile's, so ptxas never serialises the wgmmas
+//     (issuing the next tile's S^T, dP^T behind this tile's dV, dK made it
+//     do so, and ran slower).  The two
+//     warpgroups share each stage, so one's products overlap the other's
+//     elementwise work, which is specialised per tile (crossing t or the
+//     causal diagonal or not, bias, dropout); setmaxnreg gives them 240
+//     registers and the producer 24.  Causal: query tiles before the
+//     block's first key are never loaded.  At t = 512, d = 64 the
+//     elementwise work (an exp per score, plus the hash under dropout: 32
+//     scores a thread a stage) takes longer than the stage's products, so
+//     the tensor cores are not what bounds this body;
 //   * dbias: one block per (lead, 64 query rows, 64 keys), a loop over the
 //     broadcast replicas (bh = mul_l * lead + mul_r * rep) summing ds in
 //     registers; a causal-dead tile writes its zeros;
@@ -56,6 +79,7 @@
 //     over d for the products, FFMA throughout.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -114,7 +138,12 @@ __device__ __forceinline__ bool key_valid(const Params& p, int bi, int col) {
 }
 
 // ds for one score: s the raw q.k product, dp the raw dO.v product;
-// writes p~ (the dropped, rescaled probability dV uses) to *pd
+// writes p~ (the dropped, rescaled probability dV uses) to *pd.  The
+// bf16 dK/dV body (dkv90::grad_tile) computes the same per tile in its
+// own copy, with exp2 in log2 space: it must only read its wgmma
+// accumulators and write the bf16 A registers, because ptxas serialises
+// the wgmmas when another instruction writes an accumulator.  A change
+// here (or to K3's softmax) goes into both.
 __device__ __forceinline__ float grad_score(const Params& p, const Seeds& sd,
                                             const float* bplane, int bh,
                                             int row, int col, float s,
@@ -292,74 +321,383 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_bf16(Params p) {
   store_rows_bf16<D>(p.dq, p, bi, hi, q0 + warp * 16, dq, p.scale);
 }
 
-// K4b
+// K4b, bf16: TMA + wgmma (see the design above)
+namespace dkv90 {
+constexpr int kKeys = 128;    // keys a block owns: 64 per consumer warpgroup
+constexpr int kQ = 64;        // queries a pipeline stage holds
+constexpr int STAGES = 3;
+constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, producer 2
+constexpr float kLog2e = 1.4426950408889634f;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_bf16(Params p) {
-  constexpr int LD = D + 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kT * LD;
-  bf16* qs = vs + kT * LD;
-  bf16* dos = qs + kT * LD;
-  __shared__ float lse_s[kT], delta_s[kT];
+struct Cfg {
+  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle = a row chunk
+  static constexpr int CW = SW / 2;               // bf16 columns a chunk
+  static constexpr int NCH = D / CW;              // chunks a row
+  static constexpr int CHUNK = 64 * SW;           // bytes of a 64-row chunk
+  static constexpr int TILE = NCH * CHUNK;        // bytes of a 64-row tile
+  static constexpr int KV = 4 * TILE;             // K and V, 128 rows each
+  // Q, dO, then lse and delta (64 f32 each), padded to the 1024-byte atom
+  static constexpr int STAGE = 2 * TILE + 1024;
+  static constexpr int SMEM = KV + STAGES * STAGE + 64 + 1024;
+  static constexpr int LAYOUT = hopper::swizzle_layout(SW);
+};
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int k0 = blockIdx.x * kT;
-  const long long head = bi * p.sb + hi * p.sh;
-  const bf16* qg = static_cast<const bf16*>(p.q) + head;
-  const bf16* dog = static_cast<const bf16*>(p.dout) + dout_head(p, bi, hi, D);
+// K-major descriptor of the 16-column step kk of a 64-row tile
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile, int kk) {
+  using C = Cfg<D>;
+  const int col = kk * 16;
+  return hopper::make_desc(tile + col / C::CW * C::CHUNK + col % C::CW * 2, 16,
+                           8 * C::SW, C::LAYOUT);
+}
 
-  stage_rows_bf16<D>(ks, static_cast<const bf16*>(p.k) + head, k0, p.t, p.st);
-  stage_rows_bf16<D>(vs, static_cast<const bf16*>(p.v) + head, k0, p.t, p.st);
-  const int row0 = k0 + warp * 16 + (lane >> 2);   // key rows, and row0 + 8
-  const bool kval[2] = {key_valid(p, bi, row0), key_valid(p, bi, row0 + 8)};
-  float dk[ND][4], dv[ND][4];
+// MN-major descriptor of the 16-row step kq of a 64-row tile read as B
+// [16 rows (K)][D (N)]
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile, int kq) {
+  using C = Cfg<D>;
+  return hopper::make_desc(tile + kq * 16 * C::SW, C::CHUNK, 8 * C::SW,
+                           C::LAYOUT);
+}
+
+// keep the A registers live until the products that read them are done
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int i = 0; i < ND; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-  const Seeds sd(p);
-  const float* bplane =
-      p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
 
-  const int n_q = (p.t + kT - 1) / kT;
-  for (int i = p.causal ? k0 / kT : 0; i < n_q; ++i) {
-    const int q0 = i * kT;
-    __syncthreads();   // the previous tile is no longer read
-    stage_rows_bf16<D>(qs, qg, q0, p.t, p.st);
-    stage_rows_bf16<D>(dos, dog, q0, p.t, static_cast<long long>(p.h) * D);
-    if (threadIdx.x < kT) {
-      const int q = q0 + threadIdx.x;
-      const long long at = static_cast<long long>(bh) * p.t + q;
-      lse_s[threadIdx.x] = q < p.t ? p.lse[at] : 0.f;
-      delta_s[threadIdx.x] = q < p.t ? p.delta[at] : 0.f;
+// a warp's 16 rows of a [64][D] accumulator, times `mul`, to rows
+// r0 + 0..15 of a contiguous [b, t, h, D] bf16 tensor; rows past t dropped
+template <int D>
+__device__ __forceinline__ void store_acc(void* out, const Params& p, int bi,
+                                          int hi, int r0,
+                                          const float (&acc)[D / 2],
+                                          float mul) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + (lane >> 2) + hh * 8;
+    if (row >= p.t) continue;
+    bf16* orow = static_cast<bf16*>(out) +
+                 ((static_cast<long long>(bi) * p.t + row) * p.h + hi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + (lane & 3) * 2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh] * mul,
+                                acc[4 * j + 2 * hh + 1] * mul);
+  }
+}
+// 2^x by the SFU's ex2.approx (relative error about 2^-22; results below
+// 2^-126 flush to 0, far under any probability the bf16 products can
+// see).  CUDA's exp2f, exact in denormals, gave the same bits on the
+// fine-tune's inputs at many more instructions, in the loop that bounds
+// this kernel.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p~ and ds of a warpgroup's [64 keys][64 queries] tile from the raw
+// S^T (s) and dP^T (dp) accumulators, rounded to bf16 straight into the
+// A operands of dV += p~^T dO (pa) and dK += dS^T Q (da): the
+// accumulators are only read, so no instruction but a wgmma defines them
+// (else ptxas serialises the wgmmas).  Each thread holds keys row0, row0
+// + 8 and queries q0 + 8 j + 2 (lane % 4) + {0, 1}; the pair of column
+// block j, key half hh is A register [j / 2][2 (j % 2) + hh].  EDGE: the
+// tile crosses t or the causal diagonal (else every query is valid and
+// after every key); BIAS, DROP as the call asks.
+template <bool EDGE, bool BIAS, bool DROP>
+__device__ __forceinline__ void grad_tile(const float (&s)[32],
+                                          const float (&dp)[32],
+                                          uint32_t (&pa)[4][4],
+                                          uint32_t (&da)[4][4],
+                                          const Params& p, const Seeds& sd,
+                                          const float* bplane, int bh,
+                                          int row0, const bool (&kval)[2],
+                                          int q0, const float* lse_s,
+                                          const float* delta_s,
+                                          float scale2) {
+  const int c2 = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = row0 + hh * 8;
+      float pd[2], ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * hh + c, ql = j * 8 + c2 + c, q = q0 + ql;
+        bool ok = kval[hh];
+        if (EDGE) ok = ok && q < p.t && (!p.causal || key <= q);
+        float x2 = s[4 * j + e] * scale2 - lse_s[ql] * kLog2e;
+        if (BIAS && ok)
+          x2 += bplane[static_cast<long long>(q) * p.t + key] * kLog2e;
+        const float pv = ok ? exp2_approx(x2) : 0.f;
+        float dpv = dp[4 * j + e];
+        pd[c] = pv;
+        if (DROP) {
+          const bool kd = drop_keep(sd.seed, bh, sd.q_off + q, sd.k_off + key,
+                                    p.drop_threshold);
+          pd[c] = kd ? pv * p.drop_scale : 0.f;
+          dpv = kd ? dpv * p.drop_scale : 0.f;
+        }
+        ds[c] = pv * (dpv - delta_s[ql]);
+      }
+      pa[j / 2][2 * (j % 2) + hh] = flash::pack_bf16(pd[0], pd[1]);
+      da[j / 2][2 * (j % 2) + hh] = flash::pack_bf16(ds[0], ds[1]);
     }
-    __syncthreads();
+  }
+}
 
-    // S^T = K Q^T, dP^T = V dO^T: the warp's 16 keys against 64 queries
-    float s[8][4], dp[8][4];
-    scores_bf16<D>(s, dp, ks, vs, warp * 16, qs, dos);
-    // rows are keys, cols queries; s becomes p~, dp becomes ds
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1, key = row0 + hh * 8;
-        const int cl = nt * 8 + (lane & 3) * 2 + (e & 1), q = q0 + cl;
-        float pd = 0.f, ds = 0.f;
-        if (kval[hh] && q < p.t && (!p.causal || key <= q))
-          ds = grad_score(p, sd, bplane, bh, q, key, s[nt][e], dp[nt][e],
-                          lse_s[cl], delta_s[cl], &pd);
-        s[nt][e] = pd;
-        dp[nt][e] = ds;
+template <bool EDGE>
+__device__ __forceinline__ void grad_tile_for(const float (&s)[32],
+                                              const float (&dp)[32],
+                                              uint32_t (&pa)[4][4],
+                                              uint32_t (&da)[4][4],
+                                              const Params& p, const Seeds& sd,
+                                              const float* bplane, int bh,
+                                              int row0, const bool (&kval)[2],
+                                              int q0, const float* lse_s,
+                                              const float* delta_s,
+                                              float scale2) {
+#define DKV_GRAD(BIAS, DROP)                                                 \
+  grad_tile<EDGE, BIAS, DROP>(s, dp, pa, da, p, sd, bplane, bh, row0, kval, \
+                              q0, lse_s, delta_s, scale2)
+  if (p.dropout) {
+    if (bplane != nullptr) DKV_GRAD(true, true); else DKV_GRAD(false, true);
+  } else {
+    if (bplane != nullptr) DKV_GRAD(true, false); else DKV_GRAD(false, false);
+  }
+#undef DKV_GRAD
+}
+}  // namespace dkv90
+
+template <int D>
+__global__ void __launch_bounds__(dkv90::kThreads, 1)
+bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tlse,
+             const __grid_constant__ CUtensorMap tdelta, const Params p) {
+  using C = dkv90::Cfg<D>;
+  using dkv90::kKeys;
+  using dkv90::kQ;
+  using dkv90::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* vs = ks + 2 * C::TILE;
+  unsigned char* stages = ks + C::KV;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stages + STAGES * C::STAGE);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  __shared__ int live_s[2];   // warpgroup w's 64 keys hold a valid one
+
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int k0 = blockIdx.x * kKeys;
+  if (threadIdx.x < 2) live_s[threadIdx.x] = 0;
+  __syncthreads();
+  // padded-key skip: read the block's kv_mask before any load
+  const bool valid = threadIdx.x < kKeys && key_valid(p, bi, k0 + threadIdx.x);
+  const unsigned any = __ballot_sync(0xffffffffu, valid);
+  if ((threadIdx.x & 31) == 0 && any != 0)
+    atomicOr(&live_s[threadIdx.x / 64], 1);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);    // the producer's expect_tx arrival
+      hopper::mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (!live_s[0] && !live_s[1]) {
+    // every key is padding: p = 0 at a masked key, so ds = p~ = 0 and dk,
+    // dv are exactly 0 on these rows
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < kKeys * D / 8; i += dkv90::kThreads) {
+      const int r = k0 + i / (D / 8), c = i % (D / 8) * 8;
+      if (r >= p.t) continue;
+      const long long at =
+          ((static_cast<long long>(bi) * p.t + r) * p.h + hi) * D + c;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dk) + at) = zero;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(p.dv) + at) = zero;
+    }
+    return;
+  }
+  // causal: queries before the block's first key see none of its keys
+  const int i0 = p.causal ? k0 / kQ : 0, n_q = (p.t + kQ - 1) / kQ;
+
+  if (threadIdx.x >= 256) {   // producer: one thread issues every load
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      hopper::mbar_arrive_expect_tx(kv_full, C::KV);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < C::NCH; ++c) {
+          const int off = w * C::TILE + c * C::CHUNK;
+          hopper::tma_load_4d(ks + off, &tk, kv_full, c * C::CW, hi,
+                              k0 + w * 64, bi);
+          hopper::tma_load_4d(vs + off, &tv, kv_full, c * C::CW, hi,
+                              k0 + w * 64, bi);
+        }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = i0; i < n_q; ++i) {
+        const int q0 = i * kQ;
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = stages + stage * C::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * C::TILE + 2 * kQ * 4);
+        for (int c = 0; c < C::NCH; ++c) {
+          hopper::tma_load_4d(st + c * C::CHUNK, &tq, &full[stage],
+                              c * C::CW, hi, q0, bi);
+          hopper::tma_load_4d(st + C::TILE + c * C::CHUNK, &tdo, &full[stage],
+                              c * C::CW, hi, q0, bi);
+        }
+        hopper::tma_load_1d(st + 2 * C::TILE, &tlse, &full[stage],
+                            bh * p.t + q0);
+        hopper::tma_load_1d(st + 2 * C::TILE + kQ * 4, &tdelta, &full[stage],
+                            bh * p.t + q0);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    acc_product<D>(dv, s, dos);   // dV += p~^T dO
-    acc_product<D>(dk, dp, qs);   // dK += dS^T Q
+  } else {   // consumers: warpgroup wg owns keys k0 + 64 wg + [0, 64)
+    hopper::setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const bool live = live_s[wg] != 0;
+    const int key0 = k0 + wg * 64;
+    const int row0 = key0 + warp * 16 + (lane >> 2);   // and row0 + 8
+    const bool kval[2] = {key_valid(p, bi, row0), key_valid(p, bi, row0 + 8)};
+    const unsigned char* kt = ks + wg * C::TILE;
+    const unsigned char* vt = vs + wg * C::TILE;
+    const Seeds sd(p);
+    const float* bplane =
+        p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
+    const float scale2 = p.scale * dkv90::kLog2e;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    int stage = 0;
+    uint32_t phase = 0;
+    if (!live) {
+      // every key of this warpgroup is padding: its dk, dv rows stay 0;
+      // it only releases the stages the other warpgroup reads
+      for (int i = i0; i < n_q; ++i) {
+        hopper::mbar_wait(&full[stage], phase);
+        if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else {
+      // every tile issues the same products (a causal tile wholly before
+      // these keys is masked to zeros, not skipped)
+      hopper::mbar_wait(kv_full, 0);
+      for (int i = i0; i < n_q; ++i) {
+        const int q0 = i * kQ;
+        hopper::mbar_wait(&full[stage], phase);
+        const unsigned char* qt = stages + stage * C::STAGE;
+        const float* lse_s = reinterpret_cast<const float*>(qt + 2 * C::TILE);
+        const float* delta_s = lse_s + kQ;
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, over D
+        float s[32], dp[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss_n64(s, dkv90::kmajor<D>(kt, kk),
+                               dkv90::kmajor<D>(qt, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss_n64(dp, dkv90::kmajor<D>(vt, kk),
+                               dkv90::kmajor<D>(qt + C::TILE, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        // rows are keys, columns queries: p~ and ds into the A operands
+        uint32_t pa[4][4], da[4][4];
+        if (q0 + kQ > p.t || (p.causal && key0 + 63 > q0))
+          dkv90::grad_tile_for<true>(s, dp, pa, da, p, sd, bplane, bh, row0,
+                                     kval, q0, lse_s, delta_s, scale2);
+        else
+          dkv90::grad_tile_for<false>(s, dp, pa, da, p, sd, bplane, bh, row0,
+                                      kval, q0, lse_s, delta_s, scale2);
+        // dV += p~^T dO and dK += dS^T Q: A from registers, B the staged
+        // dO / Q read MN-major, 16 queries a step
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+          hopper::wgmma_rs_tb<D>(dv, pa[kq],
+                                 dkv90::mnmajor<D>(qt + C::TILE, kq), 1);
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+          hopper::wgmma_rs_tb<D>(dk, da[kq], dkv90::mnmajor<D>(qt, kq), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dv);
+        hopper::fence_regs(dk);
+        dkv90::fence_a(pa);
+        dkv90::fence_a(da);
+        if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    dkv90::store_acc<D>(p.dk, p, bi, hi, key0 + warp * 16, dk, p.scale);
+    dkv90::store_acc<D>(p.dv, p, bi, hi, key0 + warp * 16, dv, 1.f);
   }
-  store_rows_bf16<D>(p.dk, p, bi, hi, k0 + warp * 16, dk, p.scale);
-  store_rows_bf16<D>(p.dv, p, bi, hi, k0 + warp * 16, dv, 1.f);
+}
+
+// the tensor maps of q, k, v, dO, lse and delta, and the launch of K4b's
+// bf16 body: grid (t / 128 key blocks, b*h)
+template <int D>
+int launch_dkv_sm90(const Params& p, cudaStream_t st) {
+  using C = dkv90::Cfg<D>;
+  const CUtensorMapSwizzle sw =
+      C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const uint64_t size4[4] = {static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(p.h),
+                             static_cast<uint64_t>(p.t),
+                             static_cast<uint64_t>(p.b)};
+  const uint64_t view[3] = {static_cast<uint64_t>(p.sh) * 2,
+                            static_cast<uint64_t>(p.st) * 2,
+                            static_cast<uint64_t>(p.sb) * 2};
+  const uint64_t dense[3] = {static_cast<uint64_t>(D) * 2,
+                             static_cast<uint64_t>(p.h) * D * 2,
+                             static_cast<uint64_t>(p.t) * p.h * D * 2};
+  const uint32_t box4[4] = {C::CW, 1, dkv90::kQ, 1};
+  const uint64_t size1[1] = {static_cast<uint64_t>(p.b) * p.h * p.t};
+  const uint32_t box1[1] = {dkv90::kQ};
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!hopper::make_tensor_map(&tq, bf, 4, p.q, size4, view, box4, sw) ||
+      !hopper::make_tensor_map(&tk, bf, 4, p.k, size4, view, box4, sw) ||
+      !hopper::make_tensor_map(&tv, bf, 4, p.v, size4, view, box4, sw) ||
+      !hopper::make_tensor_map(&tdo, bf, 4, p.dout, size4, dense, box4, sw) ||
+      !hopper::make_tensor_map(&tlse, f32, 1, p.lse, size1, nullptr, box1,
+                               CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !hopper::make_tensor_map(&tdelta, f32, 1, p.delta, size1, nullptr, box1,
+                               CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(bwd_dkv_sm90<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  const dim3 grid((p.t + dkv90::kKeys - 1) / dkv90::kKeys, p.b * p.h);
+  bwd_dkv_sm90<D><<<grid, dkv90::kThreads, C::SMEM, st>>>(tq, tk, tv, tdo,
+                                                         tlse, tdelta, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K5
@@ -723,11 +1061,11 @@ int launch(const Params& p, int kind, int dtype, int lead, cudaStream_t st) {
   const int bh = p.b * p.h;
   void (*kernel)(Params);
   int smem, tile;
+  if (dtype == 1 && kind == 1) return launch_dkv_sm90<D>(p, st);
   if (dtype == 1) {
     tile = kT;
     smem = smem_bf16<D>();
-    kernel = kind == 0 ? bwd_dq_bf16<D> : kind == 1 ? bwd_dkv_bf16<D>
-                                                    : bwd_dbias_bf16<D>;
+    kernel = kind == 0 ? bwd_dq_bf16<D> : bwd_dbias_bf16<D>;
   } else {
     tile = kT32;
     smem = smem_f32<D>(kind == 0 ? 1 : kind == 1 ? 2 : 0);

@@ -17,24 +17,49 @@
 // Bound.  bf16 at the serving shape m = 32*512, k = 768, n = 3072:
 // 2*m*k*n = 77.3 GFLOP, about 78 us at 989 TFLOP/s, against about 39 us
 // for the 131 MB it must move (x, w, b read once, out written once) at
-// 3.35 TB/s: compute-bound, so the design aims at the tensor cores.
-// f32 runs on the FP32 pipes (67 TFLOP/s), never TF32: the TPU kernel
-// takes Precision.HIGHEST for f32.
+// 3.35 TB/s: compute-bound, so the design aims at the tensor cores, and
+// only wgmma reaches their full rate.
 //
-// Design (simple first; wgmma/TMA is later work):
-//   * bf16: 128 x 128 output tile per block of 8 warps (2 x 4), each warp
-//     a 64 x 32 sub-tile of 4 x 4 mma.sync.m16n8k16 (bf16 in, f32
-//     accumulate).  Tiles of x and w, 32 deep in k, are staged in shared
-//     memory, double-buffered with cp.async so the next tile's copy
-//     overlaps this tile's products, and read into fragments with
-//     ldmatrix (rows padded by 8 elements: conflict-free).
+// Three bodies of one kernel; the caller (ops/kernels/fused_dense.py)
+// picks one by dtype and layout and counts its launches per body:
+//   * sm90 (bf16, k % 8 == 0, n % 8 == 0, 16-byte aligned x, w and out:
+//     what TMA takes).  A persistent grid, one block per SM, walks 128 x
+//     256 output tiles (n = 3072 is 12 of them).  One producer thread
+//     issues the TMA loads, 64 deep in k (128-byte swizzle), into a ring
+//     of 3 stages of 48 KB with full and empty mbarriers; two consumer
+//     warpgroups each run wgmma m64n256k16 on 64 of the tile's rows from
+//     shared memory into 128 f32 registers a thread, releasing a stage as
+//     soon as the products that read it are done.  setmaxnreg gives the
+//     consumers 232 registers and the producer 40.  The producer runs up to 3 stages ahead, so one
+//     tile's epilogue overlaps the next tile's loads.  The epilogue writes
+//     each warpgroup's 64 x 256 outputs as bf16 into shared memory
+//     (128-byte swizzled: no bank conflicts from the accumulator layout)
+//     and one thread stores them by TMA, which runs on behind the next
+//     tile's products: stored straight from the accumulator layout (4
+//     bytes a thread, 8 rows an instruction) the output took longer than
+//     the products themselves.  What is left is the epilogue's GELU (two
+//     SFU operations an element) while the tensor cores wait.  Ragged
+//     edges: TMA fills rows and k past the edge with zeros on load and
+//     drops them on store.  The epilogue takes 0.5 (1 + tanh u) as
+//     1 / (1 + exp(-2u)), the same function with one exp and a fast
+//     division instead of tanhf's longer sequence (it agrees with the
+//     tanh form to about 1e-6, far inside one bf16 ulp).
+//   * cp_async (bf16 shapes TMA cannot take: k or n % 8 != 0, or a base
+//     that is not 16-byte aligned): 128 x 128 tiles, 8 warps of mma.sync
+//     m16n8k16, x and w staged 32 deep in k through a two-stage cp.async
+//     ring (16-byte copies where aligned, element loads on the edges).
 //   * f32: 128 x 128 tile per block of 256 threads, 8 deep in k through
-//     shared memory, each thread an 8 x 8 block of outputs by FFMA.
-//   * epilogue in registers: + b, GELU, one cast, one store.
+//     shared memory, each thread an 8 x 8 block of outputs by FFMA.  Never
+//     TF32: the TPU kernel asks Precision.HIGHEST for f32, and a TF32
+//     wgmma would change the numbers.
+// Each epilogue applies + b, GELU and one cast to the f32 accumulator
+// registers before the single store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -44,7 +69,7 @@ __device__ __forceinline__ float gelu_tanh(float y) {
   return 0.5f * y * (1.0f + tanhf(kSqrt2OverPi * (y + 0.044715f * (y * y * y))));
 }
 
-// ---------------------------------------------------------------- bf16
+// ------------------------------------------------------- bf16, cp.async
 
 constexpr int BM = 128, BN = 128, BK = 32, PAD = 8, LDS = BK + PAD;
 constexpr int kThreads = 256;
@@ -192,6 +217,182 @@ dense_gelu_bf16(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------- bf16, sm90
+
+namespace sm90 {
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 3;
+constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, producer 2
+// the output tile staged for its TMA store: per consumer warpgroup 4
+// boxes of [64 rows][64 columns] bf16, 128-byte swizzled
+constexpr int OUT_BOX = 64 * 64 * 2;
+constexpr int OUT_BYTES = 2 * (BN / 64) * OUT_BOX;
+constexpr int SMEM = STAGES * STAGE_BYTES + OUT_BYTES + 2 * STAGES * 8 + 1024;
+// a 64-element (128-byte) row of a tile; 8 rows make the swizzle atom
+constexpr uint32_t ROW = BK * 2, ATOM = 8 * ROW;
+
+// 0.5 y (1 + tanh u) written as y / (1 + exp(-2u))
+__device__ __forceinline__ float gelu_tanh_fast(float y) {
+  const float u = kSqrt2OverPi * (y + 0.044715f * (y * y * y));
+  return __fdividef(y, 1.0f + __expf(-2.0f * u));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+dense_gelu_sm90(const __grid_constant__ CUtensorMap tx,
+                const __grid_constant__ CUtensorMap tw,
+                const __grid_constant__ CUtensorMap tout,
+                const __nv_bfloat16* __restrict__ b, int m, int n, int k) {
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* outs = ring + STAGES * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);    // the producer's expect_tx arrival
+      hopper::mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // tile t is m-tile t / n_tiles and n-tile t % n_tiles
+  const int n_tiles = (n + BN - 1) / BN;
+  const int tiles = (m + BM - 1) / BM * n_tiles;
+  const int kb = (k + BK - 1) / BK;
+
+  if (wg == 2) {   // producer: one thread keeps the ring full
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+        for (int kk = 0; kk < kb; ++kk) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = ring + stage * STAGE_BYTES;
+          hopper::mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+          hopper::tma_load_2d(st, &tx, &full[stage], kk * BK, m0);
+          hopper::tma_load_2d(st + A_BYTES, &tw, &full[stage], kk * BK, n0);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {   // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64)
+    hopper::setmaxnreg_inc<232>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int layout = hopper::swizzle_layout(128);
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[128];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int kk = 0; kk < kb; ++kk) {
+        hopper::mbar_wait(&full[stage], phase);
+        const unsigned char* st = ring + stage * STAGE_BYTES;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) {   // 16 deep per wgmma: 32 bytes
+          const uint64_t da = hopper::make_desc(st + wg * 64 * ROW + j * 32,
+                                                16, ATOM, layout);
+          const uint64_t db = hopper::make_desc(st + A_BYTES + j * 32, 16,
+                                                ATOM, layout);
+          hopper::wgmma_ss_n256(acc, da, db, 1);
+        }
+        hopper::wgmma_commit();
+        // the previous k-step's products have read their stage: free it
+        hopper::wgmma_wait<1>();
+        if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+
+      // epilogue: + b, GELU, one cast, staged in shared memory and stored
+      // by TMA, which runs on behind the next tile's products
+      unsigned char* ot = outs + wg * (BN / 64) * OUT_BOX;
+      const bool issuer = threadIdx.x % 128 == 0;
+      if (issuer) hopper::bulk_wait_read<0>();   // the last store read ot
+      hopper::named_sync(1 + wg, 128);
+      const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + c * 2;
+        const float b0 = col < n ? __bfloat162float(b[col]) : 0.f;
+        const float b1 = col + 1 < n ? __bfloat162float(b[col + 1]) : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = warp * 16 + g + hh * 8;   // r % 8 == g
+          __nv_bfloat162 v = __floats2bfloat162_rn(
+              gelu_tanh_fast(acc[4 * j + 2 * hh] + b0),
+              gelu_tanh_fast(acc[4 * j + 2 * hh + 1] + b1));
+          *reinterpret_cast<__nv_bfloat162*>(
+              ot + j / 8 * OUT_BOX + r * 128 + ((j % 8) ^ g) * 16 + c * 4) = v;
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, 128);
+      if (issuer && m0 + wg * 64 < m) {
+        for (int box = 0; box < BN / 64 && n0 + box * 64 < n; ++box)
+          hopper::tma_store_2d(&tout, ot + box * OUT_BOX, n0 + box * 64,
+                               m0 + wg * 64);
+        hopper::bulk_commit();
+      }
+    }
+    if (threadIdx.x % 128 == 0) hopper::bulk_wait<0>();
+  }
+}
+
+// the tensor maps of x, w and out and the persistent launch
+int launch(const void* x, const void* w, const void* b, void* out, int m,
+           int n, int k, cudaStream_t st) {
+  CUtensorMap tx, tw, tout;
+  const uint64_t row_bytes[1] = {static_cast<uint64_t>(k) * 2};
+  const uint64_t x_size[2] = {static_cast<uint64_t>(k),
+                              static_cast<uint64_t>(m)};
+  const uint64_t w_size[2] = {static_cast<uint64_t>(k),
+                              static_cast<uint64_t>(n)};
+  const uint32_t x_box[2] = {BK, BM}, w_box[2] = {BK, BN};
+  const uint64_t out_size[2] = {static_cast<uint64_t>(n),
+                                static_cast<uint64_t>(m)};
+  const uint64_t out_row[1] = {static_cast<uint64_t>(n) * 2};
+  const uint32_t out_box[2] = {64, 64};
+  if (!hopper::make_tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
+                               x_size, row_bytes, x_box,
+                               CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
+                               w_size, row_bytes, w_box,
+                               CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_tensor_map(&tout, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out,
+                               out_size, out_row, out_box,
+                               CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(dense_gelu_sm90,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  // persistent: at most one block per SM, never a second wave
+  const int tiles = (m + BM - 1) / BM * ((n + BN - 1) / BN);
+  const int sms = hopper::sm_count();
+  dense_gelu_sm90<<<tiles < sms ? tiles : sms, kThreads, SMEM, st>>>(
+      tx, tw, tout, static_cast<const __nv_bfloat16*>(b), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+
 // ---------------------------------------------------------------- f32
 
 constexpr int FBM = 128, FBN = 128, FBK = 8;
@@ -254,25 +455,34 @@ dense_gelu_f32(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace
 
-// x [m, k], w [n, k], b [n], out [m, n], all contiguous and of one
-// dtype: 0 = f32, 1 = bf16.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for another dtype).
+// x [m, k], w [n, k], b [n], out [m, n], all contiguous.  body: 0 = f32
+// (FFMA), 1 = bf16 cp.async, 2 = bf16 sm90 (TMA + wgmma; k % 8 == 0,
+// n % 8 == 0 and 16-byte aligned x, w and out, else
+// cudaErrorInvalidValue).  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
+// body).
 extern "C" int fused_dense_gelu(const void* x, const void* w, const void* b,
-                                void* out, int m, int n, int k, int dtype,
+                                void* out, int m, int n, int k, int body,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0) return 0;
-  if (dtype == 1) {
-    const bool vec = (k % 8 == 0) &&
-                     (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  const bool aligned = (k % 8 == 0) &&
+                       (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  if (body == 2) {
+    if (!aligned || n % 8 != 0 ||
+        reinterpret_cast<uintptr_t>(out) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return sm90::launch(x, w, b, out, m, n, k, st);
+  }
+  if (body == 1) {
     const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
     dense_gelu_bf16<<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w),
         static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(out), m, n, k, vec ? 1 : 0);
-  } else if (dtype == 0) {
+        static_cast<__nv_bfloat16*>(out), m, n, k, aligned ? 1 : 0);
+  } else if (body == 0) {
     const dim3 grid((n + FBN - 1) / FBN, (m + FBM - 1) / FBM);
     dense_gelu_f32<<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),

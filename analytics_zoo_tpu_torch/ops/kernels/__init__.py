@@ -35,9 +35,11 @@ KERNELS = {"layer_norm_fwd": layer_norm_fwd,
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch count (and count per body) to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+        for body in getattr(fn, "launches_by_body", {}):
+            fn.launches_by_body[body] = 0
 
 
 def launch_counts() -> dict:

@@ -138,12 +138,15 @@ def load(name: str) -> ctypes.CDLL:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`.  Under a lock: callers such as
-    `InferenceModel.predict` launch from several threads, and a bare
-    `+= 1` on an attribute can lose counts between threads."""
+def count_launch(wrapper, body: str = None) -> None:
+    """Add one to `wrapper.launches` (and to `wrapper.launches_by_body
+    [body]` for a kernel with several bodies).  Under a lock: callers
+    such as `InferenceModel.predict` launch from several threads, and a
+    bare `+= 1` on an attribute can lose counts between threads."""
     with _count_lock:
         wrapper.launches += 1
+        if body is not None:
+            wrapper.launches_by_body[body] += 1
 
 
 def cuda_sources() -> List[str]:

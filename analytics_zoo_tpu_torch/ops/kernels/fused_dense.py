@@ -8,7 +8,11 @@ and one cast to the output dtype, so the [m, n] pre-activation never
 reaches device memory.  The weight is in PyTorch's Linear layout
 [n, k] (the flax kernel [k, n] transposed).  At the serving shapes the
 kernel is bound by the tensor cores; the source says how its design
-meets that.  `ops.dense.dense_bias_gelu` is the one dispatch point.
+meets that.  The kernel has three bodies (`body` picks one: TMA + wgmma
+for bf16 where TMA can read the operands, a cp.async + mma.sync body for
+the other bf16 shapes, FFMA for f32), and the wrapper counts launches
+per body in `fused_dense_gelu.launches_by_body`.
+`ops.dense.dense_bias_gelu` is the one dispatch point.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import torch
 
 from analytics_zoo_tpu_torch.ops.kernels import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernel's bodies, as the C entry point numbers them
+BODIES = {"f32": 0, "cp_async": 1, "sm90": 2}
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
 
@@ -33,6 +39,17 @@ def _fn():
     fn.argtypes = [ptr] * 4 + [ctypes.c_int] * 4 + [ptr]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name, x, weight, bias, out) -> int:
+    """Call the C entry point on the current stream with body `name`;
+    returns its CUDA status."""
+    m, k = x.shape
+    fn = _fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        return fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), m, weight.shape[0], k, BODIES[name], stream)
 
 
 def fused_dense_gelu(x, weight, bias):
@@ -66,19 +83,33 @@ def fused_dense_gelu(x, weight, bias):
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    fn = _fn()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), m, n, k, _DTYPES[x.dtype], stream)
+    name = body(x, weight)
+    rc = _launch(name, x, weight, bias, out)
     if rc != 0:
-        raise RuntimeError(f"fused_dense_gelu kernel launch failed: CUDA "
-                           f"error {rc}")
-    _build.count_launch(fused_dense_gelu)
+        raise RuntimeError(f"fused_dense_gelu kernel launch failed ({name} "
+                           f"body): CUDA error {rc}")
+    _build.count_launch(fused_dense_gelu, name)
     return out
 
 
 fused_dense_gelu.launches = 0
+#: launches per body, beside the total
+fused_dense_gelu.launches_by_body = dict.fromkeys(BODIES, 0)
+
+
+def body(x, weight) -> str:
+    """Which body of the kernel takes these operands: "f32" for f32;
+    for bf16 "sm90" (TMA + wgmma) where TMA can read x and weight and
+    write the output (k and n multiples of 8, so rows are 16-byte
+    strided, and 16-byte aligned bases; the wrapper's output is), else
+    "cp_async"."""
+    if x.dtype == torch.float32:
+        return "f32"
+    k, n = x.shape[-1], weight.shape[0]
+    if k % 8 == 0 and n % 8 == 0 and x.data_ptr() % 16 == 0 \
+            and weight.data_ptr() % 16 == 0:
+        return "sm90"
+    return "cp_async"
 
 
 def gelu_tanh(y):

@@ -20,7 +20,11 @@ Phases (each one failing exits non-zero, with no result line):
   3. K6 paged decode attention (CUDA) vs its plain version, f32 and
      int8 pools;
   4. K2 fused dense + bias + GELU (CUDA) vs its plain version, bf16 and
-     f32, at the BERT fc1 shapes and a ragged one;
+     f32, at the BERT fc1 shapes and a ragged one, and in bf16 at m and n
+     no multiple of the Hopper body's tile and at k % 8 != 0 (the
+     cp_async body), each on the body its layout calls for; where the
+     Hopper body runs, the cp_async body also runs on the same operands,
+     held to the same gate and timed beside it (`cp_async_ms`);
   5. K3 flash attention forward (CUDA) vs its plain version, bf16 and
      f32: kv_mask with a fully padded row, a bias at each of
      [1|b, 1|h, t, t], causal, dropout, and q/k/v read in place from a
@@ -30,14 +34,17 @@ Phases (each one failing exits non-zero, with no result line):
   5c. K4a, K4b and K5, the flash backward (CUDA), vs their plain
      version, bf16 and f32, in every case of phase 5 plus a loss on the
      lse and the fine-tune's own case (fused qkv, dropout, key mask); dq,
-     dk, dv and the bias's gradient at each broadcast;
+     dk, dv and the bias's gradient at each broadcast; the key mask has
+     the edges of K4b's padded-key-tile skip, and dk, dv must be exactly
+     zero at every padded key;
   6. slice 1: warm the generation engine, serve concurrent greedy
      requests through the background loop, check K1/K6 launch counts
      and the logits; again with an int8 KV pool;
   7. slice 2: BERTClassifier at BERT-base's widths (bf16, flash) behind
      InferenceModel, predict calls from 4 threads at t = 128 and 512;
      sequences/s, valid tokens/s, latency p50 per (batch, t); K1/K2/K3
-     launch counts exact per forward; logits vs the plain recompute; an
+     launch counts exact per forward, every K2 launch on its sm90 body;
+     logits vs the plain recompute; an
      f32 model at a tight tolerance; the same traffic with
      attn_impl="einsum" as a comparison line;
   8. slice 3: BERTClassifier at BERT-base's widths fine-tuned through
@@ -46,8 +53,8 @@ Phases (each one failing exits non-zero, with no result line):
      the kernels vs the plain path (bf16, and an f32 model at a tight
      gate), 2 warm-up and 10 timed steps in one `fit`, step p50 (CUDA
      events recorded as each step is queued), tokens/s,
-     `bert_train_mfu`, launches per step exact, an evaluate call that
-     launches no backward kernel;
+     `bert_train_mfu`, launches per step exact, every K2 launch on its
+     sm90 body, an evaluate call that launches no backward kernel;
   9. the learnable-bias path: a 2-block encoder at BERT-base widths fed
      a `RelativePositionBias` [1, 12, 512, 512], trained a few steps,
      K5 launched once per attention layer per step, the bias table's
@@ -186,6 +193,20 @@ def device_times(shape: dict) -> None:
         shape[key] = dev if dev is not None \
             else shape[key.replace("ms", "call_ms")]
     shape["ms_from"] = src
+
+
+def k2_bodies(label: str, counts: dict) -> dict:
+    """K2's launches per body since the last reset, checked: every launch
+    of a bf16 path took the Hopper (sm90) body, none the cp_async one."""
+    from analytics_zoo_tpu_torch.ops.kernels.fused_dense import (
+        fused_dense_gelu,
+    )
+    bodies = dict(fused_dense_gelu.launches_by_body)
+    check(bodies["sm90"] == counts["fused_dense_gelu"]
+          and bodies["cp_async"] == 0 and bodies["f32"] == 0,
+          f"{label}: K2 launches by body {bodies}; all "
+          f"{counts['fused_dense_gelu']} must take the sm90 body")
+    return bodies
 
 
 def bound(n_bytes: float, n_flops: float, peak: float = F32_FLOPS):
@@ -353,23 +374,45 @@ def phase_paged(torch, gen):
 
 def phase_fused_dense(torch, gen):
     from analytics_zoo_tpu_torch.ops.kernels.fused_dense import (
+        _launch,
         dense_bias_gelu_reference,
         fused_dense_gelu,
     )
+
+    def cp_async_body(x, w, b, out):
+        # the cp.async + mma.sync body on operands the sm90 body takes,
+        # called past the wrapper: a comparison, not counted
+        check(_launch("cp_async", x, w, b, out) == 0,
+              "K2 cp_async body: launch failed")
+        return out
+
     shapes = []
     # m = 8 x 128 and 32 x 512: BERT fc1 at the served batches; m = 100:
-    # a ragged edge in every dimension but k
-    for m, k, n in ((8 * 128, 768, 3072), (32 * 512, 768, 3072),
-                    (100, 768, 3072)):
-        for dtype in (torch.bfloat16, torch.float32):
+    # a ragged edge in every dimension but k; bf16 (1000, 768, 1000): m
+    # and n no multiple of the sm90 body's 128 x 256 tile; bf16 (1000,
+    # 770, 1000): k % 8 != 0, which TMA cannot read (the cp_async body)
+    for m, k, n, dtypes in ((8 * 128, 768, 3072, "both"),
+                            (32 * 512, 768, 3072, "both"),
+                            (100, 768, 3072, "both"),
+                            (1000, 768, 1000, "bf16"),
+                            (1000, 770, 1000, "bf16")):
+        for dtype in ((torch.bfloat16, torch.float32) if dtypes == "both"
+                      else (torch.bfloat16,)):
             x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(n, k, generator=gen, device="cuda")
                  / k ** 0.5).to(dtype)
             b = (0.5 * torch.randn(n, generator=gen, device="cuda")
                  ).to(dtype)
+            before = dict(fused_dense_gelu.launches_by_body)
             got = fused_dense_gelu(x, w, b)
             want = dense_bias_gelu_reference(x, w, b)
             torch.cuda.synchronize()
+            body = [name for name, c in fused_dense_gelu.launches_by_body
+                    .items() if c != before[name]]
+            expect = ("f32" if dtype == torch.float32
+                      else "cp_async" if k % 8 or n % 8 else "sm90")
+            check(body == [expect], f"K2 {dtype} ({m}, {k}, {n}) took the "
+                  f"body {body}, expected {expect}")
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
             if dtype == torch.bfloat16:
@@ -391,19 +434,33 @@ def phase_fused_dense(torch, gen):
                                else F32_FLOPS)
             name = "bf16" if dtype == torch.bfloat16 else "f32"
             shape = dict(name="fused_dense_gelu", dtype=name, m=m, k=k, n=n,
-                         max_abs_err=err, bound_ms=b_ms, bound_by=b_by)
+                         body=expect, max_abs_err=err, bound_ms=b_ms,
+                         bound_by=b_by)
             wt = w.t()
-            shapes.append(call_times(shape, dict(
-                ms=partial(fused_dense_gelu, x, w, b),
-                plain_ms=partial(dense_bias_gelu_reference, x, w, b),
-                library_ms=partial(torch._addmm_activation, b, x, wt,
-                                   use_gelu=True))))
-            print(f"K2 fused_dense_gelu {name} ({m}, {k}, {n}): max_abs_err="
+            fns = dict(ms=partial(fused_dense_gelu, x, w, b),
+                       plain_ms=partial(dense_bias_gelu_reference, x, w, b),
+                       library_ms=partial(torch._addmm_activation, b, x, wt,
+                                          use_gelu=True))
+            if expect == "sm90":
+                # the same operands on the earlier body, held to the same
+                # gate and timed beside the sm90 body as cp_async_ms
+                old = cp_async_body(x, w, b, torch.empty_like(got))
+                torch.cuda.synchronize()
+                check(bool(((old.float() - want.float()).abs() <= tol).all()),
+                      f"K2 bf16 ({m}, {k}, {n}) cp_async body: beyond its "
+                      f"tolerance")
+                fns["cp_async_ms"] = partial(cp_async_body, x, w, b,
+                                             torch.empty_like(got))
+            shapes.append(call_times(shape, fns))
+            print(f"K2 fused_dense_gelu {name} ({m}, {k}, {n}) {expect} "
+                  f"body: max_abs_err="
                   f"{err:.3e}; per call with launch gaps: kernel "
                   f"{shape['call_ms']:.5f} ms, plain "
                   f"{shape['plain_call_ms']:.5f} ms, _addmm_activation "
-                  f"{shape['library_call_ms']:.5f} ms; bound {b_ms:.5f} ms "
-                  f"({b_by})", flush=True)
+                  f"{shape['library_call_ms']:.5f} ms"
+                  + (f", cp_async body {shape['cp_async_call_ms']:.5f} ms"
+                     if expect == "sm90" else "")
+                  + f"; bound {b_ms:.5f} ms ({b_by})", flush=True)
     return shapes
 
 
@@ -411,12 +468,16 @@ def phase_fused_dense(torch, gen):
 # phase 5: K3
 # ----------------------------------------------------------------------
 
-def flash_scene(torch, gen, b, t, h, d, dtype):
+def flash_scene(torch, gen, b, t, h, d, dtype, boundary=False):
     """q, k, v [b, t, h, d]; the same three read as strided thirds of
     one fused [b, t, 3*h*d] projection, as MultiHeadAttention reads them;
     a kv_mask with valid lengths uniform in [t/4, t] and batch 0 fully
     padded; a bias at each of the four broadcast shapes [1|b, 1|h, t, t];
-    the dropout seed triple (seed, q offset, k offset)."""
+    the dropout seed triple (seed, q offset, k offset).  `boundary` adds
+    the edges of K4b's padded-key-tile skip (blocks of 128 keys, 64 per
+    warpgroup): batch 1's last valid key is the first key of a block (of
+    a warpgroup's half at t = 128), batch 2 has two whole padded blocks
+    (one valid key at t = 128)."""
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
     qkv = torch.randn(b, t, 3 * h * d, generator=gen, device="cuda"
@@ -424,6 +485,9 @@ def flash_scene(torch, gen, b, t, h, d, dtype):
     fused = tuple(a.reshape(b, t, h, d) for a in qkv.split(h * d, dim=-1))
     lens = torch.randint(t // 4, t + 1, (b,), generator=gen, device="cuda")
     lens[0] = 0
+    if boundary:
+        lens[1] = 129 if t > 128 else 65
+        lens[2] = t - 256 if t >= 384 else 1
     mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(
         torch.int32)
     biases = {f"{bb}x{hh}": 0.5 * torch.randn(bb, hh, t, t, generator=gen,
@@ -655,7 +719,7 @@ def phase_flash_bwd(torch, gen):
     for b, t in ((8, 128), (32, 512)):
         for dtype in (torch.bfloat16, torch.float32):
             qkv, fused, mask, biases, seed3, n_valid = flash_scene(
-                torch, gen, b, t, h, d, dtype)
+                torch, gen, b, t, h, d, dtype, boundary=True)
             name = "bf16" if dtype == torch.bfloat16 else "f32"
             variants = {"mask": (qkv, dict(kv_mask=mask))}
             for shp, bias in biases.items():
@@ -718,6 +782,10 @@ def phase_flash_bwd(torch, gen):
                 check(all(bool((a[0] == 0).all()) for a in got[:3]),
                       f"flash bwd {name} {label}: a fully padded batch row "
                       "must give zero dq, dk, dv")
+                padded = kw["kv_mask"] == 0
+                check(all(bool((a[padded] == 0).all()) for a in got[1:3]),
+                      f"flash bwd {name} {label}: dk and dv must be exactly "
+                      "zero at every padded key")
                 errs[label] = e
                 shares[label] = share
             q, k, v = qkv
@@ -893,6 +961,7 @@ def serve_bert(torch, im, model, seed: int, label: str, flash: bool):
                 flash_fwd=n_blk * forwards if flash else 0)
     check(counts == want, f"{label}: launches {counts}, expected {want} "
           f"for {forwards} forwards")
+    bodies = k2_bodies(label, counts)
     lat = {}
     for n, t, _, _, _, sec in done:
         lat.setdefault(f"{n}x{t}", []).append(sec * 1e3)
@@ -903,7 +972,7 @@ def serve_bert(torch, im, model, seed: int, label: str, flash: bool):
         valid_tokens_per_s=sum(r[3] for r in done) / wall,
         predict_ms_p50={k_: statistics.median(v)
                         for k_, v in sorted(lat.items())},
-        launches=counts)
+        launches=counts, k2_launches_by_body=bodies)
     return summary, done
 
 
@@ -1203,6 +1272,7 @@ def phase_train(torch, seed: int, card: str):
             "flash_bwd_dbias": 0, "paged_decode": 0}
     check(counts == want, f"slice 3: launches {counts}, expected {want} for "
           f"{n_steps} steps")
+    bodies = k2_bodies("slice 3", counts)
     steps = eng.last_steps
     losses = [s["loss"] for s in steps]
     check(all(np.isfinite(losses)) and len(steps) == n_steps,
@@ -1224,7 +1294,7 @@ def phase_train(torch, seed: int, card: str):
         step_ms=[s * 1e3 for s in times],
         padded_tokens_per_s=padded / p50, valid_tokens_per_s=valid / p50,
         losses=losses, accuracy=est.train_summary[-1]["accuracy"],
-        launches=counts,
+        launches=counts, k2_launches_by_body=bodies,
         launches_per_step={k: v / n_steps for k, v in counts.items()},
         bert_train_mfu=flops_per_token * padded / p50 / BF16_FLOPS,
         first_step_f32=f32_check, first_step_bf16=bf16_check)
@@ -1239,6 +1309,7 @@ def phase_train(torch, seed: int, card: str):
                    flash_bwd_dkv=0)
     check(ev_counts == want_ev, f"slice 3 evaluate: launches {ev_counts}, "
           f"expected {want_ev}")
+    k2_bodies("slice 3 evaluate", ev_counts)
     summary["evaluate"] = dict(ev, launches=ev_counts)
     print(f"slice 3 [{card}] BERT-base fine-tune, batch {TRAIN_BATCH} x t = "
           f"{TRAIN_T} ({valid} valid tokens), Adam 2e-5: step p50 "
@@ -1555,12 +1626,13 @@ def kernel_entry(name, route, source, replaces, launches, shapes,
     """One kernel's record of the result line: the numbers at its main
     path's shape (`shapes[main]`), every shape beside them."""
     m = shapes[main]
-    return dict(name=name, route=route, source=source, replaces=replaces,
-                launches=launches,
-                max_abs_err=max(s["max_abs_err"] for s in shapes),
-                ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-                bound_by=m["bound_by"], library_ms=m["library_ms"],
-                shapes=shapes)
+    entry = dict(name=name, route=route, source=source, replaces=replaces,
+                 launches=launches,
+                 max_abs_err=max(s["max_abs_err"] for s in shapes),
+                 ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                 bound_by=m["bound_by"], library_ms=m["library_ms"],
+                 shapes=shapes)
+    return entry
 
 
 def main(argv=None) -> int:
@@ -1622,13 +1694,14 @@ def main(argv=None) -> int:
                                              for s in v]:
         device_times(shape)
         subtract_forward(shape, "library_ms")
-        what = {k: shape[k] for k in ("rows", "pool", "dtype", "m", "b", "t")
-                if k in shape}
+        what = {k: shape[k] for k in ("rows", "pool", "dtype", "m", "k", "n",
+                                      "b", "t") if k in shape}
         print(f"{shape['name']} {what} device time per call [{card}] "
               f"({shape['ms_from']}): kernel {shape['ms']:.5f} ms, plain "
               f"{shape['plain_ms']:.5f} ms, library "
               f"{shape['library_ms']:.5f} ms, bound {shape['bound_ms']:.5f} "
-              f"ms", flush=True)
+              f"ms" + (f", cp_async body {shape['cp_async_ms']:.5f} ms"
+                       if "cp_async_ms" in shape else ""), flush=True)
     clocks("after phase 10 kernel timings", start)
     engine.keep_logits = False
     runs[0]["decode_profile"] = decode_profile(

@@ -260,6 +260,37 @@ def test_flash_dbias_each_broadcast(lead):
                         dropout_rate=0.1, dropout_seed=np.int32(11)))
 
 
+@pytest.mark.parametrize("case", ["mask", "dropout", "bias", "causal"])
+def test_flash_grads_padded_key_tiles_exactly_zero(case):
+    """The invariant K4b's padded-key-tile skip relies on: at a key the
+    kv_mask pads, p = 0, so ds = p~ = 0 and dk, dv are exactly 0 there
+    (a 128-key block of padding writes zeros without computing).  Batch
+    row 0 has a whole trailing 128-key tile of padding; row 1's last
+    valid key, 128, is the first key of its tile.  Both the JAX Pallas
+    backward and the port's plain version give exact zeros at every
+    padded key, and agree elsewhere."""
+    t = 256
+    q, k, v = _qkv(9, t=t)
+    mask = np.ones((B, t), np.int32)
+    mask[0, 128:] = 0
+    mask[1, 129:] = 0
+    kw = dict(kv_mask=mask)
+    if case == "dropout":
+        kw.update(dropout_rate=0.1, dropout_seed=np.int32(5))
+    elif case == "bias":
+        kw["bias"] = np.random.default_rng(10).normal(
+            size=(B, 1, t, t)).astype(np.float32)
+    elif case == "causal":
+        kw["causal"] = True
+    pair = _flash_grads(q, k, v, **kw)
+    _close(pair)
+    padded = mask == 0
+    for grads in pair:
+        _, dk, dv = grads[:3]
+        assert np.all(dk[padded] == 0) and np.all(dv[padded] == 0)
+        assert np.abs(dk[~padded]).max() > 0 and np.abs(dv[~padded]).max() > 0
+
+
 def test_flash_bwd_kernels_raise_on_cpu():
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, t=16))
     lse = torch.zeros(B * H, 16)

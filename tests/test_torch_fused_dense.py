@@ -21,7 +21,9 @@ import jax.numpy as jnp
 from analytics_zoo_tpu.ops.dense import DenseGelu as JaxDenseGelu
 from analytics_zoo_tpu.ops.dense import dense_bias_gelu as jax_dense_gelu
 from analytics_zoo_tpu.ops.pallas.fused_dense import dense_bias_gelu_pallas
+from analytics_zoo_tpu_torch.ops import kernels
 from analytics_zoo_tpu_torch.ops.dense import DenseGelu, dense_bias_gelu
+from analytics_zoo_tpu_torch.ops.kernels import fused_dense as fd
 from analytics_zoo_tpu_torch.ops.kernels.fused_dense import (
     dense_bias_gelu_reference,
     fused_dense_gelu,
@@ -133,3 +135,63 @@ def test_cpu_tensor_with_kernel_impl_raises():
         fused_dense_gelu(x, w.t().contiguous(), b)
     with pytest.raises(ValueError, match="unknown dense_bias_gelu impl"):
         dense_bias_gelu(x, w.t().contiguous(), b, impl="pallas")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that passes the wrapper's device check, so its
+    argument checks, routing and counting run without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _operands(m, k, n, dtype, offset=0):
+    """x [m, k] (starting `offset` elements into its buffer), weight
+    [n, k], bias [n] as `_OnCard` tensors."""
+    buf = torch.zeros(m * k + offset, dtype=dtype)
+    x = buf[offset:].view(m, k)
+    return tuple(a.as_subclass(_OnCard) for a in (
+        x, torch.zeros(n, k, dtype=dtype), torch.zeros(n, dtype=dtype)))
+
+
+@pytest.mark.parametrize("m,k,n,dtype,offset,want", [
+    (16384, 768, 3072, torch.bfloat16, 0, "sm90"),    # BERT fc1
+    (1000, 768, 1000, torch.bfloat16, 0, "sm90"),     # ragged m and n
+    (1000, 770, 1000, torch.bfloat16, 0, "cp_async"),  # k % 8 != 0
+    (1000, 768, 1001, torch.bfloat16, 0, "cp_async"),  # n % 8 != 0
+    (64, 768, 128, torch.bfloat16, 1, "cp_async"),    # base not 16-aligned
+    (64, 768, 128, torch.float32, 0, "f32"),
+])
+def test_wrapper_routes_and_counts_each_body(monkeypatch, m, k, n, dtype,
+                                             offset, want):
+    """The wrapper sends bf16 operands TMA can read and write to the sm90
+    body and the rest to cp_async (f32 to its own body), passes the body's number
+    to the C entry point, counts the launch in the total and under its
+    body, and raises, naming the body, on a failed launch."""
+    calls = []
+
+    def fake_launch(name, x, weight, bias, out):
+        calls.append((name, fd.BODIES[name], tuple(x.shape), tuple(out.shape)))
+        return 0
+
+    monkeypatch.setattr(fd, "_launch", fake_launch)
+    kernels.reset_launch_counts()
+    assert fused_dense_gelu.launches_by_body == {"f32": 0, "cp_async": 0,
+                                                 "sm90": 0}
+    x, w, b = _operands(m, k, n, dtype, offset)
+    assert fd.body(x, w) == want
+    out = fused_dense_gelu(x, w, b)
+    assert tuple(out.shape) == (m, n) and out.dtype == dtype
+    fused_dense_gelu(x, w, b)
+    assert calls == [(want, fd.BODIES[want], (m, k), (m, n))] * 2
+    assert fused_dense_gelu.launches == 2
+    assert fused_dense_gelu.launches_by_body == {
+        name: 2 if name == want else 0 for name in fd.BODIES}
+    kernels.reset_launch_counts()
+    assert fused_dense_gelu.launches == 0
+    assert set(fused_dense_gelu.launches_by_body.values()) == {0}
+    monkeypatch.setattr(fd, "_launch", lambda *a: 98)
+    with pytest.raises(RuntimeError, match=f"{want} body.*error 98"):
+        fused_dense_gelu(x, w, b)
+    assert fused_dense_gelu.launches == 0
