@@ -32,17 +32,37 @@
 // delta, 38 us at 3.35 TB/s; dK/dV four products (S^T, dP^T, dV, dK), 52
 // us; dbias at a [1, h, t, t] f32 bias two products (26 us) against the
 // 101 MB of q, k, v, dO plus the bias read and its gradient written
-// (25 MB), 38 us.  A kv_mask that pads keys leaves fewer products.
+// (25 MB), 38 us.  A kv_mask that pads keys leaves fewer products: on the
+// fine-tune's traffic (11,403 of 16,384 keys valid) dQ's are 27 us, so
+// bytes bound it.
 //
 // Design, the TPU grid's innermost sequential axis becomes a loop inside
-// one block (dQ and dbias are still the first, simple mma.sync design):
-//   * dQ: one block per (b*h, 64 query rows), a loop over 64-key tiles
-//     (causal: tiles past the diagonal skipped); the Q and dO tiles stay in
-//     shared memory for the whole loop, each K and V tile is staged beside
-//     them; S = Q K^T and dP = dO V^T on mma.sync m16n8k16 (ldmatrix from
-//     rows padded by 8) with f32 accumulators; ds is
-//     re-packed in registers as the bf16 A operand of dQ += dS K (the
-//     TPU kernel rounds ds to the operands' dtype the same way);
+// one block (dbias is still the first, simple mma.sync design):
+//   * dQ (bf16: the Hopper body `bwd_dq_sm90`): one block per (b*h, 128
+//     queries), three warpgroups.  The block first packs its batch row's
+//     kv_mask into bit words in shared memory (flash_sm90.cuh); a 64-key
+//     tile with no valid key is neither loaded nor computed (exact: p =
+//     0 at a masked key, so ds = 0 there; a fully padded row gives zero
+//     dq).  One producer thread loads the block's Q, dO, lse and delta
+//     once, then streams 64-key K and V tiles through a 3-stage ring, all
+//     by TMA (the same tensor maps as dK/dV) on full / empty mbarriers.
+//     Each consumer warpgroup owns 64 queries: S = Q K^T and dP = dO V^T
+//     by wgmma m64n64k16 from shared memory (all K-major), then the
+//     elementwise ds (one SFU exp2 in log2 space, masks, the hash
+//     dropout, specialised per tile as dK/dV's) written straight into
+//     bf16 A registers, then dQ += dS K by wgmma RS with K read MN-major.
+//     The elementwise pass only reads the accumulators and every tile
+//     waits for its products before the next tile's, so ptxas never
+//     serialises the wgmmas (no C7515 / C7513 note in the -Xptxas -v
+//     log); the two warpgroups share each stage, so one's products
+//     overlap the other's elementwise pass.  Causal: key tiles past the
+//     block's last query are never loaded.  dq times the scale goes out
+//     through swizzled shared memory and a TMA store.  setmaxnreg gives
+//     the consumers 232 registers and the producer 40; -Xptxas -v
+//     (sm_90a): 168 registers at launch, no spill, at d = 32, 64 and
+//     128.  One block an SM: at the 80 registers a thread of two blocks
+//     an SM, S, dP, dQ and the A registers do not fit (they spilled, and
+//     ptxas serialised the wgmmas, note C7512);
 //   * dK/dV (bf16: the Hopper body `bwd_dkv_sm90`): one block per (b*h,
 //     128 keys), three warpgroups.  The block first reads its keys'
 //     kv_mask: when all 128 are padding it writes zero dk, dv rows and
@@ -78,19 +98,17 @@
 //     tiles, 4 warps of 8 rows, lanes over 32 columns for the scores and
 //     over d for the products, FFMA throughout.
 
-#include "flash_common.cuh"
-#include "hopper.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-using flash::acc_to_a;
 using flash::bias_lead;
 using flash::drop_keep;
 using flash::kThreads;
 using flash::load_a;
-using flash::load_b;
 using flash::load_bt;
 using flash::mma_bf16;
+using flash::Seeds;
 using flash::stage_rows_bf16;
 using bf16 = __nv_bfloat16;
 
@@ -119,18 +137,6 @@ __device__ __forceinline__ const float* bias_plane(const Params& p, int lead) {
   return p.bias + static_cast<long long>(lead) * p.t * p.t;
 }
 
-// the positional hash's seed and offsets (zeros without dropout)
-struct Seeds {
-  int32_t seed = 0, q_off = 0, k_off = 0;
-  __device__ explicit Seeds(const Params& p) {
-    if (p.dropout) {
-      seed = p.seed3[0];
-      q_off = p.seed3[1];
-      k_off = p.seed3[2];
-    }
-  }
-};
-
 __device__ __forceinline__ bool key_valid(const Params& p, int bi, int col) {
   return col < p.t &&
          (p.kv_mask == nullptr ||
@@ -139,11 +145,12 @@ __device__ __forceinline__ bool key_valid(const Params& p, int bi, int col) {
 
 // ds for one score: s the raw q.k product, dp the raw dO.v product;
 // writes p~ (the dropped, rescaled probability dV uses) to *pd.  The
-// bf16 dK/dV body (dkv90::grad_tile) computes the same per tile in its
-// own copy, with exp2 in log2 space: it must only read its wgmma
+// bf16 Hopper bodies compute the same per tile in their own copies, with
+// exp2 in log2 space: dK/dV's dkv90::grad_tile (keys as rows) and dQ's
+// dq90::ds_tile (queries as rows).  Each must only read its wgmma
 // accumulators and write the bf16 A registers, because ptxas serialises
 // the wgmmas when another instruction writes an accumulator.  A change
-// here (or to K3's softmax) goes into both.
+// here (or to K3's softmax, flash_fwd.cu) goes into all three.
 __device__ __forceinline__ float grad_score(const Params& p, const Seeds& sd,
                                             const float* bplane, int bh,
                                             int row, int col, float s,
@@ -180,7 +187,7 @@ __device__ __forceinline__ long long dout_head(const Params& p, int bi,
 
 // S = X Y^T and dP = U W^T of one warp's 16 rows [r0, r0 + 16) of the
 // staged tiles xs, us against the 64 rows of ys, ws (all [64][D + 8]):
-// Q K^T and dO V^T for dQ and dbias, K Q^T and V dO^T for dK/dV
+// Q K^T and dO V^T for dbias
 template <int D>
 __device__ __forceinline__ void scores_bf16(float (&s)[8][4], float (&dp)[8][4],
                                             const bf16* xs, const bf16* us,
@@ -208,166 +215,21 @@ __device__ __forceinline__ void scores_bf16(float (&s)[8][4], float (&dp)[8][4],
   }
 }
 
-// acc[ND][4] += A (the [16][64] accumulator a_src as bf16) times the
-// staged [64][D+8] tile xs read as B = X
-template <int D>
-__device__ __forceinline__ void acc_product(float (*acc)[4],
-                                            float (&a_src)[8][4],
-                                            const bf16* xs) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    acc_to_a(a, a_src, kk);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      load_b<D>(b, xs, kk * 16, dp * 16);
-      mma_bf16(acc[2 * dp], a, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// one warp's [16][D] accumulator to rows [r0, r0 + 16) of a contiguous
-// [b, t, h, D] bf16 tensor, times `mul`; rows past t dropped
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(void* out, const Params& p,
-                                                int bi, int hi, int r0,
-                                                float (*acc)[4],
-                                                float mul) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = r0 + (lane >> 2) + hh * 8;
-    if (row >= p.t) continue;
-    bf16* orow = static_cast<bf16*>(out) +
-                 ((static_cast<long long>(bi) * p.t + row) * p.h + hi) * D;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + (lane & 3) * 2) =
-          __floats2bfloat162_rn(acc[i][hh * 2] * mul,
-                                acc[i][hh * 2 + 1] * mul);
-  }
-}
-
-// K4a
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq_bf16(Params p) {
-  constexpr int LD = D + 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kT * LD;
-  bf16* ks = dos + kT * LD;
-  bf16* vs = ks + kT * LD;
-  __shared__ int kvalid[kT];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int q0 = blockIdx.x * kT;
-  const long long head = bi * p.sb + hi * p.sh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + head;
-  const bf16* vg = static_cast<const bf16*>(p.v) + head;
-
-  stage_rows_bf16<D>(qs, static_cast<const bf16*>(p.q) + head, q0, p.t, p.st);
-  stage_rows_bf16<D>(dos, static_cast<const bf16*>(p.dout) + dout_head(p, bi, hi, D),
-                     q0, p.t, static_cast<long long>(p.h) * D);
-  const int row0 = q0 + warp * 16 + (lane >> 2);   // and row0 + 8
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + hh * 8;
-    const long long at = static_cast<long long>(bh) * p.t + row;
-    lse_r[hh] = row < p.t ? p.lse[at] : 0.f;
-    delta_r[hh] = row < p.t ? p.delta[at] : 0.f;
-  }
-  float dq[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
-  const Seeds sd(p);
-  const float* bplane =
-      p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
-
-  int n_kv = (p.t + kT - 1) / kT;
-  if (p.causal) n_kv = min(n_kv, (q0 + kT - 1) / kT + 1);
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kT;
-    __syncthreads();   // the previous tile is no longer read
-    stage_rows_bf16<D>(ks, kg, k0, p.t, p.st);
-    stage_rows_bf16<D>(vs, vg, k0, p.t, p.st);
-    if (threadIdx.x < kT) kvalid[threadIdx.x] = key_valid(p, bi, k0 + threadIdx.x);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    scores_bf16<D>(s, dp, qs, dos, warp * 16, ks, vs);
-    // this thread's elements: rows row0 (e < 2) and row0 + 8, cols
-    // nt * 8 + (lane & 3) * 2 + (e & 1); s becomes ds
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1, row = row0 + hh * 8;
-        const int cl = nt * 8 + (lane & 3) * 2 + (e & 1), col = k0 + cl;
-        float pd, ds = 0.f;
-        if (row < p.t && kvalid[cl] && (!p.causal || col <= row))
-          ds = grad_score(p, sd, bplane, bh, row, col, s[nt][e], dp[nt][e],
-                          lse_r[hh], delta_r[hh], &pd);
-        s[nt][e] = ds;
-      }
-    }
-    acc_product<D>(dq, s, ks);   // dQ += dS K
-  }
-  store_rows_bf16<D>(p.dq, p, bi, hi, q0 + warp * 16, dq, p.scale);
-}
-
 // K4b, bf16: TMA + wgmma (see the design above)
 namespace dkv90 {
 constexpr int kKeys = 128;    // keys a block owns: 64 per consumer warpgroup
-constexpr int kQ = 64;        // queries a pipeline stage holds
+constexpr int kQ = flash90::kRows;   // queries a pipeline stage holds
 constexpr int STAGES = 3;
 constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, producer 2
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct Cfg {
-  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle = a row chunk
-  static constexpr int CW = SW / 2;               // bf16 columns a chunk
-  static constexpr int NCH = D / CW;              // chunks a row
-  static constexpr int CHUNK = 64 * SW;           // bytes of a 64-row chunk
-  static constexpr int TILE = NCH * CHUNK;        // bytes of a 64-row tile
-  static constexpr int KV = 4 * TILE;             // K and V, 128 rows each
+struct Cfg : flash90::Tile<D> {
+  using T = flash90::Tile<D>;
+  static constexpr int KV = 4 * T::TILE;   // K and V, 128 rows each
   // Q, dO, then lse and delta (64 f32 each), padded to the 1024-byte atom
-  static constexpr int STAGE = 2 * TILE + 1024;
+  static constexpr int STAGE = 2 * T::TILE + 1024;
   static constexpr int SMEM = KV + STAGES * STAGE + 64 + 1024;
-  static constexpr int LAYOUT = hopper::swizzle_layout(SW);
 };
-
-// K-major descriptor of the 16-column step kk of a 64-row tile
-template <int D>
-__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile, int kk) {
-  using C = Cfg<D>;
-  const int col = kk * 16;
-  return hopper::make_desc(tile + col / C::CW * C::CHUNK + col % C::CW * 2, 16,
-                           8 * C::SW, C::LAYOUT);
-}
-
-// MN-major descriptor of the 16-row step kq of a 64-row tile read as B
-// [16 rows (K)][D (N)]
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile, int kq) {
-  using C = Cfg<D>;
-  return hopper::make_desc(tile + kq * 16 * C::SW, C::CHUNK, 8 * C::SW,
-                           C::LAYOUT);
-}
-
-// keep the A registers live until the products that read them are done
-__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
 
 // a warp's 16 rows of a [64][D] accumulator, times `mul`, to rows
 // r0 + 0..15 of a contiguous [b, t, h, D] bf16 tensor; rows past t dropped
@@ -390,17 +252,6 @@ __device__ __forceinline__ void store_acc(void* out, const Params& p, int bi,
                                 acc[4 * j + 2 * hh + 1] * mul);
   }
 }
-// 2^x by the SFU's ex2.approx (relative error about 2^-22; results below
-// 2^-126 flush to 0, far under any probability the bf16 products can
-// see).  CUDA's exp2f, exact in denormals, gave the same bits on the
-// fine-tune's inputs at many more instructions, in the loop that bounds
-// this kernel.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // p~ and ds of a warpgroup's [64 keys][64 queries] tile from the raw
 // S^T (s) and dP^T (dp) accumulators, rounded to bf16 straight into the
 // A operands of dV += p~^T dO (pa) and dK += dS^T Q (da): the
@@ -433,10 +284,11 @@ __device__ __forceinline__ void grad_tile(const float (&s)[32],
         const int e = 2 * hh + c, ql = j * 8 + c2 + c, q = q0 + ql;
         bool ok = kval[hh];
         if (EDGE) ok = ok && q < p.t && (!p.causal || key <= q);
-        float x2 = s[4 * j + e] * scale2 - lse_s[ql] * kLog2e;
+        float x2 = s[4 * j + e] * scale2 - lse_s[ql] * flash90::kLog2e;
         if (BIAS && ok)
-          x2 += bplane[static_cast<long long>(q) * p.t + key] * kLog2e;
-        const float pv = ok ? exp2_approx(x2) : 0.f;
+          x2 += bplane[static_cast<long long>(q) * p.t + key] *
+                flash90::kLog2e;
+        const float pv = ok ? flash90::exp2_approx(x2) : 0.f;
         float dpv = dp[4 * j + e];
         pd[c] = pv;
         if (DROP) {
@@ -581,7 +433,7 @@ bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
     const Seeds sd(p);
     const float* bplane =
         p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
-    const float scale2 = p.scale * dkv90::kLog2e;
+    const float scale2 = p.scale * flash90::kLog2e;
     float dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
@@ -614,12 +466,12 @@ bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss_n64(s, dkv90::kmajor<D>(kt, kk),
-                               dkv90::kmajor<D>(qt, kk), kk > 0);
+          hopper::wgmma_ss_n64(s, flash90::kmajor<D>(kt, kk),
+                               flash90::kmajor<D>(qt, kk), kk > 0);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss_n64(dp, dkv90::kmajor<D>(vt, kk),
-                               dkv90::kmajor<D>(qt + C::TILE, kk), kk > 0);
+          hopper::wgmma_ss_n64(dp, flash90::kmajor<D>(vt, kk),
+                               flash90::kmajor<D>(qt + C::TILE, kk), kk > 0);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(s);
@@ -638,16 +490,16 @@ bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kq = 0; kq < 4; ++kq)
           hopper::wgmma_rs_tb<D>(dv, pa[kq],
-                                 dkv90::mnmajor<D>(qt + C::TILE, kq), 1);
+                                 flash90::mnmajor<D>(qt + C::TILE, kq), 1);
 #pragma unroll
         for (int kq = 0; kq < 4; ++kq)
-          hopper::wgmma_rs_tb<D>(dk, da[kq], dkv90::mnmajor<D>(qt, kq), 1);
+          hopper::wgmma_rs_tb<D>(dk, da[kq], flash90::mnmajor<D>(qt, kq), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(dv);
         hopper::fence_regs(dk);
-        dkv90::fence_a(pa);
-        dkv90::fence_a(da);
+        flash90::fence_a(pa);
+        flash90::fence_a(da);
         if (lane == 0) hopper::mbar_arrive(&empty[stage]);
         if (++stage == STAGES) {
           stage = 0;
@@ -660,43 +512,300 @@ bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// the tensor maps of q, k, v, dO, lse and delta, and the launch of K4b's
-// bf16 body: grid (t / 128 key blocks, b*h)
+// the tensor maps the Hopper bodies read: q, k, v (the views), dO
+// (contiguous) and lse, delta (flattened [b*h, t])
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, lse, delta;
+};
+
+template <int D>
+bool bwd_maps(const Params& p, BwdMaps* m) {
+  const uint64_t rows = static_cast<uint64_t>(p.b) * p.h * p.t;
+  return flash90::head_map<D>(&m->q, p.q, p.b, p.h, p.t, p.sb, p.sh, p.st) &&
+         flash90::head_map<D>(&m->k, p.k, p.b, p.h, p.t, p.sb, p.sh, p.st) &&
+         flash90::head_map<D>(&m->v, p.v, p.b, p.h, p.t, p.sb, p.sh, p.st) &&
+         flash90::dense_head_map<D>(&m->dout, p.dout, p.b, p.h, p.t) &&
+         flash90::row_map(&m->lse, p.lse, rows) &&
+         flash90::row_map(&m->delta, p.delta, rows);
+}
+
+// the launch of K4b's bf16 body: grid (t / 128 key blocks, b*h)
 template <int D>
 int launch_dkv_sm90(const Params& p, cudaStream_t st) {
   using C = dkv90::Cfg<D>;
-  const CUtensorMapSwizzle sw =
-      C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  const uint64_t size4[4] = {static_cast<uint64_t>(D),
-                             static_cast<uint64_t>(p.h),
-                             static_cast<uint64_t>(p.t),
-                             static_cast<uint64_t>(p.b)};
-  const uint64_t view[3] = {static_cast<uint64_t>(p.sh) * 2,
-                            static_cast<uint64_t>(p.st) * 2,
-                            static_cast<uint64_t>(p.sb) * 2};
-  const uint64_t dense[3] = {static_cast<uint64_t>(D) * 2,
-                             static_cast<uint64_t>(p.h) * D * 2,
-                             static_cast<uint64_t>(p.t) * p.h * D * 2};
-  const uint32_t box4[4] = {C::CW, 1, dkv90::kQ, 1};
-  const uint64_t size1[1] = {static_cast<uint64_t>(p.b) * p.h * p.t};
-  const uint32_t box1[1] = {dkv90::kQ};
-  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
-  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  if (!hopper::make_tensor_map(&tq, bf, 4, p.q, size4, view, box4, sw) ||
-      !hopper::make_tensor_map(&tk, bf, 4, p.k, size4, view, box4, sw) ||
-      !hopper::make_tensor_map(&tv, bf, 4, p.v, size4, view, box4, sw) ||
-      !hopper::make_tensor_map(&tdo, bf, 4, p.dout, size4, dense, box4, sw) ||
-      !hopper::make_tensor_map(&tlse, f32, 1, p.lse, size1, nullptr, box1,
-                               CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !hopper::make_tensor_map(&tdelta, f32, 1, p.delta, size1, nullptr, box1,
-                               CU_TENSOR_MAP_SWIZZLE_NONE))
-    return static_cast<int>(cudaErrorInvalidValue);
+  BwdMaps m;
+  if (!bwd_maps<D>(p, &m)) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncSetAttribute(bwd_dkv_sm90<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   const dim3 grid((p.t + dkv90::kKeys - 1) / dkv90::kKeys, p.b * p.h);
-  bwd_dkv_sm90<D><<<grid, dkv90::kThreads, C::SMEM, st>>>(tq, tk, tv, tdo,
-                                                         tlse, tdelta, p);
+  bwd_dkv_sm90<D><<<grid, dkv90::kThreads, C::SMEM, st>>>(
+      m.q, m.k, m.v, m.dout, m.lse, m.delta, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4a, bf16: TMA + wgmma (see the design above)
+namespace dq90 {
+constexpr int kQ = 128;              // query rows a block owns
+constexpr int kK = flash90::kRows;   // keys a tile
+constexpr int STAGES = 3;
+constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, producer 2
+
+template <int D>
+struct Cfg {
+  static constexpr int TILE = flash90::Tile<D>::TILE;
+  // Q (128 rows, then dq), dO (128 rows), lse and delta (128 f32 each,
+  // padded to the 1024-byte atom)
+  static constexpr int FIXED = 4 * TILE + 1024;
+  static constexpr int STAGE = 2 * TILE;   // a K and a V tile
+  // the ring, then q_full, full[], empty[], then the key words
+  // (flash90::key_words_bytes(t) more, at launch); 1024 to align the base
+  static constexpr int SMEM =
+      FIXED + STAGES * STAGE + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// ds of a warpgroup's [64 queries][64 keys] tile from the raw S and dP
+// accumulators, rounded to bf16 straight into the A operands of dQ += dS
+// K: the accumulators are only read (else ptxas serialises the wgmmas).
+// Each thread holds queries row0, row0 + 8 and keys k0 + 8 j + 2 (lane %
+// 4) + {0, 1}; the pair of key block j, row half hh is A register [j /
+// 2][2 (j % 2) + hh].  lse2 is the rows' lse times log2 e.  EDGE: a key
+// of the tile is padding, or the tile crosses the causal diagonal or t;
+// BIAS, DROP as the call asks.  The math of grad_score, in log2 space.
+template <bool EDGE, bool BIAS, bool DROP>
+__device__ __forceinline__ void ds_tile(const float (&s)[32],
+                                        const float (&dp)[32],
+                                        uint32_t (&da)[4][4], const Params& p,
+                                        const Seeds& sd, const float* bplane,
+                                        int bh, int row0, int k0,
+                                        uint32_t mine, const float (&lse2)[2],
+                                        const float (&dl)[2], float scale2) {
+  const int c2 = (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      float ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * hh + c, col = k0 + 8 * j + c2 + c;
+        bool ok = true;
+        if (EDGE)
+          ok = ((mine >> (2 * j + c)) & 1u) && row < p.t &&
+               (!p.causal || col <= row);
+        float x2 = s[4 * j + e] * scale2 - lse2[hh];
+        if (BIAS && ok)
+          x2 += bplane[static_cast<long long>(row) * p.t + col] *
+                flash90::kLog2e;
+        const float pv = ok ? flash90::exp2_approx(x2) : 0.f;
+        float dpv = dp[4 * j + e];
+        if (DROP)
+          dpv = drop_keep(sd.seed, bh, sd.q_off + row, sd.k_off + col,
+                          p.drop_threshold)
+                    ? dpv * p.drop_scale
+                    : 0.f;
+        ds[c] = pv * (dpv - dl[hh]);
+      }
+      da[j / 2][2 * (j % 2) + hh] = flash::pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+template <bool EDGE>
+__device__ __forceinline__ void ds_tile_for(
+    const float (&s)[32], const float (&dp)[32], uint32_t (&da)[4][4],
+    const Params& p, const Seeds& sd, const float* bplane, int bh, int row0,
+    int k0, uint32_t mine, const float (&lse2)[2], const float (&dl)[2],
+    float scale2) {
+#define DQ_TILE(BIAS, DROP)                                                 \
+  ds_tile<EDGE, BIAS, DROP>(s, dp, da, p, sd, bplane, bh, row0, k0, mine, \
+                            lse2, dl, scale2)
+  if (p.dropout) {
+    if (bplane != nullptr) DQ_TILE(true, true); else DQ_TILE(false, true);
+  } else {
+    if (bplane != nullptr) DQ_TILE(true, false); else DQ_TILE(false, false);
+  }
+#undef DQ_TILE
+}
+}  // namespace dq90
+
+template <int D>
+__global__ void __launch_bounds__(dq90::kThreads, 1)
+bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo,
+            const __grid_constant__ CUtensorMap tlse,
+            const __grid_constant__ CUtensorMap tdelta,
+            const __grid_constant__ CUtensorMap tdq, const Params p) {
+  using T = flash90::Tile<D>;
+  using C = dq90::Cfg<D>;
+  using dq90::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* dos = qs + 2 * T::TILE;
+  float* rows = reinterpret_cast<float*>(dos + 2 * T::TILE);   // lse, delta
+  unsigned char* ring = qs + C::FIXED;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint32_t* words = reinterpret_cast<uint32_t*>(empty + STAGES);
+
+  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
+  const int q0 = blockIdx.x * dq90::kQ;
+  // the producer thread sets up the barriers and starts the load of the
+  // block's own rows, which overlaps the scan of the kv_mask below
+  if (threadIdx.x == 256) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);    // the producer's expect_tx arrival
+      hopper::mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+    // the second half's rows start past t when t ends in the first
+    const int halves = q0 + 64 < p.t ? 2 : 1;
+    hopper::mbar_arrive_expect_tx(q_full,
+                                  halves * (2 * T::TILE + 2 * 64 * 4));
+    for (int w = 0; w < halves; ++w) {
+      const int r0 = q0 + 64 * w;
+      flash90::load_tile<D>(qs + w * T::TILE, &tq, q_full, bi, hi, r0);
+      flash90::load_tile<D>(dos + w * T::TILE, &tdo, q_full, bi, hi, r0);
+      hopper::tma_load_1d(rows + 64 * w, &tlse, q_full, bh * p.t + r0);
+      hopper::tma_load_1d(rows + 128 + 64 * w, &tdelta, q_full,
+                          bh * p.t + r0);
+    }
+  }
+  flash90::key_words(words, p.kv_mask, bi, p.t);
+  __syncthreads();
+  int n_kv = (p.t + dq90::kK - 1) / dq90::kK;
+  if (p.causal) n_kv = min(n_kv, (q0 + dq90::kQ - 1) / dq90::kK + 1);
+
+  if (threadIdx.x >= 256) {   // producer: one thread issues every load
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_kv; ++j) {
+        if ((words[2 * j] | words[2 * j + 1]) == 0) continue;   // padding
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = ring + stage * C::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[stage], C::STAGE);
+        flash90::load_tile<D>(st, &tk, &full[stage], bi, hi, j * dq90::kK);
+        flash90::load_tile<D>(st + T::TILE, &tv, &full[stage], bi, hi,
+                              j * dq90::kK);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {   // consumers: warpgroup wg owns queries q0 + 64 wg + [0, 64)
+    hopper::setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int qw = q0 + 64 * wg;
+    const bool live = qw < p.t;
+    const int r = 64 * wg + warp * 16 + (lane >> 2);   // and r + 8
+    const int row0 = q0 + r;
+    unsigned char* qt = qs + wg * T::TILE;
+    const unsigned char* dot = dos + wg * T::TILE;
+    const Seeds sd(p);
+    const float* bplane =
+        p.bias_mode ? bias_plane(p, bias_lead(p.bias_mode, bh, p.h)) : nullptr;
+    const float scale2 = p.scale * flash90::kLog2e;
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    hopper::mbar_wait(q_full, 0);
+    const float lse2[2] = {rows[r] * flash90::kLog2e,
+                           rows[r + 8] * flash90::kLog2e};
+    const float dl[2] = {rows[128 + r], rows[128 + r + 8]};
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < n_kv; ++j) {
+      const uint32_t w0 = words[2 * j], w1 = words[2 * j + 1];
+      if ((w0 | w1) == 0) continue;   // never loaded: ds = 0 on every key
+      const int k0 = j * dq90::kK;
+      hopper::mbar_wait(&full[stage], phase);
+      if (live && !(p.causal && k0 > qw + 63)) {
+        const unsigned char* kt = ring + stage * C::STAGE;
+        const unsigned char* vt = kt + T::TILE;
+        // S = Q K^T and dP = dO V^T: 64 queries x 64 keys, over D
+        float s[32], dp[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss_n64(s, flash90::kmajor<D>(qt, kk),
+                               flash90::kmajor<D>(kt, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss_n64(dp, flash90::kmajor<D>(dot, kk),
+                               flash90::kmajor<D>(vt, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        const bool edge = (w0 & w1) != 0xffffffffu || qw + 64 > p.t ||
+                          (p.causal && k0 + 63 > qw);
+        const uint32_t mine = flash90::thread_bits(w0, w1);
+        uint32_t da[4][4];
+        if (edge)
+          dq90::ds_tile_for<true>(s, dp, da, p, sd, bplane, bh, row0, k0,
+                                  mine, lse2, dl, scale2);
+        else
+          dq90::ds_tile_for<false>(s, dp, da, p, sd, bplane, bh, row0, k0,
+                                   mine, lse2, dl, scale2);
+        // dQ += dS K: A from registers, B the staged K read MN-major, 16
+        // keys a step
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+          hopper::wgmma_rs_tb<D>(dq, da[kq], flash90::mnmajor<D>(kt, kq), 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dq);
+        flash90::fence_a(da);
+      }
+      if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // epilogue: dq times the scale, staged in the warpgroup's Q tile (no
+    // longer read) and stored by TMA (rows past t dropped)
+    const float mul[2] = {p.scale, p.scale};
+    flash90::stage_acc<D>(qt, dq, mul);
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + wg, 128);
+    if (threadIdx.x % 128 == 0 && live) {
+      flash90::store_tile<D>(&tdq, qt, bi, hi, qw);
+      hopper::bulk_commit();
+      hopper::bulk_wait_read<0>();   // the tile stays until TMA has read it
+    }
+  }
+}
+
+// the launch of K4a's bf16 body: grid (t / 128 query blocks, b*h)
+template <int D>
+int launch_dq_sm90(const Params& p, cudaStream_t st) {
+  BwdMaps m;
+  CUtensorMap tdq;
+  if (!bwd_maps<D>(p, &m) ||
+      !flash90::dense_head_map<D>(&tdq, p.dq, p.b, p.h, p.t))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // grows with t: the limit is the device's (see K3's launch_sm90)
+  const int smem = dq90::Cfg<D>::SMEM + flash90::key_words_bytes(p.t);
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t rc = hopper::allow_max_dynamic_smem(
+      reinterpret_cast<const void*>(bwd_dq_sm90<D>), &smem_set);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((p.t + dq90::kQ - 1) / dq90::kQ, p.b * p.h);
+  bwd_dq_sm90<D><<<grid, dq90::kThreads, smem, st>>>(
+      m.q, m.k, m.v, m.dout, m.lse, m.delta, tdq, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1061,11 +1170,12 @@ int launch(const Params& p, int kind, int dtype, int lead, cudaStream_t st) {
   const int bh = p.b * p.h;
   void (*kernel)(Params);
   int smem, tile;
+  if (dtype == 1 && kind == 0) return launch_dq_sm90<D>(p, st);
   if (dtype == 1 && kind == 1) return launch_dkv_sm90<D>(p, st);
   if (dtype == 1) {
     tile = kT;
     smem = smem_bf16<D>();
-    kernel = kind == 0 ? bwd_dq_bf16<D> : bwd_dbias_bf16<D>;
+    kernel = bwd_dbias_bf16<D>;
   } else {
     tile = kT32;
     smem = smem_f32<D>(kind == 0 ? 1 : kind == 1 ? 2 : 0);

@@ -1,15 +1,17 @@
 // Pieces shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu):
 // the positional dropout hash, the bias's leading-index projection, warp
-// reductions, and the bf16 tensor-core building blocks (ldmatrix, mma.sync
-// m16n8k16, 64-row tile staging).
+// reductions, bf16 packing, and the mma.sync building blocks of K5's bf16
+// body (ldmatrix, mma.sync m16n8k16, 64-row tile staging).  The Hopper
+// bodies' pieces are in flash_sm90.cuh.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (g = lane >> 2, c = lane & 3):
 //   A 16x16:  a0 (row g, cols 2c..2c+1), a1 (row g+8, same cols),
 //             a2 (row g, cols 2c+8..2c+9), a3 (row g+8, same cols);
 //   B 16x8:   b0 (k 2c..2c+1, col g), b1 (k 2c+8..2c+9, col g);
 //   C 16x8:   c0, c1 (row g, cols 2c, 2c+1), c2, c3 (row g+8, same cols).
-// So an accumulator pair over 16 columns (tiles nt = 2kk, 2kk+1) re-packs
-// in registers as the A operand of a product over those 16 columns.
+// wgmma's accumulator and register-A layouts repeat these per warp
+// (hopper.cuh), so an accumulator pair over 16 columns re-packs in
+// registers as the A operand of a product over those 16 columns.
 
 #pragma once
 
@@ -38,6 +40,20 @@ __device__ __forceinline__ bool drop_keep(int32_t seed, int32_t bh, int32_t qp,
   x ^= x >> 15;
   return (x & 0x7FFFFFFF) >= threshold;
 }
+
+// the positional hash's seed and offsets from a kernel's params (their
+// `dropout` flag and `seed3`); zeros without dropout
+struct Seeds {
+  int32_t seed = 0, q_off = 0, k_off = 0;
+  template <class Params>
+  __device__ explicit Seeds(const Params& p) {
+    if (p.dropout) {
+      seed = p.seed3[0];
+      q_off = p.seed3[1];
+      k_off = p.seed3[2];
+    }
+  }
+};
 
 // which plane of the collapsed [lead, t, t] bias the grid's bh = batch * h +
 // head reads (`_bias_spec` :384-405).  bias_mode: 1 [b*h], 2 [h], 3 [b],
@@ -68,14 +84,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -131,27 +139,6 @@ __device__ __forceinline__ void load_bt(uint32_t (&b)[4],
   const int lane = threadIdx.x & 31;
   ldmatrix_x4(b, sm + (n0 + (lane & 7) + (lane >> 4) * 8) * (D + 8) + k0 +
                      ((lane >> 3) & 1) * 8);
-}
-
-// B = X for X staged as [k][n] rows: fragments of k rows [k0, k0 + 16),
-// n cols [n0, n0 + 16); b[0], b[1] for n0..n0+7, b[2], b[3] for n0+8..
-template <int D>
-__device__ __forceinline__ void load_b(uint32_t (&b)[4],
-                                       const __nv_bfloat16* sm, int k0,
-                                       int n0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4_trans(b, sm + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (D + 8) +
-                           n0 + (lane >> 4) * 8);
-}
-
-// the A fragment over columns [16 kk, 16 kk + 16) of a [16][64] f32
-// accumulator s[8][4], rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], float (&s)[8][4],
-                                         int kk) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 }
 
 }  // namespace flash

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (fused_dense.cu's sm90 body, flash_bwd.cu's dK/dV body): mbarriers with
+// (fused_dense.cu's sm90 body; the flash bodies through flash_sm90.cuh:
+// K3's forward, K4a's dQ and K4b's dK/dV): mbarriers with
 // phase parity, TMA tile loads and stores, the wgmma shared-memory
 // descriptor and instructions, and setmaxnreg.  Host side: building a TMA
 // descriptor (CUtensorMap) through libcuda's cuTensorMapEncodeTiled,
@@ -33,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -117,14 +120,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// store a shared-memory tile to the tensor map's box at (c0, c1), parts
-// past the tensor's edge dropped; completes in a bulk group
+// store a shared-memory tile to the tensor map's box at (c0, c1[, c2,
+// c3]), parts past the tensor's edge dropped; completes in a bulk group
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
                                              const void* src, int c0, int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -357,34 +370,52 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
-inline EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
+// a libcuda function, looked up through the runtime (no -lcuda)
+inline void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+  const cudaError_t rc =
+      cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
 #else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+  const cudaError_t rc = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
 #endif
-    if (rc != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
+  return rc == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+// libcuda's cuTensorMapEncodeTiled, looked up once
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn =
+      reinterpret_cast<EncodeTiledFn>(driver_entry("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+// make sure the calling thread has a current context.  A tensor map's
+// encode is a driver call that needs one, and a host thread that has
+// launched nothing yet (a server's worker thread) has none; the launch
+// after the encode would make one current, too late.  cudaFree(nullptr)
+// frees nothing and makes the runtime's device's primary context current.
+inline bool context_current() {
+  typedef CUresult (*CtxGetCurrentFn)(CUcontext*);
+  static const CtxGetCurrentFn get =
+      reinterpret_cast<CtxGetCurrentFn>(driver_entry("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr)
+    return true;
+  return cudaFree(nullptr) == cudaSuccess;
 }
 
 // a tensor map over `rank` dimensions of `base` (sizes and strides
 // innermost first; strides in bytes, the innermost stride 1 element and
 // not given), loading boxes of `box` elements, rows past an edge filled
-// with zeros.  False when the encoding is refused (alignment, sizes).
+// with zeros.  False when the encoding is refused (alignment, sizes) or
+// no context can be made current.
 inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
                             int rank, const void* base, const uint64_t* sizes,
                             const uint64_t* strides, const uint32_t* box,
                             CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !context_current()) return false;
   cuuint64_t dims[5], st[4];
   cuuint32_t bx[5], es[5];
   for (int i = 0; i < rank; ++i) {
@@ -397,6 +428,36 @@ inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
             dims, st, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// let `kernel` take as much dynamic shared memory as the current device
+// gives one block, once per device (`done` holds a bit per device, one
+// variable per kernel).  The limit belongs to the function, not to a
+// launch: set to each launch's own size, a launch from one host thread
+// would fail (cudaErrorInvalidValue) when another thread had just
+// lowered it for a smaller launch of the same kernel.  A launch asking
+// for more than the device has still fails.
+inline cudaError_t allow_max_dynamic_smem(const void* kernel,
+                                          std::atomic<uint64_t>* done) {
+  int dev = 0, optin = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done->load(std::memory_order_acquire) & bit) return cudaSuccess;
+  cudaFuncAttributes a;
+  rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                              dev);
+  if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&a, kernel);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              optin - static_cast<int>(a.sharedSizeBytes));
+  if (rc != cudaSuccess) {
+    cudaGetLastError();  // not left for the next call
+    return rc;
+  }
+  done->fetch_or(bit, std::memory_order_release);
+  return cudaSuccess;
 }
 
 // the SM count of the current device (the persistent grids' size)

@@ -28,15 +28,24 @@ Phases (each one failing exits non-zero, with no result line):
   5. K3 flash attention forward (CUDA) vs its plain version, bf16 and
      f32: kv_mask with a fully padded row, a bias at each of
      [1|b, 1|h, t, t], causal, dropout, and q/k/v read in place from a
-     fused qkv projection; out and lse;
+     fused qkv projection; out and lse; every case again on scenes with
+     the edges of the padded-key-tile skip (a row ending on a tile's first
+     key, rows with whole padded tiles) and at a t that ends inside a
+     128-row block, drawn from a generator of their own;
   5b. K1b LayerNorm backward (Triton) vs its plain version at the
      fine-tune's 16384 x 768 f32 and at row counts that fill no block;
   5c. K4a, K4b and K5, the flash backward (CUDA), vs their plain
      version, bf16 and f32, in every case of phase 5 plus a loss on the
      lse and the fine-tune's own case (fused qkv, dropout, key mask); dq,
      dk, dv and the bias's gradient at each broadcast; the key mask has
-     the edges of K4b's padded-key-tile skip, and dk, dv must be exactly
-     zero at every padded key;
+     the edges of the padded-key-tile skips, and dk, dv must be exactly
+     zero at every padded key; every case again at a t that ends inside a
+     128-row block, drawn from the boundary scenes' own generator;
+  5d. the bodies that read through TMA (K2 sm90, K3, K4a, K4b; bf16)
+     launched from 4 new host threads at once, each thread's first CUDA
+     call a launch, the flash kernels at t = 128 and 512 in turn: every
+     launch goes through and matches the same call made alone bit for
+     bit;
   6. slice 1: warm the generation engine, serve concurrent greedy
      requests through the background loop, check K1/K6 launch counts
      and the logits; again with an int8 KV pool;
@@ -474,10 +483,11 @@ def flash_scene(torch, gen, b, t, h, d, dtype, boundary=False):
     a kv_mask with valid lengths uniform in [t/4, t] and batch 0 fully
     padded; a bias at each of the four broadcast shapes [1|b, 1|h, t, t];
     the dropout seed triple (seed, q offset, k offset).  `boundary` adds
-    the edges of K4b's padded-key-tile skip (blocks of 128 keys, 64 per
-    warpgroup): batch 1's last valid key is the first key of a block (of
-    a warpgroup's half at t = 128), batch 2 has two whole padded blocks
-    (one valid key at t = 128)."""
+    the edges of the padded-key skips (K4b's blocks of 128 keys, 64 per
+    warpgroup; K3's and K4a's tiles of 64 keys): batch 1's last valid key
+    is the first key of a block (of a warpgroup's half and a tile at t =
+    128), batch 2 has two whole padded blocks (one valid key at t < 384:
+    its other tiles are all padding)."""
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
     qkv = torch.randn(b, t, 3 * h * d, generator=gen, device="cuda"
@@ -497,7 +507,76 @@ def flash_scene(torch, gen, b, t, h, d, dtype, boundary=False):
     return (q, k, v), fused, mask, biases, seed3, int(lens.sum())
 
 
+def flash_variants(scene, b):
+    """Phase 5's cases of one flash_scene: {label: ((q, k, v), kwargs)}:
+    a kv_mask alone, with a bias at each broadcast, causal, dropout, q/k/v
+    read in place from a fused qkv, and all of them together."""
+    qkv, fused, mask, biases, seed3, _ = scene
+    variants = {"mask": (qkv, dict(kv_mask=mask))}
+    for shp, bias in biases.items():
+        variants[f"bias[{shp}]+mask"] = (qkv, dict(kv_mask=mask, bias=bias))
+    variants["causal+mask"] = (qkv, dict(kv_mask=mask, causal=True))
+    variants["dropout0.1+mask"] = (qkv, dict(kv_mask=mask, seed3=seed3,
+                                             dropout=0.1))
+    variants["fused-qkv+mask"] = (fused, dict(kv_mask=mask))
+    variants[f"fused-qkv+bias[{b}x1]+causal+dropout0.1+mask"] = (
+        fused, dict(kv_mask=mask, bias=biases[f"{b}x1"], causal=True,
+                    seed3=seed3, dropout=0.1))
+    return variants
+
+
+def check_flash_fwd(torch, scene, b, t, dtype, what=""):
+    """Hold K3 against its plain version in every case of `scene`: out
+    per element, lse to 1e-4, zeros on the fully padded batch row 0.
+    Returns ({label: (out err, lse err)}, {label: out err as a share of
+    its tolerance})."""
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_fwd,
+        flash_fwd_reference,
+    )
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    errs, shares = {}, {}
+    for label, (args, kw) in flash_variants(scene, b).items():
+        out, lse = flash_fwd(*args, **kw)
+        rout, rlse = flash_fwd_reference(*args, **kw)
+        torch.cuda.synchronize()
+        diff = (out.float() - rout.float()).abs()
+        e_out = float(diff.max())
+        e_lse = float((lse - rlse).abs().max())
+        if dtype == torch.bfloat16:
+            # each side rounds the probabilities to bf16 (the kernel
+            # unnormalized, the plain version normalized: up to 2^-8
+            # relative each, so 2^-7 of sum_j p_j|v_j| between them) and
+            # the output once (2^-7 of |out| between them); lse comes from
+            # f32 scores either way
+            mag, _ = flash_fwd_reference(
+                *(a.float() for a in args[:2]), args[2].float().abs(), **kw)
+            tol = 2.0 ** -7 * (rout.float().abs() + mag) + 1e-6
+        else:
+            # the same f32 arithmetic, the softmax summed online in
+            # another order
+            tol = torch.full_like(diff, 1e-4)
+        share = float((diff / tol).max())
+        check(share <= 1.0 and e_lse <= 1e-4,
+              f"K3 {name} b={b} t={t}{what} {label}: out err {e_out} "
+              f"({share:.3f} of its tolerance), lse err {e_lse} (tol 1e-4)")
+        check(bool((out[0] == 0).all()),
+              f"K3 {name}{what} {label}: a fully padded row must give zeros")
+        errs[label] = (e_out, e_lse)
+        shares[label] = share
+    return errs, shares
+
+
+#: seed of the scenes that hold the flash kernels at the edges of their
+#: padded-key-tile skip: drawn from a generator of their own, so that no
+#: other phase's inputs change with them
+BOUNDARY_SEED = 5
+
+
 def phase_flash(torch, gen):
+    """K3 at the BERT paths' shapes, timed on the `mask` case; then the
+    skip's edges (flash_scene's `boundary` rows) in every case, at those
+    shapes and at a t that ends inside a 128-row block."""
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
@@ -508,53 +587,10 @@ def phase_flash(torch, gen):
     h, d = 12, 64
     for b, t in ((8, 128), (32, 512)):
         for dtype in (torch.bfloat16, torch.float32):
-            qkv, fused, mask, biases, seed3, n_valid = flash_scene(
-                torch, gen, b, t, h, d, dtype)
-            q, k, v = qkv
+            scene = flash_scene(torch, gen, b, t, h, d, dtype)
+            (q, k, v), _, mask, _, _, n_valid = scene
             name = "bf16" if dtype == torch.bfloat16 else "f32"
-            variants = {"mask": (qkv, dict(kv_mask=mask))}
-            for shp, bias in biases.items():
-                variants[f"bias[{shp}]+mask"] = (qkv, dict(kv_mask=mask,
-                                                           bias=bias))
-            variants["causal+mask"] = (qkv, dict(kv_mask=mask, causal=True))
-            variants["dropout0.1+mask"] = (qkv, dict(
-                kv_mask=mask, seed3=seed3, dropout=0.1))
-            variants["fused-qkv+mask"] = (fused, dict(kv_mask=mask))
-            variants[f"fused-qkv+bias[{b}x1]+causal+dropout0.1+mask"] = (
-                fused, dict(kv_mask=mask, bias=biases[f"{b}x1"],
-                            causal=True, seed3=seed3, dropout=0.1))
-            errs, shares = {}, {}
-            for label, (args, kw) in variants.items():
-                out, lse = flash_fwd(*args, **kw)
-                rout, rlse = flash_fwd_reference(*args, **kw)
-                torch.cuda.synchronize()
-                diff = (out.float() - rout.float()).abs()
-                e_out = float(diff.max())
-                e_lse = float((lse - rlse).abs().max())
-                if dtype == torch.bfloat16:
-                    # each side rounds the probabilities to bf16 (the
-                    # kernel unnormalized, the plain version normalized:
-                    # up to 2^-8 relative each, so 2^-7 of sum_j p_j|v_j|
-                    # between them) and the output once (2^-7 of |out|
-                    # between them); lse comes from f32 scores either way
-                    mag, _ = flash_fwd_reference(
-                        *(a.float() for a in args[:2]), args[2].float().abs(),
-                        **kw)
-                    tol = 2.0 ** -7 * (rout.float().abs() + mag) + 1e-6
-                else:
-                    # the same f32 arithmetic, the softmax summed online
-                    # in another order
-                    tol = torch.full_like(diff, 1e-4)
-                share = float((diff / tol).max())
-                check(share <= 1.0 and e_lse <= 1e-4,
-                      f"K3 {name} b={b} t={t} {label}: out err {e_out} "
-                      f"({share:.3f} of its tolerance), lse err {e_lse} "
-                      f"(tol 1e-4)")
-                check(bool((out[0] == 0).all()),
-                      f"K3 {name} {label}: a fully padded row must give "
-                      "zeros")
-                errs[label] = (e_out, e_lse)
-                shares[label] = share
+            errs, shares = check_flash_fwd(torch, scene, b, t, dtype)
             item = q.element_size()
             n_bytes = 4 * b * t * h * d * item + b * h * t * 4 + b * t * 4
             # the products over the valid keys only
@@ -583,7 +619,22 @@ def phase_flash(torch, gen):
                   f"{shape['plain_call_ms']:.5f} ms, sdpa "
                   f"{shape['library_call_ms']:.5f} ms; bound {b_ms:.5f} ms "
                   f"({b_by})", flush=True)
-    return shapes
+    bgen = torch.Generator(device="cuda")
+    bgen.manual_seed(BOUNDARY_SEED)
+    boundary = {}
+    for b, t in ((8, 128), (32, 512), (4, 200)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            scene = flash_scene(torch, bgen, b, t, h, d, dtype, boundary=True)
+            errs, shares = check_flash_fwd(torch, scene, b, t, dtype,
+                                           " boundary")
+            boundary[f"{name} b={b} t={t}"] = dict(
+                max_abs_err=max(max(e) for e in errs.values()),
+                max_err_share_of_tol=max(shares.values()))
+            print(f"K3 flash_fwd {name} b={b} t={t} boundary rows: (out, "
+                  f"lse) max abs err {errs}; out err as a share of its "
+                  f"tolerance {shares}", flush=True)
+    return shapes, boundary
 
 
 # ----------------------------------------------------------------------
@@ -702,11 +753,95 @@ def bwd_magnitudes(torch, q, k, v, dout, lse, delta, kv_mask=None, bias=None,
     return mags
 
 
+def check_flash_bwd(torch, gen, scene, b, t, dtype, what=""):
+    """Hold K4a, K4b and K5 against their plain version in every case of
+    phase 5 plus a loss on the lse and the fine-tune's own case, each
+    from the kernels' own forward and a cotangent drawn from `gen`: per
+    element, zeros on the fully padded batch row 0, dk and dv exactly 0
+    at every padded key.  Returns ({label: max abs err of dq, dk, dv[,
+    dbias]}, {label: the worst as a share of its tolerance})."""
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_bwd,
+        flash_bwd_reference,
+        flash_fwd,
+    )
+    qkv, fused, mask, biases, seed3, _ = scene
+    h = qkv[0].shape[2]
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    variants = {"mask": (qkv, dict(kv_mask=mask))}
+    for shp, bias in biases.items():
+        variants[f"bias[{shp}]+mask"] = (qkv, dict(kv_mask=mask,
+                                                   bias=bias))
+    variants["causal+mask"] = (qkv, dict(kv_mask=mask, causal=True))
+    variants["dropout0.1+mask"] = (qkv, dict(
+        kv_mask=mask, seed3=seed3, dropout=0.1))
+    variants["lse-loss+mask"] = (qkv, dict(kv_mask=mask))
+    variants["fused-qkv+mask"] = (fused, dict(kv_mask=mask))
+    # the fine-tune's own case: fused qkv, dropout and a key mask
+    variants["fused-qkv+dropout0.1+mask"] = (fused, dict(
+        kv_mask=mask, seed3=seed3, dropout=0.1))
+    variants[f"fused-qkv+bias[{b}x1]+causal+dropout0.1+mask"] = (
+        fused, dict(kv_mask=mask, bias=biases[f"{b}x1"],
+                    causal=True, seed3=seed3, dropout=0.1))
+    errs, shares = {}, {}
+    for label, (args, kw) in variants.items():
+        out, lse = flash_fwd(*args, **kw)
+        dout = torch.randn(out.shape, generator=gen,
+                           device="cuda").to(dtype)
+        delta = (dout.float() * out.float()).sum(-1).permute(
+            0, 2, 1).reshape(b * h, t)
+        if label.startswith("lse-loss"):
+            delta = delta - torch.randn(delta.shape, generator=gen,
+                                        device="cuda")
+        delta = delta.contiguous()
+        grad_bias = "bias" in kw
+        got = flash_bwd(*args, dout, lse, delta, **kw,
+                        bias_grad=grad_bias)
+        want = flash_bwd_reference(*args, dout, lse, delta, **kw,
+                                   bias_grad=grad_bias)
+        torch.cuda.synchronize()
+        got, want = got[:3 + grad_bias], want[:3 + grad_bias]
+        diffs = [(a.float() - w.float()).abs()
+                 for a, w in zip(got, want)]
+        if dtype == torch.bfloat16:
+            # both sides round ds and p~ to bf16 before their
+            # products (from f32 values computed in other orders:
+            # at most one ulp apart, 2^-7 relative) and the
+            # gradient once (one ulp of |ref|); dbias stays f32
+            mags = bwd_magnitudes(torch, *args, dout, lse, delta,
+                                  **kw)
+            tols = [2.0 ** -7 * (w.float().abs() + m) + 1e-6
+                    for w, m in zip(want, mags)]
+        else:
+            # the same f32 arithmetic summed in other orders
+            tols = [torch.full_like(x, 1e-4) for x in diffs]
+        ratios = [float((x / tl).max()) for x, tl in zip(diffs, tols)]
+        share = max(ratios)
+        e = [float(x.max()) for x in diffs]
+        worst = ratios.index(share)
+        at = int((diffs[worst] / tols[worst]).argmax())
+        check(share <= 1.0, f"K4a/K4b/K5 {name} b={b} t={t}{what} "
+              f"{label}: max abs err (dq, dk, dv[, dbias]) {e}, {share:.3f} of "
+              f"the tolerance, worst in output {worst} at flat index "
+              f"{at}: kernel {float(got[worst].flatten()[at])}, plain "
+              f"{float(want[worst].flatten()[at])}, tolerance "
+              f"{float(tols[worst].flatten()[at])}")
+        check(all(bool((a[0] == 0).all()) for a in got[:3]),
+              f"flash bwd {name}{what} {label}: a fully padded batch row "
+              "must give zero dq, dk, dv")
+        padded = kw["kv_mask"] == 0
+        check(all(bool((a[padded] == 0).all()) for a in got[1:3]),
+              f"flash bwd {name}{what} {label}: dk and dv must be exactly "
+              "zero at every padded key")
+        errs[label] = e
+        shares[label] = share
+    return errs, shares
+
+
 def phase_flash_bwd(torch, gen):
     import torch.nn.functional as F
 
     from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
-        flash_bwd,
         flash_bwd_dbias,
         flash_bwd_dkv,
         flash_bwd_dq,
@@ -718,76 +853,10 @@ def phase_flash_bwd(torch, gen):
     h, d = 12, 64
     for b, t in ((8, 128), (32, 512)):
         for dtype in (torch.bfloat16, torch.float32):
-            qkv, fused, mask, biases, seed3, n_valid = flash_scene(
-                torch, gen, b, t, h, d, dtype, boundary=True)
+            scene = flash_scene(torch, gen, b, t, h, d, dtype, boundary=True)
+            qkv, fused, mask, biases, seed3, n_valid = scene
             name = "bf16" if dtype == torch.bfloat16 else "f32"
-            variants = {"mask": (qkv, dict(kv_mask=mask))}
-            for shp, bias in biases.items():
-                variants[f"bias[{shp}]+mask"] = (qkv, dict(kv_mask=mask,
-                                                           bias=bias))
-            variants["causal+mask"] = (qkv, dict(kv_mask=mask, causal=True))
-            variants["dropout0.1+mask"] = (qkv, dict(
-                kv_mask=mask, seed3=seed3, dropout=0.1))
-            variants["lse-loss+mask"] = (qkv, dict(kv_mask=mask))
-            variants["fused-qkv+mask"] = (fused, dict(kv_mask=mask))
-            # the fine-tune's own case: fused qkv, dropout and a key mask
-            variants["fused-qkv+dropout0.1+mask"] = (fused, dict(
-                kv_mask=mask, seed3=seed3, dropout=0.1))
-            variants[f"fused-qkv+bias[{b}x1]+causal+dropout0.1+mask"] = (
-                fused, dict(kv_mask=mask, bias=biases[f"{b}x1"],
-                            causal=True, seed3=seed3, dropout=0.1))
-            errs, shares = {}, {}
-            for label, (args, kw) in variants.items():
-                out, lse = flash_fwd(*args, **kw)
-                dout = torch.randn(out.shape, generator=gen,
-                                   device="cuda").to(dtype)
-                delta = (dout.float() * out.float()).sum(-1).permute(
-                    0, 2, 1).reshape(b * h, t)
-                if label.startswith("lse-loss"):
-                    delta = delta - torch.randn(delta.shape, generator=gen,
-                                                device="cuda")
-                delta = delta.contiguous()
-                grad_bias = "bias" in kw
-                got = flash_bwd(*args, dout, lse, delta, **kw,
-                                bias_grad=grad_bias)
-                want = flash_bwd_reference(*args, dout, lse, delta, **kw,
-                                           bias_grad=grad_bias)
-                torch.cuda.synchronize()
-                got, want = got[:3 + grad_bias], want[:3 + grad_bias]
-                diffs = [(a.float() - w.float()).abs()
-                         for a, w in zip(got, want)]
-                if dtype == torch.bfloat16:
-                    # both sides round ds and p~ to bf16 before their
-                    # products (from f32 values computed in other orders:
-                    # at most one ulp apart, 2^-7 relative) and the
-                    # gradient once (one ulp of |ref|); dbias stays f32
-                    mags = bwd_magnitudes(torch, *args, dout, lse, delta,
-                                          **kw)
-                    tols = [2.0 ** -7 * (w.float().abs() + m) + 1e-6
-                            for w, m in zip(want, mags)]
-                else:
-                    # the same f32 arithmetic summed in other orders
-                    tols = [torch.full_like(x, 1e-4) for x in diffs]
-                ratios = [float((x / tl).max()) for x, tl in zip(diffs, tols)]
-                share = max(ratios)
-                e = [float(x.max()) for x in diffs]
-                worst = ratios.index(share)
-                at = int((diffs[worst] / tols[worst]).argmax())
-                check(share <= 1.0, f"K4a/K4b/K5 {name} b={b} t={t} {label}: "
-                      f"max abs err (dq, dk, dv[, dbias]) {e}, {share:.3f} of "
-                      f"the tolerance, worst in output {worst} at flat index "
-                      f"{at}: kernel {float(got[worst].flatten()[at])}, plain "
-                      f"{float(want[worst].flatten()[at])}, tolerance "
-                      f"{float(tols[worst].flatten()[at])}")
-                check(all(bool((a[0] == 0).all()) for a in got[:3]),
-                      f"flash bwd {name} {label}: a fully padded batch row "
-                      "must give zero dq, dk, dv")
-                padded = kw["kv_mask"] == 0
-                check(all(bool((a[padded] == 0).all()) for a in got[1:3]),
-                      f"flash bwd {name} {label}: dk and dv must be exactly "
-                      "zero at every padded key")
-                errs[label] = e
-                shares[label] = share
+            errs, shares = check_flash_bwd(torch, gen, scene, b, t, dtype)
             q, k, v = qkv
             item = q.element_size()
             out, lse = flash_fwd(q, k, v, kv_mask=mask)
@@ -857,7 +926,113 @@ def phase_flash_bwd(torch, gen):
                   f" max abs err (dq, dk, dv[, dbias]) {errs}; share of the "
                   f"tolerance {shares}; per call with launch gaps (ms) "
                   f"{tail}", flush=True)
-    return shapes
+    # a t that ends inside a block of 128 queries or keys, from the
+    # boundary scenes' own generator (the scenes above stay as they were)
+    bgen = torch.Generator(device="cuda")
+    bgen.manual_seed(BOUNDARY_SEED + 1)
+    ragged = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        b, t = 4, 200
+        scene = flash_scene(torch, bgen, b, t, h, d, dtype, boundary=True)
+        errs, shares = check_flash_bwd(torch, bgen, scene, b, t, dtype,
+                                       " ragged")
+        ragged[f"{name} b={b} t={t}"] = dict(
+            max_abs_err=[max(e[i] for e in errs.values()) for i in range(3)],
+            max_err_share_of_tol=max(shares.values()))
+        print(f"K4a/K4b/K5 flash backward {name} b={b} t={t} (ragged t): max "
+              f"abs err (dq, dk, dv[, dbias]) {errs}; share of the tolerance "
+              f"{shares}", flush=True)
+    return shapes, ragged
+
+
+# ----------------------------------------------------------------------
+# phase 5d: the Hopper bodies launched from several host threads at once
+# ----------------------------------------------------------------------
+
+#: seed of phase 5d's inputs, drawn from a generator of their own
+THREADS_SEED = 7
+#: rounds a thread launches each Hopper body, t alternating 128 / 512
+THREADS_ROUNDS = 200
+
+
+def phase_threads(torch):
+    """The bodies that read through TMA tensor maps (K2's sm90, K3's,
+    K4a's and K4b's) launched back to back from 4 new host threads, the
+    flash kernels at t = 128 and 512 in turn as phase 7's serving
+    threads send them.  Thread i makes no CUDA call before its first
+    launch, of the i-th kernel: a thread with no current context must
+    launch as well as any.  Every launch must go through and give what
+    the same call gave alone, bit for bit (each body sums in a fixed
+    order).  Returns launches and mismatches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_fwd,
+    )
+    from analytics_zoo_tpu_torch.ops.kernels.fused_dense import (
+        body,
+        fused_dense_gelu,
+    )
+    tgen = torch.Generator(device="cuda")
+    tgen.manual_seed(THREADS_SEED)
+    h, d = 12, 64
+    calls = []      # per t: [(label, call, its result alone)]
+    x = torch.randn(1024, D_MODEL, generator=tgen, device="cuda").to(
+        torch.bfloat16)
+    w = (0.02 * torch.randn(4 * D_MODEL, D_MODEL, generator=tgen,
+                            device="cuda")).to(torch.bfloat16)
+    bias = torch.randn(4 * D_MODEL, generator=tgen, device="cuda").to(
+        torch.bfloat16)
+    check(body(x, w) == "sm90", "phase 5d: K2's operands must take sm90")
+    for t in (128, 512):
+        (q, k, v), _, mask, _, _, _ = flash_scene(torch, tgen, 8, t, h, d,
+                                                  torch.bfloat16)
+        dout = torch.randn(q.shape, generator=tgen, device="cuda").to(q.dtype)
+        out, lse = flash_fwd(q, k, v, kv_mask=mask)
+        delta = ((dout.float() * out.float()).sum(-1).permute(0, 2, 1)
+                 .reshape(-1, t).contiguous())
+        grads = (q, k, v, dout, lse, delta)
+        ops = [("K3", partial(flash_fwd, q, k, v, kv_mask=mask)),
+               ("K4a", partial(flash_bwd_dq, *grads, kv_mask=mask)),
+               ("K4b", partial(flash_bwd_dkv, *grads, kv_mask=mask)),
+               ("K2", partial(fused_dense_gelu, x, w, bias))]
+        calls.append([(label, fn, fn()) for label, fn in ops])
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return torch.stack([same(x_, y_) for x_, y_ in zip(a, b)]).all()
+        return (a == b).all()
+
+    def run(i):
+        diffs = []
+        for j in range(THREADS_ROUNDS):
+            ops = calls[(i + j) % 2]
+            for label, fn, want in ops[i:] + ops[:i]:
+                diffs.append(same(fn(), want))
+        return int((~torch.stack(diffs)).sum())
+
+    t0 = time.perf_counter()
+    errors, bad = [], 0
+    with ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(run, i) for i in range(4)]:
+            try:
+                bad += f.result()
+            except RuntimeError as e:
+                errors.append(str(e))
+    check(not errors, f"Hopper bodies from 4 threads: {len(errors)} of 4 "
+          f"threads raised, first: {errors[:1]}")
+    check(bad == 0, f"Hopper bodies from 4 threads: {bad} launches differ "
+          "from the same call made alone")
+    res = dict(threads=4, kernels=["K2", "K3", "K4a", "K4b"],
+               launches=4 * 4 * THREADS_ROUNDS, mismatches=bad,
+               seconds=time.perf_counter() - t0)
+    print(f"K2/K3/K4a/K4b bf16 (flash b=8 t=128|512, K2 1024x768x3072) "
+          f"from 4 host threads: {res}", flush=True)
+    return res
 
 
 def sdpa_backward(torch, F, q, k, v, dout, mask):
@@ -1622,13 +1797,15 @@ def phase_slice(torch, n_requests: int, seed: int, card: str):
 
 
 def kernel_entry(name, route, source, replaces, launches, shapes,
-                 main: int):
+                 main: int, checks=()):
     """One kernel's record of the result line: the numbers at its main
-    path's shape (`shapes[main]`), every shape beside them."""
+    path's shape (`shapes[main]`), every shape beside them; its max abs
+    err also covers the untimed `checks` (max abs errs)."""
     m = shapes[main]
     entry = dict(name=name, route=route, source=source, replaces=replaces,
                  launches=launches,
-                 max_abs_err=max(s["max_abs_err"] for s in shapes),
+                 max_abs_err=max([s["max_abs_err"] for s in shapes]
+                                 + list(checks)),
                  ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                  bound_by=m["bound_by"], library_ms=m["library_ms"],
                  shapes=shapes)
@@ -1676,10 +1853,11 @@ def main(argv=None) -> int:
     ln = phase_layer_norm(torch, gen)
     pd = phase_paged(torch, gen)
     fd = phase_fused_dense(torch, gen)
-    fa = phase_flash(torch, gen)
+    fa, fa_edges = phase_flash(torch, gen)
     lnb = phase_layer_norm_bwd(torch, gen)
-    fab = phase_flash_bwd(torch, gen)
-    clocks("after phase 5c", start)
+    fab, fab_ragged = phase_flash_bwd(torch, gen)
+    threads = phase_threads(torch)
+    clocks("after phase 5d", start)
     runs, engine = phase_slice(torch, args.requests, args.seed, card)
     clocks("after phase 6", start)
     bert_runs, bert_model = phase_bert(torch, args.seed, card)
@@ -1739,15 +1917,18 @@ def main(argv=None) -> int:
         kernel_entry("flash_fwd", "cuda",
                      "analytics_zoo_tpu_torch/csrc/flash_fwd.cu",
                      "analytics_zoo_tpu/ops/pallas/flash_attention.py:408",
-                     tr["flash_fwd"], fa, 2),
+                     tr["flash_fwd"], fa, 2,
+                     [c["max_abs_err"] for c in fa_edges.values()]),
         kernel_entry("flash_bwd_dq", "cuda",
                      "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
                      "analytics_zoo_tpu/ops/pallas/flash_attention.py:741",
-                     tr["flash_bwd_dq"], fab["flash_bwd_dq"], 2),
+                     tr["flash_bwd_dq"], fab["flash_bwd_dq"], 2,
+                     [c["max_abs_err"][0] for c in fab_ragged.values()]),
         kernel_entry("flash_bwd_dkv", "cuda",
                      "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
                      "analytics_zoo_tpu/ops/pallas/flash_attention.py:825",
-                     tr["flash_bwd_dkv"], fab["flash_bwd_dkv"], 2),
+                     tr["flash_bwd_dkv"], fab["flash_bwd_dkv"], 2,
+                     [c["max_abs_err"][1] for c in fab_ragged.values()]),
         kernel_entry("flash_bwd_dbias", "cuda",
                      "analytics_zoo_tpu_torch/csrc/flash_bwd.cu",
                      "analytics_zoo_tpu/ops/pallas/flash_attention.py:807",
@@ -1774,7 +1955,10 @@ def main(argv=None) -> int:
             k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs, "bert": bert_runs,
-                      "train": train, "bias_path": bias_run}), flush=True)
+                      "train": train, "bias_path": bias_run,
+                      "flash_fwd_boundary": fa_edges,
+                      "flash_bwd_ragged_t": fab_ragged,
+                      "threads": threads}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

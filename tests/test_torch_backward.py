@@ -149,10 +149,10 @@ def _flash_grads(q, k, v, *, bias=None, lse_loss=False, jdtype=jnp.float32,
     """(JAX grads, port grads) of sum(out * go) [+ sum(lse * gl)] with
     respect to q, k, v [and the bias], as f32 numpy; `kw` numpy arrays
     or plain values handed to both."""
-    t = q.shape[1]
+    b, t = q.shape[:2]
     rng = np.random.default_rng(99)
     go = rng.normal(size=q.shape).astype(np.float32)
-    gl = rng.normal(size=(B, t, H)).astype(np.float32)
+    gl = rng.normal(size=(b, t, H)).astype(np.float32)
     jkw = {n: (jnp.asarray(a) if isinstance(a, np.ndarray) else a)
            for n, a in kw.items()}
     tkw = {n: (torch.from_numpy(a) if isinstance(a, np.ndarray) else a)
@@ -174,9 +174,9 @@ def _flash_grads(q, k, v, *, bias=None, lse_loss=False, jdtype=jnp.float32,
                   for a in jargs)
     tb = None if bias is None else torch.from_numpy(bias).requires_grad_(True)
     if fused:
-        qkv = torch.cat([a.detach().reshape(B, t, H * D)
+        qkv = torch.cat([a.detach().reshape(b, t, H * D)
                          for a in (tq, tk, tv)], -1).requires_grad_(True)
-        ins = tuple(a.reshape(B, t, H, D) for a in qkv.split(H * D, -1))
+        ins = tuple(a.reshape(b, t, H, D) for a in qkv.split(H * D, -1))
     else:
         ins = (tq, tk, tv)
     out, lse = flash_attention(*ins, bias=tb, return_lse=True, **tkw)
@@ -185,7 +185,7 @@ def _flash_grads(q, k, v, *, bias=None, lse_loss=False, jdtype=jnp.float32,
         val = val + (lse * torch.from_numpy(gl)).sum()
     val.backward()
     if fused:
-        tg = [g.reshape(B, t, H, D) for g in qkv.grad.split(H * D, -1)]
+        tg = [g.reshape(b, t, H, D) for g in qkv.grad.split(H * D, -1)]
     else:
         tg = [tq.grad, tk.grad, tv.grad]
     if tb is not None:
@@ -289,6 +289,41 @@ def test_flash_grads_padded_key_tiles_exactly_zero(case):
         _, dk, dv = grads[:3]
         assert np.all(dk[padded] == 0) and np.all(dv[padded] == 0)
         assert np.abs(dk[~padded]).max() > 0 and np.abs(dv[~padded]).max() > 0
+
+
+@pytest.mark.parametrize("case", ["mask", "bias", "dropout", "causal"])
+def test_flash_dq_padded_key_tiles(case):
+    """The invariant the dQ kernel's padded-key-tile skip relies on (its
+    bf16 body neither loads nor computes a 64-key tile that holds no
+    valid key): ds = 0 at a padded key, so dq does not move, bit for bit,
+    on either side when K and V at padded keys are replaced by other
+    seeded values; and the port's plain version matches JAX's Pallas
+    backward at rows ending on each side of a tile's edge (valid lengths
+    0, 1, 64, 65, 128, 129)."""
+    t = 256
+    lengths = np.array([0, 1, 64, 65, 128, 129])
+    b = len(lengths)
+    rng = np.random.default_rng(14)
+    q, k, v = (rng.normal(size=(b, t, H, D)).astype(np.float32)
+               for _ in range(3))
+    mask = (np.arange(t)[None] < lengths[:, None]).astype(np.int32)
+    kw = dict(kv_mask=mask)
+    if case == "dropout":
+        kw.update(dropout_rate=0.1, dropout_seed=np.int32(6))
+    elif case == "bias":
+        kw["bias"] = rng.normal(size=(b, 1, t, t)).astype(np.float32)
+    elif case == "causal":
+        kw["causal"] = True
+    pair = _flash_grads(q, k, v, **kw)
+    np.testing.assert_allclose(pair[1][0], pair[0][0], atol=FLASH_TOL,
+                               rtol=0)
+    assert np.all(pair[1][0][0] == 0) and np.all(pair[0][0][0] == 0)
+    padded = mask == 0
+    k2, v2 = k.copy(), v.copy()
+    k2[padded] = 10 * rng.normal(size=(padded.sum(), H, D))
+    v2[padded] = 10 * rng.normal(size=(padded.sum(), H, D))
+    for got, want in zip(_flash_grads(q, k2, v2, **kw), pair):
+        np.testing.assert_array_equal(got[0], want[0])
 
 
 def test_flash_bwd_kernels_raise_on_cpu():

@@ -33,6 +33,7 @@ from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
     _hash_bits,
     drop_keep_mask,
     flash_fwd,
+    flash_fwd_reference,
 )
 
 TOL, BF16_TOL = 1e-5, 2e-2
@@ -144,6 +145,61 @@ def test_bf16():
     np.testing.assert_allclose(to, jo, atol=BF16_TOL, rtol=0)
     # lse comes from f32 scores of the same bf16 inputs
     np.testing.assert_allclose(tl, jl, atol=TOL, rtol=0)
+
+
+#: valid lengths at the edges of the kernel's 64-key tiles: a fully
+#: padded row, one valid key, a row ending on a tile's last key and on the
+#: next tile's first, and the same one tile further on
+PADDED_TILE_LENGTHS = (0, 1, 64, 65, 128, 129)
+
+
+@pytest.mark.parametrize("case", ["mask", "bias", "dropout", "causal"])
+def test_flash_fwd_padded_key_tiles(case):
+    """The semantics the forward kernel's padded-key-tile skip relies on
+    (its bf16 body neither loads nor computes a 64-key tile that holds no
+    valid key): the port's plain version matches the JAX Pallas forward
+    at rows ending on each side of a tile's edge, a fully padded row gives
+    zeros, and neither side's out or lse moves when K and V at padded keys
+    are replaced by other seeded values."""
+    t, b = 256, len(PADDED_TILE_LENGTHS)
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.normal(size=(b, t, H, D)).astype(np.float32)
+               for _ in range(3))
+    mask = (np.arange(t)[None] < np.array(PADDED_TILE_LENGTHS)[:, None]
+            ).astype(np.int32)
+    jkw, tkw = dict(kv_mask=jnp.asarray(mask)), dict(
+        kv_mask=torch.from_numpy(mask))
+    if case == "bias":
+        bias = rng.normal(size=(b, 1, t, t)).astype(np.float32)
+        jkw["bias"], tkw["bias"] = jnp.asarray(bias), torch.from_numpy(bias)
+    elif case == "dropout":
+        jkw.update(dropout_rate=0.1, dropout_seed=np.int32(77),
+                   dropout_pos=(3, 5))
+        tkw.update(dropout=0.1, seed3=torch.tensor([77, 3, 5],
+                                                   dtype=torch.int32))
+    elif case == "causal":
+        jkw["causal"] = tkw["causal"] = True
+
+    def both(kk, vv):
+        jo, jl = jax_flash(*(jnp.asarray(a) for a in (q, kk, vv)),
+                           block_q=64, block_k=128, interpret=True,
+                           return_lse=True, **jkw)
+        to, tl = flash_fwd_reference(*(torch.from_numpy(a)
+                                       for a in (q, kk, vv)), **tkw)
+        jl = np.asarray(jl).transpose(0, 2, 1).reshape(b * H, t)
+        return (np.asarray(jo), jl), (to.numpy(), tl.numpy())
+
+    pair = both(k, v)
+    _close(pair)
+    (jo, _), (to, _) = pair
+    assert np.all(to[0] == 0) and np.all(jo[0] == 0)
+    padded = mask == 0
+    k2, v2 = k.copy(), v.copy()
+    k2[padded] = 10 * rng.normal(size=(padded.sum(), H, D))
+    v2[padded] = 10 * rng.normal(size=(padded.sum(), H, D))
+    for got, want in zip(both(k2, v2), pair):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_hash_bits_bit_exact():
