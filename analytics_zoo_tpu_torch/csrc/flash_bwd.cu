@@ -37,7 +37,8 @@
 // bytes bound it.
 //
 // Design, the TPU grid's innermost sequential axis becomes a loop inside
-// one block (dbias is still the first, simple mma.sync design):
+// one block; every grid is 1-D, its x walking (b*h or the bias's lead
+// planes) x tiles, so b*h may pass the 65535 of grid.y:
 //   * dQ (bf16: the Hopper body `bwd_dq_sm90`): one block per (b*h, 128
 //     queries), three warpgroups.  The block first packs its batch row's
 //     kv_mask into bit words in shared memory (flash_sm90.cuh); a 64-key
@@ -91,9 +92,26 @@
 //     elementwise work (an exp per score, plus the hash under dropout: 32
 //     scores a thread a stage) takes longer than the stage's products, so
 //     the tensor cores are not what bounds this body;
-//   * dbias: one block per (lead, 64 query rows, 64 keys), a loop over the
-//     broadcast replicas (bh = mul_l * lead + mul_r * rep) summing ds in
-//     registers; a causal-dead tile writes its zeros;
+//   * dbias (bf16: the Hopper body `bwd_dbias_sm90`): one block per (lead,
+//     128 queries, 64 keys), three warpgroups.  The ring walks the bias's
+//     broadcast replicas (bh = mul_l * lead + mul_r * rep), the TPU grid's
+//     innermost axis: a producer warp reads each replica's kv_mask words
+//     for the block's 64 keys (a replica whose keys are all padding is
+//     neither loaded nor computed: exact, ds = 0 at a masked key) and one
+//     of its threads loads the replica's Q, dO (128 rows), K, V (64 rows),
+//     lse and delta by TMA into a 3-stage ring (2 at d = 128) on full /
+//     empty mbarriers, with the replica's index and key words beside it;
+//     a stage with no replica ends the walk.  Each consumer warpgroup owns
+//     64 queries: S = Q K^T and dP = dO V^T by wgmma m64n64k16 from
+//     shared memory, then ds (dK/dV's and dQ's elementwise math, the bias
+//     from registers) summed over the replicas into an f32 register tile,
+//     the bias tile read once per block.  The tile goes out with plain
+//     stores from the accumulator layout (each warp store: 8 rows of 32
+//     contiguous bytes).  A causal-dead block writes its zeros.  L2
+//     traffic: each block streams 49 KB a replica at d = 64 (Q and dO
+//     are read again by each of the t / 64 key tiles, K and V by each of
+//     the t / 128 query blocks): 602 MB at b = 32, h = 12, t = 512 and a
+//     [1, h, t, t] bias, against the 126 MB its bound counts;
 //   * f32: no TF32 (the TPU kernels ask Precision.HIGHEST for f32): 32-row
 //     tiles, 4 warps of 8 rows, lanes over 32 columns for the scores and
 //     over d for the products, FFMA throughout.
@@ -105,11 +123,7 @@ namespace {
 using flash::bias_lead;
 using flash::drop_keep;
 using flash::kThreads;
-using flash::load_a;
-using flash::load_bt;
-using flash::mma_bf16;
 using flash::Seeds;
-using flash::stage_rows_bf16;
 using bf16 = __nv_bfloat16;
 
 struct Params {
@@ -137,6 +151,12 @@ __device__ __forceinline__ const float* bias_plane(const Params& p, int lead) {
   return p.bias + static_cast<long long>(lead) * p.t * p.t;
 }
 
+// rows of the dO head of (bi, hi): contiguous [b, t, h, d]
+__device__ __forceinline__ long long dout_head(const Params& p, int bi,
+                                               int hi, int d) {
+  return (static_cast<long long>(bi) * p.t * p.h + hi) * d;
+}
+
 __device__ __forceinline__ bool key_valid(const Params& p, int bi, int col) {
   return col < p.t &&
          (p.kv_mask == nullptr ||
@@ -146,11 +166,11 @@ __device__ __forceinline__ bool key_valid(const Params& p, int bi, int col) {
 // ds for one score: s the raw q.k product, dp the raw dO.v product;
 // writes p~ (the dropped, rescaled probability dV uses) to *pd.  The
 // bf16 Hopper bodies compute the same per tile in their own copies, with
-// exp2 in log2 space: dK/dV's dkv90::grad_tile (keys as rows) and dQ's
-// dq90::ds_tile (queries as rows).  Each must only read its wgmma
-// accumulators and write the bf16 A registers, because ptxas serialises
-// the wgmmas when another instruction writes an accumulator.  A change
-// here (or to K3's softmax, flash_fwd.cu) goes into all three.
+// exp2 in log2 space: dK/dV's dkv90::grad_tile (keys as rows), dQ's
+// dq90::ds_tile (queries as rows) and dbias's db90::ds_sum.  Each must
+// only read its wgmma accumulators, because ptxas serialises the wgmmas
+// when another instruction writes an accumulator.  A change here (or to
+// K3's softmax, flash_fwd.cu) goes into all four.
 __device__ __forceinline__ float grad_score(const Params& p, const Seeds& sd,
                                             const float* bplane, int bh,
                                             int row, int col, float s,
@@ -171,49 +191,6 @@ __device__ __forceinline__ float grad_score(const Params& p, const Seeds& sd,
 }
 
 // ---------------------------------------------------------------- bf16
-
-constexpr int kT = flash::kTile16;
-
-template <int D>
-constexpr int smem_bf16() {
-  return 4 * kT * (D + 8) * 2;
-}
-
-// rows of the dO head of (bi, hi): contiguous [b, t, h, d]
-__device__ __forceinline__ long long dout_head(const Params& p, int bi,
-                                               int hi, int d) {
-  return (static_cast<long long>(bi) * p.t * p.h + hi) * d;
-}
-
-// S = X Y^T and dP = U W^T of one warp's 16 rows [r0, r0 + 16) of the
-// staged tiles xs, us against the 64 rows of ys, ws (all [64][D + 8]):
-// Q K^T and dO V^T for dbias
-template <int D>
-__device__ __forceinline__ void scores_bf16(float (&s)[8][4], float (&dp)[8][4],
-                                            const bf16* xs, const bf16* us,
-                                            int r0, const bf16* ys,
-                                            const bf16* ws) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t xa[4], ua[4];
-    load_a<D>(xa, xs, r0, kk * 16);
-    load_a<D>(ua, us, r0, kk * 16);
-#pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      uint32_t b[4];
-      load_bt<D>(b, ys, jp * 16, kk * 16);
-      mma_bf16(s[2 * jp], xa, b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], xa, b[2], b[3]);
-      load_bt<D>(b, ws, jp * 16, kk * 16);
-      mma_bf16(dp[2 * jp], ua, b[0], b[1]);
-      mma_bf16(dp[2 * jp + 1], ua, b[2], b[3]);
-    }
-  }
-}
 
 // K4b, bf16: TMA + wgmma (see the design above)
 namespace dkv90 {
@@ -350,8 +327,10 @@ bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = full + STAGES;
   __shared__ int live_s[2];   // warpgroup w's 64 keys hold a valid one
 
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int k0 = blockIdx.x * kKeys;
+  // grid.x walks the key blocks of each head in turn
+  const int n_k = (p.t + kKeys - 1) / kKeys;
+  const int bh = blockIdx.x / n_k, bi = bh / p.h, hi = bh % p.h;
+  const int k0 = blockIdx.x % n_k * kKeys;
   if (threadIdx.x < 2) live_s[threadIdx.x] = 0;
   __syncthreads();
   // padded-key skip: read the block's kv_mask before any load
@@ -529,7 +508,7 @@ bool bwd_maps(const Params& p, BwdMaps* m) {
          flash90::row_map(&m->delta, p.delta, rows);
 }
 
-// the launch of K4b's bf16 body: grid (t / 128 key blocks, b*h)
+// the launch of K4b's bf16 body: grid b*h * (t / 128 key blocks)
 template <int D>
 int launch_dkv_sm90(const Params& p, cudaStream_t st) {
   using C = dkv90::Cfg<D>;
@@ -537,7 +516,7 @@ int launch_dkv_sm90(const Params& p, cudaStream_t st) {
   if (!bwd_maps<D>(p, &m)) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncSetAttribute(bwd_dkv_sm90<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  const dim3 grid((p.t + dkv90::kKeys - 1) / dkv90::kKeys, p.b * p.h);
+  const dim3 grid((p.t + dkv90::kKeys - 1) / dkv90::kKeys * p.b * p.h);
   bwd_dkv_sm90<D><<<grid, dkv90::kThreads, C::SMEM, st>>>(
       m.q, m.k, m.v, m.dout, m.lse, m.delta, p);
   return static_cast<int>(cudaGetLastError());
@@ -652,8 +631,10 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = full + STAGES;
   uint32_t* words = reinterpret_cast<uint32_t*>(empty + STAGES);
 
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int q0 = blockIdx.x * dq90::kQ;
+  // grid.x walks the query blocks of each head in turn
+  const int n_q = (p.t + dq90::kQ - 1) / dq90::kQ;
+  const int bh = blockIdx.x / n_q, bi = bh / p.h, hi = bh % p.h;
+  const int q0 = blockIdx.x % n_q * dq90::kQ;
   // the producer thread sets up the barriers and starts the load of the
   // block's own rows, which overlaps the scan of the kv_mask below
   if (threadIdx.x == 256) {
@@ -789,7 +770,7 @@ bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// the launch of K4a's bf16 body: grid (t / 128 query blocks, b*h)
+// the launch of K4a's bf16 body: grid b*h * (t / 128 query blocks)
 template <int D>
 int launch_dq_sm90(const Params& p, cudaStream_t st) {
   BwdMaps m;
@@ -803,87 +784,276 @@ int launch_dq_sm90(const Params& p, cudaStream_t st) {
   const cudaError_t rc = hopper::allow_max_dynamic_smem(
       reinterpret_cast<const void*>(bwd_dq_sm90<D>), &smem_set);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((p.t + dq90::kQ - 1) / dq90::kQ, p.b * p.h);
+  const dim3 grid((p.t + dq90::kQ - 1) / dq90::kQ * p.b * p.h);
   bwd_dq_sm90<D><<<grid, dq90::kThreads, smem, st>>>(
       m.q, m.k, m.v, m.dout, m.lse, m.delta, tdq, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5
+// K5, bf16: TMA + wgmma (see the design above)
+namespace db90 {
+constexpr int kQ = 128;              // queries a block owns: 64 a warpgroup
+constexpr int kK = flash90::kRows;   // keys a block owns
+constexpr int kThreads = 384;   // consumer warpgroups 0 and 1, producer 2
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dbias_bf16(Params p) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kT * LD;
-  bf16* ks = dos + kT * LD;
-  bf16* vs = ks + kT * LD;
-  __shared__ int kvalid[kT];
+struct Cfg {
+  static constexpr int TILE = flash90::Tile<D>::TILE;
+  static constexpr int STAGES = D == 128 ? 2 : 3;
+  // one replica: Q and dO (two 64-row tiles each), K, V, then lse and
+  // delta (128 f32 each: the 1024-byte atom)
+  static constexpr int STAGE = 6 * TILE + 1024;
+  // the ring, full[], empty[], each stage's (bh, key words); 1024 to
+  // align the base
+  static constexpr int SMEM = STAGES * STAGE + STAGES * (16 + 16) + 1024;
+};
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = blockIdx.x * kT, q0 = blockIdx.y * kT, lead = blockIdx.z;
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  const float* bplane = bias_plane(p, lead);
-  const Seeds sd(p);
-  float acc[8][4];
+// ds of a warpgroup's [64 queries][64 keys] tile from the raw S and dP
+// accumulators, added into the f32 dbias tile `acc` of the same layout
+// (row row0 + 8 hh, key k0 + 8 j + 2 (lane % 4) + c at 4 j + 2 hh + c).
+// bias2 holds the bias times log2 e in that layout; lse2 the rows' lse
+// times log2 e.  The math of dq90::ds_tile (K4a), unrounded: EDGE a key
+// is padding or the tile crosses t or the causal diagonal, DROP the hash
+// dropout.  The accumulators are only read (else ptxas serialises the
+// wgmmas).
+template <bool EDGE, bool DROP>
+__device__ __forceinline__ void ds_sum(const float (&s)[32],
+                                       const float (&dp)[32],
+                                       float (&acc)[32],
+                                       const float (&bias2)[32],
+                                       const Params& p, const Seeds& sd,
+                                       int bh, int row0, int k0, uint32_t mine,
+                                       const float (&lse2)[2],
+                                       const float (&dl)[2], float scale2) {
+  const int c2 = (threadIdx.x & 3) * 2;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-
-  if (!p.causal || k0 <= q0 + kT - 1) {
-    for (int rep = 0; rep < p.reps; ++rep) {
-      const int bh = p.mul_l * lead + p.mul_r * rep, bi = bh / p.h,
-                hi = bh % p.h;
-      const long long head = bi * p.sb + hi * p.sh;
-      __syncthreads();   // the previous replica's tiles are no longer read
-      stage_rows_bf16<D>(qs, static_cast<const bf16*>(p.q) + head, q0, p.t,
-                         p.st);
-      stage_rows_bf16<D>(dos,
-                         static_cast<const bf16*>(p.dout) + dout_head(p, bi, hi, D),
-                         q0, p.t, static_cast<long long>(p.h) * D);
-      stage_rows_bf16<D>(ks, static_cast<const bf16*>(p.k) + head, k0, p.t,
-                         p.st);
-      stage_rows_bf16<D>(vs, static_cast<const bf16*>(p.v) + head, k0, p.t,
-                         p.st);
-      if (threadIdx.x < kT)
-        kvalid[threadIdx.x] = key_valid(p, bi, k0 + threadIdx.x);
-      __syncthreads();
-      float lse_r[2], delta_r[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = row0 + hh * 8;
-        const long long at = static_cast<long long>(bh) * p.t + row;
-        lse_r[hh] = row < p.t ? p.lse[at] : 0.f;
-        delta_r[hh] = row < p.t ? p.delta[at] : 0.f;
-      }
-      float s[8][4], dp[8][4];
-      scores_bf16<D>(s, dp, qs, dos, warp * 16, ks, vs);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hh = e >> 1, row = row0 + hh * 8;
-          const int cl = nt * 8 + (lane & 3) * 2 + (e & 1), col = k0 + cl;
-          float pd;
-          if (row < p.t && kvalid[cl] && (!p.causal || col <= row))
-            acc[nt][e] += grad_score(p, sd, bplane, bh, row, col, s[nt][e],
-                                     dp[nt][e], lse_r[hh], delta_r[hh], &pd);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = row0 + (e >> 1) * 8;
-      const int col = k0 + nt * 8 + (lane & 3) * 2 + (e & 1);
-      if (row < p.t && col < p.t)
-        p.dbias[(static_cast<long long>(lead) * p.t + row) * p.t + col] =
-            acc[nt][e];
+      const int hh = e >> 1, row = row0 + 8 * hh, col = k0 + 8 * j + c2 + (e & 1);
+      bool ok = true;
+      if (EDGE)
+        ok = ((mine >> (2 * j + (e & 1))) & 1u) && row < p.t &&
+             (!p.causal || col <= row);
+      const float x2 = s[4 * j + e] * scale2 - lse2[hh] + bias2[4 * j + e];
+      const float pv = ok ? flash90::exp2_approx(x2) : 0.f;
+      float dpv = dp[4 * j + e];
+      if (DROP)
+        dpv = drop_keep(sd.seed, bh, sd.q_off + row, sd.k_off + col,
+                        p.drop_threshold)
+                  ? dpv * p.drop_scale
+                  : 0.f;
+      acc[4 * j + e] += pv * (dpv - dl[hh]);
     }
   }
+}
+}  // namespace db90
+
+template <int D>
+__global__ void __launch_bounds__(db90::kThreads, 1)
+bwd_dbias_sm90(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tlse,
+               const __grid_constant__ CUtensorMap tdelta, const Params p) {
+  using T = flash90::Tile<D>;
+  using C = db90::Cfg<D>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE);
+  uint64_t* empty = full + STAGES;
+  int* meta = reinterpret_cast<int*>(empty + STAGES);   // [STAGES][4]
+
+  // grid.x walks (lead, query block, key tile), key tiles fastest
+  const int n_k = (p.t + db90::kK - 1) / db90::kK;
+  const int n_q = (p.t + db90::kQ - 1) / db90::kQ;
+  const int k0 = blockIdx.x % n_k * db90::kK;
+  const int q0 = blockIdx.x / n_k % n_q * db90::kQ;
+  const int lead = blockIdx.x / n_k / n_q;
+  float* out = p.dbias + static_cast<long long>(lead) * p.t * p.t;
+  if (p.causal && k0 > q0 + db90::kQ - 1) {
+    // every key after every query: ds = 0, the tile's gradient is 0
+    for (int i = threadIdx.x; i < db90::kQ * db90::kK; i += db90::kThreads) {
+      const int row = q0 + i / db90::kK, col = k0 + i % db90::kK;
+      if (row < p.t && col < p.t)
+        out[static_cast<long long>(row) * p.t + col] = 0.f;
+    }
+    return;
+  }
+  if (threadIdx.x == 256) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);    // the producer's arrival
+      hopper::mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {   // producer: warp 8 walks the replicas
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x & 31;
+      const int halves = q0 + 64 < p.t ? 2 : 1;
+      const uint32_t bytes = halves * (2 * T::TILE + 2 * 64 * 4) + 2 * T::TILE;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int rep = 0; rep < p.reps; ++rep) {
+        const int bh = p.mul_l * lead + p.mul_r * rep, bi = bh / p.h,
+                  hi = bh % p.h;
+        const uint32_t w0 =
+            __ballot_sync(0xffffffffu, key_valid(p, bi, k0 + lane));
+        const uint32_t w1 =
+            __ballot_sync(0xffffffffu, key_valid(p, bi, k0 + 32 + lane));
+        // a key tile with no valid key is neither loaded nor computed
+        // (exact: p = 0 at a masked key, so ds = 0 there)
+        if ((w0 | w1) == 0) continue;
+        if (lane == 0) {
+          hopper::mbar_wait(&empty[stage], phase ^ 1);
+          int* m = meta + 4 * stage;
+          m[0] = bh;
+          m[1] = static_cast<int>(w0);
+          m[2] = static_cast<int>(w1);
+          unsigned char* st = ring + stage * C::STAGE;
+          float* rows = reinterpret_cast<float*>(st + 6 * T::TILE);
+          hopper::mbar_arrive_expect_tx(&full[stage], bytes);
+          for (int w = 0; w < halves; ++w) {
+            const int r0 = q0 + 64 * w;
+            flash90::load_tile<D>(st + w * T::TILE, &tq, &full[stage], bi, hi,
+                                  r0);
+            flash90::load_tile<D>(st + (2 + w) * T::TILE, &tdo, &full[stage],
+                                  bi, hi, r0);
+            hopper::tma_load_1d(rows + 64 * w, &tlse, &full[stage],
+                                bh * p.t + r0);
+            hopper::tma_load_1d(rows + 128 + 64 * w, &tdelta, &full[stage],
+                                bh * p.t + r0);
+          }
+          flash90::load_tile<D>(st + 4 * T::TILE, &tk, &full[stage], bi, hi,
+                                k0);
+          flash90::load_tile<D>(st + 5 * T::TILE, &tv, &full[stage], bi, hi,
+                                k0);
+        }
+        __syncwarp();
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (lane == 0) {   // the end: a stage with no replica
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        meta[4 * stage] = -1;
+        hopper::mbar_arrive(&full[stage]);
+      }
+    }
+  } else {   // consumers: warpgroup wg owns queries q0 + 64 wg + [0, 64)
+    hopper::setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128, warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
+    const int qw = q0 + 64 * wg;
+    const bool live = qw < p.t && !(p.causal && k0 > qw + 63);
+    const int r = 64 * wg + warp * 16 + (lane >> 2);   // and r + 8
+    const int row0 = q0 + r;
+    const Seeds sd(p);
+    const float scale2 = p.scale * flash90::kLog2e;
+    // the bias tile, read once for all replicas, times log2 e
+    const float* bplane = bias_plane(p, lead);
+    float acc[32], bias2[32];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1), col = k0 + 8 * j + c2 + (e & 1);
+        acc[4 * j + e] = 0.f;
+        bias2[4 * j + e] =
+            row < p.t && col < p.t
+                ? bplane[static_cast<long long>(row) * p.t + col] *
+                      flash90::kLog2e
+                : 0.f;
+      }
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      hopper::mbar_wait(&full[stage], phase);
+      const int* m = meta + 4 * stage;
+      const int bh = m[0];
+      if (bh < 0) break;
+      if (live) {
+        const unsigned char* st = ring + stage * C::STAGE;
+        const unsigned char* qt = st + wg * T::TILE;
+        const unsigned char* dot = st + (2 + wg) * T::TILE;
+        const unsigned char* kt = st + 4 * T::TILE;
+        const unsigned char* vt = st + 5 * T::TILE;
+        const float* rows = reinterpret_cast<const float*>(st + 6 * T::TILE);
+        const uint32_t w0 = static_cast<uint32_t>(m[1]);
+        const uint32_t w1 = static_cast<uint32_t>(m[2]);
+        // S = Q K^T and dP = dO V^T: 64 queries x 64 keys, over D
+        float s[32], dp[32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss_n64(s, flash90::kmajor<D>(qt, kk),
+                               flash90::kmajor<D>(kt, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss_n64(dp, flash90::kmajor<D>(dot, kk),
+                               flash90::kmajor<D>(vt, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        const float lse2[2] = {rows[r] * flash90::kLog2e,
+                               rows[r + 8] * flash90::kLog2e};
+        const float dl[2] = {rows[128 + r], rows[128 + r + 8]};
+        const bool edge = (w0 & w1) != 0xffffffffu || qw + 64 > p.t ||
+                          (p.causal && k0 + 63 > qw);
+        const uint32_t mine = flash90::thread_bits(w0, w1);
+#define DB_SUM(EDGE, DROP)                                                    \
+  db90::ds_sum<EDGE, DROP>(s, dp, acc, bias2, p, sd, bh, row0, k0, mine, lse2, \
+                           dl, scale2)
+        if (edge) {
+          if (p.dropout) DB_SUM(true, true); else DB_SUM(true, false);
+        } else {
+          if (p.dropout) DB_SUM(false, true); else DB_SUM(false, false);
+        }
+#undef DB_SUM
+      }
+      if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // the summed tile, straight from the accumulator layout: a warp's
+    // store covers 8 rows of 32 contiguous bytes per column block
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1), col = k0 + 8 * j + c2 + (e & 1);
+        if (row < p.t && col < p.t)
+          out[static_cast<long long>(row) * p.t + col] = acc[4 * j + e];
+      }
+  }
+}
+
+// the launch of K5's bf16 body: grid lead * (t / 128 query blocks) * (t /
+// 64 key tiles)
+template <int D>
+int launch_dbias_sm90(const Params& p, int lead, cudaStream_t st) {
+  BwdMaps m;
+  if (!bwd_maps<D>(p, &m)) return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t rc = hopper::allow_max_dynamic_smem(
+      reinterpret_cast<const void*>(bwd_dbias_sm90<D>), &smem_set);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((p.t + db90::kK - 1) / db90::kK *
+                  ((p.t + db90::kQ - 1) / db90::kQ) * lead);
+  bwd_dbias_sm90<D><<<grid, db90::kThreads, db90::Cfg<D>::SMEM, st>>>(
+      m.q, m.k, m.v, m.dout, m.lse, m.delta, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- f32
@@ -958,8 +1128,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(Params p) {
   __shared__ int kvalid[kT32];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int q0 = blockIdx.x * kT32;
+  const int n_q = (p.t + kT32 - 1) / kT32;
+  const int bh = blockIdx.x / n_q, bi = bh / p.h, hi = bh % p.h;
+  const int q0 = blockIdx.x % n_q * kT32;
   const long long head = bi * p.sb + hi * p.sh;
   const float* kg = static_cast<const float*>(p.k) + head;
   const float* vg = static_cast<const float*>(p.v) + head;
@@ -1034,8 +1205,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(Params p) {
   __shared__ float lse_s[kT32], delta_s[kT32];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int k0 = blockIdx.x * kT32;
+  const int n_k = (p.t + kT32 - 1) / kT32;
+  const int bh = blockIdx.x / n_k, bi = bh / p.h, hi = bh % p.h;
+  const int k0 = blockIdx.x % n_k * kT32;
   const long long head = bi * p.sb + hi * p.sh;
   const float* qg = static_cast<const float*>(p.q) + head;
   const float* dog = static_cast<const float*>(p.dout) + dout_head(p, bi, hi, D);
@@ -1116,7 +1288,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dbias_f32(Params p) {
   __shared__ int kvalid[kT32];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = blockIdx.x * kT32, q0 = blockIdx.y * kT32, lead = blockIdx.z;
+  // grid.x walks (lead, query tile, key tile), key tiles fastest
+  const int n_t = (p.t + kT32 - 1) / kT32;
+  const int k0 = blockIdx.x % n_t * kT32, q0 = blockIdx.x / n_t % n_t * kT32;
+  const int lead = blockIdx.x / n_t / n_t;
   const float* bplane = bias_plane(p, lead);
   const Seeds sd(p);
   const int col = k0 + lane;
@@ -1168,25 +1343,18 @@ __global__ void __launch_bounds__(kThreads) bwd_dbias_f32(Params p) {
 template <int D>
 int launch(const Params& p, int kind, int dtype, int lead, cudaStream_t st) {
   const int bh = p.b * p.h;
-  void (*kernel)(Params);
-  int smem, tile;
   if (dtype == 1 && kind == 0) return launch_dq_sm90<D>(p, st);
   if (dtype == 1 && kind == 1) return launch_dkv_sm90<D>(p, st);
-  if (dtype == 1) {
-    tile = kT;
-    smem = smem_bf16<D>();
-    kernel = bwd_dbias_bf16<D>;
-  } else {
-    tile = kT32;
-    smem = smem_f32<D>(kind == 0 ? 1 : kind == 1 ? 2 : 0);
-    kernel = kind == 0 ? bwd_dq_f32<D> : kind == 1 ? bwd_dkv_f32<D>
-                                                   : bwd_dbias_f32<D>;
-  }
+  if (dtype == 1) return launch_dbias_sm90<D>(p, lead, st);
+  const int smem = smem_f32<D>(kind == 0 ? 1 : kind == 1 ? 2 : 0);
+  void (*kernel)(Params) = kind == 0   ? bwd_dq_f32<D>
+                           : kind == 1 ? bwd_dkv_f32<D>
+                                       : bwd_dbias_f32<D>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
-  const int n_tiles = (p.t + tile - 1) / tile;
-  const dim3 grid = kind == 2 ? dim3(n_tiles, n_tiles, lead)
-                              : dim3(n_tiles, bh);
+  // one 1-D grid: (b*h or lead) x query tiles [x key tiles]
+  const int n_tiles = (p.t + kT32 - 1) / kT32;
+  const dim3 grid(kind == 2 ? n_tiles * n_tiles * lead : n_tiles * bh);
   kernel<<<grid, kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1199,7 +1367,8 @@ int launch(const Params& p, int kind, int dtype, int lead, cudaStream_t st) {
 // kv_mask, bias and seed3 may be null (bias_mode 0, dropout 0); the dbias
 // pass needs the bias.  Returns cudaGetLastError() after the launch;
 // cudaErrorInvalidValue for a head_dim other than 32, 64 or 128, another
-// dtype or kind, or b*h > 65535.
+// dtype or kind, or b*h*t (rows of lse, indexed in 32 bits) or the dbias
+// grid past 2^31.
 extern "C" int flash_bwd(int kind, const void* q, const void* k,
                          const void* v, const void* dout, const void* lse,
                          const void* delta, const void* kv_mask,
@@ -1211,9 +1380,11 @@ extern "C" int flash_bwd(int kind, const void* q, const void* k,
                          int lead, int reps, int mul_l, int mul_r,
                          void* stream) {
   if (B <= 0 || H <= 0 || T <= 0) return 0;
+  const long long tiles32 = (T + 31) / 32;
   if ((dtype != 0 && dtype != 1) || kind < 0 || kind > 2 ||
-      static_cast<long long>(B) * H > 65535 ||
-      (kind == 2 && (bias == nullptr || lead <= 0 || lead > 65535)))
+      static_cast<long long>(B) * H * T > INT32_MAX ||
+      (kind == 2 && (bias == nullptr || lead <= 0 ||
+                     lead * tiles32 * tiles32 > INT32_MAX)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;

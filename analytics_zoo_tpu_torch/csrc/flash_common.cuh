@@ -1,17 +1,7 @@
 // Pieces shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu):
 // the positional dropout hash, the bias's leading-index projection, warp
-// reductions, bf16 packing, and the mma.sync building blocks of K5's bf16
-// body (ldmatrix, mma.sync m16n8k16, 64-row tile staging).  The Hopper
-// bodies' pieces are in flash_sm90.cuh.
-//
-// Fragment layouts of mma.sync.m16n8k16.row.col (g = lane >> 2, c = lane & 3):
-//   A 16x16:  a0 (row g, cols 2c..2c+1), a1 (row g+8, same cols),
-//             a2 (row g, cols 2c+8..2c+9), a3 (row g+8, same cols);
-//   B 16x8:   b0 (k 2c..2c+1, col g), b1 (k 2c+8..2c+9, col g);
-//   C 16x8:   c0, c1 (row g, cols 2c, 2c+1), c2, c3 (row g+8, same cols).
-// wgmma's accumulator and register-A layouts repeat these per warp
-// (hopper.cuh), so an accumulator pair over 16 columns re-packs in
-// registers as the A operand of a product over those 16 columns.
+// reductions and bf16 packing.  The Hopper bodies' pieces are in
+// flash_sm90.cuh.
 
 #pragma once
 
@@ -76,69 +66,12 @@ __device__ __forceinline__ float shfl_sum(float v, int width_mask) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// tile edge of the bf16 kernels (rows and keys alike) and their threads
-constexpr int kTile16 = 64, kThreads = 128;
-
-// rows [r0, r0 + 64) of a [t, D] bf16 head (row stride st elements) into
-// sm[64][D + 8] (rows padded by 8: conflict-free ldmatrix), rows past t
-// zero-filled; 16-byte loads
-template <int D>
-__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* sm,
-                                                const __nv_bfloat16* g,
-                                                int r0, int t, long long st) {
-  constexpr int LD = D + 8, CH = D / 8;
-  for (int c = threadIdx.x; c < kTile16 * CH; c += kThreads) {
-    const int r = c / CH, dc = (c % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t)
-      val = *reinterpret_cast<const uint4*>(g + (r0 + r) * st + dc);
-    *reinterpret_cast<uint4*>(sm + r * LD + dc) = val;
-  }
-}
-
-// the A fragment of rows [row, row + 16) x cols [col, col + 16) of a staged
-// [rows][D + 8] bf16 tile
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* sm, int row,
-                                       int col) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, sm + (row + (lane & 15)) * (D + 8) + col + (lane >> 4) * 8);
-}
-
-// B = X^T for X staged as [n][k] rows: fragments of n rows [n0, n0 + 16),
-// k cols [k0, k0 + 16); b[0], b[1] for n0..n0+7, b[2], b[3] for n0+8..
-template <int D>
-__device__ __forceinline__ void load_bt(uint32_t (&b)[4],
-                                        const __nv_bfloat16* sm, int n0,
-                                        int k0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(b, sm + (n0 + (lane & 7) + (lane >> 4) * 8) * (D + 8) + k0 +
-                     ((lane >> 3) & 1) * 8);
-}
+// threads of the f32 bodies' blocks
+constexpr int kThreads = 128;
 
 }  // namespace flash

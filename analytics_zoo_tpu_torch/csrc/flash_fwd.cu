@@ -259,8 +259,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = full + STAGES;
   uint32_t* words = reinterpret_cast<uint32_t*>(empty + STAGES);
 
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int q0 = blockIdx.x * fwd90::kQ;
+  // grid.x walks the query blocks of each head in turn (b*h may pass
+  // grid.y's 65535)
+  const int n_q = (p.t + fwd90::kQ - 1) / fwd90::kQ;
+  const int bh = blockIdx.x / n_q, bi = bh / p.h, hi = bh % p.h;
+  const int q0 = blockIdx.x % n_q * fwd90::kQ;
   // the producer thread sets up the barriers and starts the load of the
   // block's own rows, which overlaps the scan of the kv_mask below
   if (threadIdx.x == 256) {
@@ -401,7 +404,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq,
 }
 
 // the tensor maps of q, k, v and out, and the launch of the bf16 body:
-// grid (t / 128 query blocks, b*h)
+// grid b*h * (t / 128 query blocks)
 template <int D>
 int launch_sm90(const Params& p, cudaStream_t st) {
   CUtensorMap tq, tk, tv, tout;
@@ -417,7 +420,7 @@ int launch_sm90(const Params& p, cudaStream_t st) {
   const cudaError_t rc = hopper::allow_max_dynamic_smem(
       reinterpret_cast<const void*>(flash_fwd_sm90<D>), &smem_set);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((p.t + fwd90::kQ - 1) / fwd90::kQ, p.b * p.h);
+  const dim3 grid((p.t + fwd90::kQ - 1) / fwd90::kQ * p.b * p.h);
   flash_fwd_sm90<D><<<grid, fwd90::kThreads, smem, st>>>(tq, tk, tv, tout, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -442,8 +445,9 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
   __shared__ int kvalid[kBK32];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, bi = bh / p.h, hi = bh % p.h;
-  const int q0 = blockIdx.x * kBQ32;
+  const int n_q = (p.t + kBQ32 - 1) / kBQ32;
+  const int bh = blockIdx.x / n_q, bi = bh / p.h, hi = bh % p.h;
+  const int q0 = blockIdx.x % n_q * kBQ32;
   const long long head = bi * p.sb + hi * p.sh;
   const float* qg = static_cast<const float*>(p.q) + head;
   const float* kg = static_cast<const float*>(p.k) + head;
@@ -558,7 +562,7 @@ int launch(const Params& p, int dtype, cudaStream_t st) {
   const int smem = smem_f32<D>();
   cudaFuncSetAttribute(flash_fwd_f32<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((p.t + kBQ32 - 1) / kBQ32, p.b * p.h);
+  const dim3 grid((p.t + kBQ32 - 1) / kBQ32 * p.b * p.h);
   flash_fwd_f32<D><<<grid, 128, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -568,8 +572,9 @@ int launch(const Params& p, int dtype, cudaStream_t st) {
 // See the layouts above.  dtype: 0 = f32, 1 = bf16 (q, k, v and out);
 // kv_mask, bias and seed3 may be null (bias_mode 0, dropout 0).
 // Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for
-// a head_dim other than 32, 64 or 128, another dtype, b*h > 65535, or
-// bf16 views whose tensor maps the driver refuses.
+// a head_dim other than 32, 64 or 128, another dtype, b*h*t past 2^31
+// (the bodies index rows of the [b*h, t] lse in 32 bits), or bf16 views
+// whose tensor maps the driver refuses.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_mask, const void* bias,
                          const void* seed3, void* out, void* lse, int B,
@@ -578,7 +583,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int dropout, int drop_threshold, float drop_scale,
                          float scale, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0) return 0;
-  if ((dtype != 0 && dtype != 1) || static_cast<long long>(B) * H > 65535)
+  if ((dtype != 0 && dtype != 1) ||
+      static_cast<long long>(B) * H * T > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;

@@ -1,6 +1,6 @@
 // Pieces the Hopper (sm_90a) flash-attention bodies share: K3's
-// flash_fwd_sm90 (flash_fwd.cu), K4a's bwd_dq_sm90 and K4b's bwd_dkv_sm90
-// (flash_bwd.cu).  Each body moves 64-row tiles of one head of a
+// flash_fwd_sm90 (flash_fwd.cu), K4a's bwd_dq_sm90, K4b's bwd_dkv_sm90 and
+// K5's bwd_dbias_sm90 (flash_bwd.cu).  Each body moves 64-row tiles of one head of a
 // [b, t, h, d] bf16 view by TMA (4-D tensor maps over (d, h, t, b) with
 // the view's strides, so the thirds of a fused qkv are read in place)
 // into shared memory in the 128-byte swizzle (64 bf16 a row chunk; 64

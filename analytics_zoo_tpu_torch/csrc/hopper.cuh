@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
 // (fused_dense.cu's sm90 body; the flash bodies through flash_sm90.cuh:
-// K3's forward, K4a's dQ and K4b's dK/dV): mbarriers with
+// K3's forward, K4a's dQ, K4b's dK/dV and K5's dbias; paged_decode.cu's
+// bulk copies): mbarriers with
 // phase parity, TMA tile loads and stores, the wgmma shared-memory
 // descriptor and instructions, and setmaxnreg.  Host side: building a TMA
 // descriptor (CUtensorMap) through libcuda's cuTensorMapEncodeTiled,
@@ -87,6 +88,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------- TMA
+
+// a plain bulk copy (no tensor map) of `bytes` contiguous bytes from
+// global to shared memory, completing on `bar`: both addresses 16-byte
+// aligned, `bytes` a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
 // tile loads of a tensor map into shared memory, completing on `bar`;
 // coordinates innermost first, in elements

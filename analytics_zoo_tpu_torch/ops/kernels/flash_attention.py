@@ -76,6 +76,15 @@ def _check(q, k, v, kv_mask, bias, seed3, dropout, name):
     if not q.is_cuda:
         raise ValueError(f"{name} launches a CUDA kernel; q is on "
                          f"{q.device} (CPU tensors take the plain version)")
+    return check_args(q, k, v, kv_mask, bias, seed3, dropout)
+
+
+def check_args(q, k, v, kv_mask=None, bias=None, seed3=None,
+               dropout: float = 0.0) -> int:
+    """The kernels' checks of shapes, dtypes, layouts and devices (every
+    tensor on q's device), on any device: raises ValueError on what no
+    kernel takes, else returns the bias_mode (0 without a bias).  b*h is
+    not bounded: the grids are 1-D; b*h*t must index in 32 bits."""
     b, t, h, d = q.shape
     dev = q.device
     if q.dtype not in _DTYPES:
@@ -114,8 +123,8 @@ def _check(q, k, v, kv_mask, bias, seed3, dropout, name):
                           or seed3.device != dev):
         raise ValueError("dropout > 0 needs seed3, an int32 [3] tensor on "
                          f"{dev}")
-    if b * h > 65535:
-        raise ValueError(f"b*h = {b * h} exceeds the kernel's grid (65535)")
+    if b * h * t > 2 ** 31 - 1:
+        raise ValueError(f"b*h*t = {b * h * t} rows of lse pass 2^31 - 1")
     return bias_mode
 
 

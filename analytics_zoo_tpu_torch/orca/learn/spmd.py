@@ -98,9 +98,18 @@ class TrainEngine:
         loss = masked_mean(self.loss_fn(preds, batch["labels"]), mask)
         loss.backward()
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads))) if grads else loss.new_zeros(())
-        finite = torch.isfinite(loss.detach()) & torch.isfinite(norm)
+        finite = torch.isfinite(loss.detach())
+        norm = loss.new_zeros(())
+        if grads:
+            # per element, as JAX's all(isfinite(g)): the largest |g| is
+            # inf only at an inf element, and the L2 norm is nan only at
+            # a nan one; finite elements above ~1.8e19 overflow the L2
+            # norm to inf without making the step non-finite (optax then
+            # clips by clip_norm / inf = 0)
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
+            amax = torch.stack(torch._foreach_norm(grads, ord=float("inf")))
+            finite = finite & ~torch.isnan(norm) & torch.isfinite(amax).all()
         self.optimizer.clip_(grads, norm)
         # a non-finite step is skipped on the device, with no host read
         self.opt.found_inf = (~finite).float()

@@ -17,8 +17,10 @@ gradients) are checked against a recompute through the plain versions.
 Phases (each one failing exits non-zero, with no result line):
   1. setup: card name and power limit, versions, kernel build, TF32 off;
   2. K1 LayerNorm forward (Triton) vs its plain version;
-  3. K6 paged decode attention (CUDA) vs its plain version, f32 and
-     int8 pools;
+  3. K6 paged decode attention (CUDA) vs its plain version, f32, int8,
+     f16 and bf16 pools, on the body the wrapper picks (split) and the
+     first design's body (rows) on the same operands, timed beside it;
+     an unaligned pool, which takes the rows body;
   4. K2 fused dense + bias + GELU (CUDA) vs its plain version, bf16 and
      f32, at the BERT fc1 shapes and a ragged one, and in bf16 at m and n
      no multiple of the Hopper body's tile and at k % 8 != 0 (the
@@ -39,16 +41,21 @@ Phases (each one failing exits non-zero, with no result line):
      lse and the fine-tune's own case (fused qkv, dropout, key mask); dq,
      dk, dv and the bias's gradient at each broadcast; the key mask has
      the edges of the padded-key-tile skips, and dk, dv must be exactly
-     zero at every padded key; every case again at a t that ends inside a
+     zero at every padded key, dbias at every key all of a bias plane's
+     replicas pad; every case again at a t that ends inside a
      128-row block, drawn from the boundary scenes' own generator;
-  5d. the bodies that read through TMA (K2 sm90, K3, K4a, K4b; bf16)
-     launched from 4 new host threads at once, each thread's first CUDA
-     call a launch, the flash kernels at t = 128 and 512 in turn: every
-     launch goes through and matches the same call made alone bit for
-     bit;
+  5e. K3, K4a, K4b and K5 at b*h = 65544 (batch 5462, 12 heads, t = 128,
+     bf16, kv_mask, a [b, 1, t, t] and then a [b, h, t, t] bias) vs
+     their plain versions under phase 5's and 5c's gates;
+  5d. the Hopper bodies (K2 sm90, K3, K4a, K4b, K5, bf16; K6's split
+     body) launched from 6 new host threads at once, each thread's first
+     CUDA call a launch, the flash kernels at t = 128 and 512 in turn:
+     every launch goes through and matches the same call made alone bit
+     for bit;
   6. slice 1: warm the generation engine, serve concurrent greedy
      requests through the background loop, check K1/K6 launch counts
-     and the logits; again with an int8 KV pool;
+     (every K6 launch on its split body) and the logits; again with an
+     int8 KV pool and with an f16 one (bench.py's configuration);
   7. slice 2: BERTClassifier at BERT-base's widths (bf16, flash) behind
      InferenceModel, predict calls from 4 threads at t = 128 and 512;
      sequences/s, valid tokens/s, latency p50 per (batch, t); K1/K2/K3
@@ -69,8 +76,8 @@ Phases (each one failing exits non-zero, with no result line):
      K5 launched once per attention layer per step, the bias table's
      gradient vs the plain path;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
-     forward and one fine-tune step (t = 512, batch 32) by device op,
-     after the timed serving.
+     forward, one fine-tune step (t = 512, batch 32) and one
+     learnable-bias step by device op, after the timed serving.
 The line before the last is a JSON object of every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
 
@@ -274,11 +281,21 @@ def phase_layer_norm(torch, gen):
 # phase 3: K6
 # ----------------------------------------------------------------------
 
-def paged_scene(torch, gen, quantized: bool):
+#: K6's pools: (label, pool dtype or None for int8, quantized)
+PAGED_POOLS = (("f32", "float32", False), ("int8", None, True),
+               ("f16", "float16", False), ("bf16", "bfloat16", False))
+#: seed of the f16, bf16 and unaligned K6 scenes, drawn from a generator
+#: of their own (the f32 and int8 scenes, and every later phase's
+#: inputs, stay as they were)
+PAGED_SEED = 3
+
+
+def paged_scene(torch, gen, quantized: bool, pool_dtype=None):
     """A serving-shaped decode scene: 8 lanes, 12 heads of 64, blocks
     of 16, 64-block tables (1024 positions); ragged ctx_len including
     an empty lane and a full 1023-token lane; garbage everywhere past
-    ctx_len."""
+    ctx_len.  The pool is f32 (rounded to `pool_dtype` when given), or
+    int8 with per-slot scales."""
     from analytics_zoo_tpu_torch.serving.generation.kv_cache import (
         quantize_kv_tokens,
     )
@@ -301,6 +318,9 @@ def paged_scene(torch, gen, quantized: bool):
     if quantized:
         sc["k_pool"], sc["k_scale"] = quantize_kv_tokens(k_pool)
         sc["v_pool"], sc["v_scale"] = quantize_kv_tokens(v_pool)
+    elif pool_dtype is not None:
+        sc["k_pool"] = k_pool.to(pool_dtype)
+        sc["v_pool"] = v_pool.to(pool_dtype)
     return sc, ctx
 
 
@@ -328,52 +348,115 @@ def sdpa_yardstick(torch, sc):
         q[:, :, None], k, v, attn_mask=mask[:, None, None])[:, :, 0]
 
 
+def paged_body(name, *args, k_scale=None, v_scale=None):
+    """K6's body `name` called past the wrapper on the wrapper's
+    operands: a comparison, not counted."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.kernels.paged_attention import _launch
+    out = torch.empty(args[0].shape, device="cuda")
+    check(_launch(name, *args, k_scale, v_scale, out) == 0,
+          f"K6 {name} body: launch failed")
+    return out
+
+
 def phase_paged(torch, gen):
+    """K6 on f32, int8, f16 and bf16 pools: the body the wrapper picks
+    (split), and the first design's body (rows) on the same operands,
+    each against the plain version; then a pool whose base is not
+    16-byte aligned, which the wrapper sends to the rows body."""
     from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
         paged_decode,
         paged_decode_reference,
     )
     shapes = []
-    for quantized in (False, True):
-        sc, ctx = paged_scene(torch, gen, quantized)
+    pgen = torch.Generator(device="cuda")
+    pgen.manual_seed(PAGED_SEED)
+    for label, dtype_name, quantized in PAGED_POOLS:
+        pool_dtype = None if dtype_name is None else getattr(torch,
+                                                             dtype_name)
+        own = label in ("f32", "int8")
+        sc, ctx = paged_scene(torch, gen if own else pgen, quantized,
+                              None if own else pool_dtype)
         args = (sc["q"], sc["new_k"], sc["new_v"], sc["k_pool"],
                 sc["v_pool"], sc["block_tables"], sc["ctx_len"])
         kw = dict(k_scale=sc["k_scale"], v_scale=sc["v_scale"])
+        before = dict(paged_decode.launches_by_body)
         got = paged_decode(*args, **kw)
+        rows = paged_body("rows", *args, **kw)
         want = paged_decode_reference(*args, **kw)
         lib_out = sdpa_yardstick(torch, sc)
         torch.cuda.synchronize()
+        taken = [b for b, c in paged_decode.launches_by_body.items()
+                 if c != before[b]]
+        check(taken == ["split"], f"K6 {label}: took the body {taken}, "
+              "expected split")
         err = float((got - want).abs().max())
-        # f32 throughout; the kernel sums the softmax in another order
-        # (four per-warp partial sums merged at the end, online
-        # rescaling) over up to 1024 columns: 1e-4 absolute
-        check(err <= 1e-4, f"K6 int8={quantized}: max abs err {err} > 1e-4")
-        check(torch.equal(got[0], sc["new_v"][0]),
-              "K6: a ctx_len 0 lane must return exactly new_v")
+        rows_err = float((rows - want).abs().max())
+        # both sides read the same pool values (f16 and bf16 upcast
+        # exactly, int8 times the same scales), so the pool's rounding
+        # is common to both and only f32 summation order is left: the
+        # softmax summed online in another order (per-group and
+        # per-chunk partial states merged) over up to 1024 columns,
+        # 1e-4 absolute per element, as for f32
+        check(err <= 1e-4 and rows_err <= 1e-4,
+              f"K6 {label}: max abs err split {err}, rows {rows_err} > 1e-4")
+        check(torch.equal(got[0], sc["new_v"][0])
+              and torch.equal(rows[0], sc["new_v"][0]),
+              f"K6 {label}: a ctx_len 0 lane must return exactly new_v")
         lib_err = float((lib_out - want).abs().max())
         S, H, D = sc["q"].shape
-        item = 1 if quantized else 4
+        item = sc["k_pool"].element_size()
         n_tok = sum(ctx)
         n_bytes = (n_tok * H * D * 2 * item + (n_tok * 8 if quantized
                                                else 0)
                    + 4 * S * H * D * 4 + sc["block_tables"].numel() * 4
                    + S * 4)
         b_ms, b_by = bound(n_bytes, n_tok * H * 4 * D)
-        shape = dict(name="paged_decode",
-                     pool="int8" if quantized else "f32", S=S, h=H, d=D,
-                     bs=16, max_blocks=64, ctx_len=ctx, max_abs_err=err,
+        shape = dict(name="paged_decode", pool=label, S=S, h=H, d=D,
+                     bs=16, max_blocks=64, ctx_len=ctx, body="split",
+                     max_abs_err=max(err, rows_err), split_max_abs_err=err,
+                     rows_max_abs_err=rows_err,
                      library_max_abs_err=lib_err, bound_ms=b_ms,
                      bound_by=b_by)
+        # the design's floor: the same tables with every lane at 16
+        # tokens, one chunk each (a launch's fixed chain of round trips)
+        floor = (*args[:6], torch.full_like(sc["ctx_len"], 16))
         shapes.append(call_times(shape, dict(
             ms=partial(paged_decode, *args, **kw),
             plain_ms=partial(paged_decode_reference, *args, **kw),
-            library_ms=partial(sdpa_yardstick, torch, sc))))
-        print(f"K6 paged_decode pool={shape['pool']} S={S} h={H} d={D} "
-              f"bs=16 MB=64 ctx={ctx}: max_abs_err={err:.3e} (gather+sdpa "
-              f"{lib_err:.3e}); per call with launch gaps: kernel "
-              f"{shape['call_ms']:.5f} ms, plain {shape['plain_call_ms']:.5f}"
-              f" ms, gather+sdpa {shape['library_call_ms']:.5f} ms; bound "
-              f"{b_ms:.5f} ms ({b_by})", flush=True)
+            library_ms=partial(sdpa_yardstick, torch, sc),
+            rows_ms=partial(paged_body, "rows", *args, **kw),
+            floor_ms=partial(paged_decode, *floor, **kw))))
+        print(f"K6 paged_decode pool={label} S={S} h={H} d={D} "
+              f"bs=16 MB=64 ctx={ctx}: max_abs_err split={err:.3e} rows="
+              f"{rows_err:.3e} (gather+sdpa {lib_err:.3e}); per call with "
+              f"launch gaps: kernel {shape['call_ms']:.5f} ms, rows body "
+              f"{shape['rows_call_ms']:.5f} ms, plain "
+              f"{shape['plain_call_ms']:.5f} ms, gather+sdpa "
+              f"{shape['library_call_ms']:.5f} ms; bound {b_ms:.5f} ms "
+              f"({b_by})", flush=True)
+    # a pool view whose base is 2 bytes past an aligned one: no bulk
+    # copy reads it, so the wrapper takes the rows body
+    sc, ctx = paged_scene(torch, pgen, False, torch.float16)
+    flat = torch.empty(sc["k_pool"].numel() + 1, dtype=torch.float16,
+                       device="cuda")
+    k_off = flat[1:].view(sc["k_pool"].shape)
+    k_off.copy_(sc["k_pool"])
+    args = (sc["q"], sc["new_k"], sc["new_v"], k_off, sc["v_pool"],
+            sc["block_tables"], sc["ctx_len"])
+    before = dict(paged_decode.launches_by_body)
+    got = paged_decode(*args)
+    want = paged_decode_reference(*args)
+    torch.cuda.synchronize()
+    taken = [b for b, c in paged_decode.launches_by_body.items()
+             if c != before[b]]
+    err = float((got - want).abs().max())
+    check(taken == ["rows"] and err <= 1e-4,
+          f"K6 unaligned f16 pool: body {taken} (expected rows), max abs "
+          f"err {err}")
+    print(f"K6 paged_decode unaligned f16 pool: rows body, max_abs_err="
+          f"{err:.3e}", flush=True)
     return shapes
 
 
@@ -753,6 +836,18 @@ def bwd_magnitudes(torch, q, k, v, dout, lse, delta, kv_mask=None, bias=None,
     return mags
 
 
+def dbias_zero_at_padding(dbias, padded):
+    """Whether the bias's gradient is exactly 0 at every key each of its
+    plane's replicas pads (`padded` [b, t]: True at a padded key): a
+    [b, ...] bias plane per batch row, a [1, ...] one where every batch
+    row pads.  K5 neither loads nor computes a replica's key tile with
+    no valid key, and ds = 0 at a masked key."""
+    pads = padded if dbias.shape[0] == padded.shape[0] \
+        else padded.all(0, keepdim=True)
+    return all(bool((dbias[i][..., pads[i]] == 0).all())
+               for i in range(dbias.shape[0]))
+
+
 def check_flash_bwd(torch, gen, scene, b, t, dtype, what=""):
     """Hold K4a, K4b and K5 against their plain version in every case of
     phase 5 plus a loss on the lse and the fine-tune's own case, each
@@ -833,6 +928,10 @@ def check_flash_bwd(torch, gen, scene, b, t, dtype, what=""):
         check(all(bool((a[padded] == 0).all()) for a in got[1:3]),
               f"flash bwd {name}{what} {label}: dk and dv must be exactly "
               "zero at every padded key")
+        if grad_bias:
+            check(dbias_zero_at_padding(got[3], padded),
+                  f"flash bwd {name}{what} {label}: dbias must be exactly "
+                  "zero at every key all of a plane's replicas pad")
         errs[label] = e
         shares[label] = share
     return errs, shares
@@ -946,6 +1045,101 @@ def phase_flash_bwd(torch, gen):
     return shapes, ragged
 
 
+#: seed of the scene at b*h past 65535, drawn from a generator of its own
+WIDE_SEED = 11
+#: its batch: 5462 rows of 12 heads, b*h = 65544
+WIDE_B = 5462
+#: batch rows a slice of the plain version takes
+WIDE_SLICE = 512
+
+
+def phase_flash_wide(torch):
+    """K3, K4a, K4b and K5 at b*h = 65544 (BERT's 12 heads at batch
+    5462), past the 65535 that a grid.y of b*h took: bf16, t = 128, a
+    kv_mask (lengths uniform in [t/4, t], batch row 0 fully padded, row
+    1 one valid key into its second 64-key tile), with a [b, 1, t, t]
+    bias and then a [b, h, t, t] one (65544 planes for K5).  Each
+    kernel against its plain version under phase 5's and 5c's gates, the
+    plain version run over slices of WIDE_SLICE batch rows (each row's
+    attention, and its planes of these biases' gradients, are its own)."""
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_bwd,
+        flash_bwd_reference,
+        flash_fwd,
+        flash_fwd_reference,
+    )
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(WIDE_SEED)
+    b, t, h, d = WIDE_B, 128, 12, 64
+    q, k, v = (torch.randn(b, t, h, d, generator=wgen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    lens = torch.randint(t // 4, t + 1, (b,), generator=wgen, device="cuda")
+    lens[0], lens[1] = 0, 65
+    mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(
+        torch.int32)
+    dout = torch.randn(b, t, h, d, generator=wgen, device="cuda").to(
+        torch.bfloat16)
+    res = {}
+    for label, lead in (("bias[bx1]+mask", (b, 1)),
+                        ("bias[bxh]+mask", (b, h))):
+        bias = 0.5 * torch.randn(*lead, t, t, generator=wgen, device="cuda")
+        kw = dict(kv_mask=mask, bias=bias)
+        out, lse = flash_fwd(q, k, v, **kw)
+        delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1) \
+            .reshape(b * h, t).contiguous()
+        got = flash_bwd(q, k, v, dout, lse, delta, **kw, bias_grad=True)
+        torch.cuda.synchronize()
+        fwd_share = lse_err = 0.0
+        bwd_share = [0.0] * 4
+        errs = [0.0] * 5
+        for i0 in range(0, b, WIDE_SLICE):
+            i1 = min(b, i0 + WIDE_SLICE)
+            rs, hs = slice(i0, i1), slice(i0 * h, i1 * h)
+            args = (q[rs], k[rs], v[rs])
+            ckw = dict(kv_mask=mask[rs], bias=bias[rs])
+            rout, rlse = flash_fwd_reference(*args, **ckw)
+            # phase 5's bf16 gate (check_flash_fwd)
+            mag, _ = flash_fwd_reference(args[0].float(), args[1].float(),
+                                         args[2].float().abs(), **ckw)
+            diff = (out[rs].float() - rout.float()).abs()
+            fwd_share = max(fwd_share, float((diff / (
+                2.0 ** -7 * (rout.float().abs() + mag) + 1e-6)).max()))
+            errs[0] = max(errs[0], float(diff.max()))
+            lse_err = max(lse_err, float((lse[hs] - rlse).abs().max()))
+            # phase 5c's bf16 gates (check_flash_bwd)
+            bargs = (*args, dout[rs], lse[hs], delta[hs])
+            want = flash_bwd_reference(*bargs, **ckw, bias_grad=True)
+            mags = bwd_magnitudes(torch, *bargs, **ckw)
+            for j in range(4):
+                diff = (got[j][rs].float() - want[j].float()).abs()
+                tol = 2.0 ** -7 * (want[j].float().abs() + mags[j]) + 1e-6
+                bwd_share[j] = max(bwd_share[j], float((diff / tol).max()))
+                errs[1 + j] = max(errs[1 + j], float(diff.max()))
+            del rout, rlse, mag, want, mags
+        padded = mask == 0
+        check(fwd_share <= 1.0 and lse_err <= 1e-4 and max(bwd_share) <= 1.0,
+              f"flash b*h={b * h} {label}: share of the tolerance out "
+              f"{fwd_share:.3f}, (dq, dk, dv, dbias) {bwd_share}; lse err "
+              f"{lse_err} (tol 1e-4)")
+        check(bool((out[0] == 0).all())
+              and all(bool((g[0] == 0).all()) for g in got[:3]),
+              f"flash b*h={b * h} {label}: a fully padded row must give "
+              "zeros")
+        check(all(bool((g[padded] == 0).all()) for g in got[1:3])
+              and dbias_zero_at_padding(got[3], padded),
+              f"flash b*h={b * h} {label}: dk, dv and dbias must be exactly "
+              "zero at every padded key")
+        res[label] = dict(b=b, h=h, t=t, bh=b * h,
+                          max_abs_err_out_dq_dk_dv_dbias=errs,
+                          lse_err=lse_err, out_share_of_tol=fwd_share,
+                          grad_shares_of_tol=bwd_share)
+        print(f"K3/K4a/K4b/K5 bf16 at b*h={b * h} t={t} {label}: "
+              f"{res[label]}", flush=True)
+        del bias, out, lse, delta, got
+        torch.cuda.empty_cache()
+    return res
+
+
 # ----------------------------------------------------------------------
 # phase 5d: the Hopper bodies launched from several host threads at once
 # ----------------------------------------------------------------------
@@ -957,20 +1151,25 @@ THREADS_ROUNDS = 200
 
 
 def phase_threads(torch):
-    """The bodies that read through TMA tensor maps (K2's sm90, K3's,
-    K4a's and K4b's) launched back to back from 4 new host threads, the
-    flash kernels at t = 128 and 512 in turn as phase 7's serving
-    threads send them.  Thread i makes no CUDA call before its first
-    launch, of the i-th kernel: a thread with no current context must
-    launch as well as any.  Every launch must go through and give what
-    the same call gave alone, bit for bit (each body sums in a fixed
-    order).  Returns launches and mismatches."""
+    """The Hopper bodies (K2's sm90, K3's, K4a's, K4b's and K5's, which
+    read through TMA tensor maps, and K6's split body, with its bulk
+    copies and per-lane counters) launched back to back from 6 new host
+    threads, the flash kernels at t = 128 and 512 in turn as phase 7's
+    serving threads send them.  Thread i makes no CUDA call before its
+    first launch, of the i-th kernel: a thread with no current context
+    must launch as well as any.  Every launch must go through and give
+    what the same call gave alone, bit for bit (each body sums in a
+    fixed order).  Returns launches and mismatches."""
     from concurrent.futures import ThreadPoolExecutor
 
     from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_bwd_dbias,
         flash_bwd_dkv,
         flash_bwd_dq,
         flash_fwd,
+    )
+    from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode,
     )
     from analytics_zoo_tpu_torch.ops.kernels.fused_dense import (
         body,
@@ -987,9 +1186,16 @@ def phase_threads(torch):
     bias = torch.randn(4 * D_MODEL, generator=tgen, device="cuda").to(
         torch.bfloat16)
     check(body(x, w) == "sm90", "phase 5d: K2's operands must take sm90")
+    # K6's scene from a generator of its own: the others' inputs stay
+    pgen = torch.Generator(device="cuda")
+    pgen.manual_seed(THREADS_SEED + 1)
+    sc, _ = paged_scene(torch, pgen, False, torch.float16)
+    paged = partial(paged_decode, sc["q"], sc["new_k"], sc["new_v"],
+                    sc["k_pool"], sc["v_pool"], sc["block_tables"],
+                    sc["ctx_len"])
     for t in (128, 512):
-        (q, k, v), _, mask, _, _, _ = flash_scene(torch, tgen, 8, t, h, d,
-                                                  torch.bfloat16)
+        (q, k, v), _, mask, biases, _, _ = flash_scene(
+            torch, tgen, 8, t, h, d, torch.bfloat16)
         dout = torch.randn(q.shape, generator=tgen, device="cuda").to(q.dtype)
         out, lse = flash_fwd(q, k, v, kv_mask=mask)
         delta = ((dout.float() * out.float()).sum(-1).permute(0, 2, 1)
@@ -998,8 +1204,12 @@ def phase_threads(torch):
         ops = [("K3", partial(flash_fwd, q, k, v, kv_mask=mask)),
                ("K4a", partial(flash_bwd_dq, *grads, kv_mask=mask)),
                ("K4b", partial(flash_bwd_dkv, *grads, kv_mask=mask)),
-               ("K2", partial(fused_dense_gelu, x, w, bias))]
+               ("K2", partial(fused_dense_gelu, x, w, bias)),
+               ("K5", partial(flash_bwd_dbias, *grads, kv_mask=mask,
+                              bias=biases[f"1x{h}"])),
+               ("K6", paged)]
         calls.append([(label, fn, fn()) for label, fn in ops])
+    n = len(calls[0])
     torch.cuda.synchronize()
 
     def same(a, b):
@@ -1017,21 +1227,22 @@ def phase_threads(torch):
 
     t0 = time.perf_counter()
     errors, bad = [], 0
-    with ThreadPoolExecutor(4) as pool:
-        for f in [pool.submit(run, i) for i in range(4)]:
+    with ThreadPoolExecutor(n) as pool:
+        for f in [pool.submit(run, i) for i in range(n)]:
             try:
                 bad += f.result()
             except RuntimeError as e:
                 errors.append(str(e))
-    check(not errors, f"Hopper bodies from 4 threads: {len(errors)} of 4 "
-          f"threads raised, first: {errors[:1]}")
-    check(bad == 0, f"Hopper bodies from 4 threads: {bad} launches differ "
-          "from the same call made alone")
-    res = dict(threads=4, kernels=["K2", "K3", "K4a", "K4b"],
-               launches=4 * 4 * THREADS_ROUNDS, mismatches=bad,
+    check(not errors, f"Hopper bodies from {n} threads: {len(errors)} of "
+          f"{n} threads raised, first: {errors[:1]}")
+    check(bad == 0, f"Hopper bodies from {n} threads: {bad} launches "
+          "differ from the same call made alone")
+    res = dict(threads=n, kernels=[label for label, _, _ in calls[0]],
+               launches=n * n * THREADS_ROUNDS, mismatches=bad,
                seconds=time.perf_counter() - t0)
-    print(f"K2/K3/K4a/K4b bf16 (flash b=8 t=128|512, K2 1024x768x3072) "
-          f"from 4 host threads: {res}", flush=True)
+    print(f"K3/K4a/K4b/K2/K5 bf16 (flash b=8 t=128|512, K5 at a [1, 12, t, "
+          f"t] bias, K2 1024x768x3072) and K6 (phase 3's scene, f16 pool) "
+          f"from {n} host threads: {res}", flush=True)
     return res
 
 
@@ -1621,7 +1832,7 @@ def phase_bias_path(torch, seed: int, card: str):
                table_grad_rel_err=err, launches=counts,
                losses=[s["loss"] for s in est.engine.last_steps])
     print(f"bias path [{card}]: {out}", flush=True)
-    return out
+    return out, est, ((ids_card,), y_card)
 
 
 # ----------------------------------------------------------------------
@@ -1663,18 +1874,22 @@ def decode_profile(torch, engine, vocab: int, seed: int, steps: int = 5):
 
 
 def serve(torch, model, n_requests: int, kv_quantization, seed: int,
-          label: str, tol: float):
-    """Serve `n_requests` greedy requests through the background loop,
-    check launch counts and the served logits; returns (summary,
-    engine)."""
+          label: str, tol: float, cache_dtype=None):
+    """Serve `n_requests` greedy requests through the background loop
+    (the KV pool at `cache_dtype`, f32 by default), check launch counts,
+    K6's body and the served logits; returns (summary, engine)."""
     import numpy as np
 
     from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode,
+    )
     from analytics_zoo_tpu_torch.serving.generation import GenerationEngine
 
     n_block = model.n_block
     engine = GenerationEngine(model, max_slots=8, block_size=16,
                               max_context=1024,
+                              cache_dtype=cache_dtype or torch.float32,
                               kv_quantization=kv_quantization,
                               keep_logits=True, device="cuda")
     t0 = time.perf_counter()
@@ -1709,6 +1924,10 @@ def serve(torch, model, n_requests: int, kv_quantization, seed: int,
     check(counts["paged_decode"] == want_pd,
           f"{label}: K6 launched {counts['paged_decode']} times, "
           f"expected {want_pd}")
+    bodies = dict(paged_decode.launches_by_body)
+    check(bodies["split"] == want_pd,
+          f"{label}: K6 launches by body {bodies}; all {want_pd} must take "
+          "the split body")
 
     # recompute every finished stream once through the plain versions
     worst, n_cmp, n_top = 0.0, 0, 0
@@ -1742,6 +1961,7 @@ def serve(torch, model, n_requests: int, kv_quantization, seed: int,
         by_bucket.setdefault(b, []).append(sec * 1e3)
     summary = dict(
         label=label, requests=n_requests, kv_quantization=kv_quantization,
+        cache_dtype=str(cache_dtype or torch.float32),
         generated_tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
         warmup_s=warm_s, prefills=n_pre, decode_steps=n_dec,
         preemptions=engine.scheduler.n_preemptions,
@@ -1779,7 +1999,14 @@ def phase_slice(torch, n_requests: int, seed: int, card: str):
     # bound checks that drift stays small
     int8, _ = serve(torch, model, max(4, n_requests // 3), "int8",
                     seed + 1, "int8", 0.5)
-    runs = [f32, int8]
+    # f16 pool (bench.py's generation configuration): each cached K/V
+    # element is rounded to within 2^-11 of its value, an eighth of the
+    # int8 pool's amax/254 (about 2^-8 of the row's largest value), so
+    # the drift from the f32 recompute is held to an eighth of the int8
+    # bound
+    f16, _ = serve(torch, model, max(4, n_requests // 3), None, seed + 2,
+                   "f16", 0.5 / 8, cache_dtype=torch.float16)
+    runs = [f32, int8, f16]
     for r in runs:
         pre = {b: round(v, 3)
                for b, v in r["prefill_ms_p50_by_bucket"].items()}
@@ -1856,6 +2083,7 @@ def main(argv=None) -> int:
     fa, fa_edges = phase_flash(torch, gen)
     lnb = phase_layer_norm_bwd(torch, gen)
     fab, fab_ragged = phase_flash_bwd(torch, gen)
+    wide = phase_flash_wide(torch)
     threads = phase_threads(torch)
     clocks("after phase 5d", start)
     runs, engine = phase_slice(torch, args.requests, args.seed, card)
@@ -1863,7 +2091,7 @@ def main(argv=None) -> int:
     bert_runs, bert_model = phase_bert(torch, args.seed, card)
     clocks("after phase 7", start)
     train, est, train_batch_ = phase_train(torch, args.seed, card)
-    bias_run = phase_bias_path(torch, args.seed, card)
+    bias_run, bias_est, bias_batch = phase_bias_path(torch, args.seed, card)
     clocks("after phase 9", start)
 
     # phase 10: device times from the profiler, after the timed serving
@@ -1879,7 +2107,10 @@ def main(argv=None) -> int:
               f"{shape['plain_ms']:.5f} ms, library "
               f"{shape['library_ms']:.5f} ms, bound {shape['bound_ms']:.5f} "
               f"ms" + (f", cp_async body {shape['cp_async_ms']:.5f} ms"
-                       if "cp_async_ms" in shape else ""), flush=True)
+                       if "cp_async_ms" in shape else "")
+              + (f", rows body (the PR 1 design) {shape['rows_ms']:.5f} ms"
+                 f", every lane at 16 tokens {shape['floor_ms']:.5f} ms"
+                 if "rows_ms" in shape else ""), flush=True)
     clocks("after phase 10 kernel timings", start)
     engine.keep_logits = False
     runs[0]["decode_profile"] = decode_profile(
@@ -1897,6 +2128,9 @@ def main(argv=None) -> int:
         / train["step_ms_p50"]
     print(f"BERT train step profile [{card}]: "
           f"{json.dumps(train['step_profile'])}", flush=True)
+    bias_run["step_profile"] = train_profile(torch, bias_est, bias_batch)
+    print(f"learnable-bias step profile [{card}]: "
+          f"{json.dumps(bias_run['step_profile'])}", flush=True)
 
     clocks("at the end", start)
     gpt2, bert = runs[0]["launches"], bert_runs[0]["launches"]
@@ -1948,7 +2182,9 @@ def main(argv=None) -> int:
                "flash_bwd_dq": {"bert_fine_tune": tr,
                                 "learnable_bias": bias_run["launches"]},
                "flash_bwd_dkv": {"bert_fine_tune": tr,
-                                 "learnable_bias": bias_run["launches"]}}
+                                 "learnable_bias": bias_run["launches"]},
+               "paged_decode": {f"generation_{r['label']}": r["launches"]
+                                for r in runs}}
     for k in kernels:
         paths = by_path.get(k["name"])
         if paths:
@@ -1958,6 +2194,7 @@ def main(argv=None) -> int:
                       "train": train, "bias_path": bias_run,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
+                      "flash_bh_past_65535": wide,
                       "threads": threads}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

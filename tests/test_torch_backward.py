@@ -335,3 +335,30 @@ def test_flash_bwd_kernels_raise_on_cpu():
             fn(*args)
     with pytest.raises(ValueError, match="needs the bias"):
         flash_bwd_dbias(*args)
+
+
+@pytest.mark.parametrize("lead", [(B, 1), (1, H), (B, H), (1, 1)])
+def test_flash_dbias_padded_key_tiles_exactly_zero(lead):
+    """The invariant K5's padded-key-tile skip relies on (its bf16 body
+    neither loads nor computes a replica's 64-key tile that holds no
+    valid key): ds = 0 at a padded key, so a replica adds exactly 0 to
+    the bias's gradient there.  Batch row 0 pads a whole trailing
+    128-key tile, row 1 everything past its first key of that tile; at a
+    key every summed replica pads, dbias is exactly 0 on both sides."""
+    t = 256
+    q, k, v = _qkv(11, t=t)
+    mask = np.ones((B, t), np.int32)
+    mask[0, 128:] = 0
+    mask[1, 129:] = 0
+    bias = np.random.default_rng(12).normal(size=(*lead, t, t)).astype(
+        np.float32)
+    pair = _flash_grads(q, k, v, bias=bias, kv_mask=mask)
+    _close(pair)
+    # keys each bias plane's replicas all pad: [B, ...] planes per batch
+    # row, [1, ...] planes where every batch row pads
+    pads = (mask == 0) if lead[0] == B else (mask == 0).all(0)[None]
+    for grads in pair:
+        db = grads[3]
+        for i in range(db.shape[0]):
+            assert np.all(db[i][..., pads[i]] == 0)
+            assert np.abs(db[i][..., ~pads[i]]).max() > 0

@@ -4,7 +4,8 @@ same weights (a JAX `init` tree converted by
 analytics_zoo_tpu_torch/convert.py) and must give IDENTICAL token
 streams — several concurrent requests of mixed lengths, and a run whose
 block pool is small enough to force preemption (recompute-on-resume),
-for the f32 and the int8 KV pool."""
+for the f32 and the int8 KV pool; and on an f16 pool, plain and with
+int8 over it, as bench.py serves generation."""
 
 import numpy as np
 import pytest
@@ -90,4 +91,22 @@ def test_preemption_identical_streams(weights, kv_quantization):
     got, port_pre = _serve_port(state, reqs, kv_quantization, **geom)
     assert port_pre > 0 and port_pre == jax_pre
     assert all(len(t) == 16 for t in got)
+    assert got == want
+
+
+@pytest.mark.parametrize("kv_quantization", [None, "int8"],
+                         ids=["f16", "int8-over-f16"])
+def test_f16_pool_identical_streams(weights, kv_quantization):
+    """bench.py's generation configuration: the KV pool at f16 (K and V
+    rounded to f16 on write, read back in f32), plain and with int8
+    over it, on both engines (cache_dtype jnp.float16 / torch.float16):
+    the same greedy streams."""
+    params, state = weights
+    reqs = _requests(3, 6, 3, 40, 10)
+    geom = dict(max_slots=4, block_size=8, max_context=64)
+    want, _ = _serve_jax(params, reqs, kv_quantization,
+                         cache_dtype=jnp.float16, **geom)
+    got, _ = _serve_port(state, reqs, kv_quantization,
+                         cache_dtype=torch.float16, **geom)
+    assert all(len(t) == 10 for t in got)
     assert got == want

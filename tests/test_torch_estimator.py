@@ -241,6 +241,52 @@ def test_non_finite_first_step_leaves_the_optimizer_fresh(opt):
         assert torch.equal(a, b)
 
 
+class _JaxDense2(fnn.Module):
+    @fnn.compact
+    def __call__(self, x, training: bool = False):
+        return fnn.Dense(2, name="fc")(x)
+
+
+@pytest.mark.parametrize("clip_norm", [None, 1.0], ids=["no-clip", "clip"])
+def test_finite_gradients_whose_norm_overflows_take_the_step(clip_norm):
+    """A gradient with only finite elements whose f32 global norm
+    overflows (elements of 1.5e19: squares past the f32 range) is a
+    finite step, as JAX tests each element (spmd.py's all(isfinite(g))):
+    the step runs, and with clip_norm optax scales by clip_norm / inf = 0.
+    Zero weights, x = 3e19, label 0, SGD at 1e-30: loss log 2, the kernel
+    moves by 1.5e-11 unclipped.  Losses, nan_steps and the final params
+    against the JAX Estimator at f32 1e-6 (relative for the params)."""
+    x = np.full((4, 1), 3e19, np.float32)
+    y = np.zeros(4, np.int32)
+    zeros = {"fc": {"kernel": np.zeros((1, 2), np.float32),
+                    "bias": np.zeros(2, np.float32)}}
+    init_orca_context(cluster_mode="local")
+    jest = JaxEstimator.from_flax(
+        _JaxDense2(), loss="sparse_categorical_crossentropy",
+        optimizer="sgd", learning_rate=1e-30, clip_norm=clip_norm)
+    jest.set_params(jax.tree_util.tree_map(jnp.asarray, zeros))
+    jest.fit({"x": x, "y": y}, epochs=1, batch_size=4, shuffle=False)
+    model = torch.nn.Linear(1, 2)
+    with torch.no_grad():
+        model.weight.zero_()
+        model.bias.zero_()
+    est = Estimator.from_torch(model, loss="sparse_categorical_crossentropy",
+                               optimizer="sgd", learning_rate=1e-30,
+                               clip_norm=clip_norm)
+    est.fit({"x": x, "y": y}, epochs=1, batch_size=4, shuffle=False)
+    got, want = est.train_summary[-1], jest.train_summary[-1]
+    assert got.get("nan_steps", 0.0) == want.get("nan_steps", 0.0) == 0.0
+    np.testing.assert_allclose(got["loss"], want["loss"], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got["loss"], np.log(2.0), rtol=1e-6)
+    jw = jax.device_get(jest.get_model())["fc"]
+    np.testing.assert_allclose(model.weight.detach().numpy().T,
+                               np.asarray(jw["kernel"]), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(model.bias.detach().numpy(),
+                               np.asarray(jw["bias"]), rtol=1e-6, atol=0)
+    moved = float(np.abs(np.asarray(jw["kernel"])).max())
+    assert moved == (0.0 if clip_norm else pytest.approx(1.5e-11))
+
+
 def test_dropout_is_seeded_and_keeps_nine_tenths():
     cfg = dict(CFG, vocab=50, max_position_len=32)
     data = {"x": [a[:, :32] % 50 for a in _data(16)["x"]],

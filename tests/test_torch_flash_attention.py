@@ -30,7 +30,10 @@ from analytics_zoo_tpu.ops.pallas.flash_attention import (
 )
 from analytics_zoo_tpu_torch.ops.attention import flash_attention
 from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+    _bias_mode,
     _hash_bits,
+    bias_split,
+    check_args,
     drop_keep_mask,
     flash_fwd,
     flash_fwd_reference,
@@ -241,3 +244,41 @@ def test_argument_checks_and_cpu_kernel_raises():
     gen.manual_seed(0)
     b = flash_attention(q, k, v, dropout_rate=0.5, dropout_generator=gen)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_kernel_checks_take_bh_past_65535():
+    """The kernels' grids are 1-D, so their argument checks take b*h =
+    65544 (BERT's 12 heads at batch 5462), which a grid.y of b*h refused,
+    and refuse only b*h*t past 2^31 - 1 (lse rows indexed in 32 bits).
+    Checked on CPU tensors: the checks run without a card."""
+    b, t, h, d = 5462, 1, 12, 32
+    q, k, v = (torch.empty(b, t, h, d, dtype=torch.bfloat16)
+               for _ in range(3))
+    mask = torch.ones(b, t, dtype=torch.int32)
+    bias = torch.zeros(b, 1, t, t)
+    assert check_args(q, k, v, mask, bias) == 3
+    assert check_args(q, k, v) == 0
+    # b*h*t = 2^31: views with a zero batch stride, nothing allocated
+    big = torch.empty(1, 2 ** 16, h, d).expand(2 ** 31 // (2 ** 16 * h) + 1,
+                                               2 ** 16, h, d)
+    with pytest.raises(ValueError, match="2\\^31"):
+        check_args(big, big, big)
+
+
+@pytest.mark.parametrize("shape", ["1xh", "bx1", "bxh", "1x1"])
+def test_bias_split_past_65535_planes(shape):
+    """`bias_split` at b*h = 65544: each collapsed bias plane's replicas
+    are exactly the bh indices the forward reads that plane at (its
+    bias_mode projection), every bh once."""
+    b, h = 5462, 12
+    lead_shape = {"1xh": (1, h), "bx1": (b, 1), "bxh": (b, h),
+                  "1x1": (1, 1)}[shape]
+    lead, reps, mul_l, mul_r = bias_split((*lead_shape, 4, 4), b, h)
+    assert lead == lead_shape[0] * lead_shape[1]
+    bh = (mul_l * np.arange(lead)[:, None]
+          + mul_r * np.arange(reps)[None, :])
+    assert sorted(bh.ravel().tolist()) == list(range(b * h))
+    mode = _bias_mode(torch.empty(*lead_shape, 0, 0), b, h)
+    plane = {1: bh, 2: bh % h, 3: bh // h, 4: 0 * bh}[mode]
+    np.testing.assert_array_equal(plane, np.arange(lead)[:, None]
+                                  + 0 * bh)
