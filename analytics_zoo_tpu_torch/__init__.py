@@ -16,7 +16,11 @@ without a card and without that argument they raise
 (`resolve_device`).
 
 Ported so far: the paged-KV generation serving path
-(`serving.generation`: `CausalLM`, `GenerationEngine`).
+(`serving.generation`: `CausalLM`, `GenerationEngine`), BERT
+classification serving (`serving.inference_model`) and fine-tuning
+(`orca.learn.Estimator`), and recommendation training
+(`models.recommendation`) from the DEVICE data store
+(`common.context.OrcaContext`).
 """
 
 from analytics_zoo_tpu_torch.device import resolve_device  # noqa: F401

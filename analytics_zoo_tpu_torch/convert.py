@@ -11,11 +11,16 @@ the reference's layout.  `bert_from_flax` and `init_bert_params` do
 the same for the BERT family (`models/bert.py`), in both of the JAX
 encoder's block layouts, and `bert_to_flax` goes back: trained port
 weights in the flax tree, to compare with the JAX Estimator's.
+`ncf_from_flax`, `wide_and_deep_from_flax` and
+`session_recommender_from_flax` do it for the recommendation family
+(`models/recommendation/`); its shapes are checked by the module's
+`load_state_dict`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import re
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -333,3 +338,83 @@ def init_bert_params(config: Mapping, seed: int = 0,
     field, default = _BERT_HEADS[head]
     width = config.get(field, default) if field else default
     return {"bert": bert, head: dense(hid, width)}
+
+
+def _renamed_from_flax(params: Mapping,
+                       rename: Callable[[str], Optional[str]]
+                       ) -> Dict[str, np.ndarray]:
+    """The state_dict entries of a tree of flax Embed and Dense modules:
+    module `m` becomes `rename(m)` (None: an unknown entry, raising), an
+    `embedding` its `weight`, a `kernel` its transposed `weight`."""
+    out = {}
+    for path, arr in _flatten(params).items():
+        mod, leaf = path.rsplit("/", 1)
+        name = rename(mod)
+        if name is None or leaf not in ("embedding", "kernel", "bias"):
+            raise ValueError(f"unknown entry in the param tree: {path}")
+        out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = \
+            arr.T if leaf == "kernel" else arr
+    return out
+
+
+def _tensors(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in flat.items()}
+
+
+def _rename(rules):
+    def rename(mod):
+        for pattern, repl in rules:
+            if re.fullmatch(pattern, mod):
+                return re.sub(pattern, repl, mod)
+        return None
+    return rename
+
+
+def ncf_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `NeuralCF` state_dict from the JAX module's param tree:
+    the four embedding tables by name, the hidden layers' flax auto-names
+    `Dense_j` as `hidden.j`, and `head` (its input rows [h; mf])."""
+    return _tensors(_renamed_from_flax(params, _rename(
+        [(r"(mlp|mf)_(user|item)_embed", r"\g<0>"),
+         (r"Dense_(\d+)", r"hidden.\1"), (r"head", "head")])))
+
+
+def wide_and_deep_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `WideAndDeep` state_dict from the JAX module's param
+    tree (`wide_embed_j`, `deep_embed_j`, `deep_fc_j`, `deep_head`)."""
+    return _tensors(_renamed_from_flax(params, _rename(
+        [(r"(wide_embed|deep_embed|deep_fc)_(\d+)", r"\1.\2"),
+         (r"deep_head", "deep_head")])))
+
+
+def session_recommender_from_flax(params: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """The port's `SessionRecommender` state_dict from the JAX module's
+    param tree.  GRU cell j's input Denses ir, iz, in stack into
+    `gru.j.weight_ih_l0` and `bias_ih_l0`, its hidden Denses hr, hz, hn
+    into `weight_hh_l0`, in torch's (r, z, n) order; `bias_hh_l0` is
+    [0, 0, hn.bias] (flax's hr and hz have no bias)."""
+    params = dict(params)
+    out = {}
+    for name in sorted(k for k in params if re.fullmatch(r"gru_cell_\d+", k)):
+        cell = _flatten(params.pop(name))
+        j = name.rsplit("_", 1)[1]
+        known = {f"{g}/{leaf}" for g in ("ir", "iz", "in", "hn")
+                 for leaf in ("kernel", "bias")} | {"hr/kernel", "hz/kernel"}
+        if set(cell) != known:
+            raise ValueError(f"{name}: entries {sorted(cell)}, expected "
+                             f"{sorted(known)}")
+        hn_b = cell["hn/bias"]
+        out[f"gru.{j}.weight_ih_l0"] = np.concatenate(
+            [cell[f"i{g}/kernel"].T for g in "rzn"])
+        out[f"gru.{j}.weight_hh_l0"] = np.concatenate(
+            [cell[f"h{g}/kernel"].T for g in "rzn"])
+        out[f"gru.{j}.bias_ih_l0"] = np.concatenate(
+            [cell[f"i{g}/bias"] for g in "rzn"])
+        out[f"gru.{j}.bias_hh_l0"] = np.concatenate(
+            [np.zeros_like(hn_b), np.zeros_like(hn_b), hn_b])
+    out.update(_renamed_from_flax(params, _rename(
+        [(r"(session|history)_embed", r"\g<0>"),
+         (r"mlp_(\d+)", r"mlp.\1"), (r"head", "head")])))
+    return _tensors(out)

@@ -1,1 +1,2 @@
-"""Model zoo of the port (the BERT family for now)."""
+"""Model zoo of the port: the BERT family and the recommendation
+family."""

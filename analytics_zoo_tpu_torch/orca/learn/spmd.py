@@ -1,26 +1,37 @@
 """The training engine on one card (counterpart of
-analytics_zoo_tpu/orca/learn/spmd.py's `SPMDEngine`, without the mesh,
-the device data store and the epoch scan).
+analytics_zoo_tpu/orca/learn/spmd.py's `SPMDEngine`, without the mesh
+and the epoch scan).
 
 `TrainEngine` runs a torch module's train, eval and predict steps on
-padded host batches.  The train step is `_train_step_impl`'s
+padded batches.  The train step is `_train_step_impl`'s
 (spmd.py:354-408): the masked-mean loss over the real rows, its
 backward, a non-finite check over the loss and every gradient, the
 update skipped on the device when that check fails (the fused
 optimizer's `found_inf`: parameters and optimizer state keep their
 values, and the host never waits on the check), and per-step stats with
 `_count` (real rows, 0 on a skipped step) and `_nan_steps`.
-`run_epoch` keeps the stats on the device and reads them back once per
-epoch.  One `torch.Generator` on the
-module's device, seeded from `seed`, gives every dropout mask and flash
-dropout seed; the module gets it as its `generator` argument in
-training.
+`run_epoch` takes host batches and copies each to the card;
+`run_epoch_device` takes a `DeviceDataset` (the DEVICE data store,
+uploaded once by `cache_dataset`) and indexes its steps in place, with
+no host-to-device copy.  Both keep the stats on the device and read
+them back once per epoch.  One `torch.Generator` on the module's
+device, seeded from `seed`, gives every dropout mask and flash dropout
+seed; the module gets it as its `generator` argument in training.
+
+The DEVICE store's shuffle permutes all steps x batch rows, padding
+rows included, on the device, as JAX's `_shuffle_impl`
+(spmd.py:303-318) does; the permutation comes from a `torch.Generator`
+seeded by (seed, epoch), so its order differs from
+`jax.random.permutation`'s.  JAX runs a DEVICE epoch as one unguarded
+scan and replays it guarded on a non-finite step (spmd.py:505-560), a
+device for XLA's speed; here each step is guarded as it runs, with the
+same results.
 """
 
 from __future__ import annotations
 
 import inspect
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +51,38 @@ def _declares(fn, name: str) -> bool:
         return name in inspect.signature(fn).parameters
     except (TypeError, ValueError):
         return False
+
+
+class DeviceDataset:
+    """A whole dataset on the card as [steps, batch, ...] tensors: the
+    DEVICE data store (counterpart of JAX `DeviceDataset`, spmd.py:59).
+    Built by `TrainEngine.cache_dataset`."""
+
+    def __init__(self, data: Dict[str, Any], steps: int, batch: int,
+                 n_real: int, nbytes: int):
+        self.data = data          # {"features": (...), "labels": (...),
+        #                            "mask": [steps, batch]}
+        self.steps = steps
+        self.batch = batch
+        self.n_real = n_real
+        self.nbytes = nbytes
+
+    def shuffled(self, seed: int, epoch: int) -> Dict[str, Any]:
+        """`data` with its steps x batch rows, padding included, in one
+        permutation drawn on the device from (seed, epoch)."""
+        mask = self.data["mask"]
+        gen = torch.Generator(device=mask.device)
+        gen.manual_seed(int(np.random.SeedSequence([seed, epoch])
+                            .generate_state(1, np.uint64)[0] >> 1))
+        perm = torch.randperm(self.steps * self.batch, generator=gen,
+                              device=mask.device)
+
+        def take(a):
+            flat = a.reshape(self.steps * self.batch, *a.shape[2:])
+            return flat[perm].reshape(a.shape)
+        return {"features": tuple(take(a) for a in self.data["features"]),
+                "labels": tuple(take(a) for a in self.data["labels"]),
+                "mask": take(mask)}
 
 
 def _strip(preds, n: int):
@@ -140,13 +183,55 @@ class TrainEngine:
         return stats
 
     def run_epoch(self, batch_iter, train: bool = True) -> Dict[str, float]:
-        """One pass; returns the count-weighted means of the stats over
-        the real rows (plus `nan_steps` when a step was skipped) and
-        keeps each step's stats in `last_steps`, all read back from the
-        device in one transfer at the end of the pass."""
+        """One pass over host batches; returns the count-weighted means
+        of the stats over the real rows (plus `nan_steps` when a step was
+        skipped) and keeps each step's stats in `last_steps`, all read
+        back from the device in one transfer at the end of the pass."""
+        return self._run(map(self.put_batch, batch_iter), train)
+
+    @staticmethod
+    def cached_layout(n: int, batch_size: int):
+        """(steps, batch) of the DEVICE store's layout: the host path's
+        batches, `batch_size` real rows a step (fewer in the last)."""
+        return max(1, -(-n // batch_size)), batch_size
+
+    def cache_dataset(self, features: Sequence[np.ndarray],
+                      labels: Sequence[np.ndarray],
+                      batch_size: int) -> DeviceDataset:
+        """Upload the whole dataset once as [steps, batch, ...] tensors
+        on the module's device, the last step zero-padded with its mask:
+        the same batches, steps and masks as the host path."""
+        n = len(features[0]) if features else len(labels[0])
+        steps, b = self.cached_layout(n, batch_size)
+
+        def prep(a):
+            a = np.asarray(a)
+            out = np.zeros((steps * b,) + a.shape[1:], a.dtype)
+            out[:n] = a
+            return out.reshape((steps, b) + a.shape[1:])
+
+        host = {"features": tuple(prep(a) for a in features),
+                "labels": tuple(prep(a) for a in labels),
+                "mask": prep(np.ones(n, np.float32))}
+        nbytes = sum(a.nbytes for a in (*host["features"], *host["labels"],
+                                        host["mask"]))
+        return DeviceDataset(self.put_batch(host), steps, b, n, nbytes)
+
+    def run_epoch_device(self, dds: DeviceDataset, train: bool = True,
+                         shuffle: bool = False, seed: int = 0,
+                         epoch: int = 0) -> Dict[str, float]:
+        """`run_epoch` over a `DeviceDataset`: step i indexes data[i] on
+        the device, with no host-to-device copy; with `shuffle`, one
+        device-side permutation of all rows per epoch."""
+        data = dds.shuffled(seed, epoch) if shuffle else dds.data
+        batches = ({"features": tuple(a[i] for a in data["features"]),
+                    "labels": tuple(a[i] for a in data["labels"]),
+                    "mask": data["mask"][i]} for i in range(dds.steps))
+        return self._run(batches, train)
+
+    def _run(self, batches, train: bool) -> Dict[str, float]:
         keys, rows = None, []
-        for host_batch in batch_iter:
-            batch = self.put_batch(host_batch)
+        for batch in batches:
             stats = self.train_step(batch) if train else \
                 self.eval_step(batch)
             keys = list(stats)

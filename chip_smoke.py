@@ -10,9 +10,12 @@ PyTorch version at its paths' shapes, times both beside the
 kernel's bound and one PyTorch library call computing the same function,
 then drives the port's paths with random weights from a seed:
 generation through `GenerationEngine` at GPT-2 small's widths,
-BERT-base classification through `InferenceModel`, and BERT-base
-fine-tuning through `Estimator.fit`; each path's outputs (or first
-gradients) are checked against a recompute through the plain versions.
+BERT-base classification through `InferenceModel`, BERT-base
+fine-tuning through `Estimator.fit`, and recommendation training
+(NeuralCF, WideAndDeep, SessionRecommender) through `Estimator.fit`
+from the DEVICE data store; each path's outputs (or first gradients,
+or training steps) are checked against a recompute through the plain
+versions or the port on the CPU.
 
 Phases (each one failing exits non-zero, with no result line):
   1. setup: card name and power limit, versions, kernel build, TF32 off;
@@ -26,7 +29,9 @@ Phases (each one failing exits non-zero, with no result line):
      no multiple of the Hopper body's tile and at k % 8 != 0 (the
      cp_async body), each on the body its layout calls for; where the
      Hopper body runs, the cp_async body also runs on the same operands,
-     held to the same gate and timed beside it (`cp_async_ms`);
+     held to the same gate and timed beside it (`cp_async_ms`); the bf16
+     gate is 2^-7 of |ref| plus 1.13e-6 of sum |x w| + |b| (f32 sums in
+     other orders, through GELU's largest slope) plus 1e-6;
   5. K3 flash attention forward (CUDA) vs its plain version, bf16 and
      f32: kv_mask with a fully padded row, a bias at each of
      [1|b, 1|h, t, t], causal, dropout, and q/k/v read in place from a
@@ -75,6 +80,20 @@ Phases (each one failing exits non-zero, with no result line):
      a `RelativePositionBias` [1, 12, 512, 512], trained a few steps,
      K5 launched once per attention layer per step, the bias table's
      gradient vs the plain path;
+  11. recommendation training through `Estimator.fit` from the DEVICE
+     data store: NeuralCF at bench.py's cell (200,000 users, 50,000
+     items, embeddings 64, MLP 256-256-128, batch 65536 x 30 steps, Adam
+     1e-3), gated (a) card vs the port on the CPU at f32 over 3 steps,
+     (b) DEVICE vs DRAM per-step losses at bf16, (c) the loss falling
+     over 3 epochs, (d) a second fit hitting the cache; samples/s through
+     `fit` beside a plain PyTorch loop over 30 batches on the card
+     (`estimator_vs_raw`) and the DRAM store, a fit step by device op,
+     the busy share and the bound; WideAndDeep at the MovieLens-1M
+     layout of the reference's wide-n-deep notebook (batch 16384) and
+     SessionRecommender at the JAX defaults (50,000 items, batch 4096),
+     each under gate (a), with samples/s; `recommend_for_user` over
+     10,000 pairs; no kernel of the other paths is launched (run after
+     phase 9, before phase 10's profiles);
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32) and one
      learnable-bias step by device op, after the timed serving.
@@ -510,8 +529,15 @@ def phase_fused_dense(torch, gen):
             if dtype == torch.bfloat16:
                 # both accumulate in f32 and cast once; a value on a
                 # rounding boundary may land one bf16 ulp apart: 2^-7
-                # relative
-                tol = 2.0 ** -7 * want.float().abs() + 1e-6
+                # relative.  Near zero, where the k products cancel, two
+                # f32 sums in other orders differ by up to ~1e-6 of
+                # sum |x w| (sum_gate's term), through GELU's largest
+                # slope, 1.13; the magnitude is the gate's arithmetic, in
+                # f32 (TF32 is off), not a kernel
+                mag = torch.matmul(x.float().abs(), w.float().abs().t()) \
+                    + b.float().abs()
+                tol = 2.0 ** -7 * want.float().abs() + 1.13e-6 * mag + 1e-6
+                del mag
             else:
                 # f32 throughout, k = 768 products summed in another
                 # order
@@ -1836,6 +1862,428 @@ def phase_bias_path(torch, seed: int, card: str):
 
 
 # ----------------------------------------------------------------------
+# phase 11: recommendation training
+# ----------------------------------------------------------------------
+
+#: bench.py's NCF cell (bench.py:65-79 and :163-176): NeuralCF at full
+#: width, 30 steps of 65536 rows an epoch from the DEVICE store
+NCF_CELL = dict(user_count=200_000, item_count=50_000, class_num=2,
+                user_embed=64, item_embed=64, hidden_layers=(256, 256, 128),
+                mf_embed=64)
+NCF_BATCH = 65536
+NCF_STEPS = 30
+#: timed windows of (3 `fit` epochs; 30 plain steps), best of each taken
+REC_WINDOWS = 5
+#: the MovieLens-1M column layout of the reference's
+#: apps/recommendation-wide-n-deep notebook; the batch is this script's
+WND_COLUMNS = dict(
+    wide_base_cols=["occupation", "gender"], wide_base_dims=[21, 3],
+    wide_cross_cols=["age-gender"], wide_cross_dims=[100],
+    indicator_cols=["genres", "gender"], indicator_dims=[19, 3],
+    embed_cols=["userId", "itemId"], embed_in_dims=[6041, 3953],
+    embed_out_dims=[64, 64], continuous_cols=["age"])
+WND_HIDDEN = (40, 20, 10)
+WND_BATCH = 16384
+#: the JAX class's defaults (the reference's), with history, over 50,000
+#: items (this script's choice, as is the batch)
+SESSION_CELL = dict(item_count=50_000, item_embed=100,
+                    rnn_hidden_layers=(40, 20), session_length=10,
+                    include_history=True, mlp_hidden_layers=(40, 20),
+                    history_length=5)
+SESSION_BATCH = 4096
+#: epochs of 30 steps the WideAndDeep and SessionRecommender data hold
+REC_STEPS = 30
+RANK_USERS = RANK_ITEMS = 100
+RANK_TOP = 10
+
+
+def ncf_data(n: int):
+    """bench.py:72-77's generator: ids from 1, labels (u + i) % 2."""
+    rng = np.random.default_rng(0)
+    u = rng.integers(1, NCF_CELL["user_count"] + 1, n).astype(np.int32)
+    i = rng.integers(1, NCF_CELL["item_count"] + 1, n).astype(np.int32)
+    return u, i, ((u + i) % 2).astype(np.int32)
+
+
+def wnd_data(rng, n: int):
+    """Synthetic rows in the notebook's layout: ids inside each column's
+    dim, the age as MovieLens-1M codes it; label (user + item) % 2."""
+    cols = WND_COLUMNS
+    gender = rng.integers(0, cols["wide_base_dims"][1], n)
+    user = rng.integers(1, cols["embed_in_dims"][0], n)
+    item = rng.integers(1, cols["embed_in_dims"][1], n)
+    x = np.stack([rng.integers(0, cols["wide_base_dims"][0], n), gender,
+                  rng.integers(0, cols["wide_cross_dims"][0], n),
+                  rng.integers(0, cols["indicator_dims"][0], n), gender,
+                  user, item,
+                  rng.choice([1, 18, 25, 35, 45, 50, 56], n)], axis=1)
+    return [x.astype(np.float32)], ((user + item) % 2).astype(np.int32)
+
+
+def session_data(rng, n: int):
+    count = SESSION_CELL["item_count"]
+    s = rng.integers(1, count + 1, (n, SESSION_CELL["session_length"]))
+    h = rng.integers(1, count + 1, (n, SESSION_CELL["history_length"]))
+    y = rng.integers(1, count + 1, n)
+    return [s.astype(np.int32), h.astype(np.int32)], y.astype(np.int32)
+
+
+def rec_fit(torch, model, x, y, batch: int, epochs: int = 1,
+            store: str = "DEVICE"):
+    """`epochs` of Adam 1e-3 through `model.estimator()` (Estimator.from_
+    torch) on `store`, no shuffle; the Estimator."""
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    prev, OrcaContext.train_data_store = OrcaContext.train_data_store, store
+    try:
+        est = model.estimator(optimizer="adam", learning_rate=1e-3,
+                              metrics=[])
+        est.fit({"x": x, "y": y}, epochs=epochs, batch_size=batch,
+                shuffle=False)
+    finally:
+        OrcaContext.train_data_store = prev
+    return est
+
+
+def card_vs_cpu(torch, build, x, y, batch: int, label: str, card: str):
+    """Gate (a): 3 steps at f32 from the same weights, the model on the
+    card against the port on the CPU (an explicit reference run, not a
+    fallback), a `fit` of one step, then one of two.  The same arithmetic
+    summed in other orders (cuBLAS and cuDNN against the CPU's; TF32
+    off): the per-step losses within 1e-5 absolute, and every parameter after the
+    first step within 1e-5 (rounding of ~1e-11 in the gradients times
+    Adam's gain near its eps, up to 1/eps).  After that step the two
+    sides' weights differ by that much, and a ReLU whose pre-activation
+    lies that close to zero may switch on one side only, replacing a
+    gradient of ~1e-8 (a row of a mean over 65536 samples, near Adam's
+    eps) by another; so the parameters after 3 steps are reported, not
+    gated (on the CPU alone, two summation orders of NCF at batch 65536
+    part so at step 3).  Returns the starting state."""
+    state = {k: v.clone() for k, v in build("cpu").state_dict().items()}
+    losses, first, last = [], [], []
+    t0 = time.perf_counter()
+    for device in ("cpu", "cuda"):
+        model = build(device)
+        model.load_state_dict(state)
+        est = rec_fit(torch, model, [a[:batch] for a in x], y[:batch], batch)
+        steps = [s["loss"] for s in est.engine.last_steps]
+        first.append({k: v.detach().cpu().double()
+                      for k, v in model.state_dict().items()})
+        est.fit({"x": [a[batch:3 * batch] for a in x],
+                 "y": y[batch:3 * batch]}, batch_size=batch, shuffle=False)
+        steps += [s["loss"] for s in est.engine.last_steps]
+        last.append({k: v.detach().cpu().double()
+                     for k, v in model.state_dict().items()})
+        losses.append(steps)
+        del model, est
+    seconds = time.perf_counter() - t0
+
+    def diffs(pair):
+        return {k: (pair[1][k] - v).abs() for k, v in pair[0].items()}
+    loss_err = max(abs(a - b) for a, b in zip(*losses))
+    step1 = {k: float(d.max()) for k, d in diffs(first).items()}
+    step3 = {k: (float(d.max()), int((d > 1e-5).sum()))
+             for k, d in diffs(last).items()}
+    moved = max(float((v - state[k].double()).abs().max())
+                for k, v in first[0].items())
+    check(len(losses[0]) == len(losses[1]) == 3 and loss_err <= 1e-5
+          and max(step1.values()) <= 1e-5 and moved > 1e-4,
+          f"{label} gate (a): card vs CPU at f32: losses {losses}, loss err "
+          f"{loss_err}, param errs after step 1 {step1}, moved {moved}")
+    print(f"{label} [{card}] gate (a) card vs CPU, f32: losses {losses[1]}; "
+          f"max |loss diff| {loss_err:.3e} over 3 steps, max |param diff| "
+          f"after step 1 {max(step1.values()):.3e} (gate 1e-5 each; params "
+          f"moved up to {moved:.3e}); after step 3, not gated, (max |diff|, "
+          f"elements past 1e-5): {step3}; {seconds:.2f} s", flush=True)
+    return state, dict(losses=losses[1], loss_err=loss_err,
+                       param_err_step1=max(step1.values()),
+                       param_err_and_count_past_1e5_step3=step3,
+                       seconds=seconds)
+
+
+def best_fit_s(torch, est, x, y, batch: int, epochs: int, windows=None,
+               between=None):
+    """The shortest of `windows` (REC_WINDOWS) `fit` calls of `epochs`
+    (each ends by reading its stats, a wait on the card); `between` runs
+    after each."""
+    best = float("inf")
+    for _ in range(windows or REC_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.fit({"x": x, "y": y}, epochs=epochs, batch_size=batch,
+                shuffle=False)
+        best = min(best, time.perf_counter() - t0)
+        if between is not None:
+            between()
+    return best
+
+
+def fit_step_profile(torch, est, x, y, batch: int, steps: int):
+    """Where a `fit` step's time goes: device time per step by device op
+    and every device event summed, from a profiled one-epoch `fit`, and
+    the host reads inside it."""
+    from torch.autograd import DeviceType
+    _, per, prof = device_ms(
+        lambda: est.fit({"x": x, "y": y}, epochs=1, batch_size=batch,
+                        shuffle=False), iters=1)
+    dev_all = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation) / 1e3 / steps
+    syncs = sum(e.count for e in prof.key_averages()
+                if e.key in ("cudaStreamSynchronize",
+                             "aten::_local_scalar_dense")) / steps
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:14]
+    return dict(device_ms_per_step_all_events=dev_all,
+                host_syncs_per_step=syncs,
+                top_device_ops_ms_per_step=[(n[:100], v / steps)
+                                            for n, v in top])
+
+
+def ncf_bound(n_params: int, n_embed: int, batch: int):
+    """An NCF step's least time: the larger of the bytes a step must move
+    (parameters and both Adam moments read and written once, the batch
+    read once) over HBM, and the MLP's products (forward, and the two of
+    the backward) over the bf16 peak; beside it the bytes this design
+    moves, counting each once: Adam reading the gradients too (7 x 4 B a
+    parameter), the dense embedding gradients' fill and the scatter of
+    the batch's rows, and the two `_foreach_norm` passes."""
+    widths = [NCF_CELL["user_embed"] + NCF_CELL["item_embed"],
+              *NCF_CELL["hidden_layers"]]
+    macs = sum(a * b for a, b in zip(widths, widths[1:])) + \
+        NCF_CELL["class_num"] * (widths[-1] + NCF_CELL["mf_embed"])
+    flops = 3 * 2 * macs * batch
+    # the batch's rows of the four f32 tables
+    rows = batch * 4 * (widths[0] + 2 * NCF_CELL["mf_embed"])
+    least = 24 * n_params + 16 * batch
+    design = 28 * n_params + 4 * n_embed + 2 * rows + 8 * n_params
+    b_ms, b_by = bound(least, flops, BF16_FLOPS)
+    return dict(bound_ms=b_ms, bound_by=b_by, least_bytes=least,
+                flops=flops, design_bytes=design,
+                design_bytes_ms=design / HBM_BYTES_PER_S * 1e3)
+
+
+def check_ranking(torch, model, seed: int, card: str):
+    """`recommend_for_user` over RANK_USERS x RANK_ITEMS pairs: RANK_TOP
+    items a user, the output in descending (prediction, probability)."""
+    from analytics_zoo_tpu_torch.models.recommendation import (
+        UserItemFeature,
+    )
+    rng = np.random.default_rng(seed + 17)
+    users = rng.choice(np.arange(1, NCF_CELL["user_count"] + 1), RANK_USERS,
+                       replace=False)
+    items = rng.choice(np.arange(1, NCF_CELL["item_count"] + 1), RANK_ITEMS,
+                       replace=False)
+    pairs = [UserItemFeature(u, i, None) for u in users for i in items]
+    t0 = time.perf_counter()
+    top = model.recommend_for_user(pairs, max_items=RANK_TOP,
+                                   batch_size=NCF_BATCH)
+    wall = time.perf_counter() - t0
+    counts = {}
+    for p in top:
+        counts[p.user_id] = counts.get(p.user_id, 0) + 1
+    keys = [(p.prediction, p.probability) for p in top]
+    check(sorted(counts) == sorted(int(u) for u in users)
+          and set(counts.values()) == {RANK_TOP}
+          and keys == sorted(keys, reverse=True)
+          and all(p.prediction in (1, 2) and 0.5 <= p.probability <= 1.0
+                  for p in top),
+          f"ranking: counts {sorted(set(counts.values()))} over "
+          f"{len(counts)} users, or the order is not descending")
+    print(f"ranking [{card}]: recommend_for_user over {len(pairs)} pairs, "
+          f"{RANK_TOP} a user for {len(counts)} users, order descending by "
+          f"(prediction, probability), in {wall:.3f} s; the first "
+          f"{top[:2]}", flush=True)
+    return dict(pairs=len(pairs), users=len(counts), top=RANK_TOP,
+                wall_s=wall)
+
+
+def phase_recommendation(torch, seed: int, card: str):
+    """Phase 11: NCF at bench.py's cell through `Estimator.fit` from the
+    DEVICE store (gates (a) card vs CPU at f32, (b) DEVICE vs DRAM at
+    bf16, (c) the loss falls, (d) a second fit hits the cache), timed
+    beside a plain PyTorch loop; WideAndDeep and SessionRecommender at
+    their layouts (gate (a), samples/s); the ranking surface once."""
+    import torch.nn.functional as F
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.models.recommendation import (
+        ColumnFeatureInfo,
+        NeuralCF,
+        SessionRecommender,
+        WideAndDeep,
+    )
+    from analytics_zoo_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    prev = OrcaContext.train_data_store, OrcaContext.device_cache_bytes
+    OrcaContext.train_data_store = "DEVICE"
+    OrcaContext.device_cache_bytes = 1 << 30
+    out = {}
+
+    def ncf(device, dtype=torch.bfloat16):
+        torch.manual_seed(seed)
+        return NeuralCF(**NCF_CELL, compute_dtype=dtype, device=device)
+
+    u, i, y = ncf_data(NCF_BATCH * NCF_STEPS)
+    x = [u, i]
+    state, gate_a = card_vs_cpu(torch, lambda device: ncf(device,
+                                                          torch.float32),
+                                x, y, NCF_BATCH, "NCF", card)
+
+    # gate (b): one epoch from the same weights on each store, bf16
+    model = ncf("cuda")
+    model.load_state_dict(state)
+    dram = ncf("cuda")
+    dram.load_state_dict(state)
+    est = rec_fit(torch, model, x, y, NCF_BATCH)
+    dram_est = rec_fit(torch, dram, x, y, NCF_BATCH, store="DRAM")
+    dev_losses = [s["loss"] for s in est.engine.last_steps]
+    dram_losses = [s["loss"] for s in dram_est.engine.last_steps]
+    store_err = max(abs(a - b) for a, b in zip(dev_losses, dram_losses))
+    # the same batches through the same bf16 arithmetic on one card; only
+    # where each batch is read from differs
+    check(len(dev_losses) == len(dram_losses) == NCF_STEPS
+          and store_err <= 1e-6 and len(est._device_cache) == 1,
+          f"NCF gate (b): DEVICE {dev_losses} vs DRAM {dram_losses}")
+    # gates (c), (d): two more warm-up epochs in a second fit on the
+    # same arrays, a cache hit; the loss falls over the three
+    est.fit({"x": x, "y": y}, epochs=2, batch_size=NCF_BATCH, shuffle=False)
+    warm = [s["loss"] for s in est.train_summary]
+    check(est.device_cache_hits == 1 and len(est._device_cache) == 1,
+          f"NCF gate (d): cache hits {est.device_cache_hits}")
+    check(len(warm) == 3 and all(np.isfinite(warm)) and warm[2] < warm[0],
+          f"NCF gate (c): epoch losses {warm} did not fall")
+    print(f"NCF [{card}] gate (b) DEVICE vs DRAM, bf16, {NCF_STEPS} steps: "
+          f"max |loss diff| {store_err:.3e} (gate 1e-6); gate (c) epoch "
+          f"losses {warm}; gate (d) cache hits {est.device_cache_hits}",
+          flush=True)
+
+    # the plain loop (bench.py:80's counterpart): the same model and
+    # optimizer, NCF_STEPS distinct batches resident on the card
+    raw = ncf("cuda")
+    raw.load_state_dict(state)
+    opt = torch.optim.Adam(raw.parameters(), lr=1e-3, fused=True)
+    batches = [tuple(torch.from_numpy(a[s * NCF_BATCH:(s + 1) * NCF_BATCH])
+                     .cuda().long() for a in (u, i, y))
+               for s in range(NCF_STEPS)]
+
+    def raw_steps(n=NCF_STEPS):
+        for k in range(n):
+            ub, ib, yb = batches[k % NCF_STEPS]
+            opt.zero_grad(set_to_none=True)
+            loss = F.cross_entropy(raw(ub, ib), yb)
+            loss.backward()
+            opt.step()
+        return float(loss.detach())     # a read: the steps are done
+
+    raw_steps(5)
+    raw_times = []
+
+    def time_raw():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw_steps()
+        raw_times.append(time.perf_counter() - t0)
+
+    fit_s = best_fit_s(torch, est, x, y, NCF_BATCH, 3, between=time_raw)
+    check(est.device_cache_hits == 1 + REC_WINDOWS,
+          f"NCF: a timed fit re-uploaded ({est.device_cache_hits} hits)")
+    OrcaContext.train_data_store = "DRAM"
+    dram_s = best_fit_s(torch, dram_est, x, y, NCF_BATCH, 1, windows=3)
+    OrcaContext.train_data_store = "DEVICE"
+    samples = NCF_BATCH * NCF_STEPS
+    raw_s = min(raw_times)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = sum(p.numel() for n, p in model.named_parameters()
+                  if "embed" in n)
+    step_ms = fit_s / (3 * NCF_STEPS) * 1e3
+    prof = fit_step_profile(torch, est, x, y, NCF_BATCH, NCF_STEPS)
+    prof["device_busy_share_of_fit_step"] = \
+        prof["device_ms_per_step_all_events"] / step_ms
+    (dds, _), = est._device_cache.values()
+    out["ncf"] = dict(
+        cell=NCF_CELL, batch=NCF_BATCH, steps_per_epoch=NCF_STEPS,
+        params=n_params, dataset_bytes=dds.nbytes,
+        fit_samples_per_s=3 * samples / fit_s,
+        raw_samples_per_s=samples / raw_s,
+        estimator_vs_raw=(3 * samples / fit_s) / (samples / raw_s),
+        dram_samples_per_s=samples / dram_s, fit_step_ms=step_ms,
+        raw_step_ms=raw_s / NCF_STEPS * 1e3,
+        dram_step_ms=dram_s / NCF_STEPS * 1e3, gate_a=gate_a,
+        gate_b_max_loss_diff=store_err, gate_c_epoch_losses=warm,
+        gate_d_cache_hits=est.device_cache_hits, step_profile=prof,
+        **ncf_bound(n_params, n_embed, NCF_BATCH))
+    r = out["ncf"]
+    print(f"NCF [{card}] bench.py's cell ({n_params} params, batch "
+          f"{NCF_BATCH} x {NCF_STEPS} steps, {r['dataset_bytes']} bytes on "
+          f"the card): fit {r['fit_samples_per_s']:.0f} samples/s "
+          f"({step_ms:.4f} ms a step, best of {REC_WINDOWS} x 3 epochs), "
+          f"plain loop {r['raw_samples_per_s']:.0f} samples/s "
+          f"({r['raw_step_ms']:.4f} ms), estimator_vs_raw "
+          f"{r['estimator_vs_raw']:.4f}; DRAM store "
+          f"{r['dram_samples_per_s']:.0f} samples/s ({r['dram_step_ms']:.4f} "
+          f"ms); device {prof['device_ms_per_step_all_events']:.4f} ms a "
+          f"step (busy {prof['device_busy_share_of_fit_step']:.3f}); bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['least_bytes']} "
+          f"bytes, {r['flops']} FLOPs), this design's bytes "
+          f"{r['design_bytes']} = {r['design_bytes_ms']:.4f} ms", flush=True)
+    print(f"NCF fit step profile [{card}]: {json.dumps(prof)}", flush=True)
+    out["ranking"] = check_ranking(torch, model, seed, card)
+    del raw, opt, batches, dram, dram_est
+
+    # WideAndDeep at the notebook's layout, SessionRecommender at the
+    # JAX defaults: gate (a), then samples/s on the DEVICE store
+    rng = np.random.default_rng(seed + 13)
+    cells = (
+        ("wide_and_deep", WND_BATCH, wnd_data(rng, WND_BATCH * REC_STEPS),
+         lambda device, dtype: WideAndDeep(
+             ColumnFeatureInfo(**WND_COLUMNS), hidden_layers=WND_HIDDEN,
+             compute_dtype=dtype, device=device)),
+        # all f32, as the JAX module
+        ("session_recommender", SESSION_BATCH,
+         session_data(rng, SESSION_BATCH * REC_STEPS),
+         lambda device, dtype: SessionRecommender(**SESSION_CELL,
+                                                  device=device)))
+    for name, batch, (xs, ys), make in cells:
+        def build(device, dtype=torch.bfloat16, make=make):
+            torch.manual_seed(seed)
+            return make(device, dtype)
+        state, gate = card_vs_cpu(
+            torch, lambda device, build=build: build(device, torch.float32),
+            xs, ys, batch, name, card)
+        model = build("cuda")
+        model.load_state_dict(state)
+        est = rec_fit(torch, model, xs, ys, batch)
+        best = best_fit_s(torch, est, xs, ys, batch, 1)
+        losses = [s["loss"] for s in est.train_summary]
+        check(all(np.isfinite(losses)) and est.device_cache_hits
+              == REC_WINDOWS, f"{name}: losses {losses}, cache hits "
+              f"{est.device_cache_hits}")
+        step_ms = best / REC_STEPS * 1e3
+        prof = fit_step_profile(torch, est, xs, ys, batch, REC_STEPS)
+        prof["device_busy_share_of_fit_step"] = \
+            prof["device_ms_per_step_all_events"] / step_ms
+        out[name] = dict(batch=batch, steps_per_epoch=REC_STEPS,
+                         params=sum(p.numel() for p in model.parameters()),
+                         samples_per_s=batch * REC_STEPS / best,
+                         step_ms=step_ms, epoch_losses=losses, gate_a=gate,
+                         step_profile=prof)
+        print(f"{name} [{card}] batch {batch}, {out[name]['params']} params: "
+              f"{out[name]['samples_per_s']:.0f} samples/s through fit on "
+              f"the DEVICE store ({step_ms:.4f} ms a step, best of "
+              f"{REC_WINDOWS} epochs; device "
+              f"{prof['device_ms_per_step_all_events']:.4f} ms a step, busy "
+              f"{prof['device_busy_share_of_fit_step']:.3f}); epoch losses "
+              f"{losses}", flush=True)
+        print(f"{name} fit step profile [{card}]: {json.dumps(prof)}",
+              flush=True)
+        del model, est
+    launches = kernels.launch_counts()
+    check(not any(launches.values()),
+          f"phase 11 launched a kernel of another path: {launches}")
+    out["launches"] = launches
+    OrcaContext.train_data_store, OrcaContext.device_cache_bytes = prev
+    return out
+
+
+# ----------------------------------------------------------------------
 # phase 6: slice 1, generation serving
 # ----------------------------------------------------------------------
 
@@ -2093,6 +2541,8 @@ def main(argv=None) -> int:
     train, est, train_batch_ = phase_train(torch, args.seed, card)
     bias_run, bias_est, bias_batch = phase_bias_path(torch, args.seed, card)
     clocks("after phase 9", start)
+    rec = phase_recommendation(torch, args.seed, card)
+    clocks("after phase 11", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -2189,9 +2639,13 @@ def main(argv=None) -> int:
         paths = by_path.get(k["name"])
         if paths:
             k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+        # no kernel lies on phase 11's path (checked there: all 0)
+        k.setdefault("launches_by_path", {})["recommendation_training"] = \
+            rec["launches"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs, "bert": bert_runs,
                       "train": train, "bias_path": bias_run,
+                      "recommendation": rec,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,
