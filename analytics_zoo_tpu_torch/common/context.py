@@ -11,7 +11,14 @@ User code reads and writes them as `OrcaContext.<setting>`:
     JAX package accepts it; its Estimator never reads n, so it streams
     from the host like "DRAM");
   * `device_cache_bytes`: the most the DEVICE store holds on the card
-    across cached datasets, 256 MiB by default.
+    across cached datasets, 256 MiB by default;
+  * `failure_retry_times` (5) and `failure_retry_interval_s` (1.0): how
+    often `Estimator.fit` restores its newest checkpoint and resumes
+    after a failure, and the backoff between tries;
+  * `background_checkpointing` (False): trigger saves leave the
+    critical path after one device-to-host snapshot;
+  * `fault_plan` (None): the armed fault-injection plan
+    (`resilience/faults.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +27,10 @@ from __future__ import annotations
 class OrcaContextMeta(type):
     _train_data_store = "DRAM"
     _device_cache_bytes = 256 * 1024 * 1024
+    _failure_retry_times = 5
+    _failure_retry_interval_s = 1.0
+    _background_checkpointing = False
+    _fault_plan = None
 
     @property
     def train_data_store(cls):
@@ -48,6 +59,60 @@ class OrcaContextMeta(type):
     @device_cache_bytes.setter
     def device_cache_bytes(cls, value):
         cls._device_cache_bytes = int(value)
+
+
+    @property
+    def failure_retry_times(cls):
+        """How many times `Estimator.fit` restores the newest checkpoint
+        and resumes after a training failure."""
+        return cls._failure_retry_times
+
+    @failure_retry_times.setter
+    def failure_retry_times(cls, value):
+        if int(value) < 0:
+            raise ValueError("failure_retry_times must be >= 0")
+        cls._failure_retry_times = int(value)
+
+    @property
+    def failure_retry_interval_s(cls):
+        """Seconds before the first retry (doubling with each further
+        one, `RetryPolicy`)."""
+        return cls._failure_retry_interval_s
+
+    @failure_retry_interval_s.setter
+    def failure_retry_interval_s(cls, value):
+        if float(value) < 0:
+            raise ValueError("failure_retry_interval_s must be >= 0")
+        cls._failure_retry_interval_s = float(value)
+
+    @property
+    def background_checkpointing(cls):
+        """True routes `Estimator` trigger saves through the
+        `BackgroundCheckpointer`: the caller pays one snapshot of the
+        state to host tensors, the commit protocol runs on a writer
+        thread.  False (the default) leaves the choice to
+        `checkpoint.async_save_enabled` (background on the card,
+        synchronous on the CPU)."""
+        return cls._background_checkpointing
+
+    @background_checkpointing.setter
+    def background_checkpointing(cls, value):
+        cls._background_checkpointing = bool(value)
+
+    @property
+    def fault_plan(cls):
+        """The armed `FaultPlan`, or None (every injection site a no-op).
+        Accepts a `FaultPlan` or its dict form, ``{"seed": 0, "faults":
+        [{"site": ..., "action": ..., "at": N, "times": 1}, ...]}``."""
+        return cls._fault_plan
+
+    @fault_plan.setter
+    def fault_plan(cls, value):
+        if value is None:
+            cls._fault_plan = None
+            return
+        from analytics_zoo_tpu_torch.resilience.faults import FaultPlan
+        cls._fault_plan = FaultPlan.from_config(value)
 
 
 class OrcaContext(metaclass=OrcaContextMeta):

@@ -17,18 +17,36 @@ its seed drawn from the generator) or einsum, residual dropout on the
 attention and MLP outputs, embedding dropout after `embed_ln`.  Every
 keep mask comes from the `generator` (a torch.Generator on the module's
 device) passed to `forward`, never from the global RNG; training mode
-with a dropout rate and no generator raises.  `remat=True` raises until
-its slice is ported.  `impl` passes through to the ops: "auto" (kernels
-for CUDA tensors) or "reference" for the plain versions.
+with a dropout rate and no generator raises.  `impl` passes through to
+the ops: "auto" (kernels for CUDA tensors) or "reference" for the plain
+versions.
+
+`TransformerEncoder(remat=True)` runs each block under
+`torch.utils.checkpoint` (non-reentrant), the JAX `nn.remat`: the
+backward pass recomputes the block's forward instead of keeping its
+activations.  The recompute draws every dropout mask and flash seed
+again from a fork of the generator at the block's entry state, so it
+replays the forward exactly, while the training generator stays where
+the forward left it (the next step draws what it would without remat).
+`remat_policy` chooses what is saved instead of recomputed: None
+nothing; "dots" the products without batch dimensions (`aten.mm` /
+`aten.addmm`: the qkv, proj and fc2 projections), as JAX's
+`dots_with_no_batch_dims_saveable`; "dots_all" every product, the
+batched ones of the einsum attention (`aten.bmm`) too, as
+`dots_saveable`.  Kernel launches (LayerNorm, fused dense + GELU, flash)
+are not aten products, so they are recomputed under every policy, as a
+`pallas_call` is in JAX.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.ops.attention import (
@@ -39,6 +57,42 @@ from analytics_zoo_tpu_torch.ops.dense import DenseGelu
 from analytics_zoo_tpu_torch.ops.normalization import LayerNorm
 
 _ATTN_IMPLS = ("auto", "einsum", "flash")
+_REMAT_POLICIES = (None, "dots", "dots_all")
+
+
+def _remat_context(policy):
+    """The `context_fn` of `torch.utils.checkpoint` for a remat policy."""
+    if policy is None:
+        return torch_checkpoint.noop_context_fn
+    aten = torch.ops.aten
+    saved = [aten.mm.default, aten.addmm.default]
+    if policy == "dots_all":
+        saved += [aten.bmm.default, aten.baddbmm.default]
+    return partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                   saved)
+
+
+def remat_block(block, x, mask, impl: str, generator, policy=None):
+    """`block(x, mask, impl, generator)` under non-reentrant
+    `torch.utils.checkpoint`, its recompute drawing from a fork of
+    `generator` at its state on entry (a host read of the seed and
+    offset, no device sync)."""
+    entry = generator.get_state() if generator is not None else None
+    calls = []
+
+    def run(x, mask):
+        gen = generator
+        if calls and entry is not None:
+            # the recompute: replay the forward's draws from a fork, and
+            # leave the training generator where the forward left it
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(entry)
+        calls.append(1)
+        return block(x, mask, impl, gen)
+
+    return torch_checkpoint.checkpoint(
+        run, x, mask, use_reentrant=False, preserve_rng_state=False,
+        context_fn=_remat_context(policy))
 
 
 def _dense(layer: nn.Linear, x, dtype):
@@ -208,9 +262,9 @@ class TransformerEncoder(nn.Module):
     dropout, n_block post-LN blocks and an optional tanh pooler over the
     first token.  Returns x [b, t, hidden] f32, or (x, pooled [b,
     hidden]) with the pooler.  The constructor fields are the JAX
-    module's, dropouts at its defaults (0.1); `remat=True` raises (its
-    slice is not ported yet); `device` follows the port's rule (None =
-    the CUDA card, raising without one)."""
+    module's, dropouts at its defaults (0.1), `remat` and `remat_policy`
+    included (module docstring); `device` follows the port's rule (None
+    = the CUDA card, raising without one)."""
 
     def __init__(self, vocab: int, hidden_size: int, n_head: int,
                  n_block: int, intermediate_size: int,
@@ -219,14 +273,18 @@ class TransformerEncoder(nn.Module):
                  residual_dropout: float = 0.1, causal: bool = False,
                  with_pooler: bool = False, attn_impl: str = "auto",
                  compute_dtype=torch.bfloat16, remat: bool = False,
-                 device=None):
+                 remat_policy=None, device=None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat=True (rematerialized blocks, jax.checkpoint in the "
-                "JAX package) is ported with its own slice, "
-                "torch.utils.checkpoint with the dropout masks replayed "
-                "(ROADMAP Queue 1)")
+        if remat_policy not in _REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {remat_policy!r}; "
+                "use None, 'dots' or 'dots_all'")
+        if remat_policy is not None and not remat:
+            raise ValueError(
+                "remat_policy is set but remat=False: the policy would be "
+                "silently ignored; enable remat or drop it")
+        self.remat = remat
+        self.remat_policy = remat_policy
         device = resolve_device(device)
         self.n_block = n_block
         self.with_pooler = with_pooler
@@ -261,7 +319,11 @@ class TransformerEncoder(nn.Module):
         x = self.embed_ln(x, impl)
         x = dropout(x, self.embedding_dropout, self.training, generator)
         for blk in self.blocks:
-            x = blk(x, attention_mask, impl, generator)
+            if self.remat and torch.is_grad_enabled():
+                x = remat_block(blk, x, attention_mask, impl, generator,
+                                self.remat_policy)
+            else:
+                x = blk(x, attention_mask, impl, generator)
         if self.pooler is not None:
             return x, torch.tanh(self.pooler(x[:, 0]))
         return x

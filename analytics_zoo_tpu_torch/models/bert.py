@@ -2,8 +2,8 @@
 `TransformerEncoder` with two segments and a head.
 
 The constructor fields are the JAX modules' (defaults: BERT-base's
-published widths, dropout 0.1), less remat (not ported yet), plus
-`compute_dtype` (bf16, the JAX default) and `device` (None = the CUDA
+published widths, dropout 0.1; `remat` and `remat_policy` as
+`TransformerEncoder` takes them), plus `compute_dtype` (bf16, the JAX default) and `device` (None = the CUDA
 card, raising without one).  In training mode (`.train()`, the torch
 default) dropout needs the `generator` argument of `forward`;
 `InferenceModel` and `.eval()` switch it off.  Weights come from a flax
@@ -35,7 +35,8 @@ class _BERT(nn.Module):
 
     def __init__(self, vocab, hidden_size, n_block, n_head,
                  intermediate_size, max_position_len, hidden_drop,
-                 attn_drop, attn_impl, compute_dtype, device, with_pooler):
+                 attn_drop, attn_impl, compute_dtype, device, with_pooler,
+                 remat, remat_policy):
         super().__init__()
         self.device_ = resolve_device(device)
         self.hidden_drop = hidden_drop
@@ -46,7 +47,7 @@ class _BERT(nn.Module):
             embedding_dropout=hidden_drop, attn_dropout=attn_drop,
             residual_dropout=hidden_drop, with_pooler=with_pooler,
             attn_impl=attn_impl, compute_dtype=compute_dtype,
-            device=self.device_)
+            remat=remat, remat_policy=remat_policy, device=self.device_)
 
 
 class BERTClassifier(_BERT):
@@ -59,11 +60,11 @@ class BERTClassifier(_BERT):
                  intermediate_size: int = 3072, max_position_len: int = 512,
                  hidden_drop: float = 0.1, attn_drop: float = 0.1,
                  attn_impl: str = "auto", compute_dtype=torch.bfloat16,
-                 device=None):
+                 remat: bool = False, remat_policy=None, device=None):
         super().__init__(vocab, hidden_size, n_block, n_head,
                          intermediate_size, max_position_len, hidden_drop,
                          attn_drop, attn_impl, compute_dtype, device,
-                         with_pooler=True)
+                         True, remat, remat_policy)
         self.classifier = nn.Linear(hidden_size, num_classes,
                                     device=self.device_)
 
@@ -84,11 +85,12 @@ class BERTNER(_BERT):
                  hidden_size: int = 768, n_block: int = 12, n_head: int = 12,
                  intermediate_size: int = 3072, max_position_len: int = 512,
                  hidden_drop: float = 0.1, attn_impl: str = "auto",
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, remat: bool = False,
+                 remat_policy=None, device=None):
         super().__init__(vocab, hidden_size, n_block, n_head,
                          intermediate_size, max_position_len, hidden_drop,
                          hidden_drop, attn_impl, compute_dtype, device,
-                         with_pooler=False)
+                         False, remat, remat_policy)
         self.ner_head = nn.Linear(hidden_size, num_entities,
                                   device=self.device_)
 
@@ -111,11 +113,12 @@ class BERTSQuAD(_BERT):
                  n_block: int = 12, n_head: int = 12,
                  intermediate_size: int = 3072, max_position_len: int = 512,
                  hidden_drop: float = 0.1, attn_impl: str = "auto",
-                 compute_dtype=torch.bfloat16, device=None):
+                 compute_dtype=torch.bfloat16, remat: bool = False,
+                 remat_policy=None, device=None):
         super().__init__(vocab, hidden_size, n_block, n_head,
                          intermediate_size, max_position_len, hidden_drop,
                          hidden_drop, attn_impl, compute_dtype, device,
-                         with_pooler=False)
+                         False, remat, remat_policy)
         self.span_head = nn.Linear(hidden_size, 2, device=self.device_)
 
     def forward(self, input_ids, segment_ids=None, attention_mask=None,

@@ -6,3 +6,10 @@ from analytics_zoo_tpu_torch.orca.learn.estimator import (  # noqa: F401
     Estimator,
     NaNLossError,
 )
+from analytics_zoo_tpu_torch.orca.learn.trigger import (  # noqa: F401
+    EveryEpoch,
+    MaxIteration,
+    MinLoss,
+    SeveralIteration,
+    Trigger,
+)

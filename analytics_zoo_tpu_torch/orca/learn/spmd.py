@@ -26,17 +26,35 @@ seeded by (seed, epoch), so its order differs from
 scan and replays it guarded on a non-finite step (spmd.py:505-560), a
 device for XLA's speed; here each step is guarded as it runs, with the
 same results.
+
+Each loop fires the fault site `train.step` before every training step
+and, on the DEVICE store, `train.epoch` at the top of the epoch (JAX
+spmd.py:499, :580, :812; here the DEVICE epoch is always a per-step
+loop, so `train.step` fires on it too, where JAX's one-dispatch epoch
+program fires only `train.epoch`).  `on_step(step)` is called after
+each step with the loop-local step, which the loop commits to
+`host_step` only at its end (as JAX's host mirror): a step-granular
+checkpoint trigger must take that local step.  `step` counts every
+train step run (JAX's `state.step`, skipped steps included);
+`sync_host_step` resets the mirror to it.  `state_dict` /
+`load_state_dict` carry all a resumed run needs: the module's and the
+optimizer's state dicts (the fused optimizer's device `step` tensors
+included), the schedule's step count, the dropout generator's state
+and `step`.  `profile=True` fences every step and keeps its host wall
+time (and the schedule's learning rate) in `last_profile`.
 """
 
 from __future__ import annotations
 
 import inspect
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.orca.learn.optimizers import Optimizer
+from analytics_zoo_tpu_torch.resilience.faults import fault_point
 
 
 def masked_mean(values, mask):
@@ -110,15 +128,20 @@ class TrainEngine:
         self.device = params[0].device
         self.params = [p for p in params if p.requires_grad]
         self.optimizer = optimizer
-        self.opt = optimizer.build(self.params)
+        self.opt, self.schedule = optimizer.build(self.params)
         self.loss_fn = loss_fn
         self.metric_fns = dict(metric_fns or {})
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._takes_generator = _declares(model.forward, "generator")
+        #: train steps run (skipped ones included); `host_step` is the
+        #: loops' mirror of it, committed at the end of each loop
+        self.step = 0
         self.host_step = 0
         #: each step's stats of the last run_epoch, as host floats
         self.last_steps: List[Dict[str, float]] = []
+        #: per-step host wall times of the last profiled loop
+        self.last_profile: List[Dict[str, float]] = []
 
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         def put(a):
@@ -154,11 +177,16 @@ class TrainEngine:
             amax = torch.stack(torch._foreach_norm(grads, ord=float("inf")))
             finite = finite & ~torch.isnan(norm) & torch.isfinite(amax).all()
         self.optimizer.clip_(grads, norm)
-        # a non-finite step is skipped on the device, with no host read
-        self.opt.found_inf = (~finite).float()
-        self.opt.step()
-        self.host_step += 1
         fin = finite.float()
+        if self.schedule is not None:
+            self.schedule.before_step()
+        # a non-finite step is skipped on the device, with no host read
+        self.opt.found_inf = 1.0 - fin
+        self.opt.step()
+        if self.schedule is not None:
+            # optax keeps its count on a skipped step
+            self.schedule.after_step(fin)
+        self.step += 1
         with torch.no_grad():
             stats = {"loss": torch.where(finite, loss.detach(), 0.0)}
             for name, fn in self.metric_fns.items():
@@ -182,12 +210,17 @@ class TrainEngine:
         stats["_count"] = mask.sum()
         return stats
 
-    def run_epoch(self, batch_iter, train: bool = True) -> Dict[str, float]:
+    def run_epoch(self, batch_iter, train: bool = True,
+                  on_step: Optional[Callable[[int], None]] = None,
+                  profile: bool = False) -> Dict[str, float]:
         """One pass over host batches; returns the count-weighted means
         of the stats over the real rows (plus `nan_steps` when a step was
         skipped) and keeps each step's stats in `last_steps`, all read
-        back from the device in one transfer at the end of the pass."""
-        return self._run(map(self.put_batch, batch_iter), train)
+        back from the device in one transfer at the end of the pass.
+        `on_step(step)` follows each training step (the loop-local
+        step); `profile` fences each step and times it."""
+        return self._run(map(self.put_batch, batch_iter), train, on_step,
+                         profile)
 
     @staticmethod
     def cached_layout(n: int, batch_size: int):
@@ -219,23 +252,54 @@ class TrainEngine:
 
     def run_epoch_device(self, dds: DeviceDataset, train: bool = True,
                          shuffle: bool = False, seed: int = 0,
-                         epoch: int = 0) -> Dict[str, float]:
+                         epoch: int = 0,
+                         on_step: Optional[Callable[[int], None]] = None,
+                         profile: bool = False) -> Dict[str, float]:
         """`run_epoch` over a `DeviceDataset`: step i indexes data[i] on
         the device, with no host-to-device copy; with `shuffle`, one
         device-side permutation of all rows per epoch."""
+        if train:
+            fault_point("train.epoch", epoch=epoch)
         data = dds.shuffled(seed, epoch) if shuffle else dds.data
         batches = ({"features": tuple(a[i] for a in data["features"]),
                     "labels": tuple(a[i] for a in data["labels"]),
                     "mask": data["mask"][i]} for i in range(dds.steps))
-        return self._run(batches, train)
+        return self._run(batches, train, on_step, profile)
 
-    def _run(self, batches, train: bool) -> Dict[str, float]:
+    def _fence(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run(self, batches, train: bool, on_step=None,
+             profile: bool = False) -> Dict[str, float]:
         keys, rows = None, []
+        # the loop-local step, committed to host_step at the end
+        step = self.host_step
+        profiled = []
         for batch in batches:
+            if train:
+                fault_point("train.step", step=step + 1)
+            if profile:
+                self._fence()
+                t0 = time.perf_counter()
             stats = self.train_step(batch) if train else \
                 self.eval_step(batch)
+            if train:
+                step += 1
+            if profile:
+                self._fence()
+                row = {"step": step,
+                       "step_time_s": time.perf_counter() - t0}
+                if train and self.schedule is not None:
+                    row["lr"] = float(self.schedule.lr)
+                profiled.append(row)
             keys = list(stats)
             rows.append(torch.stack([stats[k].float() for k in keys]))
+            if train and on_step is not None:
+                on_step(step)
+        if train:
+            self.host_step = step
+        self.last_profile = profiled
         self.last_steps = []
         if not rows:
             return {}
@@ -246,6 +310,47 @@ class TrainEngine:
             for k, v in step.items():
                 totals[k] += v if k.startswith("_") else v * step["_count"]
         return _finalize(totals)
+
+    def sync_host_step(self) -> int:
+        """Reset the loops' mirror to the steps run (after a restore, or
+        after a failed epoch that advanced `step` past the mirror)."""
+        self.host_step = self.step
+        return self.host_step
+
+    def state_dict(self) -> Dict[str, Any]:
+        """All a resumed run needs, by reference (a checkpoint snapshots
+        it): the module's and the optimizer's state dicts, the
+        schedule's count, the dropout generator's state and `step`."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.opt.state_dict(),
+                "schedule_count": (None if self.schedule is None
+                                   else self.schedule.count),
+                "generator": self.generator.get_state(),
+                "step": self.step}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore `state_dict()`'s contents in place (host tensors are
+        moved to the engine's device) and resync `host_step`."""
+        self.model.load_state_dict(state["model"])
+        # the learning rate is the engine's configuration (as in JAX,
+        # whose optimizer state holds none): the loaded groups carry the
+        # saved one, and a scheduled optimizer must keep reading the
+        # schedule's own device tensor
+        lrs = [group["lr"] for group in self.opt.param_groups]
+        self.opt.load_state_dict(state["optimizer"])
+        for group, lr in zip(self.opt.param_groups, lrs):
+            group["lr"] = lr
+        if self.schedule is not None:
+            # a checkpoint of an engine without a schedule starts it
+            count = state["schedule_count"]
+            if count is None:
+                self.schedule.count.zero_()
+            else:
+                self.schedule.count.copy_(count)
+            self.schedule.before_step()
+        self.generator.set_state(state["generator"])
+        self.step = int(state["step"])
+        self.sync_host_step()
 
     @torch.no_grad()
     def predict_all(self, batch_iter) -> List[Any]:

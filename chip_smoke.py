@@ -11,9 +11,11 @@ kernel's bound and one PyTorch library call computing the same function,
 then drives the port's paths with random weights from a seed:
 generation through `GenerationEngine` at GPT-2 small's widths,
 BERT-base classification through `InferenceModel`, BERT-base
-fine-tuning through `Estimator.fit`, and recommendation training
-(NeuralCF, WideAndDeep, SessionRecommender) through `Estimator.fit`
-from the DEVICE data store; each path's outputs (or first gradients,
+fine-tuning through `Estimator.fit` (with remat, a learning-rate
+schedule, checkpoints, a failure and its retry, and validation data in
+phase 12), and recommendation training (NeuralCF, WideAndDeep,
+SessionRecommender) through `Estimator.fit` from the DEVICE data
+store; each path's outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
 versions or the port on the CPU.
 
@@ -80,6 +82,31 @@ Phases (each one failing exits non-zero, with no result line):
      a `RelativePositionBias` [1, 12, 512, 512], trained a few steps,
      K5 launched once per attention layer per step, the bias table's
      gradient vs the plain path;
+  12. BERT-base fine-tuning (phase 8's model and batch) with the rest of
+     the fit surface: (a) the first step under remat with each policy
+     (None, "dots", "dots_all") gives no-remat's gradients within the
+     spread of two no-remat steps (0 under PyTorch's deterministic
+     algorithms, which (a) and (e) run with; the default algorithms'
+     spread is reported), and leaves the dropout generator in
+     no-remat's state; (b) launches per step exact (K1 49, K1b 25, K2
+     24 on its sm90 body, K3 24, K4a 12, K4b 12 under remat); (c) peak
+     card memory and fit step p50 per remat configuration at batch 32
+     and 128 x t = 512, the peaks over the weights ordered None <
+     "dots" <= "dots_all" < off; (d) AdamWeightDecay(2e-5) under
+     Warmup(5, 20) over a 20-step fit: each step's lr within 4 f32 ulps
+     of optax's f32 formula evaluated on the host (its distance from the
+     f64 value reported), and the lr-0 first step leaves the weights
+     bitwise; (e) a 2 x
+     10-step fit with model_dir under a temp dir that a fault plan kills
+     once (train.step, epoch 2 step 5): one retry, the final weights
+     those of an uninterrupted fit within (a)'s spread; the checkpoint's
+     bytes, its save on the critical path sync and background, the
+     background write and the load timed; `resume_latest` on a fresh
+     Estimator restores epoch 2 bit for bit (about 5 GB written in all,
+     at most 2 versions on disk at once, the directory removed after);
+     (f) `validation_data` gives one `val_summary` row per epoch equal
+     to `evaluate` after it (1e-6 relative); run after phase 9, before
+     phase 11, its step profiles with phase 10's;
   11. recommendation training through `Estimator.fit` from the DEVICE
      data store: NeuralCF at bench.py's cell (200,000 users, 50,000
      items, embeddings 64, MLP 256-256-128, batch 65536 x 30 steps, Adam
@@ -93,10 +120,11 @@ Phases (each one failing exits non-zero, with no result line):
      SessionRecommender at the JAX defaults (50,000 items, batch 4096),
      each under gate (a), with samples/s; `recommend_for_user` over
      10,000 pairs; no kernel of the other paths is launched (run after
-     phase 9, before phase 10's profiles);
+     phase 12, before phase 10's profiles);
   10. device times of phases 2-5c (profiler), one decode step, one BERT
-     forward, one fine-tune step (t = 512, batch 32) and one
-     learnable-bias step by device op, after the timed serving.
+     forward, one fine-tune step (t = 512, batch 32), one
+     learnable-bias step and one batch-32 step of each of phase 12's
+     remat configurations by device op, after the timed phases.
 The line before the last is a JSON object of every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.
 
@@ -107,6 +135,7 @@ card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2284,6 +2313,516 @@ def phase_recommendation(torch, seed: int, card: str):
 
 
 # ----------------------------------------------------------------------
+# phase 12: the BERT-base fine-tune with the full fit surface
+# ----------------------------------------------------------------------
+
+#: remat configurations of phase 12: (label, remat, remat_policy)
+REMAT_CASES = (("off", False, None), ("none", True, None),
+               ("dots", True, "dots"), ("dots_all", True, "dots_all"))
+#: the batches phase 12 (c) times each configuration at (phase 8's batch
+#: of 32, and it repeated 4 times)
+REMAT_BATCHES = (32, 128)
+FIT_WARM, FIT_TIMED = 2, 8
+#: phase 12 (d): AdamWeightDecay(2e-5) under Warmup(5, 20), 20 steps
+SCHED_LR, SCHED_WARMUP, SCHED_STEPS = 2e-5, 5, 20
+#: phase 12 (e): 2 epochs of 10 steps, a raise at train.step hit 15
+RESUME_EPOCHS, RESUME_STEPS, RESUME_FAULT_HIT = 2, 10, 15
+
+
+def fit_surface_model(torch, cfg, state, remat=False, policy=None):
+    from analytics_zoo_tpu_torch.models.bert import BERTClassifier
+    model = BERTClassifier(**cfg, attn_impl="flash", remat=remat,
+                           remat_policy=policy, device="cuda")
+    model.load_state_dict(state)
+    return model
+
+
+def fit_surface_estimator(model, seed: int, optimizer=None, **kw):
+    """The Estimator of phase 12: phase 8's Adam 2e-5 unless given
+    another optimizer."""
+    from analytics_zoo_tpu_torch.orca.learn import Estimator, optimizers
+    return Estimator.from_torch(
+        model, loss="sparse_categorical_crossentropy",
+        optimizer=optimizer or optimizers.Adam(2e-5),
+        metrics=["accuracy"], seed=seed, **kw)
+
+
+def free_card(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def max_abs_diff(torch, got: dict, want: dict) -> float:
+    """max over parameters of max |got - want| (gradients or params)."""
+    check(got.keys() == want.keys(), "different parameter sets")
+    return max(float((got[n].float() - want[n].float()).abs().max())
+               for n in want)
+
+
+def remat_step(torch, cfg, state, seed, inputs, y, remat, policy):
+    """One fine-tune step through `TrainEngine.train_step` from the
+    weights `state` and a fresh engine's generator (seeded by `seed`):
+    (gradients, the generator's state after the step, launches)."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    model = fit_surface_model(torch, cfg, state, remat, policy)
+    est = fit_surface_estimator(model, seed)
+    eng = est.engine
+    host = {"features": tuple(inputs), "labels": (y,),
+            "mask": np.ones(len(y), np.float32)}
+    batch = eng.put_batch(host)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    eng.train_step(batch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    bodies = k2_bodies(f"phase 12 (b) remat {remat} {policy}", counts)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    gen_state = eng.generator.get_state()
+    del model, est, eng, batch
+    free_card(torch)
+    return grads, gen_state, counts, bodies
+
+
+def timed_fit(torch, est, data, batch: int):
+    """`fit` of FIT_WARM + FIT_TIMED steps with a CUDA event as each step
+    is queued (phase 8's timing), the peak of allocated card memory over
+    it (reset before) and the launches it made: (step times in s, peak
+    bytes, bytes allocated before, launches)."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    eng = est.engine
+    marks = []
+
+    def marked_step(b, step=eng.train_step):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return step(b)
+
+    eng.train_step = marked_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    est.fit(data, epochs=1, batch_size=batch, shuffle=False)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernels.launch_counts()
+    del eng.train_step
+    times = [a.elapsed_time(b) / 1e3
+             for a, b in zip(marks[FIT_WARM:-1], marks[FIT_WARM + 1:])]
+    return times, peak, base, counts
+
+
+def remat_launches_want(n_blk: int, remat: bool, steps: int) -> dict:
+    """Launches of `steps` fine-tune steps: with remat every block's two
+    LayerNorms, fc1 + GELU and flash forward run again in the backward."""
+    again = n_blk if remat else 0
+    return {"layer_norm_fwd": (2 * n_blk + 1 + 2 * again) * steps,
+            "layer_norm_bwd": (2 * n_blk + 1) * steps,
+            "fused_dense_gelu": (n_blk + again) * steps,
+            "flash_fwd": (n_blk + again) * steps,
+            "flash_bwd_dq": n_blk * steps, "flash_bwd_dkv": n_blk * steps,
+            "flash_bwd_dbias": 0, "paged_decode": 0}
+
+
+def warmup_lr(step: int, dtype) -> float:
+    """optax's warmup_cosine_decay_schedule(0, SCHED_LR, SCHED_WARMUP,
+    SCHED_STEPS) at count `step` (0-based), each operation in `dtype`
+    (np.float32 as optax computes it, the cosine of the f32 angle
+    rounded once; np.float64 for the exact value)."""
+    f = dtype
+    c = f(step)
+    if c < SCHED_WARMUP:
+        frac = f(1) - c / f(SCHED_WARMUP)
+        return float(f(0.0 - SCHED_LR) * frac + f(SCHED_LR))
+    decay = SCHED_STEPS - SCHED_WARMUP
+    c = min(c - f(SCHED_WARMUP), f(decay))
+    angle = f(np.pi) * c / f(decay)
+    cos = f(np.cos(np.float64(angle)))
+    return float(f(SCHED_LR) * (f(0.5) * (f(1) + cos)))
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic algorithms on (warning where an op has
+    none): on the card the CUDA embedding backward sums the segment
+    table's 8,192 duplicate rows a step in a varying order otherwise,
+    the one gradient of the step two runs do not reproduce bit for bit,
+    and Adam spreads that into every weight within a few steps."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def params_of(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def ckpt_bytes(path: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_fit_surface(torch, seed: int, card: str):
+    """Phase 12: BERT-base fine-tuning (phase 8's model and batch) with
+    the rest of the fit surface: (a) remat replays the step, (b) its
+    launches per step, (c) peak memory and step time per remat policy at
+    two batches, (d) a Warmup schedule, (e) a checkpointed fit that
+    fails once and resumes, with the save and load costs, (f)
+    validation data."""
+    import os
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.convert import (
+        bert_from_flax,
+        init_bert_params,
+    )
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.orca.learn import optimizers
+    from analytics_zoo_tpu_torch.orca.learn.checkpoint import (
+        load_checkpoint,
+    )
+    from analytics_zoo_tpu_torch.resilience import (
+        get_background_checkpointer,
+    )
+    cfg = dict(BERT_BASE, num_classes=2)
+    n_blk = cfg["n_block"]
+    state = bert_from_flax(init_bert_params(cfg, seed=seed), cfg)
+    state = {k: v.cuda() for k, v in state.items()}
+    rng = np.random.default_rng(seed + 11)       # phase 8's batch
+    inputs, y, valid = train_batch(rng, TRAIN_BATCH, TRAIN_T, cfg["vocab"])
+    out = dict(batch=TRAIN_BATCH, t=TRAIN_T, valid_tokens=valid, card=card)
+
+    # (a), (b): the first step with remat off twice (the spread), then
+    # under each policy; gradients, generator state and launches.  The
+    # spread of PyTorch's default algorithms is recorded first; the gate
+    # runs with its deterministic ones
+    pair = [remat_step(torch, cfg, state, seed, inputs, y, False, None)[0]
+            for _ in range(2)]
+    default_spread = {n: float((pair[1][n] - pair[0][n]).abs().max())
+                      for n in pair[0]
+                      if not torch.equal(pair[1][n], pair[0][n])}
+    del pair
+    free_card(torch)
+    steps = {}
+    with deterministic(torch):
+        for label, remat, policy in (REMAT_CASES[0],) + REMAT_CASES:
+            key = label if label not in steps else "off_again"
+            steps[key] = remat_step(torch, cfg, state, seed, inputs, y,
+                                    remat, policy)
+    ref_grads, ref_state = steps["off"][0], steps["off"][1]
+    spread = max_abs_diff(torch, steps["off_again"][0], ref_grads)
+    check(torch.equal(steps["off_again"][1], ref_state),
+          "phase 12 (a): two no-remat steps left the generator in "
+          "different states")
+    replay = {}
+    for label, remat, policy in REMAT_CASES:
+        grads, gen_state, counts, bodies = steps[label]
+        err = max_abs_diff(torch, grads, ref_grads)
+        check(err <= spread, f"phase 12 (a) remat {label}: gradients "
+              f"differ from no remat by {err:.3e}, over the determinism "
+              f"spread {spread:.3e}")
+        check(torch.equal(gen_state, ref_state),
+              f"phase 12 (a) remat {label}: the generator's state after "
+              "the step differs from no remat's")
+        want = remat_launches_want(n_blk, remat, 1)
+        check(counts == want, f"phase 12 (b) remat {label}: launches "
+              f"{counts}, expected {want}")
+        replay[label] = dict(max_abs_grad_diff=err, launches=counts,
+                             k2_launches_by_body=bodies)
+    out["replay"] = dict(determinism_spread=spread,
+                         default_algorithms_spread_by_param=default_spread,
+                         by_policy=replay)
+    del steps, ref_grads
+    free_card(torch)
+    print(f"phase 12 (a, b) [{card}] remat replay: determinism spread "
+          f"{spread:.3e} (PyTorch's default algorithms: {default_spread}); "
+          f"{json.dumps(replay)}", flush=True)
+
+    # (c): peak memory and step time per configuration at two batches
+    n_steps = FIT_WARM + FIT_TIMED
+    mem = {}
+    for batch in REMAT_BATCHES:
+        reps = batch // TRAIN_BATCH
+        x = [np.concatenate([a] * (reps * n_steps)) for a in inputs]
+        data = {"x": x, "y": np.concatenate([y] * (reps * n_steps))}
+        rows = {}
+        for label, remat, policy in REMAT_CASES:
+            model = fit_surface_model(torch, cfg, state, remat, policy)
+            est = fit_surface_estimator(model, seed)
+            times, peak, base, counts = timed_fit(torch, est, data, batch)
+            want = remat_launches_want(n_blk, remat, n_steps)
+            check(counts == want, f"phase 12 (c) remat {label} batch "
+                  f"{batch}: launches {counts}, expected {want}")
+            k2_bodies(f"phase 12 (c) remat {label}", counts)
+            losses = [s["loss"] for s in est.engine.last_steps]
+            check(all(np.isfinite(losses)), f"phase 12 (c): losses {losses}")
+            p50 = statistics.median(times)
+            rows[label] = dict(
+                step_ms_p50=p50 * 1e3, step_ms=[t * 1e3 for t in times],
+                peak_bytes=peak, bytes_before=base,
+                step_peak_bytes=peak - base,
+                padded_tokens_per_s=batch * TRAIN_T / p50,
+                launches=counts)
+            if batch == TRAIN_BATCH and label == "none":
+                out["launches"] = counts          # the path's own count
+            del model, est
+            free_card(torch)
+        # the peak over the fit less what was allocated before it (the
+        # weights): gradients, Adam's moments, activations, temporaries
+        peaks = {k: r["step_peak_bytes"] for k, r in rows.items()}
+        check(peaks["none"] < peaks["dots"] <= peaks["dots_all"]
+              < peaks["off"], f"phase 12 (c) batch {batch}: peak memory "
+              f"{peaks} out of order none < dots <= dots_all < off")
+        mem[batch] = rows
+        print(f"phase 12 (c) [{card}] batch {batch} x t = {TRAIN_T}: " +
+              "; ".join(f"{k} p50 {r['step_ms_p50']:.3f} ms, peak "
+                        f"{r['peak_bytes'] / 2**30:.3f} GiB (over the "
+                        f"weights {r['step_peak_bytes'] / 2**30:.3f})"
+                        for k, r in rows.items()), flush=True)
+    out["memory_and_time"] = mem
+
+    # (d): the Warmup schedule over a 20-step fit
+    kernels.reset_launch_counts()
+    model = fit_surface_model(torch, cfg, state)
+    est = fit_surface_estimator(model, seed, optimizers.AdamWeightDecay(
+        SCHED_LR, learningrate_schedule=optimizers.Warmup(
+            SCHED_WARMUP, SCHED_STEPS)))
+    initial = params_of(model)
+    after_first = {}
+    eng = est.engine
+
+    def first_step(b, step=eng.train_step):
+        stats = step(b)
+        if not after_first:
+            after_first.update(params_of(model))
+        return stats
+
+    eng.train_step = first_step
+    data = {"x": [np.concatenate([a] * SCHED_STEPS) for a in inputs],
+            "y": np.concatenate([y] * SCHED_STEPS)}
+    est.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False,
+            profile=True)
+    del eng.train_step
+    lrs = [r["lr"] for r in est.profile_stats]
+
+    def ulps(got, want):
+        return [abs(g - w) / float(np.spacing(np.float32(w))) if w else
+                (0.0 if g == 0.0 else float("inf"))
+                for g, w in zip(got, want)]
+
+    # optax's f32 formula is itself up to ~20 f32 ulps from the exact
+    # value where 1 + cos cancels (the cosine's tail): the card is held
+    # to the f32 formula on the host, and its distance from the f64
+    # value is reported
+    want = [warmup_lr(i, np.float32) for i in range(SCHED_STEPS)]
+    exact = [warmup_lr(i, np.float64) for i in range(SCHED_STEPS)]
+    off_f32, off_f64 = ulps(lrs, want), ulps(lrs, exact)
+    check(len(lrs) == SCHED_STEPS and max(off_f32) <= 4,
+          f"phase 12 (d): learning rates {lrs} against optax's f32 formula "
+          f"{want}: {max(off_f32)} f32 ulps apart, over 4")
+    unmoved = max_abs_diff(torch, after_first, initial)
+    check(unmoved == 0.0, f"phase 12 (d): the step at lr 0 moved the "
+          f"parameters by up to {unmoved:.3e}")
+    moved = max_abs_diff(torch, params_of(model), initial)
+    check(moved > 0.0, "phase 12 (d): 20 steps did not move the weights")
+    out["schedule"] = dict(lrs=lrs, want_f32=want, want_f64=exact,
+                           max_ulps_from_f32=max(off_f32),
+                           ulps_from_f64=off_f64,
+                           first_step_moved=unmoved, moved=moved,
+                           step_ms=[r["step_time_s"] * 1e3
+                                    for r in est.profile_stats])
+    del model, est, eng, initial, after_first
+    free_card(torch)
+    print(f"phase 12 (d) [{card}] Warmup({SCHED_WARMUP}, {SCHED_STEPS}) at "
+          f"{SCHED_LR}: lrs {lrs}, at most {max(off_f32):.2f} f32 ulps from "
+          f"optax's f32 formula on the host ({max(off_f64):.2f} from its "
+          f"f64 value); the lr-0 step moved nothing", flush=True)
+
+    # (e): checkpoint, failure and resume; (f): validation data
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    prev = (OrcaContext.failure_retry_interval_s,
+            OrcaContext.background_checkpointing,
+            os.environ.get("ZOO_ASYNC_CHECKPOINT"))
+    try:
+        OrcaContext.failure_retry_interval_s = 0.0
+        data = {"x": [np.concatenate([a] * RESUME_STEPS) for a in inputs],
+                "y": np.concatenate([y] * RESUME_STEPS)}
+
+        def resume_estimator(model_dir=None):
+            return fit_surface_estimator(
+                fit_surface_model(torch, cfg, state), seed,
+                optimizers.AdamWeightDecay(
+                    SCHED_LR, learningrate_schedule=optimizers.Warmup(
+                        2, RESUME_EPOCHS * RESUME_STEPS)),
+                model_dir=model_dir)
+
+        ref = resume_estimator()
+        t0 = time.perf_counter()
+        with deterministic(torch):
+            ref.fit(data, epochs=RESUME_EPOCHS, batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        ref_params = params_of(ref.get_model())
+        del ref
+        free_card(torch)
+        model_dir = os.path.join(tmp, "run")
+        est = resume_estimator(model_dir)
+        OrcaContext.fault_plan = {"faults": [
+            {"site": "train.step", "at": RESUME_FAULT_HIT,
+             "action": "raise"}]}
+        t0 = time.perf_counter()
+        try:
+            with deterministic(torch):
+                est.fit(data, epochs=RESUME_EPOCHS, batch_size=TRAIN_BATCH)
+        finally:
+            OrcaContext.fault_plan = None
+        torch.cuda.synchronize()
+        fit_wall = time.perf_counter() - t0
+        diff = max_abs_diff(torch, params_of(est.get_model()), ref_params)
+        check(est.retries == 1 and est.epoch == RESUME_EPOCHS,
+              f"phase 12 (e): retries {est.retries}, epoch {est.epoch}")
+        check(diff <= spread, f"phase 12 (e): the resumed fit's parameters "
+              f"differ from an uninterrupted fit's by {diff:.3e}, over the "
+              f"determinism spread {spread:.3e}")
+        versions = sorted(n for n in os.listdir(model_dir)
+                          if n.startswith("ckpt-") and "." not in n)
+        check(versions == [f"ckpt-{RESUME_STEPS}",
+                           f"ckpt-{RESUME_EPOCHS * RESUME_STEPS}"],
+              f"phase 12 (e): checkpoints {versions}")
+        shutil.rmtree(os.path.join(model_dir, versions[0]))
+        last = os.path.join(model_dir, versions[1])
+        # the save's critical path, sync then background, of the same
+        # state (each overwrites the last version: one stays on disk)
+        os.environ["ZOO_ASYNC_CHECKPOINT"] = "0"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.save_checkpoint()
+        sync_s = time.perf_counter() - t0
+        del os.environ["ZOO_ASYNC_CHECKPOINT"]
+        OrcaContext.background_checkpointing = True
+        writer = get_background_checkpointer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.save_checkpoint()
+        background_s = time.perf_counter() - t0
+        writer.drain()
+        t0 = time.perf_counter()
+        host_state = load_checkpoint(last)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        est.engine.load_state_dict(host_state)
+        torch.cuda.synchronize()
+        to_card_s = time.perf_counter() - t0
+        del host_state
+        nbytes = ckpt_bytes(last)
+        final = params_of(est.get_model())
+        check(max_abs_diff(torch, final, ref_params) <= spread,
+              "phase 12 (e): a load of the last checkpoint changed the "
+              "parameters")
+        del est
+        free_card(torch)
+        fresh = resume_estimator(model_dir)
+        got = fresh.resume_latest()
+        resumed = max_abs_diff(torch, params_of(fresh.get_model()), final)
+        check(got == last and fresh.epoch == RESUME_EPOCHS
+              and resumed == 0.0,
+              f"phase 12 (e): resume_latest gave {got}, epoch "
+              f"{fresh.epoch}, parameters {resumed:.3e} apart")
+        out["resume"] = dict(
+            retries=1, epochs=RESUME_EPOCHS, steps_per_epoch=RESUME_STEPS,
+            fault_hit=RESUME_FAULT_HIT, max_abs_param_diff=diff,
+            checkpoint_bytes=nbytes, save_sync_s=sync_s,
+            save_background_critical_path_s=background_s,
+            background_snapshot_s=writer.last_snapshot_s,
+            background_write_s=writer.last_write_s,
+            load_read_s=read_s, load_to_card_s=to_card_s,
+            uninterrupted_fit_wall_s=ref_wall,
+            interrupted_fit_wall_s=fit_wall, resumed_epoch=fresh.epoch)
+        print(f"phase 12 (e) [{card}] {RESUME_EPOCHS} x {RESUME_STEPS}-step "
+              f"fit, a raise at train.step hit {RESUME_FAULT_HIT}: retries 1,"
+              f" parameters {diff:.3e} from the uninterrupted fit; "
+              f"checkpoint {nbytes} bytes: save sync {sync_s:.3f} s, "
+              f"background {background_s:.3f} s on the critical path "
+              f"(write {writer.last_write_s:.3f} s on the writer thread); "
+              f"load {read_s:.3f} s read + {to_card_s:.3f} s to the card; "
+              f"resume_latest restored epoch {fresh.epoch}", flush=True)
+
+        # (f): validation after each epoch equals evaluate after it, on
+        # a fresh Adam fit (the resumed schedule has reached lr 0)
+        del fresh
+        free_card(torch)
+        fresh = fit_surface_estimator(fit_surface_model(torch, cfg, state),
+                                      seed)
+        vrng = np.random.default_rng(seed + 12)
+        vx, vy, _ = train_batch(vrng, 2 * TRAIN_BATCH, TRAIN_T,
+                                cfg["vocab"])
+        val = {"x": list(vx), "y": vy}
+        small = {"x": [np.concatenate([a] * 2) for a in inputs],
+                 "y": np.concatenate([y] * 2)}
+        rows = []
+        for _ in range(2):
+            fresh.fit(small, epochs=1, batch_size=TRAIN_BATCH,
+                      validation_data=val)
+            ev = fresh.evaluate(val, batch_size=TRAIN_BATCH)
+            row = fresh.val_summary[-1]
+            rel = abs(row["loss"] - ev["loss"]) / abs(ev["loss"])
+            check(rel <= 1e-6 and row["accuracy"] == ev["accuracy"],
+                  f"phase 12 (f): val_summary {row} against evaluate {ev}")
+            rows.append(dict(row, evaluate_loss=ev["loss"], rel_diff=rel))
+        check(len(fresh.val_summary) == 2,
+              f"phase 12 (f): {len(fresh.val_summary)} validation rows for "
+              "2 epochs")
+        out["validation"] = rows
+        print(f"phase 12 (f) [{card}] val_summary {rows}", flush=True)
+        del fresh
+    finally:
+        (OrcaContext.failure_retry_interval_s,
+         OrcaContext.background_checkpointing) = prev[:2]
+        if prev[2] is None:
+            os.environ.pop("ZOO_ASYNC_CHECKPOINT", None)
+        else:
+            os.environ["ZOO_ASYNC_CHECKPOINT"] = prev[2]
+        get_background_checkpointer().drain(raise_on_error=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+        free_card(torch)
+    return out, (cfg, state, inputs, y)
+
+
+def fit_surface_profiles(torch, out: dict, ctx, seed: int, card: str):
+    """Where a batch-32 step's time goes under each remat configuration
+    (host wall, device work by op), after every timed phase: a profiler
+    session leaves tracing costs on the host that slow the steps timed
+    after it."""
+    cfg, state, inputs, y = ctx
+    batch = ([torch.from_numpy(a).cuda() for a in inputs],
+             torch.from_numpy(y).long().cuda())
+    rows = out["memory_and_time"][TRAIN_BATCH]
+    for label, remat, policy in REMAT_CASES:
+        est = fit_surface_estimator(
+            fit_surface_model(torch, cfg, state, remat, policy), seed)
+        rows[label]["step_profile"] = train_profile(torch, est, batch)
+        del est
+        free_card(torch)
+    print(f"phase 12 step profiles [{card}] batch {TRAIN_BATCH}: " +
+          "; ".join(f"{k} wall {r['step_profile']['wall_ms_per_step']:.3f} "
+                    f"ms, device work "
+                    f"{r['step_profile']['device_ms_per_step_all_events']:.3f}"
+                    f" ms" for k, r in rows.items()), flush=True)
+
+
+# ----------------------------------------------------------------------
 # phase 6: slice 1, generation serving
 # ----------------------------------------------------------------------
 
@@ -2541,6 +3080,8 @@ def main(argv=None) -> int:
     train, est, train_batch_ = phase_train(torch, args.seed, card)
     bias_run, bias_est, bias_batch = phase_bias_path(torch, args.seed, card)
     clocks("after phase 9", start)
+    fit_surface, fit_ctx = phase_fit_surface(torch, args.seed, card)
+    clocks("after phase 12", start)
     rec = phase_recommendation(torch, args.seed, card)
     clocks("after phase 11", start)
 
@@ -2581,10 +3122,12 @@ def main(argv=None) -> int:
     bias_run["step_profile"] = train_profile(torch, bias_est, bias_batch)
     print(f"learnable-bias step profile [{card}]: "
           f"{json.dumps(bias_run['step_profile'])}", flush=True)
+    fit_surface_profiles(torch, fit_surface, fit_ctx, args.seed, card)
+    del fit_ctx
 
     clocks("at the end", start)
     gpt2, bert = runs[0]["launches"], bert_runs[0]["launches"]
-    tr = train["launches"]
+    tr, remat = train["launches"], fit_surface["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -2624,15 +3167,22 @@ def main(argv=None) -> int:
                      gpt2["paged_decode"], pd, 0),
     ]
     by_path = {"layer_norm_fwd": {"generation": gpt2, "bert_serving": bert,
-                                  "bert_fine_tune": tr},
+                                  "bert_fine_tune": tr,
+                                  "bert_fine_tune_remat": remat},
+               "layer_norm_bwd": {"bert_fine_tune": tr,
+                                  "bert_fine_tune_remat": remat},
                "fused_dense_gelu": {"bert_serving": bert,
-                                    "bert_fine_tune": tr},
+                                    "bert_fine_tune": tr,
+                                    "bert_fine_tune_remat": remat},
                "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
-                             "learnable_bias": bias_run["launches"]},
+                             "learnable_bias": bias_run["launches"],
+                             "bert_fine_tune_remat": remat},
                "flash_bwd_dq": {"bert_fine_tune": tr,
-                                "learnable_bias": bias_run["launches"]},
+                                "learnable_bias": bias_run["launches"],
+                                "bert_fine_tune_remat": remat},
                "flash_bwd_dkv": {"bert_fine_tune": tr,
-                                 "learnable_bias": bias_run["launches"]},
+                                 "learnable_bias": bias_run["launches"],
+                                 "bert_fine_tune_remat": remat},
                "paged_decode": {f"generation_{r['label']}": r["launches"]
                                 for r in runs}}
     for k in kernels:
@@ -2645,7 +3195,7 @@ def main(argv=None) -> int:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs, "bert": bert_runs,
                       "train": train, "bias_path": bias_run,
-                      "recommendation": rec,
+                      "recommendation": rec, "fit_surface": fit_surface,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,
