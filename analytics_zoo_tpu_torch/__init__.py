@@ -18,9 +18,11 @@ without a card and without that argument they raise
 Ported so far: the paged-KV generation serving path
 (`serving.generation`: `CausalLM`, `GenerationEngine`), BERT
 classification serving (`serving.inference_model`) and fine-tuning
-(`orca.learn.Estimator`), and recommendation training
+(`orca.learn.Estimator`), recommendation training
 (`models.recommendation`) from the DEVICE data store
-(`common.context.OrcaContext`).
+(`common.context.OrcaContext`), and Orca's data path (`orca.data`:
+XShards, the DISK tier, the pandas readers; DataFrame and XShards input
+to the Estimator, staged to the card through pinned double buffering).
 """
 
 from analytics_zoo_tpu_torch.device import resolve_device  # noqa: F401

@@ -7,9 +7,13 @@ User code reads and writes them as `OrcaContext.<setting>`:
 
   * `train_data_store`: "DRAM" (the default: host batches, copied to
     the card step by step), "DEVICE" (the dataset uploaded to the card
-    once, every epoch indexing it in place) or "DISK_n" (accepted as the
-    JAX package accepts it; its Estimator never reads n, so it streams
-    from the host like "DRAM");
+    once, every epoch indexing it in place) or "DISK_n" (new XShards
+    pickle their shards to a temp dir and stream them back one at a
+    time; as in the JAX package, n is never read);
+  * `shard_size` (None): target rows per shard of `XShards.partition`;
+  * `host_input_prefetch` (2): how many host batches the train engine
+    keeps staged on the card ahead of the step that takes them (0
+    stages each inside its own step);
   * `device_cache_bytes`: the most the DEVICE store holds on the card
     across cached datasets, 256 MiB by default;
   * `failure_retry_times` (5) and `failure_retry_interval_s` (1.0): how
@@ -26,6 +30,8 @@ from __future__ import annotations
 
 class OrcaContextMeta(type):
     _train_data_store = "DRAM"
+    _shard_size = None
+    _host_input_prefetch = 2
     _device_cache_bytes = 256 * 1024 * 1024
     _failure_retry_times = 5
     _failure_retry_interval_s = 1.0
@@ -49,6 +55,34 @@ class OrcaContextMeta(type):
         cls._train_data_store = value
 
     @property
+    def shard_size(cls):
+        """Target rows per `XShards.partition` shard, or None (one shard
+        per pool thread)."""
+        return cls._shard_size
+
+    @shard_size.setter
+    def shard_size(cls, value):
+        if value is not None and int(value) <= 0:
+            raise ValueError("shard_size must be positive or None")
+        cls._shard_size = None if value is None else int(value)
+
+    @property
+    def host_input_prefetch(cls):
+        """Host-input double-buffering depth of the train engine's
+        host-streaming loops (`orca/learn/spmd.py`): with depth d >= 1
+        the loop keeps d batches staged and stages the next one right
+        after it queues the current step, so the host builds and copies
+        batch k+1 while step k runs on the card.  0 stages each batch
+        synchronously inside its own step.  Default 2."""
+        return cls._host_input_prefetch
+
+    @host_input_prefetch.setter
+    def host_input_prefetch(cls, value):
+        if int(value) < 0:
+            raise ValueError("host_input_prefetch must be >= 0")
+        cls._host_input_prefetch = int(value)
+
+    @property
     def device_cache_bytes(cls):
         """The most bytes the DEVICE store holds on the card across
         cached datasets (an Estimator evicts its older entries before
@@ -59,7 +93,6 @@ class OrcaContextMeta(type):
     @device_cache_bytes.setter
     def device_cache_bytes(cls, value):
         cls._device_cache_bytes = int(value)
-
 
     @property
     def failure_retry_times(cls):

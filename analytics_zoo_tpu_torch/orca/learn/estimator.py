@@ -10,10 +10,16 @@ given another device.  Loss and metrics default to the module's
 `default_loss` / `default_metrics` where it names them.
 
 Data: {"x": ndarray(s), "y": ndarray(s)} or (x, y) tuples of numpy
-arrays, batched and padded by `HostDataset`.  With
+arrays, pandas DataFrames with `feature_cols` / `label_cols`, XShards of
+any of those (streamed shard by shard, never concatenated), or a
+zero-argument callable returning one, batched and padded by
+`HostDataset`; host batches reach the card through the engine's pinned
+double buffering (`OrcaContext.host_input_prefetch`).  With
 `OrcaContext.train_data_store == "DEVICE"`, `fit` uploads the padded
 dataset to the card once and trains from it there (estimator.py:252);
-the upload is cached across `fit` calls on the same arrays.
+the upload is cached across `fit` calls on the same arrays.  Streaming
+(XShards) input is never uploaded: it streams from the host, with a
+warning, as in JAX (estimator.py:475-479).
 
 With `model_dir`, `fit` writes checkpoints through the commit protocol
 (`checkpoint.py`) when its trigger fires (`EveryEpoch` by default;
@@ -27,9 +33,8 @@ never retried, and without `model_dir` a failure is raised.
 `set_tensorboard` writes both summaries as TensorBoard event files.
 `profile=True` keeps each step's host wall time in `profile_stats`, and
 `profiler_dir` captures a `torch.profiler` trace of the fit there
-(where JAX uses `jax.profiler`).  XShards and DataFrame input, the
-watchdog, the flight recorder, the goodput clocks and the trace spans
-are not ported.
+(where JAX uses `jax.profiler`).  The watchdog, the flight recorder,
+the goodput clocks and the trace spans are not ported.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import logging
 import os
 import time
 import zlib
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -94,8 +99,9 @@ class Estimator:
     @classmethod
     def from_torch(cls, module, **kwargs) -> "Estimator":
         """Keywords: `loss`, `metrics`; `optimizer`, a name ("adam",
-        "adamw", "sgd"), an `optimizers.Optimizer` (with or without a
-        learning-rate schedule), or None (adam); `learning_rate` its
+        "adamw", "sgd", "rmsprop", "adagrad", "adadelta"), an
+        `optimizers.Optimizer` (with or without a learning-rate
+        schedule), or None (adam); `learning_rate` its
         rate; `clip_norm` / `clip_value` the gradient clipping;
         `model_dir` where checkpoints go; `seed` the shuffling and the
         dropout generator."""
@@ -106,6 +112,8 @@ class Estimator:
         return self._engine
 
     def fit(self, data, epochs: int = 1, batch_size: int = 32,
+            feature_cols: Optional[Sequence[str]] = None,
+            label_cols: Optional[Sequence[str]] = None,
             validation_data=None, checkpoint_trigger: Optional[Trigger] = None,
             shuffle: bool = True, nan_policy: str = "warn",
             max_failures: Optional[int] = None, profile: bool = False,
@@ -115,7 +123,8 @@ class Estimator:
         uploaded to the card.  Steps with non-finite loss or gradients
         are skipped on the device; `nan_policy` "warn" logs them, "raise"
         aborts with NaNLossError.  The last epoch's per-step stats are in
-        `engine.last_steps`.
+        `engine.last_steps`.  `feature_cols` / `label_cols` name the
+        columns of DataFrame input (and of `validation_data`).
 
         On a training failure the newest committed checkpoint under
         `model_dir` is restored and training resumes from its epoch, up
@@ -126,15 +135,18 @@ class Estimator:
         if profiler_dir is not None:
             return self._fit_profiled(
                 profiler_dir, data, epochs=epochs, batch_size=batch_size,
+                feature_cols=feature_cols, label_cols=label_cols,
                 validation_data=validation_data,
                 checkpoint_trigger=checkpoint_trigger, shuffle=shuffle,
                 nan_policy=nan_policy, max_failures=max_failures,
                 profile=profile)
-        ds = HostDataset.from_data(data)
+        ds = HostDataset.from_data(data, feature_cols, label_cols)
         if not ds.has_labels:
-            raise ValueError("fit requires labels: pass {'x': ..., 'y': ...} "
-                             "or an (x, y) tuple")
-        val_ds = (HostDataset.from_data(validation_data)
+            raise ValueError("fit requires labels: pass {'x': ..., 'y': ...}, "
+                             "an (x, y) tuple, or label_cols for DataFrame "
+                             "input")
+        val_ds = (HostDataset.from_data(validation_data, feature_cols,
+                                        label_cols)
                   if validation_data is not None else None)
         if self._engine.loss_fn is None:
             raise ValueError("fit needs a loss")
@@ -299,7 +311,14 @@ class Estimator:
         copy), passes `OrcaContext.device_cache_bytes`.  Cached on the
         source arrays' ids, shapes and dtypes, the batch size and a
         sampled content fingerprint; the sources are held beside the
-        upload, so an id stays theirs while the entry lives."""
+        upload, so an id stays theirs while the entry lives.  Streaming
+        (XShards) input is never uploaded: its `features` are the head
+        shard's alone."""
+        if type(ds) is not HostDataset:
+            logger.warning(
+                "train_data_store='DEVICE' ignored for streaming input; "
+                "using host streaming")
+            return None
         arrays = tuple(ds.features) + tuple(ds.labels)
         steps, b = self._engine.cached_layout(ds.n, batch_size)
         row_bytes = sum(a.dtype.itemsize * int(np.prod(a.shape[1:],
@@ -333,17 +352,20 @@ class Estimator:
         self._device_cache[key] = (dds, arrays)
         return dds
 
-    def evaluate(self, data, batch_size: int = 32) -> Dict[str, float]:
-        ds = HostDataset.from_data(data)
+    def evaluate(self, data, batch_size: int = 32, feature_cols=None,
+                 label_cols=None) -> Dict[str, float]:
+        ds = HostDataset.from_data(data, feature_cols, label_cols)
         if not ds.has_labels:
-            raise ValueError("evaluate requires labels: pass {'x': ..., "
-                             "'y': ...} or an (x, y) tuple")
+            raise ValueError(
+                "evaluate requires labels: pass {'x': ..., 'y': ...}, an "
+                "(x, y) tuple, or label_cols for DataFrame input")
         return self._engine.run_epoch(ds.batches(batch_size), train=False)
 
-    def predict(self, data, batch_size: int = 32):
+    def predict(self, data, batch_size: int = 32, feature_cols=None):
         """Stacked predictions (numpy, or a tuple of them), padding rows
-        dropped, in the input's order."""
-        ds = HostDataset.from_data(data)
+        dropped, in the input's row order (XShards and DataFrames
+        included)."""
+        ds = HostDataset.from_data(data, feature_cols, None)
         outs = self._engine.predict_all(ds.batches(batch_size))
         if not outs:
             return None

@@ -3,11 +3,16 @@ analytics_zoo_tpu/orca/learn/optimizers.py, whose optimizers are optax
 transformations).
 
 Each factory returns an `Optimizer`: not yet bound to parameters,
-`build(params)` makes the fused torch.optim optimizer that computes the optax
-update (`torch.optim.Adam` is optax's adam: bias-corrected moments, eps
+`build(params)` makes the torch optimizer that computes the optax
+update.  Adam, AdamW and SGD are the fused torch.optim ones
+(`torch.optim.Adam` is optax's adam: bias-corrected moments, eps
 outside the square root; `AdamW` is optax's adamw, the decay decoupled
 and taken on the parameters before the step; `SGD`'s momentum trace and
 added weight decay are optax's `sgd` after `add_decayed_weights`).
+RMSprop, Adagrad and Adadelta are written here (`OptaxRMSprop`,
+`OptaxAdagrad`, `OptaxAdadelta`): torch.optim's versions compute other
+functions (eps outside the square root, accumulators starting at 0) and
+have no fused form that reads `found_inf`.
 `resolve` adds the gradient clipping of the reference Estimator:
 `clip_norm` (optax.clip_by_global_norm) and `clip_value` (a bound or a
 (min, max) pair), applied before the update, in that order.
@@ -182,6 +187,103 @@ class LRSchedule:
         self.count.add_(taken)
 
 
+class OptaxOptimizer(torch.optim.Optimizer):
+    """An optax update rule as elementwise torch operations on each
+    parameter, skipped on the device: where the engine's `found_inf` (a
+    0-d tensor) is nonzero, parameters and state keep their values
+    bitwise (`torch.where`, no host read), as the fused torch.optim
+    optimizers do.  `lr` is a float or the schedule's 0-d device
+    tensor.  Subclasses give `_init(p)` (the state) and `_update(g,
+    state, group)` (optax's update before the learning rate, and the
+    new state)."""
+
+    def __init__(self, params, defaults):
+        super().__init__(params, defaults)
+        self.found_inf = None
+
+    def _init(self, p) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def _update(self, g, state, group):
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError(f"{type(self).__name__} takes no closure")
+        skip = None if self.found_inf is None else self.found_inf > 0
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(self._init(p))
+                scaled, new = self._update(p.grad, state, group)
+                # optax: scale by -lr, then apply_updates adds to p
+                new["param"] = p + scaled * -group["lr"]
+                for key, value in new.items():
+                    old = p if key == "param" else state[key]
+                    old.copy_(value if skip is None
+                              else torch.where(skip, old, value))
+
+
+class OptaxRMSprop(OptaxOptimizer):
+    """optax.rmsprop (no momentum, not centered): ν ← (1 - decay)·g² +
+    decay·ν from ν = 0, update g·rsqrt(ν + eps), eps inside the root."""
+
+    def __init__(self, params, lr=1e-3, decay=0.9, eps=1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    def _init(self, p):
+        return {"nu": torch.zeros_like(p)}
+
+    def _update(self, g, state, group):
+        decay = group["decay"]
+        nu = (1 - decay) * (g * g) + decay * state["nu"]
+        return torch.rsqrt(nu + group["eps"]) * g, {"nu": nu}
+
+
+class OptaxAdagrad(OptaxOptimizer):
+    """optax.adagrad: the sum of squares starts at
+    `initial_accumulator_value`, update g·rsqrt(sum + eps) where the sum
+    is positive (0 elsewhere)."""
+
+    def __init__(self, params, lr=1e-2, initial_accumulator_value=0.1,
+                 eps=1e-7):
+        super().__init__(params, dict(
+            lr=lr, initial_accumulator_value=initial_accumulator_value,
+            eps=eps))
+
+    def _init(self, p):
+        return {"sum_of_squares": torch.full_like(
+            p, self.defaults["initial_accumulator_value"])}
+
+    def _update(self, g, state, group):
+        acc = g * g + state["sum_of_squares"]
+        scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]), 0.0)
+        return scale * g, {"sum_of_squares": acc}
+
+
+class OptaxAdadelta(OptaxOptimizer):
+    """optax.adadelta (no weight decay): E[g²] ← (1 - ρ)·g² + ρ·E[g²];
+    u = sqrt(E[Δx²] + eps) / sqrt(E[g²] + eps)·g; E[Δx²] ← (1 - ρ)·u² +
+    ρ·E[Δx²], from u before the learning rate; both start at 0."""
+
+    def __init__(self, params, lr=1.0, rho=0.9, eps=1e-6):
+        super().__init__(params, dict(lr=lr, rho=rho, eps=eps))
+
+    def _init(self, p):
+        return {"e_g": torch.zeros_like(p), "e_x": torch.zeros_like(p)}
+
+    def _update(self, g, state, group):
+        rho, eps = group["rho"], group["eps"]
+        e_g = (1 - rho) * (g * g) + rho * state["e_g"]
+        u = torch.sqrt(state["e_x"] + eps) / torch.sqrt(e_g + eps) * g
+        e_x = (1 - rho) * (u * u) + rho * state["e_x"]
+        return u, {"e_g": e_g, "e_x": e_x}
+
+
 @dataclasses.dataclass
 class Optimizer:
     """A torch.optim class and its arguments, plus gradient clipping."""
@@ -192,10 +294,10 @@ class Optimizer:
     schedule: Optional[Schedule] = None
 
     def build(self, params):
-        """(the fused torch.optim optimizer, its `LRSchedule` or None).
-        The optimizer skips the whole update on the device where its
-        `found_inf` attribute holds 1; with a schedule its lr is the
-        `LRSchedule`'s device tensor."""
+        """(the torch optimizer, fused where it is torch.optim's, and its
+        `LRSchedule` or None).  The optimizer skips the whole update on
+        the device where its `found_inf` attribute holds 1; with a
+        schedule its lr is the `LRSchedule`'s device tensor."""
         params = list(params)
         kwargs = dict(self.kwargs)
         sched = None
@@ -203,7 +305,9 @@ class Optimizer:
             sched = LRSchedule(self.schedule.build(kwargs["lr"]),
                                params[0].device)
             kwargs["lr"] = sched.lr
-        opt = self.cls(params, fused=True, **kwargs)
+        if not issubclass(self.cls, OptaxOptimizer):
+            kwargs["fused"] = True
+        opt = self.cls(params, **kwargs)
         if self.kwargs.get("momentum"):
             # optax's trace starts at zero; fused SGD would leave a
             # skipped first step an uninitialized momentum buffer
@@ -258,9 +362,32 @@ def AdamWeightDecay(learning_rate=1e-3, weight_decay=0.01, beta1=0.9,
         weight_decay=weight_decay), schedule=learningrate_schedule)
 
 
+def RMSprop(learning_rate=1e-3, decay_rate=0.9, epsilon=1e-8,
+            learningrate_schedule: Optional[Schedule] = None) -> Optimizer:
+    """optax.rmsprop(learning_rate, decay=decay_rate, eps=epsilon)."""
+    return Optimizer(OptaxRMSprop, dict(lr=learning_rate, decay=decay_rate,
+                                        eps=epsilon),
+                     schedule=learningrate_schedule)
+
+
+def Adagrad(learning_rate=1e-2,
+            learningrate_schedule: Optional[Schedule] = None) -> Optimizer:
+    """optax.adagrad(learning_rate)."""
+    return Optimizer(OptaxAdagrad, dict(lr=learning_rate),
+                     schedule=learningrate_schedule)
+
+
+def Adadelta(learning_rate=1.0, rho=0.95, epsilon=1e-6,
+             learningrate_schedule: Optional[Schedule] = None) -> Optimizer:
+    """optax.adadelta(learning_rate, rho=rho, eps=epsilon)."""
+    return Optimizer(OptaxAdadelta, dict(lr=learning_rate, rho=rho,
+                                         eps=epsilon),
+                     schedule=learningrate_schedule)
+
+
 _REGISTRY = {"sgd": SGD, "adam": Adam, "adamw": AdamWeightDecay,
-             "adamweightdecay": AdamWeightDecay}
-_NOT_PORTED = ("rmsprop", "adagrad", "adadelta")
+             "adamweightdecay": AdamWeightDecay, "rmsprop": RMSprop,
+             "adagrad": Adagrad, "adadelta": Adadelta}
 
 
 def resolve(optimizer, learning_rate: Optional[float] = None,
@@ -275,10 +402,6 @@ def resolve(optimizer, learning_rate: Optional[float] = None,
         opt = Adam(**lr_kwargs)
     elif isinstance(optimizer, str):
         key = optimizer.lower()
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f"optimizer {optimizer!r} is not ported yet; ported: "
-                f"{sorted(_REGISTRY)}")
         if key not in _REGISTRY:
             raise ValueError(f"unknown optimizer {optimizer!r}; known: "
                              f"{sorted(_REGISTRY)}")

@@ -10,8 +10,12 @@ update skipped on the device when that check fails (the fused
 optimizer's `found_inf`: parameters and optimizer state keep their
 values, and the host never waits on the check), and per-step stats with
 `_count` (real rows, 0 on a skipped step) and `_nan_steps`.
-`run_epoch` takes host batches and copies each to the card;
-`run_epoch_device` takes a `DeviceDataset` (the DEVICE data store,
+`run_epoch` takes host batches and copies each to the card, double
+buffered (`_HostPrefetcher`, `OrcaContext.host_input_prefetch`): the
+loop pops a batch already staged and stages the next one right after
+it queues the current step, on the same thread, through a ring of
+pinned host buffers (`PinnedRing`); `run_epoch_device` takes a
+`DeviceDataset` (the DEVICE data store,
 uploaded once by `cache_dataset`) and indexes its steps in place, with
 no host-to-device copy.  Both keep the stats on the device and read
 them back once per epoch.  One `torch.Generator` on the module's
@@ -48,11 +52,13 @@ from __future__ import annotations
 
 import inspect
 import time
+from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.common.context import OrcaContext
 from analytics_zoo_tpu_torch.orca.learn.optimizers import Optimizer
 from analytics_zoo_tpu_torch.resilience.faults import fault_point
 
@@ -103,6 +109,135 @@ class DeviceDataset:
                 "mask": take(mask)}
 
 
+class PinnedRing:
+    """Host batches staged to the card through a ring of pinned host
+    buffers (the counterpart of JAX's asynchronous `device_put`).
+
+    `put` writes a batch's arrays into the next slot's pinned buffer
+    (numpy copies, each array at a 256-byte aligned offset), queues one
+    copy of the slot to the card with `non_blocking=True` and returns
+    typed views of the device copy; an event recorded after the copy
+    marks when the slot may be written again.  A copy from pageable
+    memory cannot overlap the card's work (CUDA stages it through a
+    bounce buffer and the host waits for the stream); one from pinned
+    memory is queued and returns.  Before a slot is written again the
+    host waits on its event: without the wait, batch k+d+1 would
+    overwrite batch k+1's bytes while their copy may still be running.
+    A slot's buffer grows only when a batch's bytes outgrow it.  `waits`
+    counts the puts that found their slot's copy still running."""
+
+    ALIGN = 256
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.buffers: List[Optional[torch.Tensor]] = [None] * slots
+        self._host: List[Optional[np.ndarray]] = [None] * slots
+        self.events: List[Optional[Any]] = [None] * slots
+        self.next = 0
+        self.waits = 0
+        self.puts = 0
+
+    @property
+    def slots(self) -> int:
+        return len(self.buffers)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.numel() for b in self.buffers if b is not None)
+
+    def put(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        arrays = [np.asarray(a) for a in (*batch["features"],
+                                          *batch["labels"], batch["mask"])]
+        offsets, total = [], 0
+        for a in arrays:
+            offsets.append(total)
+            total += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        i = self.next
+        self.next = (i + 1) % self.slots
+        event = self.events[i]
+        if event is not None:
+            if not event.query():
+                self.waits += 1
+            event.synchronize()
+        if self.buffers[i] is None or self.buffers[i].numel() < total:
+            self.buffers[i] = self._alloc(max(total, 1))
+            self._host[i] = self.buffers[i].numpy()
+        host = self._host[i]
+        for a, off in zip(arrays, offsets):
+            np.copyto(host[off:off + a.nbytes].view(a.dtype).reshape(a.shape),
+                      a)
+        dev = self.buffers[i][:total].to(self.device, non_blocking=True)
+        if event is None:
+            event = self.events[i] = self._event()
+        event.record()
+        self.puts += 1
+        staged = [dev[off:off + a.nbytes].view(_torch_dtype(a.dtype))
+                  .view(a.shape) for a, off in zip(arrays, offsets)]
+        n_feat, n_lab = len(batch["features"]), len(batch["labels"])
+        return {"features": tuple(staged[:n_feat]),
+                "labels": tuple(staged[n_feat:n_feat + n_lab]),
+                "mask": staged[-1]}
+
+    def _alloc(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def _event(self):
+        return torch.cuda.Event()
+
+    def stats(self) -> Dict[str, int]:
+        return {"slots": self.slots, "bytes": self.nbytes,
+                "puts": self.puts, "waits": self.waits}
+
+
+_TORCH_DTYPES: Dict[np.dtype, torch.dtype] = {}
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    """The torch dtype of a numpy dtype (cached)."""
+    if dtype not in _TORCH_DTYPES:
+        _TORCH_DTYPES[dtype] = torch.from_numpy(np.empty(0, dtype)).dtype
+    return _TORCH_DTYPES[dtype]
+
+
+class _HostPrefetcher:
+    """Double-buffered host-to-device input staging (JAX
+    spmd.py:627-667, `OrcaContext.host_input_prefetch`).
+
+    With depth d >= 1, d batches are staged at construction; the loop
+    pops one already staged at the top of each step and calls
+    `stage(1)` right after queuing the step, so batch k+1's assembly and
+    copy run while step k computes on the card.  No background thread:
+    in JAX a Python prefetch thread fought the step's dispatch for the
+    GIL.  Depth 0 stages each batch inside its own step."""
+
+    def __init__(self, put: Callable, batch_iter, depth: int):
+        self._put = put
+        self._it = iter(batch_iter)
+        self.depth = max(0, int(depth))
+        self._staged = deque()
+        self._done = False
+        self.stage(self.depth)
+
+    def stage(self, n: int = 1) -> None:
+        """Assemble and stage up to `n` more batches."""
+        for _ in range(n):
+            if self._done:
+                return
+            try:
+                hb = next(self._it)
+            except StopIteration:
+                self._done = True
+                return
+            self._staged.append(self._put(hb))
+
+    def pop(self):
+        """The next staged batch (staged here when none is buffered, the
+        depth-0 path), or None once the batches are exhausted."""
+        if not self._staged and not self._done:
+            self.stage(1)
+        return self._staged.popleft() if self._staged else None
+
+
 def _strip(preds, n: int):
     """Predictions (a tensor or a tuple of them) to numpy, padding rows
     dropped."""
@@ -134,6 +269,13 @@ class TrainEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._takes_generator = _declares(model.forward, "generator")
+        # pairwise losses (rank_hinge) need the padding mask inside the
+        # loss, so a loss declaring `mask` gets it (JAX spmd.py:147-150)
+        self._loss_takes_mask = (loss_fn is not None
+                                 and _declares(loss_fn, "mask"))
+        #: the pinned staging ring of the host-streaming loops (on the
+        #: card, depth >= 1), made on first use
+        self.ring: Optional[PinnedRing] = None
         #: train steps run (skipped ones included); `host_step` is the
         #: loops' mirror of it, committed at the end of each loop
         self.step = 0
@@ -151,6 +293,23 @@ class TrainEngine:
                 "labels": tuple(put(a) for a in batch["labels"]),
                 "mask": put(batch["mask"])}
 
+    def _stager(self):
+        """(the function staging a host batch on the device, the
+        prefetch depth): on the card at depth d >= 1 the pinned ring of
+        d + 1 slots; at depth 0 the synchronous `put_batch`; on the CPU
+        `put_batch`, which is `torch.from_numpy`."""
+        depth = OrcaContext.host_input_prefetch
+        if self.device.type != "cuda" or depth == 0:
+            return self.put_batch, depth
+        if self.ring is None or self.ring.slots < depth + 1:
+            self.ring = PinnedRing(self.device, depth + 1)
+        return self.ring.put, depth
+
+    def _per_example_loss(self, preds, labels, mask):
+        if self._loss_takes_mask:
+            return self.loss_fn(preds, labels, mask=mask)
+        return self.loss_fn(preds, labels)
+
     def _forward(self, features, training: bool):
         self.model.train(training)
         if training and self._takes_generator:
@@ -161,7 +320,8 @@ class TrainEngine:
         mask = batch["mask"]
         self.opt.zero_grad(set_to_none=True)
         preds = self._forward(batch["features"], True)
-        loss = masked_mean(self.loss_fn(preds, batch["labels"]), mask)
+        loss = masked_mean(self._per_example_loss(preds, batch["labels"],
+                                                  mask), mask)
         loss.backward()
         grads = [p.grad for p in self.params if p.grad is not None]
         finite = torch.isfinite(loss.detach())
@@ -204,7 +364,8 @@ class TrainEngine:
         if batch["labels"]:
             if self.loss_fn is not None:
                 stats["loss"] = masked_mean(
-                    self.loss_fn(preds, batch["labels"]), mask)
+                    self._per_example_loss(preds, batch["labels"], mask),
+                    mask)
             for name, fn in self.metric_fns.items():
                 stats[name] = masked_mean(fn(preds, batch["labels"]), mask)
         stats["_count"] = mask.sum()
@@ -217,10 +378,13 @@ class TrainEngine:
         of the stats over the real rows (plus `nan_steps` when a step was
         skipped) and keeps each step's stats in `last_steps`, all read
         back from the device in one transfer at the end of the pass.
-        `on_step(step)` follows each training step (the loop-local
-        step); `profile` fences each step and times it."""
-        return self._run(map(self.put_batch, batch_iter), train, on_step,
-                         profile)
+        The batches are staged `OrcaContext.host_input_prefetch` ahead
+        (`_HostPrefetcher`).  `on_step(step)` follows each training step
+        (the loop-local step); `profile` fences each step and times
+        it."""
+        put, depth = self._stager()
+        return self._run(_HostPrefetcher(put, batch_iter, depth), train,
+                         on_step, profile)
 
     @staticmethod
     def cached_layout(n: int, batch_size: int):
@@ -264,19 +428,25 @@ class TrainEngine:
         batches = ({"features": tuple(a[i] for a in data["features"]),
                     "labels": tuple(a[i] for a in data["labels"]),
                     "mask": data["mask"][i]} for i in range(dds.steps))
-        return self._run(batches, train, on_step, profile)
+        return self._run(_HostPrefetcher(lambda b: b, batches, 0), train,
+                         on_step, profile)
 
     def _fence(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run(self, batches, train: bool, on_step=None,
+    def _run(self, pre: _HostPrefetcher, train: bool, on_step=None,
              profile: bool = False) -> Dict[str, float]:
         keys, rows = None, []
         # the loop-local step, committed to host_step at the end
         step = self.host_step
         profiled = []
-        for batch in batches:
+        while True:
+            # with prefetch a batch staged during the previous step; at
+            # depth 0 it is staged here, inside this step
+            batch = pre.pop()
+            if batch is None:
+                break
             if train:
                 fault_point("train.step", step=step + 1)
             if profile:
@@ -284,6 +454,10 @@ class TrainEngine:
                 t0 = time.perf_counter()
             stats = self.train_step(batch) if train else \
                 self.eval_step(batch)
+            if pre.depth > 0:
+                # double buffering: stage the next batch while this
+                # step runs on the card
+                pre.stage(1)
             if train:
                 step += 1
             if profile:
@@ -354,13 +528,18 @@ class TrainEngine:
 
     @torch.no_grad()
     def predict_all(self, batch_iter) -> List[Any]:
-        """Predictions per batch as numpy, padding rows dropped."""
+        """Predictions per batch as numpy, padding rows dropped; the
+        batches staged ahead as in `run_epoch`."""
+        put, depth = self._stager()
+        pre = _HostPrefetcher(lambda hb: (int(hb["mask"].sum()), put(hb)),
+                              batch_iter, depth)
         outs = []
-        for host_batch in batch_iter:
-            n_real = int(host_batch["mask"].sum())
-            batch = self.put_batch(host_batch)
-            outs.append(_strip(self._forward(batch["features"], False),
-                               n_real))
+        while (item := pre.pop()) is not None:
+            n_real, batch = item
+            preds = self._forward(batch["features"], False)
+            if pre.depth > 0:
+                pre.stage(1)
+            outs.append(_strip(preds, n_real))
         return outs
 
 

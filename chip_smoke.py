@@ -15,7 +15,9 @@ fine-tuning through `Estimator.fit` (with remat, a learning-rate
 schedule, checkpoints, a failure and its retry, and validation data in
 phase 12), and recommendation training (NeuralCF, WideAndDeep,
 SessionRecommender) through `Estimator.fit` from the DEVICE data
-store; each path's outputs (or first gradients,
+store, and Orca's data path (XShards, the DISK tier, pinned
+prefetch, the new optimizers and losses) in phase 13; each path's
+outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
 versions or the port on the CPU.
 
@@ -121,6 +123,26 @@ Phases (each one failing exits non-zero, with no result line):
      each under gate (a), with samples/s; `recommend_for_user` over
      10,000 pairs; no kernel of the other paths is launched (run after
      phase 12, before phase 10's profiles);
+  13. Orca's data path (after phase 11, before phase 10's profiles;
+     results under "data_path" in the line before the kernels line):
+     (a) bench.py's NCF cell from `XShards.partition` into 7 dict shards
+     (batches span shard edges) on the DRAM store, per-step losses
+     within 1e-6 of the fit from the arrays, and under the DEVICE store
+     streamed from the host with JAX's warning, no cache entry; (b)
+     host-input prefetch depth 0 against 2 (pinned double buffering):
+     losses bitwise equal under deterministic algorithms, samples/s
+     through `fit` (best of 5 one-epoch windows, in turns, beside phase
+     11's DRAM and DEVICE stores), the busy share from a profiled fit,
+     the pinned ring's slots, bytes and waits; (c) the DISK_2 tier:
+     losses bitwise those of the DRAM tier, the spill directory removed
+     with the XShards, samples/s; (e) RMSprop, Adagrad and Adadelta under
+     phase 11's gate (a) at their registry rates, a non-finite step
+     leaving weights and optimizer state bitwise with no host read, and
+     one-logit NCF fits with binary_crossentropy and mse whose loss
+     falls; no kernel launched in (a)-(c), (e); (d) phase 8's BERT-base
+     recipe fed XShards of 100/70/90/64/60 rows: launches per step K1
+     25, K1b 25, K2 12 (sm90), K3 12, K4a 12, K4b 12, losses bitwise a
+     dict-input fit's, step p50 beside phase 8's;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -1958,14 +1980,16 @@ def session_data(rng, n: int):
 
 
 def rec_fit(torch, model, x, y, batch: int, epochs: int = 1,
-            store: str = "DEVICE"):
-    """`epochs` of Adam 1e-3 through `model.estimator()` (Estimator.from_
-    torch) on `store`, no shuffle; the Estimator."""
+            store: str = "DEVICE", optimizer: str = "adam",
+            learning_rate=1e-3):
+    """`epochs` of `optimizer` (Adam 1e-3 unless given; a None rate is
+    the optimizer's default) through `model.estimator()`
+    (Estimator.from_torch) on `store`, no shuffle; the Estimator."""
     from analytics_zoo_tpu_torch.common.context import OrcaContext
     prev, OrcaContext.train_data_store = OrcaContext.train_data_store, store
     try:
-        est = model.estimator(optimizer="adam", learning_rate=1e-3,
-                              metrics=[])
+        est = model.estimator(optimizer=optimizer,
+                              learning_rate=learning_rate, metrics=[])
         est.fit({"x": x, "y": y}, epochs=epochs, batch_size=batch,
                 shuffle=False)
     finally:
@@ -1973,7 +1997,8 @@ def rec_fit(torch, model, x, y, batch: int, epochs: int = 1,
     return est
 
 
-def card_vs_cpu(torch, build, x, y, batch: int, label: str, card: str):
+def card_vs_cpu(torch, build, x, y, batch: int, label: str, card: str,
+                optimizer: str = "adam", learning_rate=1e-3):
     """Gate (a): 3 steps at f32 from the same weights, the model on the
     card against the port on the CPU (an explicit reference run, not a
     fallback), a `fit` of one step, then one of two.  The same arithmetic
@@ -1993,7 +2018,8 @@ def card_vs_cpu(torch, build, x, y, batch: int, label: str, card: str):
     for device in ("cpu", "cuda"):
         model = build(device)
         model.load_state_dict(state)
-        est = rec_fit(torch, model, [a[:batch] for a in x], y[:batch], batch)
+        est = rec_fit(torch, model, [a[:batch] for a in x], y[:batch], batch,
+                      optimizer=optimizer, learning_rate=learning_rate)
         steps = [s["loss"] for s in est.engine.last_steps]
         first.append({k: v.detach().cpu().double()
                       for k, v in model.state_dict().items()})
@@ -2030,30 +2056,30 @@ def card_vs_cpu(torch, build, x, y, batch: int, label: str, card: str):
 
 
 def best_fit_s(torch, est, x, y, batch: int, epochs: int, windows=None,
-               between=None):
+               between=None, data=None):
     """The shortest of `windows` (REC_WINDOWS) `fit` calls of `epochs`
-    (each ends by reading its stats, a wait on the card); `between` runs
-    after each."""
+    (each ends by reading its stats, a wait on the card) on `data`, or
+    {"x": x, "y": y}; `between` runs after each."""
     best = float("inf")
     for _ in range(windows or REC_WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        est.fit({"x": x, "y": y}, epochs=epochs, batch_size=batch,
-                shuffle=False)
+        est.fit({"x": x, "y": y} if data is None else data, epochs=epochs,
+                batch_size=batch, shuffle=False)
         best = min(best, time.perf_counter() - t0)
         if between is not None:
             between()
     return best
 
 
-def fit_step_profile(torch, est, x, y, batch: int, steps: int):
+def fit_step_profile(torch, est, x, y, batch: int, steps: int, data=None):
     """Where a `fit` step's time goes: device time per step by device op
-    and every device event summed, from a profiled one-epoch `fit`, and
-    the host reads inside it."""
+    and every device event summed, from a profiled one-epoch `fit` on
+    `data` (or {"x": x, "y": y}), and the host reads inside it."""
     from torch.autograd import DeviceType
     _, per, prof = device_ms(
-        lambda: est.fit({"x": x, "y": y}, epochs=1, batch_size=batch,
-                        shuffle=False), iters=1)
+        lambda: est.fit({"x": x, "y": y} if data is None else data, epochs=1,
+                        batch_size=batch, shuffle=False), iters=1)
     dev_all = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3 / steps
@@ -2309,6 +2335,389 @@ def phase_recommendation(torch, seed: int, card: str):
           f"phase 11 launched a kernel of another path: {launches}")
     out["launches"] = launches
     OrcaContext.train_data_store, OrcaContext.device_cache_bytes = prev
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 13: the data path (XShards, prefetch depth, the DISK tier)
+# ----------------------------------------------------------------------
+
+#: phase 13 (a)-(c): bench.py's NCF cell fed as XShards of 7 dict shards
+#: (they do not divide the 30 batches: batches carry rows across edges)
+DATA_SHARDS = 7
+#: phase 13 (b): the host-input prefetch depths compared
+DATA_DEPTHS = (0, 2)
+#: phase 13 (d): 12 x 32 BERT rows in shards of uneven sizes
+BERT_SHARD_ROWS = (100, 70, 90, 64, 60)
+#: phase 13 (e): the optimizers written here, each at its registry rate
+NEW_OPTIMIZERS = ("rmsprop", "adagrad", "adadelta")
+#: phase 13 (e): steps of the one-logit fits with the new losses
+LOSS_FIT_STEPS = 8
+
+
+class _Warnings:
+    """The messages `analytics_zoo_tpu_torch` logs at WARNING and above
+    inside the block."""
+
+    def __enter__(self):
+        import logging
+
+        class Keep(logging.Handler):
+            def __init__(self, out):
+                super().__init__(logging.WARNING)
+                self.out = out
+
+            def emit(self, record):
+                self.out.append(record.getMessage())
+
+        self.messages = []
+        self.logger = logging.getLogger("analytics_zoo_tpu_torch")
+        self.handler = Keep(self.messages)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def data_ncf_fit(torch, seed: int, data, store: str, depth: int,
+                 optimizer="adam"):
+    """One epoch of bench.py's cell from phase 11's starting weights
+    through `Estimator.fit` on `store` at prefetch `depth`, no shuffle:
+    (the Estimator, its per-step losses)."""
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    OrcaContext.train_data_store = store
+    OrcaContext.host_input_prefetch = depth
+    torch.manual_seed(seed)
+    model = NeuralCF(**NCF_CELL, compute_dtype=torch.bfloat16, device="cuda")
+    est = model.estimator(optimizer=optimizer, learning_rate=1e-3,
+                          metrics=[])
+    est.fit(data, epochs=1, batch_size=NCF_BATCH, shuffle=False)
+    return est, [s["loss"] for s in est.engine.last_steps]
+
+
+def skipped_step_on_card(torch, est, x, y, label: str):
+    """One train step whose gradients are made non-finite (a hook
+    multiplies one parameter's gradient by inf): the weights and the
+    optimizer state stay bitwise as they were, the step is counted as
+    skipped, and no host read happens inside it (profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = est.engine
+    model = eng.model
+    before = params_of(model)
+    state = {id(p): {k: v.clone() for k, v in s.items()}
+             for p, s in eng.opt.state.items()}
+    batch = eng.put_batch({"features": tuple(a[:NCF_BATCH] for a in x),
+                           "labels": (y[:NCF_BATCH],),
+                           "mask": np.ones(NCF_BATCH, np.float32)})
+    first = next(p for p in model.parameters() if p.requires_grad)
+    hook = first.register_hook(lambda g: g * float("inf"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = eng.train_step(batch)
+    hook.remove()
+    # the profiler's own closing cudaDeviceSynchronize is not counted
+    reads = sum(e.count for e in prof.key_averages()
+                if e.key in ("cudaStreamSynchronize",
+                             "aten::_local_scalar_dense", "aten::item"))
+    kept = all(torch.equal(p, before[n])
+               for n, p in model.named_parameters())
+    kept_state = all(torch.equal(v, state[id(p)][k])
+                     for p, s in eng.opt.state.items() for k, v in s.items())
+    skipped = float(stats["_nan_steps"])
+    check(kept and kept_state and skipped == 1.0 and reads == 0,
+          f"{label}: a non-finite step changed the weights ({not kept}) or "
+          f"the optimizer state ({not kept_state}), skipped {skipped}, host "
+          f"reads inside the step {reads}")
+    return dict(weights_kept=kept, state_kept=kept_state,
+                host_reads_in_step=reads)
+
+
+def phase_data_path(torch, seed: int, card: str, rec: dict, train: dict):
+    """Phase 13: Orca's data path on the card.  (a) bench.py's NCF cell
+    from XShards of 7 dict shards (DRAM store) against the fit from the
+    arrays, and under the DEVICE store (streamed, with JAX's warning);
+    (b) host-input prefetch depth 0 against 2: bitwise losses under
+    deterministic algorithms, samples/s through `fit`, the busy share,
+    the pinned ring; (c) the DISK tier: bitwise losses, the spill
+    directory gone with the XShards, samples/s; (e) RMSprop, Adagrad and
+    Adadelta under phase 11's gate (a), a skipped non-finite step, and
+    fits with binary_crossentropy and mse; no kernel launched in (a)-(c)
+    and (e); (d) BERT-base fine-tuned from XShards of uneven shards:
+    launches per step exact, losses bitwise those of a dict-input fit."""
+    import gc
+    import os
+
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.orca.data import XShards
+    prev = (OrcaContext.train_data_store, OrcaContext.host_input_prefetch,
+            OrcaContext.device_cache_bytes)
+    OrcaContext.device_cache_bytes = 1 << 30
+    out = {}
+    samples = NCF_BATCH * NCF_STEPS
+    u, i, y = ncf_data(samples)
+    arrays = {"x": [u, i], "y": y}
+    OrcaContext.train_data_store = "DRAM"
+    shards = XShards.partition(arrays, num_shards=DATA_SHARDS)
+    kernels.reset_launch_counts()
+
+    # (a) XShards against the arrays, both streamed from the host
+    _, from_arrays = data_ncf_fit(torch, seed, arrays, "DRAM", 2)
+    est_xs, from_xs = data_ncf_fit(torch, seed, shards, "DRAM", 2)
+    err_a = max(abs(a - b) for a, b in zip(from_xs, from_arrays))
+    check(len(from_xs) == len(from_arrays) == NCF_STEPS and err_a <= 1e-6,
+          f"phase 13 (a): XShards {from_xs} vs arrays {from_arrays}")
+    with _Warnings() as warned:
+        est_dev, from_dev = data_ncf_fit(torch, seed, shards, "DEVICE", 2)
+    streamed = any("ignored for streaming input" in m
+                   for m in warned.messages)
+    err_dev = max(abs(a - b) for a, b in zip(from_dev, from_xs))
+    check(streamed and not est_dev._device_cache
+          and est_dev.device_cache_hits == 0 and err_dev <= 1e-6,
+          f"phase 13 (a): DEVICE store with XShards: warned {streamed}, "
+          f"cache {len(est_dev._device_cache)} entries, "
+          f"{est_dev.device_cache_hits} hits, losses {from_dev}")
+    del est_dev
+    out["a"] = dict(shards=DATA_SHARDS, steps=NCF_STEPS,
+                    max_loss_diff_vs_arrays=err_a,
+                    device_store_streamed_with_warning=streamed,
+                    device_store_max_loss_diff=err_dev, losses=from_xs)
+    print(f"data path [{card}] (a) NCF from {DATA_SHARDS} XShards, "
+          f"{NCF_STEPS} steps of {NCF_BATCH}: max |loss diff| vs the arrays "
+          f"{err_a:.3e} (gate 1e-6); DEVICE store streamed with the "
+          f"warning, no cache entry, max |loss diff| {err_dev:.3e}",
+          flush=True)
+
+    # (b) prefetch depth: bitwise under deterministic algorithms
+    with deterministic(torch):
+        det = {d: data_ncf_fit(torch, seed, shards, "DRAM", d)[1]
+               for d in DATA_DEPTHS}
+    check(det[0] == det[2], f"phase 13 (b): depth 0 losses {det[0]} vs "
+          f"depth 2 {det[2]}")
+    # samples/s through fit: one Estimator a depth, windows in turns
+    ests = {("xshards", d): data_ncf_fit(torch, seed, shards, "DRAM", d)[0]
+            for d in DATA_DEPTHS}
+    for d in DATA_DEPTHS:
+        ests[("arrays", d)] = data_ncf_fit(torch, seed, arrays, "DRAM", d)[0]
+    best = dict.fromkeys(ests, float("inf"))
+    for _ in range(REC_WINDOWS):
+        for (kind, d), est in ests.items():
+            OrcaContext.host_input_prefetch = d
+            data = shards if kind == "xshards" else arrays
+            best[(kind, d)] = min(best[(kind, d)], best_fit_s(
+                torch, est, None, None, NCF_BATCH, 1, windows=1, data=data))
+    rates = {f"{kind}_depth{d}": samples / s for (kind, d), s in best.items()}
+    ring = ests[("xshards", 2)].engine.ring.stats()
+    profiles = {}
+    for d in DATA_DEPTHS:
+        OrcaContext.host_input_prefetch = d
+        step_ms = best[("xshards", d)] / NCF_STEPS * 1e3
+        prof = fit_step_profile(torch, ests[("xshards", d)], None, None,
+                                NCF_BATCH, NCF_STEPS, data=shards)
+        prof["fit_step_ms"] = step_ms
+        prof["device_busy_share_of_fit_step"] = \
+            prof["device_ms_per_step_all_events"] / step_ms
+        profiles[d] = prof
+    ncf = rec["ncf"]
+    out["b"] = dict(bitwise_equal_depths=True, losses_depth0=det[0],
+                    samples_per_s=rates,
+                    phase11_dram_samples_per_s=ncf["dram_samples_per_s"],
+                    phase11_device_samples_per_s=ncf["fit_samples_per_s"],
+                    busy_share={d: profiles[d]
+                                ["device_busy_share_of_fit_step"]
+                                for d in DATA_DEPTHS},
+                    profiles=profiles, pinned_ring=ring)
+    print(f"data path [{card}] (b) prefetch depth 0 vs 2: losses bitwise "
+          f"equal over {NCF_STEPS} steps (deterministic algorithms); "
+          f"samples/s through fit (best of {REC_WINDOWS} one-epoch "
+          f"windows, in turns): XShards depth 0 "
+          f"{rates['xshards_depth0']:.0f}, depth 2 "
+          f"{rates['xshards_depth2']:.0f}, arrays depth 0 "
+          f"{rates['arrays_depth0']:.0f}, depth 2 "
+          f"{rates['arrays_depth2']:.0f}; phase 11 in this run: DRAM store "
+          f"{ncf['dram_samples_per_s']:.0f}, DEVICE store "
+          f"{ncf['fit_samples_per_s']:.0f}; busy share depth 0 "
+          f"{out['b']['busy_share'][0]:.3f}, depth 2 "
+          f"{out['b']['busy_share'][2]:.3f}; pinned ring {ring}", flush=True)
+    for d in DATA_DEPTHS:
+        print(f"data path fit step profile depth {d} [{card}]: "
+              f"{json.dumps(profiles[d])}", flush=True)
+    del ests, est_xs
+
+    # (c) the DISK tier: shards pickled to a temp dir, loaded on the
+    # IO thread
+    OrcaContext.train_data_store = "DISK_2"
+    disk = XShards.partition(arrays, num_shards=DATA_SHARDS)
+    spill = disk._store._dir
+    spilled = len(os.listdir(spill))
+    with deterministic(torch):
+        _, from_disk = data_ncf_fit(torch, seed, disk, "DISK_2", 2)
+    check(from_disk == det[2], f"phase 13 (c): DISK tier losses {from_disk} "
+          f"vs the DRAM tier's {det[2]}")
+    est_disk, _ = data_ncf_fit(torch, seed, disk, "DISK_2", 2)
+    disk_s = best_fit_s(torch, est_disk, None, None, NCF_BATCH, 1,
+                        data=disk)
+    del disk, est_disk
+    gc.collect()
+    gone = not os.path.exists(spill)
+    check(spilled == DATA_SHARDS and gone, f"phase 13 (c): {spilled} files "
+          f"spilled, directory removed {gone}")
+    out["c"] = dict(bitwise_equal_dram_tier=True, spilled_files=spilled,
+                    spill_dir_removed=gone, samples_per_s=samples / disk_s)
+    print(f"data path [{card}] (c) DISK_2 tier: {spilled} shards pickled, "
+          f"losses bitwise equal to the DRAM tier's, the spill directory "
+          f"removed with the XShards; {samples / disk_s:.0f} samples/s "
+          f"through fit (best of {REC_WINDOWS})", flush=True)
+
+    # (e) the optimizers written here, on the card against the CPU
+    OrcaContext.train_data_store = "DRAM"
+    OrcaContext.host_input_prefetch = 2
+    out["e"] = {}
+    for name in NEW_OPTIMIZERS:
+        def build(device, name=name):
+            torch.manual_seed(seed)
+            return NeuralCF(**NCF_CELL, compute_dtype=torch.float32,
+                            device=device)
+        state, gate = card_vs_cpu(torch, build, [u, i], y, NCF_BATCH,
+                                  f"NCF {name}", card, optimizer=name,
+                                  learning_rate=None)
+        model = build("cuda")
+        model.load_state_dict(state)
+        est = rec_fit(torch, model, [a[:NCF_BATCH] for a in (u, i)],
+                      y[:NCF_BATCH], NCF_BATCH, store="DRAM", optimizer=name,
+                      learning_rate=None)
+        gate["skipped_step"] = skipped_step_on_card(torch, est, [u, i], y,
+                                                    f"NCF {name}")
+        out["e"][name] = gate
+        print(f"data path [{card}] (e) {name}: a non-finite step left the "
+              f"weights and the optimizer state bitwise, no host read in "
+              f"the step", flush=True)
+        del model, est
+    n_rows = NCF_BATCH * LOSS_FIT_STEPS
+    for loss in ("binary_crossentropy", "mse"):
+        torch.manual_seed(seed)
+        model = NeuralCF(**dict(NCF_CELL, class_num=1),
+                         compute_dtype=torch.bfloat16, device="cuda")
+        est = model.estimator(loss=loss, optimizer="adam",
+                              learning_rate=1e-3, metrics=[])
+        est.fit(XShards.partition({"x": [u[:n_rows], i[:n_rows]],
+                                   "y": y[:n_rows].astype(np.float32)},
+                                  num_shards=DATA_SHARDS),
+                epochs=3, batch_size=NCF_BATCH, shuffle=True)
+        epochs = [s["loss"] for s in est.train_summary]
+        check(all(np.isfinite(epochs)) and epochs[2] < epochs[0],
+              f"phase 13 (e): {loss} epoch losses {epochs} did not fall")
+        out["e"][loss] = dict(epoch_losses=epochs)
+        print(f"data path [{card}] (e) one-logit NCF with {loss} from "
+              f"XShards, 3 epochs of {LOSS_FIT_STEPS} steps: epoch losses "
+              f"{epochs}", flush=True)
+        del model, est
+    launches = kernels.launch_counts()
+    check(not any(launches.values()),
+          f"phase 13 (a)-(c), (e) launched a kernel: {launches}")
+    out["launches_recommendation"] = launches
+
+    # (d) BERT-base fine-tuned from XShards of uneven shards
+    out["d"] = phase_data_bert(torch, seed, card, train)
+    (OrcaContext.train_data_store, OrcaContext.host_input_prefetch,
+     OrcaContext.device_cache_bytes) = prev
+    return out
+
+
+def phase_data_bert(torch, seed: int, card: str, train: dict):
+    """Phase 13 (d): phase 8's model and recipe fed XShards of 12 x 32
+    rows in shards of BERT_SHARD_ROWS, against a dict-input fit over the
+    same rows (both under deterministic algorithms); launches per step
+    exact; step p50 from CUDA events as each step is queued."""
+    from analytics_zoo_tpu_torch.convert import (
+        bert_from_flax,
+        init_bert_params,
+    )
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE, BERTClassifier
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.orca.data import XShards
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    cfg = dict(BERT_BASE, num_classes=2)
+    vocab, n_blk = cfg["vocab"], cfg["n_block"]
+    state = bert_from_flax(init_bert_params(cfg, seed=seed), cfg)
+    steps = sum(BERT_SHARD_ROWS) // TRAIN_BATCH
+    rng = np.random.default_rng(seed + 29)
+    (ids, seg, mask), y, _ = train_batch(rng, steps * TRAIN_BATCH, TRAIN_T,
+                                         vocab)
+    edges = np.cumsum((0,) + BERT_SHARD_ROWS)
+    shards = XShards([{"x": (ids[a:b], seg[a:b], mask[a:b]), "y": y[a:b]}
+                      for a, b in zip(edges, edges[1:])])
+
+    def fit(data, marks=None):
+        model = BERTClassifier(**cfg, attn_impl="flash", device="cuda")
+        model.load_state_dict(state)
+        est = Estimator.from_torch(
+            model, loss="sparse_categorical_crossentropy", optimizer="adam",
+            learning_rate=2e-5, metrics=["accuracy"], seed=seed)
+        if marks is not None:
+            eng = est.engine
+
+            def marked_step(batch, step=eng.train_step):
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+                return step(batch)
+            eng.train_step = marked_step
+        est.fit(data, epochs=1, batch_size=TRAIN_BATCH, shuffle=False)
+        if marks is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        torch.cuda.synchronize()
+        return [s["loss"] for s in est.engine.last_steps]
+
+    with deterministic(torch):
+        want = fit({"x": [ids, seg, mask], "y": y})
+        free_card(torch)
+        kernels.reset_launch_counts()
+        got = fit(shards)
+        counts = kernels.launch_counts()
+    free_card(torch)
+    per_step = {"layer_norm_fwd": 2 * n_blk + 1,
+                "layer_norm_bwd": 2 * n_blk + 1, "fused_dense_gelu": n_blk,
+                "flash_fwd": n_blk, "flash_bwd_dq": n_blk,
+                "flash_bwd_dkv": n_blk, "flash_bwd_dbias": 0,
+                "paged_decode": 0}
+    want_counts = {k: v * steps for k, v in per_step.items()}
+    check(counts == want_counts, f"phase 13 (d): launches {counts}, "
+          f"expected {want_counts} for {steps} steps")
+    bodies = k2_bodies("phase 13 (d)", counts)
+    check(got == want and len(got) == steps and all(np.isfinite(got)),
+          f"phase 13 (d): XShards losses {got} vs the dict input's {want}")
+    # the step period with PyTorch's default algorithms, as phase 8 times
+    # it, XShards and the dict input over the same rows in turns
+    periods = {"xshards": [], "dict": []}
+    for kind in ("xshards", "dict", "dict", "xshards"):
+        marks = []
+        fit(shards if kind == "xshards" else {"x": [ids, seg, mask], "y": y},
+            marks)
+        free_card(torch)
+        periods[kind].append([a.elapsed_time(b) for a, b in zip(
+            marks[TRAIN_WARM:-1], marks[TRAIN_WARM + 1:])])
+    p50 = {k: min(statistics.median(t) for t in v)
+           for k, v in periods.items()}
+    out = dict(shard_rows=list(BERT_SHARD_ROWS), steps=steps,
+               losses=got, bitwise_equal_dict_input=True, launches=counts,
+               launches_per_step={k: v / steps for k, v in counts.items()},
+               k2_launches_by_body=bodies, step_ms_p50=p50["xshards"],
+               dict_input_step_ms_p50=p50["dict"], step_ms=periods,
+               phase8_step_ms_p50=train["step_ms_p50"])
+    print(f"data path [{card}] (d) BERT-base fine-tune from XShards of "
+          f"{list(BERT_SHARD_ROWS)} rows, batch {TRAIN_BATCH} x t = "
+          f"{TRAIN_T}, {steps} steps: losses bitwise those of the dict "
+          f"input (deterministic algorithms); launches per step "
+          f"{out['launches_per_step']}; step p50 {p50['xshards']:.3f} ms, "
+          f"the dict input over the same rows {p50['dict']:.3f} ms (the "
+          f"better of 2 fits each, in turns, {len(periods['dict'][0])} "
+          f"steps a fit); phase 8's repeated batch in this run "
+          f"{train['step_ms_p50']:.3f} ms", flush=True)
     return out
 
 
@@ -3084,6 +3493,8 @@ def main(argv=None) -> int:
     clocks("after phase 12", start)
     rec = phase_recommendation(torch, args.seed, card)
     clocks("after phase 11", start)
+    data_path = phase_data_path(torch, args.seed, card, rec, train)
+    clocks("after phase 13", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -3128,6 +3539,7 @@ def main(argv=None) -> int:
     clocks("at the end", start)
     gpt2, bert = runs[0]["launches"], bert_runs[0]["launches"]
     tr, remat = train["launches"], fit_surface["launches"]
+    xs_bert = data_path["d"]["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -3168,34 +3580,44 @@ def main(argv=None) -> int:
     ]
     by_path = {"layer_norm_fwd": {"generation": gpt2, "bert_serving": bert,
                                   "bert_fine_tune": tr,
-                                  "bert_fine_tune_remat": remat},
+                                  "bert_fine_tune_remat": remat,
+                                  "bert_fine_tune_xshards": xs_bert},
                "layer_norm_bwd": {"bert_fine_tune": tr,
-                                  "bert_fine_tune_remat": remat},
+                                  "bert_fine_tune_remat": remat,
+                                  "bert_fine_tune_xshards": xs_bert},
                "fused_dense_gelu": {"bert_serving": bert,
                                     "bert_fine_tune": tr,
-                                    "bert_fine_tune_remat": remat},
+                                    "bert_fine_tune_remat": remat,
+                                    "bert_fine_tune_xshards": xs_bert},
                "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
                              "learnable_bias": bias_run["launches"],
-                             "bert_fine_tune_remat": remat},
+                             "bert_fine_tune_remat": remat,
+                             "bert_fine_tune_xshards": xs_bert},
                "flash_bwd_dq": {"bert_fine_tune": tr,
                                 "learnable_bias": bias_run["launches"],
-                                "bert_fine_tune_remat": remat},
+                                "bert_fine_tune_remat": remat,
+                                "bert_fine_tune_xshards": xs_bert},
                "flash_bwd_dkv": {"bert_fine_tune": tr,
                                  "learnable_bias": bias_run["launches"],
-                                 "bert_fine_tune_remat": remat},
+                                 "bert_fine_tune_remat": remat,
+                                 "bert_fine_tune_xshards": xs_bert},
                "paged_decode": {f"generation_{r['label']}": r["launches"]
                                 for r in runs}}
     for k in kernels:
         paths = by_path.get(k["name"])
         if paths:
             k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
-        # no kernel lies on phase 11's path (checked there: all 0)
+        # no kernel lies on phase 11's path nor on phase 13's NCF and
+        # optimizer runs (checked there: all 0)
         k.setdefault("launches_by_path", {})["recommendation_training"] = \
             rec["launches"][k["name"]]
+        k["launches_by_path"]["data_path_recommendation"] = \
+            data_path["launches_recommendation"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs, "bert": bert_runs,
                       "train": train, "bias_path": bias_run,
                       "recommendation": rec, "fit_surface": fit_surface,
+                      "data_path": data_path,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,

@@ -41,6 +41,8 @@ from analytics_zoo_tpu.keras.layers.self_attention import (
     TransformerEncoder as JaxEncoder,
 )
 from analytics_zoo_tpu.models.bert import BERTClassifier as JaxClassifier
+from analytics_zoo_tpu.orca.learn import losses as jax_losses
+from analytics_zoo_tpu.orca.learn import metrics as jax_metrics
 from analytics_zoo_tpu.orca.learn import optimizers as jax_optimizers
 from analytics_zoo_tpu.orca.learn.estimator import Estimator as JaxEstimator
 from analytics_zoo_tpu_torch.convert import (
@@ -326,14 +328,31 @@ def test_einsum_attention_dropout_keeps_nine_tenths():
 
 
 def test_registries_raise_on_unported_names():
-    with pytest.raises(NotImplementedError, match="'mse' is not ported"):
-        losses.resolve("mse")
-    with pytest.raises(NotImplementedError, match="'top5accuracy'"):
-        metrics.resolve("top5accuracy")
-    with pytest.raises(NotImplementedError, match="'rmsprop'"):
-        optimizers.resolve("rmsprop")
+    """The port's loss, metric and optimizer registries hold exactly the
+    JAX registries' names, so the only names left to raise are those
+    JAX does not know either: a ValueError, as JAX raises."""
+    assert sorted(losses._REGISTRY) == sorted(jax_losses._REGISTRY)
+    assert sorted(metrics._REGISTRY) == sorted(jax_metrics._REGISTRY)
+    assert sorted(optimizers._REGISTRY) == sorted(jax_optimizers._REGISTRY)
+    for mod in (losses, metrics, optimizers):
+        assert not hasattr(mod, "_NOT_PORTED")
     with pytest.raises(ValueError, match="unknown loss"):
         losses.resolve("nope")
+    with pytest.raises(ValueError, match="unknown metric"):
+        metrics.resolve("nope")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        optimizers.resolve("lbfgs")
+
+
+@pytest.mark.parametrize("method", ["fit", "evaluate", "predict"])
+def test_estimator_signatures_match_jax(method):
+    """The JAX parameter names in the JAX order, so a positional call
+    such as fit(df, 5, 256, ["user", "item"], ["label"]) means the same
+    on both sides."""
+    import inspect
+    got = list(inspect.signature(getattr(Estimator, method)).parameters)
+    want = list(inspect.signature(getattr(JaxEstimator, method)).parameters)
+    assert got == want
 
 
 def test_clip_norm_matches_optax():
@@ -412,6 +431,9 @@ _OPT_CASES = {
     "sgd-clip-value": ("sgd", "sgd", 0.5, None, 0.02),
     "sgd-clip-value-pair": ("sgd", "sgd", 0.5, None, (-0.01, 0.03)),
     "adamw-clip-norm-and-value": ("adamw", "adamw", 1e-2, 0.05, 0.01),
+    "rmsprop": ("rmsprop", "rmsprop", 1e-2, None, None),
+    "adagrad-clip-norm": ("adagrad", "adagrad", 0.1, 0.05, None),
+    "adadelta-clip-value": ("adadelta", "adadelta", None, None, 0.01),
 }
 
 
