@@ -22,7 +22,11 @@ User code reads and writes them as `OrcaContext.<setting>`:
   * `background_checkpointing` (False): trigger saves leave the
     critical path after one device-to-host snapshot;
   * `fault_plan` (None): the armed fault-injection plan
-    (`resilience/faults.py`).
+    (`resilience/faults.py`);
+  * the generation engine's defaults, read where its arguments are
+    "auto": `kv_cache_quantization` (None or "int8"), `prefix_caching`
+    (False), `chunked_prefill` (False), `speculative_decoding` (False),
+    `speculative_k` (4) and `kv_host_tier_bytes` (0, no host tier).
 """
 
 from __future__ import annotations
@@ -37,6 +41,12 @@ class OrcaContextMeta(type):
     _failure_retry_interval_s = 1.0
     _background_checkpointing = False
     _fault_plan = None
+    _kv_cache_quantization = None
+    _prefix_caching = False
+    _chunked_prefill = False
+    _speculative_decoding = False
+    _speculative_k = 4
+    _kv_host_tier_bytes = 0
 
     @property
     def train_data_store(cls):
@@ -146,6 +156,93 @@ class OrcaContextMeta(type):
             return
         from analytics_zoo_tpu_torch.resilience.faults import FaultPlan
         cls._fault_plan = FaultPlan.from_config(value)
+
+
+    @property
+    def kv_cache_quantization(cls):
+        """The generation engine's KV pool residency: None (default)
+        keeps the pool at the engine's `cache_dtype`; "int8" stores
+        int8 values with per-token-slot scales, dequantized on read."""
+        return cls._kv_cache_quantization
+
+    @kv_cache_quantization.setter
+    def kv_cache_quantization(cls, value):
+        if value is not None:
+            value = str(value).lower()
+            if value in ("none", "off"):
+                value = None
+            elif value != "int8":
+                raise ValueError(
+                    f"kv_cache_quantization must be None or 'int8', "
+                    f"got {value!r}")
+        cls._kv_cache_quantization = value
+
+    @property
+    def prefix_caching(cls):
+        """Radix-tree prompt-prefix reuse in the generation engine
+        (`serving/generation/prefix_cache.py`).  False (default): every
+        request prefills its whole prompt into blocks of its own.  True:
+        admission shares the longest cached whole-block prefix and
+        prefills only the tail; full prompt blocks are committed back,
+        and unreferenced cached blocks are evicted LRU under pool
+        pressure before a running lane is preempted."""
+        return cls._prefix_caching
+
+    @prefix_caching.setter
+    def prefix_caching(cls, value):
+        cls._prefix_caching = bool(value)
+
+    @property
+    def chunked_prefill(cls):
+        """Chunked prefill in the generation engine (default False):
+        a long prompt prefills in chunks bounded by the engine's
+        `prefill_token_budget`, with a decode step for the running lanes
+        between chunks."""
+        return cls._chunked_prefill
+
+    @chunked_prefill.setter
+    def chunked_prefill(cls, value):
+        cls._chunked_prefill = bool(value)
+
+    @property
+    def speculative_decoding(cls):
+        """Draft-free speculative decoding (`serving/generation/
+        speculation.py`, default False): greedy lanes draft up to
+        `speculative_k` tokens from their own history and one verify
+        step scores them; the accepted tokens are those single-step
+        greedy decoding gives."""
+        return cls._speculative_decoding
+
+    @speculative_decoding.setter
+    def speculative_decoding(cls, value):
+        cls._speculative_decoding = bool(value)
+
+    @property
+    def speculative_k(cls):
+        """The most tokens a lane drafts a round (default 4)."""
+        return cls._speculative_k
+
+    @speculative_k.setter
+    def speculative_k(cls, value):
+        value = int(value)
+        if value < 1:
+            raise ValueError(f"speculative_k must be >= 1, got {value}")
+        cls._speculative_k = value
+
+    @property
+    def kv_host_tier_bytes(cls):
+        """Bytes of host memory the prefix cache may spill evicted KV
+        blocks into (`serving/generation/host_tier.py`); 0 (default) =
+        no tier, evicted blocks are dropped.  Used only with
+        `prefix_caching` on."""
+        return cls._kv_host_tier_bytes
+
+    @kv_host_tier_bytes.setter
+    def kv_host_tier_bytes(cls, value):
+        value = int(value)
+        if value < 0:
+            raise ValueError("kv_host_tier_bytes must be >= 0 (0 = off)")
+        cls._kv_host_tier_bytes = value
 
 
 class OrcaContext(metaclass=OrcaContextMeta):

@@ -18,6 +18,11 @@ against a paged KV block pool) and its one dispatch point: a CUDA
 tensor goes to the CUDA kernel (`ops/kernels/paged_attention.py`), a
 CPU tensor to the plain version — the block-table gather followed by
 the KV-cache read path above, which is the JAX package's XLA fallback.
+
+`paged_verify_attention` is the speculative verify read (q_len > 1 per
+lane against the pool).  The JAX package runs it through its XLA gather
+path on every backend (no Pallas kernel), and so does the port, on both
+devices: the gather and `dot_product_attention`'s KV-cache read path.
 """
 
 from __future__ import annotations
@@ -146,6 +151,42 @@ def paged_decode_attention(q, new_k, new_v, k_pool, v_pool, block_tables,
         block_tables.to(torch.int32).contiguous(),
         ctx_len.to(torch.int32).contiguous(), k_scale=k_scale,
         v_scale=v_scale)
+
+
+def paged_verify_attention(q, new_k, new_v, k_pool, v_pool, block_tables,
+                           ctx_len, *, k_scale=None, v_scale=None,
+                           impl: str = "auto",
+                           compute_dtype=torch.float32):
+    """Verify-step attention of T > 1 new tokens per lane over its paged
+    KV cache — speculative decoding's scoring pass.
+
+    q / new_k / new_v: [S, T, heads, head_dim] — lane s's pending token
+    and its T-1 drafted tokens at positions ctx_len[s]..ctx_len[s]+T-1;
+    they attend causally over [cached context ; themselves].  k_pool /
+    v_pool / block_tables / ctx_len / k_scale / v_scale: as in
+    `paged_decode_attention`.  Returns [S, T, heads, head_dim] f32.
+
+    impl: "auto" | "reference"; both run the same plain gather path (no
+    kernel of this read exists, in JAX or here)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if impl not in ("auto", "reference"):
+        raise ValueError(f"unknown paged_verify_attention impl {impl!r}; "
+                         "use 'auto' or 'reference'")
+    s, t, h, d = q.shape
+    nb, bs = k_pool.shape[:2]
+    flat_k = k_pool.reshape(nb * bs, h, d)
+    flat_v = v_pool.reshape(nb * bs, h, d)
+    fk_scale = None if k_scale is None else k_scale.reshape(nb * bs).float()
+    fv_scale = None if v_scale is None else v_scale.reshape(nb * bs).float()
+    tok_idx = (block_tables.long()[:, :, None] * bs
+               + torch.arange(bs, device=q.device)[None, None, :]
+               ).reshape(s, -1)
+    return dot_product_attention(
+        q, new_k, new_v, compute_dtype=compute_dtype,
+        ctx_k=_paged_dequant(flat_k, fk_scale, tok_idx),
+        ctx_v=_paged_dequant(flat_v, fv_scale, tok_idx),
+        ctx_len=ctx_len)
 
 
 class _Flash(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """Deterministic, seeded fault injection (a trimmed copy of
 analytics_zoo_tpu/resilience/faults.py, for the sites the training path
-fires).
+and the generation engine fire).
 
 Usage::
 
@@ -22,6 +22,14 @@ site                        threaded into
 ``checkpoint.after_commit`` marker durable (a crash loses nothing)
 ``checkpoint.load``         restore path (a broken load consumes retry
                             budget)
+``generation.decode``       the generation engine's decode step, before
+                            dispatch
+``generation.prefix_lookup`` `PrefixCache.lookup` (a failed admission)
+``generation.spec_verify``  the speculative verify round, before
+                            dispatch (the lanes decode instead)
+``generation.host_spill``   `HostKVTier.put` (the spill is dropped)
+``generation.host_restore`` `HostKVTier.fetch` (the entry is dropped,
+                            the lane recomputes)
 =========================== =============================================
 
 Actions: ``raise`` (SimulatedWorkerFailure), ``crash`` (SimulatedCrash,
@@ -53,6 +61,9 @@ KNOWN_SITES = (
     "checkpoint.before_write", "checkpoint.mid_write",
     "checkpoint.before_rename", "checkpoint.before_commit",
     "checkpoint.after_commit", "checkpoint.load",
+    "generation.decode", "generation.prefix_lookup",
+    "generation.spec_verify",
+    "generation.host_spill", "generation.host_restore",
 )
 
 

@@ -1,13 +1,12 @@
 """Continuous-batching decode engine (counterpart of
-analytics_zoo_tpu/serving/generation/engine.py, its whole-prompt
-prefill path).
+analytics_zoo_tpu/serving/generation/engine.py).
 
-Each scheduling round admits waiting requests, prefills each admitted
-prompt over a power-of-two length bucket, grows or preempts for decode
-capacity, and runs ONE decode step over a fixed `max_slots`-lane grid —
-tokens [S], block tables [S, max_blocks], context lengths [S], an
-active-lane mask [S] and per-lane sampling params.  Sequences join and
-leave between steps by changing those host arrays.
+Each scheduling round admits waiting requests, prefills them, grows or
+preempts for decode capacity, and runs ONE decode step over a fixed
+`max_slots`-lane grid — tokens [S], block tables [S, max_blocks],
+context lengths [S], an active-lane mask [S] and per-lane sampling
+params.  Sequences join and leave between steps by changing those host
+arrays.
 
 Paging: with `decode_attention="paged"` (the default) the decode step
 hands the pool and each lane's block table to the model's paged path,
@@ -16,6 +15,26 @@ the gather + concat-attend path as the parity oracle.  New tokens' K/V
 are written into block slots in place — quantized on write when the
 pool is int8 (`kv_quantization="int8"`).  Inactive lanes and prefill
 padding write into the null block 0.
+
+Prefill: with prefix caching and chunked prefill off (the defaults),
+each admitted prompt prefills whole over a power-of-two length bucket.
+With either on, prefill runs through the chunk step, which attends over
+the context already written in the pool (gathered by block table) plus
+itself and writes a bucket-sized slab of new positions: a prefix-cache
+hit prefills only the uncovered tail (prefix_cache.py), and a chunked
+long prompt spreads over rounds under `prefill_token_budget`, with a
+decode step for the running lanes between its chunks.  Shared blocks
+are copied before a write (copy-on-write, int8 scales included); with a
+host tier (host_tier.py) evicted prefix blocks spill to host memory and
+come back by copy instead of recompute.
+
+Speculative decoding (speculation.py): greedy lanes draft up to k
+tokens from their own history, and ONE verify step scores every drafted
+lane at once (`paged_verify_attention`), writing the draft's KV and
+taking the argmax at every position; the longest matching prefix plus
+one bonus token is emitted, and the blocks past the next write go back
+to the pool.  The other greedy lanes ride the same dispatch as
+length-1 rows, so a verify round replaces the decode round for them.
 
 Streaming: `submit()` returns a `GenerationStream`; the engine pushes
 each sampled token as it exists.  Drive the loop with `step()` /
@@ -29,17 +48,29 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import List, Optional, Sequence as Seq
+from typing import List, Optional, Sequence as Seq, Tuple
 
 import numpy as np
 import torch
 
+from analytics_zoo_tpu_torch.common.context import OrcaContext
 from analytics_zoo_tpu_torch.device import resolve_device
+from analytics_zoo_tpu_torch.resilience.faults import (
+    FaultInjected,
+    fault_point,
+)
 from analytics_zoo_tpu_torch.serving.errors import QueueFull, RequestTooLarge
+from analytics_zoo_tpu_torch.serving.generation.host_tier import (
+    HostKVTier,
+    record_dma,
+)
 from analytics_zoo_tpu_torch.serving.generation.kv_cache import (
     PagedKVCache,
     dequantize_kv_tokens,
     quantize_kv_tokens,
+)
+from analytics_zoo_tpu_torch.serving.generation.prefix_cache import (
+    PrefixCache,
 )
 from analytics_zoo_tpu_torch.serving.generation.sampling import (
     sample_tokens,
@@ -47,6 +78,9 @@ from analytics_zoo_tpu_torch.serving.generation.sampling import (
 from analytics_zoo_tpu_torch.serving.generation.scheduler import (
     Sequence,
     SlotScheduler,
+)
+from analytics_zoo_tpu_torch.serving.generation.speculation import (
+    Speculator,
 )
 
 _STREAM_END = object()
@@ -57,14 +91,18 @@ class GenerationStream:
     """Consumer half of one request: iterate to receive token ids as
     they are sampled; `tokens()` drains to completion.  After the
     iterator is exhausted `finish_reason` is set ("length" | "eos" |
-    "error: ...")."""
+    "error: ...").  `submitted_at` and `token_times` are the host clock
+    (`time.perf_counter`) at submission and at each token's push."""
 
     def __init__(self, seq: Sequence, timeout: float = 120.0):
         self.seq = seq
         self.timeout = timeout
         self._q: "queue.Queue" = queue.Queue()
+        self.submitted_at = time.perf_counter()
+        self.token_times: List[float] = []
 
     def _put(self, token: int) -> None:
+        self.token_times.append(time.perf_counter())
         self._q.put(int(token))
 
     def _close(self) -> None:
@@ -90,11 +128,24 @@ class GenerationEngine:
     (None = the CUDA card, raising without one).  The model is moved
     there.
 
-    Counters (plain integers): `n_requests`, `n_tokens`, `n_prefills`,
-    `n_decode_steps`.  The wall times of the latest rounds are kept in
-    `prefill_seconds` ((bucket, seconds) pairs) and `decode_seconds`.
-    `keep_logits=True` stores on each sequence the logits every
-    generated token was sampled from (`seq.logits`), for checks."""
+    The "auto" arguments read `OrcaContext` (common/context.py):
+    `kv_quantization` its `kv_cache_quantization`, `prefix_caching`,
+    `chunked_prefill`, `speculative_decoding`, `speculative_k`, and
+    `kv_host_tier` its `kv_host_tier_bytes` (a byte capacity, or a
+    `HostKVTier` to share; used only with prefix caching on).
+
+    Counters (plain integers): `n_requests`, `n_tokens`, `n_prefills`
+    (whole-prompt prefills), `n_chunks` (chunk steps), `n_prefill_tokens`,
+    `n_decode_steps`, `n_verify_steps` (verify dispatches),
+    `n_cow_copies`, `n_spec_rounds` (lane verify rounds),
+    `n_spec_proposed`, `n_spec_accepted`, `n_spec_parked` (lane rounds
+    sat out in the cooldown), `n_host_restores` (blocks restored from
+    the host tier, `n_host_restores_staged` of them from a staged copy).
+    The host wall times of the latest fenced rounds are kept in
+    `prefill_seconds` ((bucket, seconds) pairs: whole prefills and final
+    chunks), `decode_seconds` and `verify_seconds`.  `keep_logits=True`
+    stores on each sequence the logits every generated token was
+    sampled (or accepted) from (`seq.logits`), for checks."""
 
     def __init__(self, model, *, max_slots: int = 8, block_size: int = 16,
                  max_context: int = 512, num_blocks: Optional[int] = None,
@@ -102,8 +153,11 @@ class GenerationEngine:
                  prefill_token_budget: int = 2048,
                  cache_dtype=torch.float32, seed: int = 0,
                  max_queue: Optional[int] = None,
-                 kv_quantization: Optional[str] = None,
+                 kv_quantization="auto",
                  decode_attention: str = "paged",
+                 prefix_caching="auto", chunked_prefill="auto",
+                 speculative_decoding="auto", speculative_k="auto",
+                 kv_host_tier="auto",
                  keep_logits: bool = False, device=None):
         if model.max_position_len < max_context:
             raise ValueError(
@@ -118,8 +172,26 @@ class GenerationEngine:
         self.max_slots = max_slots
         self.max_context = max_context
         self.decode_attention = decode_attention
+        if kv_quantization == "auto":
+            kv_quantization = OrcaContext.kv_cache_quantization
         self.kv_quantization = kv_quantization
         self._quantized = kv_quantization == "int8"
+        if prefix_caching == "auto":
+            prefix_caching = OrcaContext.prefix_caching
+        self.prefix_caching = bool(prefix_caching)
+        if chunked_prefill == "auto":
+            chunked_prefill = OrcaContext.chunked_prefill
+        self.chunked_prefill = bool(chunked_prefill)
+        #: either feature routes prefill through the chunk step; both
+        #: off keeps the whole-prompt prefill path
+        self._use_chunks = self.prefix_caching or self.chunked_prefill
+        if speculative_decoding == "auto":
+            speculative_decoding = OrcaContext.speculative_decoding
+        if speculative_k == "auto":
+            speculative_k = OrcaContext.speculative_k
+        self.speculative_decoding = bool(speculative_decoding)
+        self.speculation = (Speculator(int(speculative_k))
+                            if self.speculative_decoding else None)
         self.max_queue = max_queue
         self.keep_logits = keep_logits
         if num_blocks is None:
@@ -142,9 +214,29 @@ class GenerationEngine:
             raise ValueError(
                 f"largest prefill bucket {max(prefill_buckets)} < "
                 f"max_context {max_context}")
+        if kv_host_tier == "auto":
+            kv_host_tier = OrcaContext.kv_host_tier_bytes
+        if isinstance(kv_host_tier, HostKVTier):
+            host_tier = kv_host_tier
+        else:
+            cap = int(kv_host_tier or 0)
+            host_tier = HostKVTier(cap) if cap > 0 else None
+        self.host_tier = host_tier if self.prefix_caching else None
+        self.prefix_cache = (PrefixCache(self.cache,
+                                         host_tier=self.host_tier)
+                             if self.prefix_caching else None)
+        if self.host_tier is not None:
+            self.prefix_cache.restore_writer = self._host_restore_write
         self.scheduler = SlotScheduler(
             self.cache, max_slots, max_context, prefill_buckets,
-            prefill_token_budget)
+            prefill_token_budget, prefix_cache=self.prefix_cache,
+            chunk_mode=self._use_chunks)
+        #: the chunk size cap: the largest prefill bucket within the
+        #: per-round token budget (at least the smallest bucket)
+        fitting = [b for b in self.scheduler.prefill_buckets
+                   if b <= prefill_token_budget]
+        self._chunk_cap = (max(fitting) if fitting
+                           else self.scheduler.prefill_buckets[0])
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._lock = threading.RLock()
@@ -155,9 +247,46 @@ class GenerationEngine:
         self.n_requests = 0
         self.n_tokens = 0
         self.n_prefills = 0
+        self.n_chunks = 0
+        self.n_prefill_tokens = 0
         self.n_decode_steps = 0
+        self.n_verify_steps = 0
+        self.n_cow_copies = 0
+        self.n_spec_rounds = 0
+        self.n_spec_proposed = 0
+        self.n_spec_accepted = 0
+        self.n_spec_parked = 0
+        self.n_host_restores = 0
+        self.n_host_restores_staged = 0
         self.prefill_seconds: deque = deque(maxlen=4096)
         self.decode_seconds: deque = deque(maxlen=4096)
+        self.verify_seconds: deque = deque(maxlen=4096)
+
+    def _kv_pool_stats(self) -> dict:
+        """Pool occupancy: blocks used, shared (more than one reference)
+        and cached by the prefix tree, and bytes — physical (int8 values
+        and scales) against logical (dequantized at the cache dtype)."""
+        alloc = self.cache.allocator
+        used = alloc.capacity - alloc.available()
+        nb = self.cache.num_blocks
+        logical = self.cache.logical_nbytes
+        physical = self.cache.physical_nbytes
+        n_shared = alloc.n_shared()
+        return {
+            "blocks_used": used,
+            "blocks_capacity": alloc.capacity,
+            "blocks_shared": n_shared,
+            "blocks_cached": (self.prefix_cache.n_blocks
+                              if self.prefix_cache is not None else 0),
+            "pool_bytes": physical,
+            "used_bytes": physical * used // nb,
+            "shared_bytes": physical * n_shared // nb,
+            "exclusive_bytes": physical * (used - n_shared) // nb,
+            "pool_bytes_logical": logical,
+            "pool_bytes_physical": physical,
+            "used_bytes_logical": logical * used // nb,
+            "used_bytes_physical": physical * used // nb,
+        }
 
     # ------------------------------------------------------------------
     # the steps
@@ -182,11 +311,22 @@ class GenerationEngine:
             kv[:, 0].index_copy_(1, dest, new_k.to(kv.dtype))
             kv[:, 1].index_copy_(1, dest, new_v.to(kv.dtype))
 
-    def _prefill(self, tokens, length: int, block_table, temperature,
-                 top_k):
+    def _gather_ctx(self, tok_idx):
+        # the pool rows at token indices tok_idx [..., T], per layer:
+        # ([L, ..., T, h, d] K, V), dequantized when the pool is int8
+        kv = self.cache.kv
+        ctx_k = kv[:, 0][:, tok_idx]
+        ctx_v = kv[:, 1][:, tok_idx]
+        if self._quantized:
+            ks = self.cache.kv_scale
+            ctx_k = dequantize_kv_tokens(ctx_k, ks[:, 0][:, tok_idx])
+            ctx_v = dequantize_kv_tokens(ctx_v, ks[:, 1][:, tok_idx])
+        return ctx_k, ctx_v
+
+    def _prefill_forward(self, tokens, length: int, block_table):
         # tokens [1, B] (bucket-padded), block_table [max_blocks]:
-        # writes KV for the `length` real tokens and samples the first
-        # new token from the last real position
+        # writes KV for the `length` real tokens; returns the logits of
+        # the last real position
         B = tokens.shape[1]
         bs = self.cache.block_size
         ar = torch.arange(B, device=self.device)
@@ -197,9 +337,50 @@ class GenerationEngine:
         dest = block_table[ar // bs].long() * bs + ar % bs
         dest = torch.where(ar < length, dest, torch.zeros_like(dest))
         self._write_kv(dest, new_k[:, 0], new_v[:, 0])
-        last = logits[0, length - 1]
+        return logits[0, length - 1]
+
+    def _prefill(self, tokens, length: int, block_table, temperature,
+                 top_k):
+        # the whole-prompt prefill: KV for the prompt, and the first new
+        # token sampled from the last real position
+        last = self._prefill_forward(tokens, length, block_table)
         nxt = sample_tokens(last[None], self._gen, temperature, top_k)[0]
         return nxt, last
+
+    def _chunk(self, tokens, start: int, length: int, block_table):
+        # one chunk of a (prefix-matched or chunked) prefill: tokens
+        # [1, B] (bucket-padded), `start` context tokens whose KV is
+        # already written (cached prefix + earlier chunks), `length`
+        # real tokens.  The chunk attends over the written context
+        # (gathered from the pool by block table) plus itself causally
+        # and writes its KV into block slots; returns the logits of its
+        # last real position.  With nothing written yet (start 0) the
+        # context is all masked, so the whole-prompt causal path gives
+        # the same result without gathering it.
+        if start == 0:
+            return self._prefill_forward(tokens, length, block_table)
+        B = tokens.shape[1]
+        bs = self.cache.block_size
+        MB = block_table.shape[0]
+        rel = torch.arange(B, device=self.device)
+        abs_pos = start + rel
+        pos = torch.clamp_max(abs_pos, self.model.max_position_len - 1)
+        tok_idx = (block_table.long()[:, None] * bs
+                   + torch.arange(bs, device=self.device)[None]
+                   ).reshape(-1)
+        ctx_k, ctx_v = self._gather_ctx(tok_idx)
+        ctx_len = torch.full((1,), start, dtype=torch.int32,
+                             device=self.device)
+        logits, new_k, new_v = self.model(
+            tokens, pos[None], ctx_k=ctx_k[:, None], ctx_v=ctx_v[:, None],
+            ctx_len=ctx_len)
+        # padding positions may run past the table: they write the null
+        # block
+        blk = torch.clamp_max(abs_pos // bs, MB - 1)
+        dest = block_table[blk].long() * bs + abs_pos % bs
+        dest = torch.where(rel < length, dest, torch.zeros_like(dest))
+        self._write_kv(dest, new_k[:, 0], new_v[:, 0])
+        return logits[0, length - 1]
 
     def _decode(self, tokens, block_tables, ctx_len, active, temperature,
                 top_k):
@@ -223,12 +404,7 @@ class GenerationEngine:
             tok_idx = (block_tables.long()[:, :, None] * bs
                        + torch.arange(bs, device=self.device)[None, None]
                        ).reshape(S, -1)
-            ctx_k = kv[:, 0][:, tok_idx]            # [L, S, C, h, d]
-            ctx_v = kv[:, 1][:, tok_idx]
-            if self._quantized:
-                ks = self.cache.kv_scale
-                ctx_k = dequantize_kv_tokens(ctx_k, ks[:, 0][:, tok_idx])
-                ctx_v = dequantize_kv_tokens(ctx_v, ks[:, 1][:, tok_idx])
+            ctx_k, ctx_v = self._gather_ctx(tok_idx)   # [L, S, C, h, d]
             logits, new_k, new_v = self.model(
                 tokens[:, None], pos[:, None], ctx_k=ctx_k, ctx_v=ctx_v,
                 ctx_len=ctx_len)
@@ -242,11 +418,67 @@ class GenerationEngine:
         nxt = sample_tokens(last, self._gen, temperature, top_k)
         return nxt, last
 
+    def _verify(self, tokens, block_tables, start, length, active):
+        # the speculative verify step over the slot grid: tokens [S, W]
+        # = each lane's [pending token ; draft ; padding], start [S] =
+        # tokens whose KV is written (context_len - 1), length [S] = 1 +
+        # real draft tokens, active [S].  Every position attends over
+        # the lane's pool context plus the preceding new tokens, writes
+        # its KV into the lane's (pre-grown) blocks, and the greedy
+        # argmax of every position comes back.  Returns (argmax [S, W]
+        # int32, logits [S, W, vocab]).
+        S, W = tokens.shape
+        bs = self.cache.block_size
+        nb = self.cache.num_blocks
+        MB = block_tables.shape[1]
+        kv = self.cache.kv
+        L = kv.shape[0]
+        rel = torch.arange(W, device=self.device)
+        abs_pos = start.long()[:, None] + rel[None]             # [S, W]
+        pos = torch.clamp_max(abs_pos, self.model.max_position_len - 1)
+        if self.decode_attention == "paged":
+            kvp = kv.view(L, 2, nb, bs, *kv.shape[-2:])
+            scl = (self.cache.kv_scale.view(L, 2, nb, bs)
+                   if self._quantized else None)
+            logits, new_k, new_v = self.model(
+                tokens, pos, kv_pool=kvp, kv_scale=scl,
+                block_tables=block_tables, ctx_len=start)
+        else:
+            tok_idx = (block_tables.long()[:, :, None] * bs
+                       + torch.arange(bs, device=self.device)[None, None]
+                       ).reshape(S, -1)
+            ctx_k, ctx_v = self._gather_ctx(tok_idx)
+            logits, new_k, new_v = self.model(
+                tokens, pos, ctx_k=ctx_k, ctx_v=ctx_v, ctx_len=start)
+        # padding positions may run past the table: they write the null
+        # block
+        blk = torch.clamp_max(abs_pos // bs, MB - 1)
+        dest = block_tables.long().gather(1, blk) * bs + abs_pos % bs
+        keep = (rel[None] < length[:, None]) & active[:, None]
+        dest = torch.where(keep, dest, torch.zeros_like(dest)).reshape(-1)
+        self._write_kv(dest, new_k.reshape(L, S * W, *new_k.shape[-2:]),
+                       new_v.reshape(L, S * W, *new_v.shape[-2:]))
+        return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        # copy-on-write: duplicate one pool block's token slots and
+        # their dequant scales
+        bs = self.cache.block_size
+        kv = self.cache.kv
+        kv[:, :, dst * bs:(dst + 1) * bs] = kv[:, :, src * bs:(src + 1) * bs]
+        if self._quantized:
+            scl = self.cache.kv_scale
+            scl[:, :, dst * bs:(dst + 1) * bs] = \
+                scl[:, :, src * bs:(src + 1) * bs]
+
     @torch.no_grad()
     def warmup(self) -> None:
-        """Run the decode step and every prefill bucket once on dummy
-        inputs (all writes land in the null block), so that kernels are
-        built and libraries initialised before live traffic."""
+        """Run the decode step, every prefill bucket (of the chunk step,
+        with and without written context, when prefix caching or
+        chunked prefill is on; of the whole-prompt prefill otherwise)
+        and every verify bucket once on dummy inputs (all writes land in
+        the null block), so that kernels are built and libraries
+        initialised before live traffic."""
         with self._lock:
             MB = self.scheduler.max_blocks_per_seq
             S = self.max_slots
@@ -254,16 +486,24 @@ class GenerationEngine:
             onek = torch.zeros(1, dtype=torch.int32, device=self.device)
             table = torch.zeros(MB, dtype=torch.int32, device=self.device)
             for b in self.scheduler.prefill_buckets:
-                self._prefill(torch.zeros((1, b), dtype=torch.int32,
-                                          device=self.device),
-                              1, table, one, onek)
+                tokens = torch.zeros((1, b), dtype=torch.int32,
+                                     device=self.device)
+                if not self._use_chunks:
+                    self._prefill(tokens, 1, table, one, onek)
+                elif not self.chunked_prefill or b <= self._chunk_cap:
+                    self._chunk(tokens, 0, 1, table)
+                    self._chunk(tokens, 1, 1, table)
             zi = torch.zeros(S, dtype=torch.int32, device=self.device)
-            self._decode(zi, torch.zeros((S, MB), dtype=torch.int32,
-                                         device=self.device),
-                         zi, torch.zeros(S, dtype=torch.bool,
-                                         device=self.device),
+            zt = torch.zeros((S, MB), dtype=torch.int32, device=self.device)
+            zb = torch.zeros(S, dtype=torch.bool, device=self.device)
+            self._decode(zi, zt, zi, zb,
                          torch.zeros(S, dtype=torch.float32,
                                      device=self.device), zi)
+            if self.speculation is not None:
+                for b in self.speculation.buckets:
+                    self._verify(torch.zeros((S, 1 + b), dtype=torch.int32,
+                                             device=self.device),
+                                 zt, zi, zi, zb)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -327,6 +567,15 @@ class GenerationEngine:
     # ------------------------------------------------------------------
 
     def _finish(self, seq: Sequence, reason: str) -> None:
+        if (self.prefix_cache is not None and seq.slot is not None
+                and reason in ("length", "eos")):
+            # decode wrote KV for every context token but the newest,
+            # so the whole blocks of prompt + generated are publishable:
+            # a follow-up request hits on this one's output too
+            tokens = (seq.prompt + seq.generated)[:seq.context_len - 1]
+            if len(tokens) >= self.cache.block_size:
+                seq.block_table = self.prefix_cache.commit(
+                    tokens, seq.block_table)
         self.scheduler.release(seq, reason)
         if seq.stream is not None:
             seq.stream._close()
@@ -358,9 +607,250 @@ class GenerationEngine:
         nxt = int(nxt)            # token fetch = device fence
         self.prefill_seconds.append((bucket, time.perf_counter() - t0))
         self.n_prefills += 1
+        self.n_prefill_tokens += L
         self._emit(seq, nxt, last)
 
-    def _decode_all(self) -> None:
+    def _prefill_round(self) -> Tuple[bool, int]:
+        """Spend this round's prefill token budget on the lanes still
+        prefilling (admit order).  Without chunked prefill a lane's
+        whole remaining tail is one chunk; with it chunks are capped at
+        `_chunk_cap` tokens, so a long prompt yields to the decode step
+        between chunks.  The head chunk always proceeds; the budget is
+        charged at bucket granularity.  Returns (did work, leftover
+        budget): the leftover is what the speculation round may spend
+        on verify tokens."""
+        did = False
+        budget = self.scheduler.prefill_token_budget
+        first = True
+        for seq in self.scheduler.prefilling():
+            while seq.status == "prefilling":
+                remaining = seq.context_len - seq.prefill_pos
+                cap = (min(remaining, self._chunk_cap)
+                       if self.chunked_prefill else remaining)
+                bucket = self.scheduler.bucket_for(cap)
+                if not first and bucket > budget:
+                    return did, 0
+                self._prefill_chunk(seq, bucket)
+                did = True
+                first = False
+                budget -= bucket
+                if budget <= 0 and seq.status == "prefilling":
+                    return did, 0
+        return did, max(0, budget)
+
+    def _prefill_chunk(self, seq: Sequence, bucket: int) -> None:
+        """Write KV for the next `min(bucket, remaining)` context tokens;
+        the final chunk commits the prompt's full blocks to the prefix
+        cache, samples the first new token and flips the lane to
+        running."""
+        t0 = time.perf_counter()
+        ctx = seq.prompt + seq.generated
+        L = seq.context_len
+        start = seq.prefill_pos
+        real = min(bucket, L - start)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :real] = ctx[start:start + real]
+        table = np.zeros(self.scheduler.max_blocks_per_seq, np.int32)
+        table[:len(seq.block_table)] = seq.block_table
+        last = self._chunk(self._tensor(tokens), start, real,
+                           self._tensor(table))
+        self.n_chunks += 1
+        self.n_prefill_tokens += real
+        seq.prefill_pos = start + real
+        if seq.prefill_pos < L:
+            return
+        nxt = int(sample_tokens(
+            last[None], self._gen,
+            self._tensor(np.full(1, seq.temperature, np.float32)),
+            self._tensor(np.full(1, seq.top_k, np.int32)))[0])
+        self.prefill_seconds.append((bucket, time.perf_counter() - t0))
+        if self.prefix_cache is not None:
+            # the prompt's KV is written: publish its full blocks
+            # (deduping against identical prefixes committed since
+            # this lane's lookup)
+            seq.block_table = self.prefix_cache.commit(seq.prompt,
+                                                       seq.block_table)
+        seq.status = "running"
+        self._emit(seq, nxt, last)
+
+    # ------------------------------------------------------------------
+    # host-tier restore (the device half; PrefixCache.restore calls it
+    # through `restore_writer`)
+    # ------------------------------------------------------------------
+
+    def _host_restore_write(self, block: int, entry) -> bool:
+        """Land one host-tier entry's KV rows (and scales) in pool block
+        `block`, from the copy `_stage_host_restores` started when there
+        is one (the compute stream waits on its event), else by a copy
+        made now.  Returns False when the entry does not fit this pool:
+        the caller recomputes."""
+        bs = self.cache.block_size
+        kv = self.cache.kv
+        rows_shape = (kv.shape[0], 2, bs) + tuple(kv.shape[3:])
+        if tuple(entry.kv.shape) != rows_shape or entry.kv.dtype != kv.dtype:
+            return False
+        if self._quantized and (entry.scale is None
+                                or tuple(entry.scale.shape)
+                                != rows_shape[:3]):
+            return False
+        t0 = time.perf_counter()
+        staged = entry.staged_kv is not None
+        if staged:
+            rows, srows = entry.staged_kv, entry.staged_scale
+            if entry.staged_event is not None:
+                # the staged copy ran on a side stream: order the read
+                # after it, and keep its memory from reuse until the
+                # read is done
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(entry.staged_event)
+                rows.record_stream(cur)
+                if srows is not None:
+                    srows.record_stream(cur)
+        else:
+            rows = entry.kv.to(self.device)
+            srows = (entry.scale.to(self.device) if self._quantized
+                     else None)
+        kv[:, :, block * bs:(block + 1) * bs] = rows
+        if self._quantized:
+            self.cache.kv_scale[:, :, block * bs:(block + 1) * bs] = srows
+        entry.staged_kv = entry.staged_scale = entry.staged_event = None
+        self.n_host_restores += 1
+        self.n_host_restores_staged += staged
+        record_dma("host_restore", time.perf_counter() - t0, entry.nbytes,
+                   staged=staged)
+        return True
+
+    def _stage_host_restores(self) -> None:
+        """Start the copies to the card of host-resident prefix
+        extensions for the waiting heads before admission, so the copy
+        overlaps the round.  A staged entry that loses the race to an
+        eviction is refetched as a miss (the lane recomputes)."""
+        tier = self.host_tier
+        if tier is None or not self.scheduler.waiting:
+            return
+        for seq in list(self.scheduler.waiting)[:4]:
+            ctx = seq.prompt + seq.generated
+            try:
+                tier.stage_prefix(ctx, self.prefix_cache.peek(ctx),
+                                  device=self.device)
+            except torch.OutOfMemoryError:
+                # staging is advisory: the restore copies synchronously
+                return
+
+    def _apply_cow(self) -> None:
+        """Copy each shared block the scheduler un-shared into the fresh
+        block the lane's table now points at (the device half of
+        `SlotScheduler.resolve_write_conflicts`)."""
+        for _seq, _idx, src, dst in \
+                self.scheduler.resolve_write_conflicts():
+            self._copy_block(src, dst)
+            self.n_cow_copies += 1
+
+    def _spec_round(self, budget: int) -> set:
+        """One speculative-decoding pass over the running lanes: draft
+        (greedy lanes out of their cooldown with an n-gram match), grow
+        each drafted lane's table to cover its draft, score every
+        drafted lane in ONE verify dispatch, emit each lane's accepted
+        prefix plus the bonus token, and roll back the blocks past the
+        next write.  Verify tokens charge `budget` (the prefill round's
+        leftover) at bucket granularity.
+
+        Every other greedy running lane rides the same dispatch as a
+        length-1 row (its position-0 argmax is its decode token), so a
+        verify round REPLACES the decode round for greedy lanes: a
+        round whose drafts are all rejected costs one wider dispatch,
+        not two.  Returns the lanes that advanced this round; `step()`
+        leaves them out of the decode step."""
+        done: set = set()
+        spec = self.speculation
+        drafted = []                  # (seq, state, draft)
+        for seq in self.scheduler.running():
+            if seq.temperature > 0:
+                continue              # greedy lanes only
+            st = spec.state(seq)
+            if st.cooldown > 0:
+                st.cooldown -= 1
+                self.n_spec_parked += 1
+                continue
+            draft = spec.draft_for(seq)
+            if not draft:
+                continue
+            bucket = spec.bucket_for(len(draft))
+            if 1 + bucket > budget:
+                continue              # out of this round's budget
+            if not self.scheduler.grow_for_speculation(
+                    seq, seq.context_len - 1 + len(draft)):
+                continue              # pool too tight: decode normally
+            budget -= 1 + bucket
+            drafted.append((seq, st, draft))
+        if not drafted:
+            return done
+        in_grid = {seq for seq, _st, _d in drafted}
+        riders = [seq for seq in self.scheduler.running()
+                  if seq.temperature <= 0 and seq not in in_grid]
+        try:
+            # an injected raise costs one round's speculation: nothing
+            # was emitted or written yet, so the drafted lanes rewind
+            # their grown blocks and take the decode step
+            fault_point("generation.spec_verify",
+                        n_lanes=len(drafted) + len(riders))
+        except FaultInjected:
+            for seq, _st, _draft in drafted:
+                self.scheduler.rollback_speculation(seq)
+            return done
+        t0 = time.perf_counter()
+        S = self.max_slots
+        MB = self.scheduler.max_blocks_per_seq
+        W = 1 + spec.bucket_for(max(len(d) for _, _, d in drafted))
+        tokens = np.zeros((S, W), np.int32)
+        tables = np.zeros((S, MB), np.int32)
+        start = np.zeros(S, np.int32)
+        length = np.zeros(S, np.int32)
+        active = np.zeros(S, bool)
+        rows = [(seq, draft) for seq, _st, draft in drafted] \
+            + [(seq, []) for seq in riders]
+        for seq, draft in rows:
+            i = seq.slot
+            tokens[i, 0] = seq.generated[-1] if seq.generated \
+                else seq.prompt[-1]
+            tokens[i, 1:1 + len(draft)] = draft
+            tables[i, :len(seq.block_table)] = seq.block_table
+            start[i] = seq.context_len - 1
+            length[i] = 1 + len(draft)
+            active[i] = True
+        greedy, logits = self._verify(
+            self._tensor(tokens), self._tensor(tables),
+            self._tensor(start), self._tensor(length),
+            self._tensor(active))
+        greedy = greedy.cpu().numpy()   # token fetch = device fence
+        self.verify_seconds.append(time.perf_counter() - t0)
+        self.n_verify_steps += 1
+        for seq in riders:
+            # an ordinary decode in verify clothing: no speculation
+            # budget, counters or rollback
+            done.add(seq)
+            self._emit(seq, int(greedy[seq.slot, 0]), logits[seq.slot, 0])
+        for seq, st, draft in drafted:
+            i = seq.slot
+            m = 0
+            while m < len(draft) and draft[m] == greedy[i, m]:
+                m += 1
+            st.record(len(draft), m)
+            self.n_spec_rounds += 1
+            self.n_spec_proposed += len(draft)
+            self.n_spec_accepted += m
+            done.add(seq)
+            # the accepted prefix + the bonus token: exactly what greedy
+            # single-step decode gives, stopping at eos / length
+            for j in range(m + 1):
+                self._emit(seq, int(greedy[i, j]), logits[i, j])
+                if seq.status == "finished":
+                    break
+            if seq.status != "finished":
+                self.scheduler.rollback_speculation(seq)
+        return done
+
+    def _decode_all(self, skip: frozenset = frozenset()) -> None:
         t0 = time.perf_counter()
         S = self.max_slots
         MB = self.scheduler.max_blocks_per_seq
@@ -372,6 +862,8 @@ class GenerationEngine:
         top_k = np.zeros(S, np.int32)
         lanes = {}
         for seq in self.scheduler.running():
+            if seq in skip:
+                continue              # already advanced by verify
             i = seq.slot
             lanes[i] = seq
             tokens[i] = seq.generated[-1] if seq.generated \
@@ -381,6 +873,9 @@ class GenerationEngine:
             active[i] = True
             temp[i] = seq.temperature
             top_k[i] = seq.top_k
+        # nothing is written before this point: a raise here leaves every
+        # lane as it was
+        fault_point("generation.decode", n_lanes=len(lanes))
         nxt, last = self._decode(
             self._tensor(tokens), self._tensor(tables),
             self._tensor(ctx_len), self._tensor(active),
@@ -393,17 +888,32 @@ class GenerationEngine:
 
     @torch.no_grad()
     def step(self) -> bool:
-        """One scheduling round: admit → prefill each admitted prompt
-        whole → grow/preempt for decode capacity → one decode step.
-        Returns whether any device work ran."""
+        """One scheduling round: stage host-tier restores → admit →
+        prefill (whole prompts, or budget-bounded chunks with prefix
+        reuse) → grow/preempt for decode capacity → copy-on-write →
+        speculative verify → one decode step for the lanes verify did
+        not advance.  Returns whether any device work ran."""
         with self._lock:
             did = False
-            for seq in self.scheduler.admit():
-                self._prefill_seq(seq)
-                did = True
+            spec_budget = self.scheduler.prefill_token_budget
+            if self.host_tier is not None:
+                self._stage_host_restores()
+            admitted = self.scheduler.admit()
+            if self._use_chunks:
+                did, spec_budget = self._prefill_round()
+            else:
+                for seq in admitted:
+                    self._prefill_seq(seq)
+                    did = True
             self.scheduler.ensure_decode_capacity()
-            if self.scheduler.running():
-                self._decode_all()
+            if self.prefix_cache is not None:
+                self._apply_cow()
+            advanced: set = set()
+            if self.speculation is not None and self.scheduler.running():
+                advanced = self._spec_round(spec_budget)
+                did = did or bool(advanced)
+            if any(s not in advanced for s in self.scheduler.running()):
+                self._decode_all(skip=frozenset(advanced))
                 did = True
             return did
 

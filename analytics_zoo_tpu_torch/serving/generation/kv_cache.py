@@ -81,6 +81,11 @@ class BlockAllocator:
         """Live references on `block` (0 = free / never allocated)."""
         return self._refs.get(block, 0)
 
+    def n_shared(self) -> int:
+        """Blocks held by more than one reference (the prefix cache's
+        tree and the lanes sharing its blocks)."""
+        return sum(1 for c in self._refs.values() if c > 1)
+
     def alloc(self, n: int = 1) -> Optional[List[int]]:
         """n blocks, or None when the pool can't cover the request
         (partial allocations are never handed out)."""
@@ -171,3 +176,7 @@ class PagedKVCache:
         `logical_dtype`."""
         itemsize = torch.empty((), dtype=self.logical_dtype).element_size()
         return self.kv.numel() * itemsize
+
+    @property
+    def nbytes(self) -> int:
+        return self.physical_nbytes

@@ -14,6 +14,9 @@ in every mode:
   `ctx_len` [batch] (and `kv_scale` [n_block, 2, num_blocks,
   block_size] for an int8 pool): each new token attends over its block
   table and itself through `paged_decode_attention`;
+* paged verify (t > 1, the same arguments): the t new tokens attend
+  causally over the block table and themselves through
+  `paged_verify_attention` (speculative decoding's scoring pass);
 * concat read (the parity oracle) — pass `ctx_k`/`ctx_v` [n_block,
   batch, ctx, heads, head_dim] gathered from the pool and `ctx_len`.
 
@@ -35,6 +38,7 @@ from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.ops.attention import (
     dot_product_attention,
     paged_decode_attention,
+    paged_verify_attention,
 )
 from analytics_zoo_tpu_torch.ops.normalization import LayerNorm
 
@@ -115,17 +119,20 @@ class CausalLM(nn.Module):
                        for a in qkv.split(self.hidden_size, dim=-1))
             new_k.append(k.float())
             new_v.append(v.float())
-            if kv_pool is not None:
-                if t != 1:
-                    raise NotImplementedError(
-                        "paged attention with t > 1 (speculative verify) "
-                        "is not ported yet")
+            if kv_pool is not None and t == 1:
                 a = paged_decode_attention(
                     q[:, 0], k[:, 0], v[:, 0], kv_pool[i, 0],
                     kv_pool[i, 1], block_tables, ctx_len,
                     k_scale=None if kv_scale is None else kv_scale[i, 0],
                     v_scale=None if kv_scale is None else kv_scale[i, 1],
                     impl=impl, compute_dtype=cd)[:, None]
+            elif kv_pool is not None:
+                a = paged_verify_attention(
+                    q, k, v, kv_pool[i, 0], kv_pool[i, 1], block_tables,
+                    ctx_len,
+                    k_scale=None if kv_scale is None else kv_scale[i, 0],
+                    v_scale=None if kv_scale is None else kv_scale[i, 1],
+                    impl=impl, compute_dtype=cd)
             elif ctx_k is not None:
                 a = dot_product_attention(
                     q, k, v, compute_dtype=cd, ctx_k=ctx_k[i],

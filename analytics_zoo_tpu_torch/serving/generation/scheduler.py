@@ -1,28 +1,47 @@
 """Iteration-level scheduling (Orca-style) over a fixed slot grid
-(counterpart of analytics_zoo_tpu/serving/generation/scheduler.py,
-without the prefix cache, chunked prefill and speculation branches).
+(counterpart of analytics_zoo_tpu/serving/generation/scheduler.py).
 
 The decode step runs over `max_slots` lanes; sequences join and leave
 BETWEEN steps by claiming/releasing a lane.  Admission is FCFS within a
 priority class, with a prefill token budget per round (the first
 admission always proceeds, so nothing starves).  When the block pool
-runs dry mid-decode the scheduler preempts the newest-admitted
-sequence: its blocks return to the pool and it re-queues at the FRONT
-of the waiting line with its generated tokens intact, to be re-prefilled
-(recompute-on-resume) when pressure clears.
+runs dry the scheduler first evicts unreferenced prefix-cache blocks
+(LRU; cold cache entries are cheaper to lose than live work), then
+preempts the newest-admitted sequence: its blocks return to the pool
+and it re-queues at the FRONT of the waiting line with its generated
+tokens intact, to be re-prefilled (recompute-on-resume) when pressure
+clears.
+
+Prefix caching (prefix_cache.py): with a `PrefixCache` attached,
+admission looks up the longest cached whole-block prefix of the known
+context, pins those blocks, allocates fresh blocks only for the tail,
+and (chunk mode) starts the sequence "prefilling" at `prefill_pos` =
+the matched tokens; the engine prefills the tail (in chunks when chunked
+prefill is on) and flips it to "running" when its first token is
+sampled.  Releasing or preempting a lane frees its table through the
+refcounts, so blocks other lanes or the tree still hold survive.
+
+Copy-on-write: `resolve_write_conflicts` un-shares a block the next
+decode write would land in while it has more than one reference; the
+engine copies the block's rows (and int8 scales) on the device.
+
+Speculation: `grow_for_speculation` extends a lane's table for its
+draft straight from the free list; `rollback_speculation` returns the
+blocks past the lane's next write position.
 
 Invariant the engine relies on: a RUNNING sequence has KV written for
 exactly `context_len - 1` tokens — the newest sampled token is pending,
 and the next decode step feeds it, writes its KV, and samples its
 successor.  A resume-prefill re-writes KV for all `context_len` known
-tokens and samples the next, restoring the same invariant.
+tokens (minus any re-matched cached prefix) and samples the next,
+restoring the same invariant.
 """
 
 from __future__ import annotations
 
 import itertools
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, List, Optional, Tuple
 
 from analytics_zoo_tpu_torch.serving.generation.kv_cache import (
     PagedKVCache,
@@ -38,7 +57,7 @@ class Sequence:
                  "temperature", "top_k", "eos_id", "stream",
                  "block_table", "slot", "status", "finish_reason",
                  "n_preempted", "_admit_order", "request_id", "priority",
-                 "logits")
+                 "logits", "prefill_pos", "prefix_tokens", "spec")
 
     def __init__(self, prompt, max_new_tokens: int = 32,
                  temperature: float = 0.0, top_k: int = 0,
@@ -65,6 +84,15 @@ class Sequence:
         #: the logits each generated token was sampled from, when the
         #: engine keeps them (`GenerationEngine(keep_logits=True)`)
         self.logits: Optional[list] = None
+        #: context tokens whose KV is already written (chunk-prefill
+        #: progress; starts at the prefix-cache match length)
+        self.prefill_pos = 0
+        #: tokens skipped through the prefix cache at the LAST admission
+        self.prefix_tokens = 0
+        #: the lane's draft state (a `speculation.SpecState`, attached
+        #: by the engine's Speculator on first use; it survives
+        #: preemption, since drafting reads only the token history)
+        self.spec = None
 
     @property
     def context_len(self) -> int:
@@ -82,12 +110,21 @@ class Sequence:
 class SlotScheduler:
     """Admission, capacity and preemption over `max_slots` decode lanes
     backed by `cache`'s block allocator.  Host-side only; the engine
-    serializes access."""
+    serializes access.
+
+    `prefix_cache` (optional) enables prefix reuse on admission;
+    `chunk_mode` makes admission claim lane + blocks only (status
+    "prefilling") and leaves the prefill work, chunked under the token
+    budget, to the engine's prefill round.  Both off keeps the
+    admit-and-prefill-whole-prompt path."""
 
     def __init__(self, cache: PagedKVCache, max_slots: int,
                  max_context: int, prefill_buckets,
-                 prefill_token_budget: int):
+                 prefill_token_budget: int, prefix_cache=None,
+                 chunk_mode: bool = False):
         self.cache = cache
+        self.prefix_cache = prefix_cache
+        self.chunk_mode = chunk_mode
         self.max_slots = max_slots
         self.max_context = max_context
         self.prefill_buckets = sorted(prefill_buckets)
@@ -117,7 +154,7 @@ class SlotScheduler:
             s is not None for s in self.slots)
 
     def slotted(self) -> List[Sequence]:
-        """Every sequence holding a lane."""
+        """Every sequence holding a lane (running or prefilling)."""
         return [s for s in self.slots if s is not None]
 
     def running(self) -> List[Sequence]:
@@ -125,12 +162,34 @@ class SlotScheduler:
         return [s for s in self.slots
                 if s is not None and s.status == "running"]
 
+    def prefilling(self) -> List[Sequence]:
+        """Lanes whose (tail) prefill is still in progress, in admit
+        order: the engine's chunk-prefill work list."""
+        return sorted((s for s in self.slots
+                       if s is not None and s.status == "prefilling"),
+                      key=lambda s: s._admit_order)
+
     def bucket_for(self, n: int) -> int:
         for b in self.prefill_buckets:
             if n <= b:
                 return b
         raise ValueError(f"prompt length {n} exceeds the largest "
                          f"prefill bucket {self.prefill_buckets[-1]}")
+
+    def expected_prefill_variants(self) -> int:
+        """The prefill shapes the bucket geometry implies: any prompt
+        length maps onto exactly one of them."""
+        return len(self.prefill_buckets)
+
+    def _alloc_with_evict(self, n: int) -> Optional[List[int]]:
+        """Allocate `n` blocks, evicting unreferenced prefix-cache
+        blocks (LRU) first when the free list cannot cover the request:
+        cache entries are recomputable, running lanes' work is not."""
+        got = self.cache.allocator.alloc(n)
+        if got is None and self.prefix_cache is not None:
+            self.prefix_cache.evict(n - self.cache.allocator.available())
+            got = self.cache.allocator.alloc(n)
+        return got
 
     def _preempt_newest(self) -> Optional[Sequence]:
         """Free the newest-admitted slotted sequence's blocks and
@@ -145,6 +204,8 @@ class SlotScheduler:
         self.slots[victim.slot] = None
         victim.slot = None
         victim.status = "waiting"
+        victim.prefill_pos = 0
+        victim.prefix_tokens = 0
         victim.n_preempted += 1
         self.n_preemptions += 1
         self.waiting.appendleft(victim)
@@ -152,9 +213,9 @@ class SlotScheduler:
 
     def ensure_decode_capacity(self) -> None:
         """Before a decode step: every running sequence writes one KV
-        entry at position context_len - 1; grow its block table, or
-        preempt (newest first) under cache pressure — possibly the
-        needy sequence itself."""
+        entry at position context_len - 1; grow its block table (or
+        evict cold cache blocks, then preempt, newest first, under cache
+        pressure — possibly the needy sequence itself)."""
         # highest class then oldest first: the newest and least
         # important lanes yield to the oldest interactive ones
         for seq in sorted(self.running(),
@@ -163,7 +224,7 @@ class SlotScheduler:
                 continue
             need = seq.context_len - 1  # position being written
             while len(seq.block_table) <= need // self.cache.block_size:
-                got = self.cache.allocator.alloc(1)
+                got = self._alloc_with_evict(1)
                 if got is not None:
                     seq.block_table.extend(got)
                     continue
@@ -171,12 +232,89 @@ class SlotScheduler:
                 if victim is None or victim is seq:
                     break             # seq itself yielded its lane
 
+    def grow_for_speculation(self, seq: Sequence,
+                             last_pos: int) -> bool:
+        """Extend `seq`'s block table to cover a verify step's writes
+        through position `last_pos`.  Speculation is opportunistic: the
+        blocks come straight off the free list (no eviction, no
+        preemption), and False means the lane decodes normally this
+        round.  The new blocks are fresh (refcount 1), so
+        `rollback_speculation` returns them without touching a shared
+        prefix block."""
+        need = last_pos // self.cache.block_size + 1
+        added: List[int] = []
+        while len(seq.block_table) < need:
+            got = self.cache.allocator.alloc(1)
+            if got is None:
+                if added:
+                    self.cache.allocator.free(added)
+                    del seq.block_table[-len(added):]
+                return False
+            added.extend(got)
+            seq.block_table.extend(got)
+        return True
+
+    def rollback_speculation(self, seq: Sequence) -> None:
+        """After the accepted prefix advanced `context_len`, drop every
+        table block past the one the lane's next write (position
+        context_len - 1) lands in.  Rejected tokens' KV left in a kept
+        block lies past ctx_len, where every read masks it and the next
+        writes overwrite it."""
+        if not seq.block_table:
+            return
+        keep = (seq.context_len - 1) // self.cache.block_size + 1
+        if len(seq.block_table) > keep:
+            extra = seq.block_table[keep:]
+            del seq.block_table[keep:]
+            self.cache.allocator.free(extra)
+
+    def resolve_write_conflicts(self) \
+            -> List[Tuple[Sequence, int, int, int]]:
+        """Copy-on-write, after `ensure_decode_capacity`: the block each
+        running lane's next decode write lands in must be exclusively
+        owned.  A shared target (refcount > 1) gets a fresh block here,
+        the table entry is swapped and the lane's reference on the
+        source dropped; the ENGINE copies the rows on the device.
+        Returns [(seq, block_index, src_block, dst_block)].  Empty in
+        normal operation (prompt sharing is whole-block and decode
+        writes land past it)."""
+        work: List[Tuple[Sequence, int, int, int]] = []
+        for seq in sorted(self.running(), key=lambda s: s._admit_order):
+            if seq.slot is None:
+                continue
+            idx = (seq.context_len - 1) // self.cache.block_size
+            if idx >= len(seq.block_table):
+                continue              # capacity growth failed; the
+            src = seq.block_table[idx]  # lane yields next round
+            if self.cache.allocator.ref_count(src) <= 1:
+                continue
+            got = self._alloc_with_evict(1)
+            if got is None:
+                victim = self._preempt_newest()
+                if victim is seq or victim is None:
+                    continue
+                got = self._alloc_with_evict(1)
+                if got is None:
+                    continue
+            dst = got[0]
+            seq.block_table[idx] = dst
+            self.cache.allocator.free([src])
+            work.append((seq, idx, src, dst))
+        return work
+
     def admit(self) -> List[Sequence]:
         """FCFS admission into free slots.  Each admitted sequence gets
-        blocks for its full known context; bucketed prefill sizes are
-        capped by the per-round token budget (the first admission always
-        goes through) and the sequence comes out "running" — the engine
-        prefills it whole this round."""
+        blocks for its full known context, minus the cached prefix
+        blocks the prefix cache shares with it (extended from the host
+        tier when one is attached).
+
+        Without chunk mode, bucketed prefill sizes are capped by the
+        per-round token budget (the first admission always goes
+        through) and the sequence comes out "running": the engine
+        prefills it whole this round.  In chunk mode admission only
+        claims the lane and blocks (status "prefilling", `prefill_pos`
+        = cached tokens); the engine's prefill round spends the budget
+        on chunks."""
         admitted: List[Sequence] = []
         budget = self.prefill_token_budget
         while self.waiting:
@@ -184,21 +322,38 @@ class SlotScheduler:
             if not free_slots:
                 break
             seq = self.waiting[0]
-            bucket = self.bucket_for(seq.context_len)
-            if admitted and bucket > budget:
-                break
-            blocks = self.cache.allocator.alloc(
-                self.cache.blocks_for(seq.context_len))
+            cached_blocks: List[int] = []
+            n_cached = 0
+            if self.prefix_cache is not None:
+                ctx = seq.prompt + seq.generated
+                cached_blocks, n_cached = self.prefix_cache.lookup(ctx)
+                if self.prefix_cache.host_tier is not None:
+                    cached_blocks, n_cached = self.prefix_cache.restore(
+                        ctx, cached_blocks, n_cached)
+            if not self.chunk_mode:
+                bucket = self.bucket_for(seq.context_len - n_cached)
+                if admitted and bucket > budget:
+                    if cached_blocks:
+                        self.cache.allocator.free(cached_blocks)
+                    break
+            blocks = self._alloc_with_evict(
+                self.cache.blocks_for(seq.context_len)
+                - len(cached_blocks))
             if blocks is None:
+                if cached_blocks:
+                    self.cache.allocator.free(cached_blocks)
                 break                 # pressure: wait for releases
             self.waiting.popleft()
-            seq.block_table = blocks
+            seq.block_table = cached_blocks + blocks
+            seq.prefill_pos = n_cached
+            seq.prefix_tokens = n_cached
             seq.slot = free_slots[0]
-            seq.status = "running"
+            seq.status = "prefilling" if self.chunk_mode else "running"
             seq._admit_order = self._admit_counter
             self._admit_counter += 1
             self.slots[seq.slot] = seq
-            budget -= bucket
+            if not self.chunk_mode:
+                budget -= bucket
             admitted.append(seq)
         return admitted
 

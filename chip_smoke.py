@@ -9,7 +9,9 @@ checkout (into `.kernel_build/`), holds each kernel against its plain
 PyTorch version at its paths' shapes, times both beside the
 kernel's bound and one PyTorch library call computing the same function,
 then drives the port's paths with random weights from a seed:
-generation through `GenerationEngine` at GPT-2 small's widths,
+generation through `GenerationEngine` at GPT-2 small's widths (with
+prefix caching, chunked prefill, the host KV tier and speculative
+decoding in phase 14),
 BERT-base classification through `InferenceModel`, BERT-base
 fine-tuning through `Estimator.fit` (with remat, a learning-rate
 schedule, checkpoints, a failure and its retry, and validation data in
@@ -65,6 +67,17 @@ Phases (each one failing exits non-zero, with no result line):
      requests through the background loop, check K1/K6 launch counts
      (every K6 launch on its split body) and the logits; again with an
      int8 KV pool and with an f16 one (bench.py's configuration);
+  14. the rest of the generation engine (after phase 6, on its model):
+     (a) bench.py's prefix traffic with prefix caching + chunked prefill
+     against both off (hit rate >= 0.8), (b) seven decoding lanes while
+     a 900-token prompt arrives, chunking on and off (their streams
+     equal), (c) a cut pool whose evicted prefixes spill to a host tier
+     and come back (both restore paths), (d) speculation on a wired
+     cycle model at GPT-2 small's widths (streams equal on and off),
+     (e) speculation on random prompts; in every scene the served
+     logits against the plain recompute and K1 / K6 launches exact,
+     each comparison in timed windows taken in turns; a chunk, a
+     decode and a verify step profiled with phase 10;
   7. slice 2: BERTClassifier at BERT-base's widths (bf16, flash) behind
      InferenceModel, predict calls from 4 threads at t = 128 and 512;
      sequences/s, valid tokens/s, latency p50 per (batch, t); K1/K2/K3
@@ -158,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -3269,6 +3283,39 @@ def decode_profile(torch, engine, vocab: int, seed: int, steps: int = 5):
                     (n[:100], ms, c) for n, ms, c in host])
 
 
+def logits_gate(torch, model, streams, prompts, outs, tol: float,
+                label: str):
+    """Recompute every finished stream once through the plain versions:
+    the served logits (`keep_logits`) finite and within `tol` of the
+    recompute, and each served token the recompute's argmax wherever its
+    top-2 gap exceeds `tol`.  Returns (max abs err, positions compared,
+    positions whose argmax was checked)."""
+    worst, n_cmp, n_top = 0.0, 0, 0
+    with torch.no_grad():
+        for s, prompt, out in zip(streams, prompts, outs):
+            seq = prompt + out
+            ids = torch.tensor([seq], dtype=torch.int32, device="cuda")
+            pos = torch.arange(len(seq), device="cuda")[None]
+            ref, _, _ = model(ids, pos, token_mask=torch.ones_like(ids),
+                              impl="reference")
+            ref = ref[0, len(prompt) - 1:len(seq) - 1]
+            got = torch.stack(s.seq.logits)
+            check(bool(torch.isfinite(got).all()),
+                  f"{label}: non-finite served logits")
+            worst = max(worst, float((got - ref).abs().max()))
+            top2 = torch.topk(ref, 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol
+            agree = torch.tensor(out, device="cuda") == ref.argmax(-1)
+            check(bool(agree[clear].all()),
+                  f"{label}: a served token is not the recompute's argmax "
+                  f"where the top-2 gap exceeds {tol}")
+            n_cmp += got.shape[0]
+            n_top += int(clear.sum())
+    check(worst <= tol, f"{label}: served logits differ from the plain "
+          f"recompute by {worst} > {tol}")
+    return worst, n_cmp, n_top
+
+
 def serve(torch, model, n_requests: int, kv_quantization, seed: int,
           label: str, tol: float, cache_dtype=None):
     """Serve `n_requests` greedy requests through the background loop
@@ -3325,30 +3372,8 @@ def serve(torch, model, n_requests: int, kv_quantization, seed: int,
           f"{label}: K6 launches by body {bodies}; all {want_pd} must take "
           "the split body")
 
-    # recompute every finished stream once through the plain versions
-    worst, n_cmp, n_top = 0.0, 0, 0
-    with torch.no_grad():
-        for s, prompt, out in zip(streams, prompts, outs):
-            seq = prompt + out
-            ids = torch.tensor([seq], dtype=torch.int32, device="cuda")
-            pos = torch.arange(len(seq), device="cuda")[None]
-            ref, _, _ = model(ids, pos, token_mask=torch.ones_like(ids),
-                              impl="reference")
-            ref = ref[0, len(prompt) - 1:len(seq) - 1]
-            got = torch.stack(s.seq.logits)
-            check(bool(torch.isfinite(got).all()),
-                  f"{label}: non-finite served logits")
-            worst = max(worst, float((got - ref).abs().max()))
-            top2 = torch.topk(ref, 2, dim=-1).values
-            clear = (top2[:, 0] - top2[:, 1]) > tol
-            agree = torch.tensor(out, device="cuda") == ref.argmax(-1)
-            check(bool(agree[clear].all()),
-                  f"{label}: a served token is not the recompute's argmax "
-                  f"where the top-2 gap exceeds {tol}")
-            n_cmp += got.shape[0]
-            n_top += int(clear.sum())
-    check(worst <= tol, f"{label}: served logits differ from the plain "
-          f"recompute by {worst} > {tol}")
+    worst, n_cmp, n_top = logits_gate(torch, model, streams, prompts, outs,
+                                      tol, label)
 
     n_tok = sum(len(o) for o in outs)
     dec = sorted(engine.decode_seconds)
@@ -3419,6 +3444,607 @@ def phase_slice(torch, n_requests: int, seed: int, card: str):
     return runs, engine
 
 
+# ----------------------------------------------------------------------
+# phase 14: the rest of the generation engine (prefix caching, chunked
+# prefill, the host KV tier, speculative decoding)
+# ----------------------------------------------------------------------
+
+#: phase 6's engine geometry, which every scene of phase 14 keeps
+GB_GEOM = dict(max_slots=8, block_size=16, max_context=1024)
+#: phase 6's bounds on served logits against the plain recompute
+GB_TOL_F32, GB_TOL_INT8 = 1e-3, 0.5
+#: the speculation scenes' k (bench.py's speculation window)
+GB_SPEC_K = 4
+#: (c): spare blocks above one lane's full context in the cut pool, and
+#: the distinct 256-token prefixes whose traffic returns
+GB_TIER_SPARE, GB_TIER_PREFIXES = 8, 8
+#: timed windows of each engine of a comparison, taken in turns (on,
+#: off, on, off, ...): the host's clock stalls now and then for tens of
+#: ms (a full collection of Python's garbage collector is one cause,
+#: recorded by `gb_drive`), so one window of each side does not compare
+GB_TURNS = 3
+
+
+def gb_engine(torch, model, **kw):
+    """A generation engine at phase 6's geometry on the card, every
+    feature named (off unless `kw` turns it on), logits kept; warmed,
+    with the warm-up's seconds."""
+    from analytics_zoo_tpu_torch.serving.generation import GenerationEngine
+    args = dict(GB_GEOM, prefix_caching=False, chunked_prefill=False,
+                speculative_decoding=False, kv_host_tier=0,
+                kv_quantization=None, keep_logits=True, device="cuda")
+    args.update(kw)
+    engine = GenerationEngine(model, **args)
+    t0 = time.perf_counter()
+    engine.warmup()
+    return engine, time.perf_counter() - t0
+
+
+_GB_FORWARDS = ("n_prefills", "n_chunks", "n_decode_steps",
+                "n_verify_steps")
+
+
+def gb_drive(torch, engine, reqs, label: str, arrive=None) -> dict:
+    """Serve `reqs` ((prompt, max_new_tokens)) by stepping the engine
+    until idle, the launch counts set to 0 just before and read just
+    after; `arrive` (step index -> more requests) submits requests
+    mid-run.  Checks the launches exactly (`gb_launch_check`) and that
+    every request ran to its length.  Returns streams, tokens (outs),
+    wall s, launches, forwards, the peak of shared blocks, each round's
+    host ms with the forwards it ran (rounds), and the garbage
+    collector's pauses in the run ((generation, ms) in gc_ms)."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode,
+    )
+    before = {k: getattr(engine, k) for k in _GB_FORWARDS}
+    gc_pauses, gc_t0 = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[:] = [time.perf_counter()]
+        elif gc_t0:
+            gc_pauses.append((info["generation"],
+                              1e3 * (time.perf_counter() - gc_t0[0])))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, max_new_tokens=n) for p, n in reqs]
+    shared_peak, rounds = 0, []
+    while engine.scheduler.has_work():
+        r0 = time.perf_counter()
+        f0 = [getattr(engine, k) for k in _GB_FORWARDS]
+        check(engine.step(), f"{label}: a round ran no device work")
+        rounds.append((1e3 * (time.perf_counter() - r0),
+                       [getattr(engine, k) - f
+                        for k, f in zip(_GB_FORWARDS, f0)]))
+        shared_peak = max(shared_peak, engine.cache.allocator.n_shared())
+        for p, n in (arrive or {}).get(len(rounds), ()):
+            streams.append(engine.submit(p, max_new_tokens=n))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gc.callbacks.remove(on_gc)
+    counts = kernels.launch_counts()
+    outs = [s.tokens() for s in streams]
+    fwd = {k: getattr(engine, k) - before[k] for k in _GB_FORWARDS}
+    gb_launch_check(label, counts, dict(paged_decode.launches_by_body),
+                    fwd, engine.model.n_block)
+    for s, (p, n) in zip(streams, list(reqs) + [
+            r for v in (arrive or {}).values() for r in v]):
+        check(s.finish_reason == "length" and len(s.seq.generated) == n,
+              f"{label}: a request ended {s.finish_reason!r} after "
+              f"{len(s.seq.generated)} of {n} tokens")
+    return dict(streams=streams, outs=outs, wall=wall, launches=counts,
+                forwards=fwd, shared_peak=shared_peak, rounds=rounds,
+                gc_ms=gc_pauses)
+
+
+def gb_launch_check(label: str, counts: dict, bodies: dict, fwd: dict,
+                    n_block: int) -> None:
+    """K1 2L + 1 launches per forward (whole prefill, chunk, decode and
+    verify alike), K6 L per decode step, all on its split body, no
+    other kernel."""
+    want = dict.fromkeys(counts, 0)
+    want["layer_norm_fwd"] = (2 * n_block + 1) * sum(fwd.values())
+    want["paged_decode"] = n_block * fwd["n_decode_steps"]
+    check(counts == want, f"{label}: launches {counts}, expected {want} "
+          f"from forwards {fwd}")
+    check(bodies["split"] == want["paged_decode"],
+          f"{label}: K6 launches by body {bodies}")
+
+
+def ms_pcts(values) -> dict:
+    v = np.sort(np.asarray(values, dtype=np.float64)) * 1e3
+    return dict(p50=float(np.percentile(v, 50)),
+                p99=float(np.percentile(v, 99)), max=float(v[-1]),
+                n=int(v.size))
+
+
+def merge_launches(runs) -> dict:
+    out = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def gc_summary(runs) -> dict:
+    pauses = [ms for r in runs for g, ms in r["gc_ms"] if g == 2]
+    return dict(full_collections=len(pauses),
+                full_collection_ms=sorted(pauses, reverse=True)[:6])
+
+
+def idle_check(engine, label: str) -> dict:
+    """An idle engine holds only the prefix tree's blocks, none shared:
+    no lane reference leaked."""
+    a = engine.cache.allocator
+    cached = engine.prefix_cache.n_blocks if engine.prefix_cache else 0
+    held = a.capacity - a.available()
+    check(held == cached and a.n_shared() == 0,
+          f"{label}: idle pool holds {held} blocks, {a.n_shared()} shared, "
+          f"against {cached} in the prefix tree")
+    return dict(blocks_held=held, blocks_cached=cached)
+
+
+def gb_prefix(torch, model, seed: int):
+    """(a) bench.py's prefix traffic (`bench.py:1309`): requests sharing
+    one 256-token system prompt, each with a distinct 16-token tail, 16
+    new tokens, f16 pool with int8 KV; one warm request, then windows of
+    12 (new tails each window, the same for both engines) in turns, on
+    the engine with prefix caching + chunked prefill and on the one with
+    both off."""
+    rng = np.random.default_rng(seed + 140)
+    sys_prompt = rng.integers(0, 512, 256).tolist()
+
+    def window():
+        return [(sys_prompt + rng.integers(0, 512, 16).tolist(), 16)
+                for _ in range(12)]
+    warm = window()[:1]
+    windows = [window() for _ in range(GB_TURNS)]
+    engines, runs = {}, {True: [], False: []}
+    for on in (True, False):
+        label = f"phase 14 (a) cache {'on' if on else 'off'}"
+        engine, warm_s = gb_engine(torch, model, cache_dtype=torch.float16,
+                                   kv_quantization="int8",
+                                   prefix_caching=on, chunked_prefill=on)
+        engines[on] = (engine, warm_s, label,
+                       gb_drive(torch, engine, warm, label + " warm"))
+    for reqs in windows:
+        for on in (True, False):
+            engine, _, label, _ = engines[on]
+            runs[on].append(gb_drive(torch, engine, reqs, label))
+    out = {}
+    for on in (True, False):
+        engine, warm_s, label, w = engines[on]
+        t = runs[on]
+        err, n_cmp, n_top = logits_gate(
+            torch, model, w["streams"] + [s for r in t for s in r["streams"]],
+            [p for p, _ in warm + [q for reqs in windows for q in reqs]],
+            w["outs"] + [o for r in t for o in r["outs"]], GB_TOL_INT8, label)
+        rates = [sum(map(len, r["outs"])) / r["wall"] for r in t]
+        ttft = [s.token_times[0] - s.submitted_at
+                for r in t for s in r["streams"]]
+        res = dict(tokens_per_s=statistics.median(rates),
+                   tokens_per_s_windows=rates, warmup_s=warm_s,
+                   ttft_ms=ms_pcts(ttft), launches=merge_launches(t),
+                   forwards=[r["forwards"] for r in t],
+                   shared_blocks_peak=max(r["shared_peak"] for r in t),
+                   first_round_ms=[r["rounds"][0][0] for r in t],
+                   prefill_ms_p50=1e3 * statistics.median(
+                       sec for _, sec in engine.prefill_seconds),
+                   decode_ms_p50=1e3 * statistics.median(
+                       engine.decode_seconds),
+                   gc=gc_summary(t), logits_max_abs_err=err,
+                   logits_compared=n_cmp, argmax_checked=n_top,
+                   idle=idle_check(engine, label),
+                   pool=engine._kv_pool_stats())
+        if on:
+            pc = engine.prefix_cache
+            res.update(hit_rate=pc.hit_rate(), hit_tokens=pc.n_hit_tokens,
+                       blocks_cached=pc.n_blocks, chunks=engine.n_chunks)
+            check(res["hit_rate"] >= 0.8, f"{label}: hit rate "
+                  f"{res['hit_rate']:.3f} < 0.8 (bench.py's gate)")
+        out["on" if on else "off"] = res
+    del engines
+    torch.cuda.empty_cache()
+    out["on_vs_off_tokens_per_s"] = (out["on"]["tokens_per_s"]
+                                     / out["off"]["tokens_per_s"])
+    return out
+
+
+def gb_interleave(torch, model, seed: int):
+    """(b) Seven lanes decode (64-token prompts, 128 new tokens) while
+    one 900-token prompt arrives after 8 rounds, prefill_token_budget
+    256 (chunk cap 256), f32 pool; with chunked prefill on and off, the
+    same requests, GB_TURNS - 1 runs of each in turns."""
+    rng = np.random.default_rng(seed + 141)
+    short = [(rng.integers(0, model.vocab, 64).tolist(), 128)
+             for _ in range(7)]
+    long_req = (rng.integers(0, model.vocab, 900).tolist(), 16)
+    engines = {c: gb_engine(torch, model, chunked_prefill=c,
+                            prefill_token_budget=256) for c in (True, False)}
+    runs = {True: [], False: []}
+    for _ in range(GB_TURNS - 1):
+        for chunked in (True, False):
+            label = f"phase 14 (b) chunked {'on' if chunked else 'off'}"
+            runs[chunked].append(gb_drive(
+                torch, engines[chunked][0], short, label,
+                arrive={8: [long_req]}))
+    first = runs[True][0]["outs"][:7]
+    for chunked in (True, False):
+        for r in runs[chunked]:
+            check(r["outs"][:7] == first, "phase 14 (b): the decoding "
+                  "lanes' streams differ with chunked prefill on and off")
+    out = {}
+    for chunked in (True, False):
+        label = f"phase 14 (b) chunked {'on' if chunked else 'off'}"
+        engine, warm_s = engines[chunked]
+        t = runs[chunked]
+        err, n_cmp, n_top = logits_gate(
+            torch, model, [s for r in t for s in r["streams"]],
+            ([p for p, _ in short] + [long_req[0]]) * len(t),
+            [o for r in t for o in r["outs"]], GB_TOL_F32, label)
+        gaps, long_ttft = [], []
+        for r in t:
+            t_arrive = r["streams"][-1].submitted_at
+            long_ttft.append(1e3 * (r["streams"][-1].token_times[0]
+                                    - t_arrive))
+            gaps += [b - a for s in r["streams"][:7]
+                     for a, b in zip(s.token_times, s.token_times[1:])
+                     if b > t_arrive]
+        out["on" if chunked else "off"] = dict(
+            gap_ms=ms_pcts(gaps), long_ttft_ms=long_ttft,
+            wall_s=[r["wall"] for r in t], warmup_s=warm_s,
+            chunks=engine.n_chunks, launches=merge_launches(t),
+            forwards=[r["forwards"] for r in t],
+            slowest_rounds_ms=[sorted(
+                ((round(ms, 3), i, f) for i, (ms, f)
+                 in enumerate(r["rounds"])), reverse=True)[:6]
+                for r in t],
+            gc=gc_summary(t), logits_max_abs_err=err,
+            logits_compared=n_cmp, argmax_checked=n_top)
+    del engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def gb_host_tier(torch, model, seed: int):
+    """(c) The pool cut to one lane's full context plus GB_TIER_SPARE
+    blocks, a host tier for GB_TIER_PREFIXES prefixes: one request for
+    each prefix (256 tokens + a 16-token tail, 16 new, f16 pool with
+    int8 KV), all at once, so that the later admissions evict the
+    earlier prefixes; then the traffic returns to every prefix, with new
+    tails.  A restore needs a free block (it never evicts), so the
+    restores come where lanes finishing together have freed their last,
+    partial blocks."""
+    from analytics_zoo_tpu_torch.serving.generation.host_tier import (
+        dma_events,
+        reset_dma,
+    )
+    bs = GB_GEOM["block_size"]
+    per_lane = GB_GEOM["max_context"] // bs
+    rng = np.random.default_rng(seed + 142)
+    prefixes = [rng.integers(0, model.vocab, 256).tolist()
+                for _ in range(GB_TIER_PREFIXES)]
+    L, h = model.n_block, model.n_head
+    d = model.hidden_size // h
+    block_bytes = L * 2 * bs * h * d + L * 2 * bs * 4     # int8 + scales
+    tier_bytes = GB_TIER_PREFIXES * (288 // bs) * block_bytes
+    label = "phase 14 (c)"
+    engine, warm_s = gb_engine(
+        torch, model, cache_dtype=torch.float16, kv_quantization="int8",
+        prefix_caching=True, chunked_prefill=True,
+        num_blocks=per_lane + 1 + GB_TIER_SPARE, kv_host_tier=tier_bytes)
+    reset_dma()
+    rounds, all_streams, all_reqs = [], [], []
+    for wave in range(2):
+        reqs = [(pre + rng.integers(0, model.vocab, 16).tolist(), 16)
+                for pre in prefixes]
+        r0, s0 = engine.n_host_restores, engine.prefix_cache.n_evictions
+        t = gb_drive(torch, engine, reqs, f"{label} wave {wave}")
+        streams = t["streams"]
+        rounds.append(dict(wave=wave, wall_s=t["wall"],
+                           launches=t["launches"], forwards=t["forwards"],
+                           restored=engine.n_host_restores - r0,
+                           evicted=engine.prefix_cache.n_evictions - s0,
+                           prefix_tokens=[s.seq.prefix_tokens
+                                          for s in streams]))
+        all_streams += streams
+        all_reqs += reqs
+    err, n_cmp, n_top = logits_gate(
+        torch, model, all_streams, [p for p, _ in all_reqs],
+        [s.seq.generated for s in all_streams], GB_TOL_INT8, label)
+    pc, tier = engine.prefix_cache, engine.host_tier
+    check(engine.n_host_restores > 0, f"{label}: no block was restored")
+    staged = engine.n_host_restores_staged
+    check(0 < staged < engine.n_host_restores,
+          f"{label}: restores {engine.n_host_restores}, {staged} of them "
+          "staged: both paths must run")
+    events = dma_events()
+
+    def rates(kind, flag=None):
+        ev = [e for e in events if e["kind"] == kind
+              and (flag is None or e.get("staged") == flag)]
+        return dict(n=len(ev), bytes_each=sorted({e["nbytes"] for e in ev}),
+                    ms=ms_pcts([e["dur_s"] for e in ev]) if ev else None,
+                    gb_per_s_median=(float(np.median(
+                        [e["nbytes"] / e["dur_s"] / 1e9 for e in ev]))
+                        if ev else None))
+    out = dict(num_blocks=engine.cache.num_blocks, tier_bytes=tier_bytes,
+               warmup_s=warm_s, requests=rounds,
+               restores=engine.n_host_restores, restores_staged=staged,
+               spilled=tier.n_spilled, tier_evictions=tier.n_evictions,
+               tier_entries=len(tier), tier_bytes_used=tier.bytes_used,
+               spill_syncs=pc.n_spill_syncs, evictions=pc.n_evictions,
+               hit_rate=pc.hit_rate(), spill=rates("host_spill"),
+               restore_sync=rates("host_restore", False),
+               restore_staged=rates("host_restore", True),
+               logits_max_abs_err=err, logits_compared=n_cmp,
+               argmax_checked=n_top, idle=idle_check(engine, label))
+    check(pc.n_spill_syncs == pc.n_evictions > 0,
+          f"{label}: {pc.n_spill_syncs} spill syncs for {pc.n_evictions} "
+          "evicted blocks")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def cycle_model(torch, seed: int, cycle_len: int = 8):
+    """`CausalLM` at GPT-2 small's widths wired as bench.py's
+    `_cycle_lm` (`bench.py:1448-1497`): every proj and fc2 zero, the
+    position table zero, token t < hidden_size embedded as the one-hot
+    at dim t, the head mapping dim t to perm[t] with weight 10, where
+    perm walks 0..cycle_len-1 in one short cycle and the other embedded
+    tokens in one long one.  Returns (model, perm)."""
+    from analytics_zoo_tpu_torch.convert import (
+        causal_lm_from_flax,
+        init_causal_lm_params,
+    )
+    from analytics_zoo_tpu_torch.serving.generation import (
+        GPT2_SMALL,
+        CausalLM,
+    )
+    hid = GPT2_SMALL["hidden_size"]
+    rng = np.random.default_rng(seed)
+    rest = rng.permutation(np.arange(cycle_len, hid))
+    perm = np.empty(hid, dtype=np.int64)
+    for i in range(cycle_len):
+        perm[i] = (i + 1) % cycle_len
+    for i, t in enumerate(rest):
+        perm[t] = rest[(i + 1) % len(rest)]
+    p = init_causal_lm_params(GPT2_SMALL, seed=seed)
+    for b in range(GPT2_SMALL["n_block"]):
+        for name in (f"block_{b}_proj", f"block_{b}_fc2"):
+            p[name]["kernel"][...] = 0
+            p[name]["bias"][...] = 0
+    p["position_embed"]["embedding"][...] = 0
+    emb = np.zeros_like(p["token_embed"]["embedding"])
+    head = np.zeros_like(p["lm_head"]["kernel"])
+    emb[np.arange(hid), np.arange(hid)] = 1.0
+    head[np.arange(hid), perm] = 10.0
+    p["token_embed"]["embedding"] = emb
+    p["lm_head"]["kernel"] = head
+    p["lm_head"]["bias"][...] = 0
+    model = CausalLM(**GPT2_SMALL, device="cuda")
+    model.load_state_dict(causal_lm_from_flax(p, GPT2_SMALL))
+    return model.eval(), perm
+
+
+def gb_spec_pair(torch, model, reqs, label: str, tol: float, **kw):
+    """Serve `reqs` with speculation on and off (everything else as
+    `kw`): the first request alone on each engine to warm it, then the
+    rest in GB_TURNS timed windows of each engine in turns; logits gated
+    against the recompute within `tol` on both.  Returns ({on, off}
+    summaries, {on, off} streams of the warm request and the first
+    window)."""
+    engines = {}
+    for on in (True, False):
+        lab = f"{label} spec {'on' if on else 'off'}"
+        engine, warm_s = gb_engine(torch, model, speculative_decoding=on,
+                                   speculative_k=GB_SPEC_K, **kw)
+        engines[on] = (engine, warm_s, lab,
+                       gb_drive(torch, engine, reqs[:1], lab + " warm"))
+    runs = {True: [], False: []}
+    for _ in range(GB_TURNS):
+        for on in (True, False):
+            engine, _, lab, _ = engines[on]
+            runs[on].append(gb_drive(torch, engine, reqs[1:], lab))
+    res, outs_by = {}, {}
+    for on in (True, False):
+        engine, warm_s, lab, w = engines[on]
+        t = runs[on]
+        err, n_cmp, n_top = logits_gate(
+            torch, model, w["streams"] + [s for r in t for s in r["streams"]],
+            [p for p, _ in reqs[:1] + reqs[1:] * len(t)],
+            w["outs"] + [o for r in t for o in r["outs"]], tol, lab)
+        rates = [sum(map(len, r["outs"])) / r["wall"] for r in t]
+        r = dict(tokens_per_s=statistics.median(rates),
+                 tokens_per_s_windows=rates,
+                 wall_s=statistics.median(x["wall"] for x in t),
+                 warmup_s=warm_s, launches=merge_launches(t),
+                 forwards=[x["forwards"] for x in t],
+                 decode_ms_p50=(1e3 * statistics.median(
+                     engine.decode_seconds) if engine.decode_seconds
+                     else None),
+                 verify_ms_p50=(1e3 * statistics.median(
+                     engine.verify_seconds) if engine.verify_seconds
+                     else None),
+                 gc=gc_summary(t), logits_max_abs_err=err,
+                 logits_compared=n_cmp, argmax_checked=n_top,
+                 idle=idle_check(engine, lab))
+        if on:
+            r.update(verify_rounds=engine.n_verify_steps,
+                     lane_rounds=engine.n_spec_rounds,
+                     proposed=engine.n_spec_proposed,
+                     accepted=engine.n_spec_accepted,
+                     acceptance=(engine.n_spec_accepted
+                                 / max(1, engine.n_spec_proposed)),
+                     parked_lane_rounds=engine.n_spec_parked)
+        res["on" if on else "off"] = r
+        outs_by[on] = [w["outs"] + x["outs"] for x in t]
+    del engines
+    torch.cuda.empty_cache()
+    res["on_vs_off_tokens_per_s"] = (res["on"]["tokens_per_s"]
+                                     / res["off"]["tokens_per_s"])
+    return res, outs_by
+
+
+def gb_step_profiles(torch, model, iters: int = 10) -> dict:
+    """Where phase 14's new steps spend their time, after the timed
+    phases: a 256-token chunk over 512 written tokens, a decode step and
+    a k = 4 verify step of 8 lanes at 900 written tokens each (f32 pool,
+    phase 6's geometry): host ms per call (back-to-back calls, one
+    synchronize) and device ms per call by device op (profiler)."""
+    from analytics_zoo_tpu_torch.serving.generation import GenerationEngine
+    engine = GenerationEngine(model, **GB_GEOM, prefix_caching=True,
+                              chunked_prefill=True,
+                              speculative_decoding=True,
+                              speculative_k=GB_SPEC_K, kv_host_tier=0,
+                              kv_quantization=None, device="cuda")
+    S, MB = engine.max_slots, engine.scheduler.max_blocks_per_seq
+    dev = "cuda"
+    tables = torch.arange(1, S * MB + 1, dtype=torch.int32,
+                          device=dev).reshape(S, MB)
+    ctx = torch.full((S,), 900, dtype=torch.int32, device=dev)
+    zi = torch.zeros(S, dtype=torch.int32, device=dev)
+    act = torch.ones(S, dtype=torch.bool, device=dev)
+    chunk_tokens = torch.zeros((1, 256), dtype=torch.int32, device=dev)
+    verify_tokens = torch.zeros((S, 1 + GB_SPEC_K), dtype=torch.int32,
+                                device=dev)
+    width = torch.full((S,), 1 + GB_SPEC_K, dtype=torch.int32, device=dev)
+    steps = {
+        "chunk_256_at_512": lambda: engine._chunk(chunk_tokens, 512, 256,
+                                                  tables[0]),
+        "decode_8_at_900": lambda: engine._decode(
+            zi, tables, ctx, act, torch.zeros(S, device=dev), zi),
+        "verify_8x5_at_900": lambda: engine._verify(
+            verify_tokens, tables, ctx, width, act),
+    }
+    L, h = model.n_block, model.n_head
+    d = model.hidden_size // h
+    out = {}
+    with torch.no_grad():
+        for name, fn in steps.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) / iters * 1e3
+            total, per, _ = device_ms(fn, iters=iters)
+            top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+            out[name] = dict(host_ms=host, device_ms=total,
+                             top_device_ops_ms=[(n[:90], v) for n, v in top])
+    # the verify read gathers every lane's whole table (K and V, f32) in
+    # each layer: the bytes it writes, and their time at HBM's rate
+    gathered = L * 2 * S * MB * engine.cache.block_size * h * d * 4
+    out["verify_gather_bytes"] = gathered
+    out["verify_gather_bound_ms"] = 2 * gathered / HBM_BYTES_PER_S * 1e3
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_generation_breadth(torch, seed: int, card: str, model):
+    """Phase 14: prefix caching, chunked prefill, the host KV tier and
+    speculative decoding through `GenerationEngine` on phase 6's model
+    (GPT-2 small's widths, f32, 8 lanes, blocks of 16, context 1024) and
+    on a wired cycle model at the same widths."""
+    t0 = time.perf_counter()
+    out = {}
+    out["a_prefix"] = a = gb_prefix(torch, model, seed)
+    print(f"phase 14 (a) [{card}] prefix caching, 12 requests after one "
+          f"warm: cache on {a['on']['tokens_per_s']:.1f} tokens/s, TTFT "
+          f"p50 {a['on']['ttft_ms']['p50']:.2f} ms p99 "
+          f"{a['on']['ttft_ms']['p99']:.2f}; off "
+          f"{a['off']['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{a['off']['ttft_ms']['p50']:.2f} p99 "
+          f"{a['off']['ttft_ms']['p99']:.2f}; ratio "
+          f"{a['on_vs_off_tokens_per_s']:.3f}; hit rate "
+          f"{a['on']['hit_rate']:.3f}, {a['on']['hit_tokens']} hit tokens, "
+          f"{a['on']['blocks_cached']} blocks cached, shared peak "
+          f"{a['on']['shared_blocks_peak']}; windows on "
+          f"{[round(x, 1) for x in a['on']['tokens_per_s_windows']]} off "
+          f"{[round(x, 1) for x in a['off']['tokens_per_s_windows']]}; "
+          f"logits err "
+          f"{a['on']['logits_max_abs_err']:.3e} / "
+          f"{a['off']['logits_max_abs_err']:.3e}", flush=True)
+    out["b_interleave"] = b = gb_interleave(torch, model, seed)
+    for k in ("on", "off"):
+        g = b[k]["gap_ms"]
+        print(f"phase 14 (b) [{card}] chunked {k}: decoding lanes' "
+              f"inter-token gap after the 900-token prompt arrives p50 "
+              f"{g['p50']:.3f} ms p99 {g['p99']:.3f} max {g['max']:.3f} "
+              f"over {g['n']} gaps; the long prompt's first token after "
+              f"{[round(x, 2) for x in b[k]['long_ttft_ms']]} ms; "
+              f"{b[k]['chunks']} chunks; full collections {b[k]['gc']}; "
+              f"logits err {b[k]['logits_max_abs_err']:.3e}", flush=True)
+    out["c_host_tier"] = c = gb_host_tier(torch, model, seed)
+    print(f"phase 14 (c) [{card}] host tier: {c['num_blocks']} blocks, "
+          f"{c['spilled']} spills ({c['spill']['bytes_each']} bytes each, "
+          f"median {c['spill']['gb_per_s_median']:.3f} GB/s, "
+          f"{c['spill_syncs']} syncs), {c['restores']} restores "
+          f"({c['restores_staged']} staged: median "
+          f"{c['restore_staged']['gb_per_s_median']:.3f} GB/s of host "
+          f"time; synchronous: median "
+          f"{c['restore_sync']['gb_per_s_median']:.3f} GB/s), "
+          f"{c['evictions']} evictions, restores by wave "
+          f"{[r['restored'] for r in c['requests']]}; logits err "
+          f"{c['logits_max_abs_err']:.3e}", flush=True)
+    cmodel, perm = cycle_model(torch, seed)
+
+    def chain(start, n):
+        o = [int(start)]
+        for _ in range(n - 1):
+            o.append(int(perm[o[-1]]))
+        return o
+    sys_prompt = chain(0, 64)
+    reqs = [(sys_prompt + chain(i % 8, 4), 48) for i in range(12)]
+    d, outs = gb_spec_pair(torch, cmodel, reqs, "phase 14 (d)", GB_TOL_INT8,
+                           cache_dtype=torch.float16, kv_quantization="int8",
+                           prefix_caching=True, chunked_prefill=True)
+    check(all(o == outs[False][0] for side in outs.values() for o in side),
+          "phase 14 (d): cycle streams differ with speculation on and off")
+    out["d_spec_cycle"] = d
+    del cmodel
+    torch.cuda.empty_cache()
+    print(f"phase 14 (d) [{card}] speculation on the cycle model: on "
+          f"{d['on']['tokens_per_s']:.1f} tokens/s, off "
+          f"{d['off']['tokens_per_s']:.1f}, ratio "
+          f"{d['on_vs_off_tokens_per_s']:.3f} (bench.py's gate 1.5, "
+          f"reported); acceptance {d['on']['acceptance']:.3f}, "
+          f"{d['on']['verify_rounds']} verify rounds, verify p50 "
+          f"{d['on']['verify_ms_p50']:.3f} ms, decode p50 "
+          f"{d['off']['decode_ms_p50']:.3f} ms; windows on "
+          f"{[round(x, 1) for x in d['on']['tokens_per_s_windows']]} off "
+          f"{[round(x, 1) for x in d['off']['tokens_per_s_windows']]}",
+          flush=True)
+    rng = np.random.default_rng(seed + 143)
+    adv = [(rng.integers(8, model.vocab, 24).tolist(), 32)
+           for _ in range(12)]
+    e, _ = gb_spec_pair(torch, model, adv, "phase 14 (e)", GB_TOL_F32)
+    out["e_spec_adversarial"] = e
+    print(f"phase 14 (e) [{card}] speculation on random prompts: on "
+          f"{e['on']['tokens_per_s']:.1f} tokens/s, off "
+          f"{e['off']['tokens_per_s']:.1f} (medians of windows on "
+          f"{[round(x, 1) for x in e['on']['tokens_per_s_windows']]} off "
+          f"{[round(x, 1) for x in e['off']['tokens_per_s_windows']]}); "
+          f"wall on / off "
+          f"{e['on']['wall_s'] / e['off']['wall_s']:.3f} (bench.py's bound "
+          f"1.1, reported); {e['on']['lane_rounds']} lane verify rounds, "
+          f"acceptance {e['on']['acceptance']:.3f}, "
+          f"{e['on']['parked_lane_rounds']} lane rounds parked in the "
+          f"cooldown; logits err {e['on']['logits_max_abs_err']:.3e}",
+          flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = merge_launches(
+        [a["on"], a["off"], b["on"], b["off"], d["on"], d["off"], e["on"],
+         e["off"]] + c["requests"])
+    return out
+
+
 def kernel_entry(name, route, source, replaces, launches, shapes,
                  main: int, checks=()):
     """One kernel's record of the result line: the numbers at its main
@@ -3484,6 +4110,9 @@ def main(argv=None) -> int:
     clocks("after phase 5d", start)
     runs, engine = phase_slice(torch, args.requests, args.seed, card)
     clocks("after phase 6", start)
+    gen_breadth = phase_generation_breadth(torch, args.seed, card,
+                                           engine.model)
+    clocks("after phase 14", start)
     bert_runs, bert_model = phase_bert(torch, args.seed, card)
     clocks("after phase 7", start)
     train, est, train_batch_ = phase_train(torch, args.seed, card)
@@ -3519,6 +4148,9 @@ def main(argv=None) -> int:
         torch, engine, engine.model.vocab, args.seed + 7)
     print(f"decode step profile [{card}]: "
           f"{json.dumps(runs[0]['decode_profile'])}", flush=True)
+    gen_breadth["step_profiles"] = gb_step_profiles(torch, engine.model)
+    print(f"phase 14 step profiles [{card}]: "
+          f"{json.dumps(gen_breadth['step_profiles'])}", flush=True)
     bert_runs[0]["forward_profile"] = bert_profile(torch, bert_model,
                                                    args.seed + 9)
     print(f"BERT forward profile [{card}]: "
@@ -3578,7 +4210,10 @@ def main(argv=None) -> int:
                      "analytics_zoo_tpu/ops/pallas/paged_attention.py:155",
                      gpt2["paged_decode"], pd, 0),
     ]
-    by_path = {"layer_norm_fwd": {"generation": gpt2, "bert_serving": bert,
+    breadth = gen_breadth["launches"]
+    by_path = {"layer_norm_fwd": {"generation": gpt2,
+                                  "generation_breadth": breadth,
+                                  "bert_serving": bert,
                                   "bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert},
@@ -3601,8 +4236,9 @@ def main(argv=None) -> int:
                                  "learnable_bias": bias_run["launches"],
                                  "bert_fine_tune_remat": remat,
                                  "bert_fine_tune_xshards": xs_bert},
-               "paged_decode": {f"generation_{r['label']}": r["launches"]
-                                for r in runs}}
+               "paged_decode": dict(
+                   {f"generation_{r['label']}": r["launches"]
+                    for r in runs}, generation_breadth=breadth)}
     for k in kernels:
         paths = by_path.get(k["name"])
         if paths:
@@ -3614,7 +4250,8 @@ def main(argv=None) -> int:
         k["launches_by_path"]["data_path_recommendation"] = \
             data_path["launches_recommendation"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
-    print(json.dumps({"card": card, "slice": runs, "bert": bert_runs,
+    print(json.dumps({"card": card, "slice": runs,
+                      "generation_breadth": gen_breadth, "bert": bert_runs,
                       "train": train, "bias_path": bias_run,
                       "recommendation": rec, "fit_surface": fit_surface,
                       "data_path": data_path,

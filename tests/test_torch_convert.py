@@ -1,8 +1,9 @@
 """The port's CausalLM (analytics_zoo_tpu_torch/serving/generation/
 model.py) on weights converted from a JAX `CausalLM.init` tree
 (analytics_zoo_tpu_torch/convert.py), held against JAX `model.apply` in
-its three modes — prefill with a token mask, paged decode over a block
-pool (f32 and int8), and the concat/ctx read path — plus the numpy-only
+its four modes — prefill with a token mask, paged decode over a block
+pool (f32 and int8), paged verify (t > 1) and the concat/ctx read
+path — plus the numpy-only
 initializer's tree against JAX `init`.  Tolerance 1e-4 on logits and
 1e-5 on the returned K/V (f32 on both sides; the matmuls sum in other
 orders)."""
@@ -132,14 +133,25 @@ def test_ctx_read_mode(pair):
 
 
 def test_paged_verify_is_not_ported_yet(pair):
-    _, _, tm = pair
+    """The paged branch at t > 1 (speculative verify), which raised
+    before it was ported, now runs `paged_verify_attention` and matches
+    JAX `model.apply` on the same pool."""
+    jm, params, tm = pair
     kv, _, tables, ctx, _ = _pool_scene(3, False)
-    with pytest.raises(NotImplementedError, match="t > 1"):
-        tm(torch.zeros((3, 2), dtype=torch.int32),
-           torch.zeros((3, 2), dtype=torch.int32),
-           kv_pool=torch.from_numpy(kv),
-           block_tables=torch.from_numpy(tables),
-           ctx_len=torch.from_numpy(ctx))
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, CFG["vocab"], (3, 2)).astype(np.int32)
+    pos = (ctx[:, None] + np.arange(2)[None]).astype(np.int32)
+    jl, jk, jv = jm.apply(
+        {"params": params}, ids, pos, kv_pool=jnp.asarray(kv),
+        block_tables=jnp.asarray(tables), ctx_len=jnp.asarray(ctx))
+    with torch.no_grad():
+        tl, tk, tv = tm(torch.from_numpy(ids), torch.from_numpy(pos),
+                        kv_pool=torch.from_numpy(kv),
+                        block_tables=torch.from_numpy(tables),
+                        ctx_len=torch.from_numpy(ctx))
+    _close(tl, jl, LOGIT_TOL)
+    _close(tk, jk, KV_TOL)
+    _close(tv, jv, KV_TOL)
 
 
 def test_init_tree_matches_jax_init():
