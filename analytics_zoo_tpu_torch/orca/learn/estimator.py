@@ -104,7 +104,15 @@ class Estimator:
         schedule), or None (adam); `learning_rate` its
         rate; `clip_norm` / `clip_value` the gradient clipping;
         `model_dir` where checkpoints go; `seed` the shuffling and the
-        dropout generator."""
+        dropout generator.  `loss` also takes a torch criterion
+        (`nn.CrossEntropyLoss()` and the others
+        `torch_adapter.resolve_torch_loss` maps), as JAX's `from_torch`
+        does (estimator.py:146-150)."""
+        from analytics_zoo_tpu_torch.orca.learn.torch_adapter import (
+            resolve_torch_loss,
+        )
+        if "loss" in kwargs:
+            kwargs["loss"] = resolve_torch_loss(kwargs["loss"])
         return cls(module, **kwargs)
 
     @property

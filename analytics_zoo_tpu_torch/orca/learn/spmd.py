@@ -8,7 +8,8 @@ padded batches.  The train step is `_train_step_impl`'s
 backward, a non-finite check over the loss and every gradient, the
 update skipped on the device when that check fails (the fused
 optimizer's `found_inf`: parameters and optimizer state keep their
-values, and the host never waits on the check), and per-step stats with
+values, module buffers are put back from a copy taken before the
+forward, and the host never waits on the check), and per-step stats with
 `_count` (real rows, 0 on a skipped step) and `_nan_steps`.
 `run_epoch` takes host batches and copies each to the card, double
 buffered (`_HostPrefetcher`, `OrcaContext.host_input_prefetch`): the
@@ -68,6 +69,38 @@ def masked_mean(values, mask):
     per-example `values` are averaged per example first."""
     values = values.reshape(values.shape[0], -1).mean(dim=1)
     return (values * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _buffer_groups(model: torch.nn.Module) -> List[List[torch.Tensor]]:
+    """The module's buffers grouped by (dtype, device), in module order."""
+    groups: Dict[Any, List[torch.Tensor]] = {}
+    for b in model.buffers():
+        groups.setdefault((b.dtype, b.device), []).append(b)
+    return list(groups.values())
+
+
+def snapshot_buffers(model: torch.nn.Module) -> List[torch.Tensor]:
+    """One flat copy per dtype of the module's buffers, taken before a
+    training forward; empty (and free) for a module without buffers."""
+    return [torch.cat([b.detach().reshape(-1) for b in g])
+            for g in _buffer_groups(model)]
+
+
+def restore_buffers(model: torch.nn.Module, saved: List[torch.Tensor],
+                    finite: torch.Tensor) -> None:
+    """Put `saved` back into the module's buffers where the step is not
+    `finite` (a 0-d bool tensor), on the device with no host read: a
+    skipped step leaves BatchNorm's running stats and count as they were,
+    as JAX keeps its model state (spmd.py:386-392).  A few launches per
+    dtype, however many buffers."""
+    if not saved:
+        return
+    with torch.no_grad():
+        for g, old in zip(_buffer_groups(model), saved):
+            keep = torch.where(finite, torch.cat([b.reshape(-1) for b in g]),
+                               old)
+            parts = keep.split([b.numel() for b in g])
+            torch._foreach_copy_(g, [v.view_as(b) for v, b in zip(parts, g)])
 
 
 def _declares(fn, name: str) -> bool:
@@ -319,6 +352,9 @@ class TrainEngine:
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         mask = batch["mask"]
         self.opt.zero_grad(set_to_none=True)
+        # the forward updates buffers (BatchNorm's running stats and
+        # count) before the step is known finite
+        saved = snapshot_buffers(self.model)
         preds = self._forward(batch["features"], True)
         loss = masked_mean(self._per_example_loss(preds, batch["labels"],
                                                   mask), mask)
@@ -336,6 +372,8 @@ class TrainEngine:
                 torch._foreach_norm(grads)))
             amax = torch.stack(torch._foreach_norm(grads, ord=float("inf")))
             finite = finite & ~torch.isnan(norm) & torch.isfinite(amax).all()
+        # after the backward, so remat's recomputed forward is undone too
+        restore_buffers(self.model, saved, finite)
         self.optimizer.clip_(grads, norm)
         fin = finite.float()
         if self.schedule is not None:

@@ -12,6 +12,7 @@ from analytics_zoo_tpu_torch.resilience.faults import (  # noqa: F401
     Fault,
     FaultInjected,
     FaultPlan,
+    PoisonedRequestError,
     SimulatedCrash,
     SimulatedWorkerFailure,
     fault_point,

@@ -30,11 +30,16 @@ site                        threaded into
 ``generation.host_spill``   `HostKVTier.put` (the spill is dropped)
 ``generation.host_restore`` `HostKVTier.fetch` (the entry is dropped,
                             the lane recomputes)
+``serving.admission``       `GenerationEngine.submit`'s queue check
 =========================== =============================================
 
 Actions: ``raise`` (SimulatedWorkerFailure), ``crash`` (SimulatedCrash,
-the checkpoint matrix's kill) and ``torn_write`` (truncate the largest
-file under the site's path, then SimulatedCrash).
+the checkpoint matrix's kill), ``torn_write`` (truncate the largest
+file under the site's path, then SimulatedCrash), ``poison_request``
+(PoisonedRequestError carrying the victim's request id: the engine
+evicts that request alone) and ``refuse``, which `fault_point` returns
+to its caller (submit then raises QueueFull, as an organic overload
+would).
 
 Determinism: a fault fires when its site's hit counter reaches ``at``
 (1-based), for ``times`` firings (default 1); ``prob`` instead draws
@@ -54,7 +59,7 @@ from analytics_zoo_tpu_torch.common.context import OrcaContext
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
-ACTIONS = ("raise", "crash", "torn_write")
+ACTIONS = ("raise", "crash", "torn_write", "poison_request", "refuse")
 
 KNOWN_SITES = (
     "train.step", "train.epoch",
@@ -64,6 +69,7 @@ KNOWN_SITES = (
     "generation.decode", "generation.prefix_lookup",
     "generation.spec_verify",
     "generation.host_spill", "generation.host_restore",
+    "serving.admission",
 )
 
 
@@ -80,14 +86,26 @@ class SimulatedCrash(FaultInjected):
     """An injected process kill inside a checkpoint phase."""
 
 
+class PoisonedRequestError(FaultInjected):
+    """An injected decode-step failure attributable to ONE request;
+    the engine evicts that request and keeps serving the rest."""
+
+    def __init__(self, message: str, request_id: Optional[str] = None):
+        super().__init__(message)
+        self.request_id = request_id
+
+
 class Fault:
     """One armed fault: a site, an action, and a deterministic firing
-    rule (`at`/`times`, or seeded `prob`)."""
+    rule (`at`/`times`, or seeded `prob`); `request_id` names the victim
+    of ``poison_request``."""
 
-    __slots__ = ("site", "action", "at", "times", "prob", "fired")
+    __slots__ = ("site", "action", "at", "times", "request_id", "prob",
+                 "fired")
 
     def __init__(self, site: str, action: str, at: int = 1,
-                 times: int = 1, prob: Optional[float] = None):
+                 times: int = 1, request_id: Optional[str] = None,
+                 prob: Optional[float] = None):
         if action not in ACTIONS:
             raise ValueError(
                 f"unknown fault action {action!r}; valid: {ACTIONS}")
@@ -100,6 +118,7 @@ class Fault:
         self.action = action
         self.at = int(at)
         self.times = int(times)
+        self.request_id = request_id
         self.prob = None if prob is None else float(prob)
         self.fired = 0
 
@@ -170,15 +189,17 @@ def _torn_write(path: str) -> None:
             f.truncate(max(0, size // 2))
 
 
-def fault_point(site: str, **ctx) -> None:
-    """The injection site hook.  Unarmed (no plan): one attribute read.
-    Armed: counts the hit and, when a fault fires, raises."""
+def fault_point(site: str, **ctx) -> Optional[str]:
+    """The injection site hook.  Unarmed (no plan): one attribute read,
+    returning None.  Armed: counts the hit and, when a fault fires,
+    raises, or returns the action for the caller to interpret
+    (``refuse``)."""
     plan = OrcaContext.fault_plan
     if plan is None:
-        return
+        return None
     fault = plan.hit(site)
     if fault is None:
-        return
+        return None
     logger.warning("fault injected at %s: %s %s", site, fault.action,
                    {k: v for k, v in ctx.items()
                     if isinstance(v, (int, float, str, bool))})
@@ -188,6 +209,18 @@ def fault_point(site: str, **ctx) -> None:
             f"(hit {plan.hits.get(site)})")
     if fault.action == "crash":
         raise SimulatedCrash(f"injected crash at {site}")
+    if fault.action == "poison_request":
+        # the named victim when it is among this hit's requests, else
+        # the first of them
+        rid = fault.request_id
+        ids = ctx.get("request_ids") or []
+        if rid is None or (ids and rid not in ids):
+            rid = ids[0] if ids else rid
+        raise PoisonedRequestError(
+            f"injected decode failure poisoning request {rid!r}",
+            request_id=rid)
+    if fault.action == "refuse":
+        return fault.action
     path = ctx.get("path")
     if path and os.path.isdir(path):
         _torn_write(path)

@@ -39,6 +39,14 @@ length-1 rows, so a verify round replaces the decode round for them.
 Streaming: `submit()` returns a `GenerationStream`; the engine pushes
 each sampled token as it exists.  Drive the loop with `step()` /
 `run_until_idle()`, or serve with `ensure_started()` / `stop()`.
+
+Intake: `submit` sheds with `QueueFull` when `max_queue` requests wait,
+or when a fault plan's ``refuse`` fires at the ``serving.admission``
+site; either carries `retry_after_s()`, the queue's drain time estimated
+from the measured decode steps.  A ``poison_request`` fault at
+``generation.decode`` fails one request before dispatch: the engine
+evicts that request alone and the other lanes decode on the next round
+(JAX engine.py:1405-1493).
 """
 
 from __future__ import annotations
@@ -55,8 +63,13 @@ import torch
 
 from analytics_zoo_tpu_torch.common.context import OrcaContext
 from analytics_zoo_tpu_torch.device import resolve_device
+from analytics_zoo_tpu_torch.observability.request_log import (
+    new_request_id,
+    sanitize_request_id,
+)
 from analytics_zoo_tpu_torch.resilience.faults import (
     FaultInjected,
+    PoisonedRequestError,
     fault_point,
 )
 from analytics_zoo_tpu_torch.serving.errors import QueueFull, RequestTooLarge
@@ -112,6 +125,11 @@ class GenerationStream:
     def finish_reason(self) -> Optional[str]:
         return self.seq.finish_reason
 
+    @property
+    def request_id(self) -> Optional[str]:
+        """The request's id: the caller's, sanitized, or a new one."""
+        return self.seq.request_id
+
     def __iter__(self):
         while True:
             item = self._q.get(timeout=self.timeout)
@@ -140,7 +158,8 @@ class GenerationEngine:
     `n_cow_copies`, `n_spec_rounds` (lane verify rounds),
     `n_spec_proposed`, `n_spec_accepted`, `n_spec_parked` (lane rounds
     sat out in the cooldown), `n_host_restores` (blocks restored from
-    the host tier, `n_host_restores_staged` of them from a staged copy).
+    the host tier, `n_host_restores_staged` of them from a staged copy),
+    `n_evictions` (poisoned requests evicted alone).
     The host wall times of the latest fenced rounds are kept in
     `prefill_seconds` ((bucket, seconds) pairs: whole prefills and final
     chunks), `decode_seconds` and `verify_seconds`.  `keep_logits=True`
@@ -258,6 +277,7 @@ class GenerationEngine:
         self.n_spec_parked = 0
         self.n_host_restores = 0
         self.n_host_restores_staged = 0
+        self.n_evictions = 0
         self.prefill_seconds: deque = deque(maxlen=4096)
         self.decode_seconds: deque = deque(maxlen=4096)
         self.verify_seconds: deque = deque(maxlen=4096)
@@ -511,6 +531,19 @@ class GenerationEngine:
     # request intake
     # ------------------------------------------------------------------
 
+    def retry_after_s(self) -> float:
+        """Comeback hint attached to shed (503) responses: the queue's
+        estimated drain time from the measured decode cadence — (depth +
+        1) x mean decode-step wall — clamped to [0.05 s, 10 s] (0.5 s
+        before any decode has been measured)."""
+        with self._lock:          # the loop appends under it
+            depth = len(self.scheduler.waiting)
+            walls = tuple(self.decode_seconds)
+        if walls:
+            mean = sum(walls) / len(walls)
+            return float(min(10.0, max(0.05, (depth + 1) * mean)))
+        return 0.5
+
     def submit(self, prompt, max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0,
                eos_id: Optional[int] = None, stream_timeout: float = 120.0,
@@ -520,7 +553,10 @@ class GenerationEngine:
         when the request can never run: ValueError for malformed
         prompts, `RequestTooLarge` (a ValueError; HTTP 413) when prompt +
         max_new_tokens exceed max_context or the whole block pool,
-        `QueueFull` (HTTP 503) when `max_queue` requests already wait."""
+        `QueueFull` (HTTP 503) when `max_queue` requests already wait or
+        the ``serving.admission`` fault site refuses.  `request_id` is
+        sanitized (one is made when absent) and readable from the
+        returned stream's `.request_id`."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -536,19 +572,28 @@ class GenerationEngine:
             raise RequestTooLarge(
                 f"request needs {self.cache.blocks_for(total)} KV "
                 f"blocks, pool holds {self.cache.allocator.capacity}")
+        rid = (sanitize_request_id(request_id)
+               if request_id is not None else new_request_id())
         seq = Sequence(prompt, max_new_tokens=max_new_tokens,
                        temperature=temperature, top_k=top_k,
-                       eos_id=eos_id, request_id=request_id,
+                       eos_id=eos_id, request_id=rid,
                        priority=priority)
         seq.stream = GenerationStream(seq, timeout=stream_timeout)
         if self.keep_logits:
             seq.logits = []
         with self._lock:
-            if self.max_queue is not None \
-                    and len(self.scheduler.waiting) >= self.max_queue:
+            depth = len(self.scheduler.waiting)
+            if self.max_queue is not None and depth >= self.max_queue:
                 raise QueueFull(
-                    f"{len(self.scheduler.waiting)} requests waiting "
-                    f"(max_queue {self.max_queue})", retry_after_s=0.5)
+                    f"{depth} requests already waiting "
+                    f"(max_queue={self.max_queue})",
+                    retry_after_s=self.retry_after_s())
+            # "refuse" sheds this request exactly as an organic overload
+            # would (JAX control_plane/admission.py:242)
+            if fault_point("serving.admission",
+                           queue_depth=depth) == "refuse":
+                raise QueueFull("injected admission refusal (fault plan)",
+                                retry_after_s=self.retry_after_s())
             self.scheduler.submit(seq)
             self.n_requests += 1
         self._wake.set()
@@ -874,8 +919,10 @@ class GenerationEngine:
             temp[i] = seq.temperature
             top_k[i] = seq.top_k
         # nothing is written before this point: a raise here leaves every
-        # lane as it was
-        fault_point("generation.decode", n_lanes=len(lanes))
+        # lane as it was, and a poisoned request's eviction lets the
+        # others decode next round
+        fault_point("generation.decode",
+                    request_ids=[s.request_id for s in lanes.values()])
         nxt, last = self._decode(
             self._tensor(tokens), self._tensor(tables),
             self._tensor(ctx_len), self._tensor(active),
@@ -913,9 +960,24 @@ class GenerationEngine:
                 advanced = self._spec_round(spec_budget)
                 did = did or bool(advanced)
             if any(s not in advanced for s in self.scheduler.running()):
-                self._decode_all(skip=frozenset(advanced))
+                try:
+                    self._decode_all(skip=frozenset(advanced))
+                except PoisonedRequestError as e:
+                    self._evict_poisoned(e)
                 did = True
             return did
+
+    def _evict_poisoned(self, e: PoisonedRequestError) -> None:
+        """A step failure attributable to ONE request evicts exactly that
+        request (its stream ends with finish_reason "error: evicted
+        (...)"); the engine keeps serving everyone else.  Caller holds
+        the lock."""
+        _log.warning("evicting request %s: %s", e.request_id, e)
+        self.n_evictions += 1
+        for seq in self.scheduler.running():
+            if seq.request_id == e.request_id:
+                self._finish(seq, f"error: evicted ({e})")
+                return
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> None:
         for _ in range(max_steps):

@@ -9,10 +9,17 @@ numpy out; inputs padded to power-of-two batch buckets up to
 requests chunked through the buckets; `records_served` counts the real
 rows.  The module runs under `torch.inference_mode()` on the device its
 parameters live on.
+
+Loaders: `load_module` (a built module), `load_model` (a
+`ZooModel.save_model` directory, JAX inference_model.py:154) and
+`load_estimator` (an Estimator's current module, :179).
 """
 
 from __future__ import annotations
 
+import importlib
+import os
+import pickle
 import threading
 from typing import Optional
 
@@ -33,6 +40,12 @@ def _pad_to(a: np.ndarray, target: int) -> np.ndarray:
         return a
     pad = [(0, target - len(a))] + [(0, 0)] * (a.ndim - 1)
     return np.pad(a, pad)
+
+
+def _refuse_quantize():
+    raise NotImplementedError(
+        "InferenceModel(quantize=True) needs serving/quantize.py, which is "
+        "not ported yet (ROADMAP Queue 1 item 2)")
 
 
 def _to_numpy(out: torch.Tensor, n: int) -> np.ndarray:
@@ -60,9 +73,7 @@ class InferenceModel:
         The counterpart of `load_flax`; `quantize=True` (int8 weights)
         waits for the port of serving/quantize.py and raises."""
         if quantize:
-            raise NotImplementedError(
-                "InferenceModel(quantize=True) needs serving/quantize.py, "
-                "which is not ported yet (ROADMAP Queue 1)")
+            _refuse_quantize()
         params = list(module.parameters())
         if not params:
             raise ValueError("load_module: the module has no parameters to "
@@ -70,6 +81,41 @@ class InferenceModel:
         self._device = params[0].device
         self._module = module.eval()
         return self
+
+    def load_model(self, path: str, model_cls=None, quantize: bool = False,
+                   decrypt_key: str = None, device=None):
+        """Serve the model a port `ZooModel.save_model` wrote under
+        `path`, built on `device` (None = the CUDA card).  `model_cls`
+        overrides the saved class name, which is otherwise resolved in
+        the port's model namespaces.  `config.pkl` is unpickled: load
+        only what this program saved.  Encrypted weights
+        (`decrypt_key`) and `quantize=True` are not ported yet and
+        raise."""
+        if decrypt_key is not None:
+            raise NotImplementedError(
+                "weights encrypted at rest need serving/encrypt.py, which "
+                "is not ported yet (ROADMAP Queue 1 item 7)")
+        if quantize:
+            _refuse_quantize()
+        from analytics_zoo_tpu_torch.models.common.zoo_model import (
+            _CONFIG,
+            _WEIGHTS,
+        )
+        from analytics_zoo_tpu_torch.device import resolve_device
+        with open(os.path.join(path, _CONFIG), "rb") as f:
+            meta = pickle.load(f)
+        if model_cls is None:
+            model_cls = find_zoo_model_class(meta["class"])
+        module = model_cls(**meta["config"], device=resolve_device(device))
+        state = torch.load(os.path.join(path, _WEIGHTS),
+                           map_location=module.device_, weights_only=True)
+        module.load_state_dict(state)
+        return self.load_module(module)
+
+    def load_estimator(self, estimator):
+        """Serve an Estimator's current module (trained or still
+        training) in eval mode, on its device."""
+        return self.load_module(estimator.engine.model)
 
     def predict(self, *inputs: np.ndarray):
         """Batched prediction; thread-safe.  Each input is a [n, ...]
@@ -106,3 +152,15 @@ class InferenceModel:
     @property
     def records_served(self) -> int:
         return self._n_predict
+
+
+def find_zoo_model_class(name: str):
+    """Resolve a saved ZooModel class name to its class in the port's
+    model namespaces."""
+    for mod in ("analytics_zoo_tpu_torch.models.recommendation",
+                "analytics_zoo_tpu_torch.models.bert"):
+        m = importlib.import_module(mod)
+        if hasattr(m, name):
+            return getattr(m, name)
+    raise ValueError(f"cannot resolve saved model class {name!r}; pass "
+                     "model_cls explicitly")

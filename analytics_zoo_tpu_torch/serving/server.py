@@ -1,0 +1,609 @@
+"""Serving HTTP front end with request batching (counterpart of
+analytics_zoo_tpu/serving/server.py; reference: Cluster Serving's
+`FlinkInference.map` dynamic batching, `ClusterServing.scala:57-70`, with
+the akka-http front end).
+
+One process: a ThreadingHTTPServer accepts requests; a batcher thread
+drains the request queue, packs up to `max_batch_size` records into one
+batch (bounded by `batch_timeout_ms`, or by the adaptive deadline),
+runs the `InferenceModel` and fans the results back out.  The HTTP
+contract is the JAX package's: the same routes, JSON keys, status codes
+and headers, so either package's client works against either server.
+
+Endpoints:
+  POST /predict  — {"inputs": [enc, ...]} -> {"outputs": [...]} (enc the
+                   codec's base64 ndarray), or an Arrow IPC body
+                   (Content-Type `codec.ARROW_CONTENT_TYPE`) answered in
+                   Arrow; one record (joins the dynamic batch) or a
+                   pre-batched array.  A failed batch is a 500 with the
+                   error.
+  POST /enqueue  — {"uri": id, "inputs": [...]}; the result is fetched
+  GET  /result/<uri> — {"status": "pending" | "ok" | "error" |
+                   "expired", ...}: results live `result_ttl_s`, at most
+                   `max_results` of them (oldest evicted first), and an
+                   evicted uri answers "expired".
+  POST /generate — streamed generation (needs a `generation_engine`):
+                   {"tokens", "max_new_tokens", "temperature", "top_k",
+                   "eos_id"} -> chunked application/x-ndjson, one
+                   {"token": id} line per sampled token, then {"done":
+                   true, "n_tokens", "finish_reason", "request_id"}.  The
+                   client's X-Request-Id (sanitized) or a new id is echoed
+                   on every response; 400 malformed, 404 no engine, 413
+                   can never fit, 503 shed (with Retry-After and
+                   "retry_after_s" from the engine's drain estimate).  A
+                   stream that dies mid-flight ends with an {"error"} line.
+  GET  /healthz  — liveness and records served
+  GET  /stats    — JSON snapshot: counters, batcher queue depth, the
+                   per-op timer summaries, the engine's lanes
+  GET  /metrics  — Prometheus text: this server's registry (the
+                   `serving_*` timers, counters and gauges) merged with
+                   the process registry
+
+X-Model and X-Tenant are echoed on every response.  The JAX server's
+worker pool, replica router, durable streams, model registry and tenant
+quotas, and its tracing routes (/spans, /goodput, /slo, /timeline,
+/dispatch, /blame, /debug/requests, /metrics/history) are not ported
+yet; those paths answer 404 as any unknown path does.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from analytics_zoo_tpu_torch.observability.registry import (
+    MetricsRegistry,
+    get_registry,
+    merged_prometheus_text,
+    now,
+)
+from analytics_zoo_tpu_torch.observability.request_log import (
+    new_request_id,
+    sanitize_request_id,
+)
+from analytics_zoo_tpu_torch.serving.codec import (
+    ARROW_CONTENT_TYPE,
+    decode_arrow_tensors,
+    decode_ndarray,
+    encode_arrow_tensors,
+    encode_ndarray,
+)
+from analytics_zoo_tpu_torch.serving.errors import QueueFull, RequestTooLarge
+from analytics_zoo_tpu_torch.serving.timer import Timer
+
+_log = logging.getLogger(__name__)
+
+
+class _Pending:
+    __slots__ = ("inputs", "event", "outputs", "error", "t_enqueue")
+
+    def __init__(self, inputs: Tuple[np.ndarray, ...]):
+        self.inputs = inputs
+        self.event = threading.Event()
+        self.outputs = None
+        self.error: Optional[str] = None
+        self.t_enqueue = now()
+
+
+class ServingServer:
+    """start() serves until stop(); thread-safe for concurrent clients.
+
+    `model` (an `InferenceModel`) serves /predict and /enqueue;
+    `generation_engine` (a `GenerationEngine`) serves /generate, its loop
+    started and stopped with the server.  The batcher waits for
+    stragglers min(`batch_timeout_ms`, `adaptive_k` x the EMA of the
+    request gaps) when `adaptive_batching`, the full window otherwise,
+    and never when the batch is already full."""
+
+    def __init__(self, model=None, host: str = "127.0.0.1", port: int = 0,
+                 max_batch_size: int = 32, batch_timeout_ms: float = 5.0,
+                 result_ttl_s: float = 600.0, max_results: int = 10_000,
+                 generation_engine=None, adaptive_batching: bool = True,
+                 adaptive_k: float = 2.0):
+        if model is None and generation_engine is None:
+            raise ValueError("need a model or a generation_engine")
+        self.model = model
+        self.generation_engine = generation_engine
+        self._predict = model.predict if model is not None else None
+        self.max_batch_size = max_batch_size
+        self.batch_timeout_s = batch_timeout_ms / 1e3
+        self.adaptive_batching = bool(adaptive_batching)
+        self.adaptive_k = float(adaptive_k)
+        self._ema_gap_s = self.batch_timeout_s
+        self._queue: "queue.Queue[_Pending]" = queue.Queue()
+        # async results are evicted after result_ttl_s or when the store
+        # exceeds max_results (oldest first); evicted uris leave a
+        # bounded tombstone so pollers see "expired", not "pending"
+        self._results: Dict[str, Tuple[float, Any]] = {}
+        self._expired: Dict[str, float] = {}
+        self._result_ttl_s = result_ttl_s
+        self._max_results = max_results
+        self._results_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._batches_run = 0
+        # batches may complete on concurrent executor threads
+        self._stats_lock = threading.Lock()
+        # per-server registry, merged with the process registry at
+        # /metrics
+        self.registry = MetricsRegistry()
+        self.timer = Timer(registry=self.registry, prefix="serving_")
+        self._c_requests = self.registry.counter(
+            "serving_requests_total", help="HTTP requests handled")
+        self._c_http_errors = self.registry.counter(
+            "serving_http_errors_total",
+            help="HTTP responses with status >= 400")
+        self._c_records = self.registry.counter(
+            "serving_records_served_total",
+            help="records returned by successful batches")
+        self._c_batches = self.registry.counter(
+            "serving_batches_total", help="device batches run")
+        self.registry.gauge(
+            "serving_queue_depth", fn=self._queue.qsize,
+            help="requests waiting in the dynamic batcher queue")
+        self.registry.gauge(
+            "serving_replicas", fn=lambda: 1,
+            help="model replicas behind this server")
+        self._httpd = None
+        self._requested_addr = (host, port)
+        self.host, self.port = host, port
+        self._threads: List[threading.Thread] = []
+
+    # ------------------------------------------------------------------
+    # the HTTP handler
+    # ------------------------------------------------------------------
+
+    def _handler_class(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            # HTTP/1.1 so /generate can stream Transfer-Encoding:
+            # chunked; every other response sends Content-Length
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                _log.debug("%s %s", self.client_address[0], fmt % args)
+
+            def _json(self, code: int, payload: Dict[str, Any],
+                      request_id: Optional[str] = None,
+                      headers: Optional[Dict[str, str]] = None):
+                self._body(code, json.dumps(payload).encode(),
+                           "application/json", request_id=request_id,
+                           headers=headers)
+
+            def _body(self, code: int, body: bytes, ctype: str,
+                      request_id: Optional[str] = None,
+                      headers: Optional[Dict[str, str]] = None):
+                server._c_requests.inc()
+                if code >= 400:
+                    server._c_http_errors.inc()
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                if request_id is not None:
+                    self.send_header("X-Request-Id", request_id)
+                for k, v in server._echo(self.headers, headers).items():
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = self.path.partition("?")[0]
+                if path == "/healthz":
+                    self._json(200, {"status": "ok",
+                                     "records_served": server.records_served,
+                                     "replicas": 1,
+                                     "batches_run": server._batches_run})
+                elif path == "/metrics":
+                    text = merged_prometheus_text(server.registry,
+                                                  get_registry())
+                    self._body(200, text.encode(),
+                               "text/plain; version=0.0.4")
+                elif path == "/stats":
+                    self._json(200, server.stats())
+                elif self.path.startswith("/result/"):
+                    self._json(200, server._result(
+                        self.path[len("/result/"):]))
+                else:
+                    self._json(404, {"error": "not found"})
+
+            def _chunk(self, text: str):
+                data = text.encode()
+                self.wfile.write(f"{len(data):x}\r\n".encode() + data
+                                 + b"\r\n")
+                self.wfile.flush()
+
+            def _generate(self, body: bytes):
+                """Streamed generation: each sampled token goes out as
+                its own chunk as the engine emits it."""
+                eng = server.generation_engine
+                if eng is None:
+                    self._json(404, {"error": "no generation engine "
+                                     "behind this server"})
+                    return
+                rid = sanitize_request_id(self.headers.get("X-Request-Id")
+                                          or new_request_id())
+
+                def reject(code: int, msg: str,
+                           retry_after_s: Optional[float] = None):
+                    payload = {"error": msg, "request_id": rid}
+                    headers = None
+                    if code in (429, 503):
+                        # every shed carries a comeback hint, which the
+                        # client's RetryPolicy honours
+                        ra = retry_after_s if retry_after_s else 1.0
+                        payload["retry_after_s"] = round(ra, 3)
+                        headers = {"Retry-After": f"{ra:.3f}"}
+                    self._json(code, payload, request_id=rid,
+                               headers=headers)
+
+                try:
+                    req = json.loads(body)
+                    tokens = [int(t) for t in req["tokens"]]
+                except Exception as e:
+                    reject(400, f"bad request: {e}")
+                    return
+                try:
+                    stream = eng.submit(
+                        tokens,
+                        max_new_tokens=int(req.get("max_new_tokens", 32)),
+                        temperature=float(req.get("temperature", 0.0)),
+                        top_k=int(req.get("top_k", 0)),
+                        eos_id=(int(req["eos_id"])
+                                if req.get("eos_id") is not None else None),
+                        request_id=rid)
+                except RequestTooLarge as e:
+                    reject(413, str(e))
+                    return
+                except QueueFull as e:
+                    reject(503, str(e), retry_after_s=e.retry_after_s)
+                    return
+                except ValueError as e:
+                    reject(400, str(e))
+                    return
+                rid = stream.request_id or rid
+                server._c_requests.inc()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/x-ndjson")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.send_header("X-Request-Id", rid)
+                for k, v in server._echo(self.headers, None).items():
+                    self.send_header(k, v)
+                self.end_headers()
+                n = 0
+                try:
+                    for tok in stream:
+                        self._chunk(json.dumps({"token": tok}) + "\n")
+                        n += 1
+                    self._chunk(json.dumps(
+                        {"done": True, "n_tokens": n,
+                         "finish_reason": stream.finish_reason,
+                         "request_id": rid}) + "\n")
+                except Exception as e:
+                    # the stream died mid-flight (engine stopped, stream
+                    # timeout): end the chunked body with an error line,
+                    # not a torn connection
+                    _log.warning("generate %s failed: %s: %s", rid,
+                                 type(e).__name__, e)
+                    try:
+                        self._chunk(json.dumps(
+                            {"error": f"{type(e).__name__}: {e}",
+                             "request_id": rid}) + "\n")
+                    except OSError:
+                        return
+                self.wfile.write(b"0\r\n\r\n")
+
+            def do_POST(self):
+                length = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(length)
+                if self.path == "/generate":
+                    self._generate(body)
+                    return
+                if server._predict is None:
+                    self._json(400, {"error": "this server has no "
+                                     "predict model (generation-only)"})
+                    return
+                arrow = (self.headers.get("Content-Type", "")
+                         .startswith(ARROW_CONTENT_TYPE))
+                if arrow:
+                    req = {}
+                    try:
+                        inputs = tuple(decode_arrow_tensors(body))
+                        if not inputs:
+                            raise ValueError("no inputs")
+                    except Exception as e:
+                        self._json(400, {"error": f"bad arrow: {e}"})
+                        return
+                else:
+                    try:
+                        req = json.loads(body)
+                    except Exception as e:
+                        self._json(400, {"error": f"bad json: {e}"})
+                        return
+                    try:
+                        inputs = tuple(decode_ndarray(x)
+                                       for x in req.get("inputs", []))
+                        if not inputs:
+                            raise ValueError("no inputs")
+                    except Exception as e:
+                        self._json(400, {"error": str(e)})
+                        return
+                if self.path == "/predict":
+                    out, err = server._submit(inputs)
+                    if err:
+                        self._json(500, {"error": err})
+                    elif arrow:
+                        self._body(200, encode_arrow_tensors(list(out)),
+                                   ARROW_CONTENT_TYPE)
+                    else:
+                        self._json(200, {"outputs": [
+                            encode_ndarray(o) for o in out]})
+                    return
+                if self.path == "/enqueue":
+                    uri = req.get("uri") or f"req-{time.monotonic_ns()}"
+                    with server._results_lock:
+                        # a re-used uri must not inherit a stale tombstone
+                        # or a previous request's unfetched result
+                        server._expired.pop(uri, None)
+                        server._results.pop(uri, None)
+                    threading.Thread(target=server._submit_async,
+                                     args=(uri, inputs), daemon=True).start()
+                    self._json(200, {"status": "queued", "uri": uri})
+                    return
+                self._json(404, {"error": "not found"})
+
+        return Handler
+
+    @staticmethod
+    def _echo(request_headers, headers: Optional[Dict[str, str]]
+              ) -> Dict[str, str]:
+        """`headers` plus the client's X-Model / X-Tenant, echoed back on
+        every response unless the handler set them itself."""
+        out = dict(headers or {})
+        for h in ("X-Model", "X-Tenant"):
+            v = request_headers.get(h)
+            if v and h not in out:
+                out[h] = v
+        return out
+
+    # ------------------------------------------------------------------
+    # the batcher
+    # ------------------------------------------------------------------
+
+    def _submit(self, inputs: Tuple[np.ndarray, ...]):
+        """A single-record (or pre-batched) request joins the dynamic
+        batch; blocks until its results are ready."""
+        p = _Pending(inputs)
+        self._queue.put(p)
+        p.event.wait()
+        return p.outputs, p.error
+
+    def _submit_async(self, uri: str, inputs):
+        out, err = self._submit(inputs)
+        payload = ({"status": "error", "error": err} if err else
+                   {"status": "ok",
+                    "outputs": [encode_ndarray(o) for o in out]})
+        t = time.monotonic()
+        with self._results_lock:
+            for k in [k for k, (t0, _) in self._results.items()
+                      if t - t0 > self._result_ttl_s]:
+                del self._results[k]
+                self._expired[k] = t
+            while len(self._results) >= self._max_results:
+                # dicts iterate in insertion order: evict the oldest
+                k = next(iter(self._results))
+                del self._results[k]
+                self._expired[k] = t
+            while len(self._expired) > self._max_results:
+                del self._expired[next(iter(self._expired))]
+            self._expired.pop(uri, None)
+            self._results[uri] = (t, payload)
+
+    def _result(self, uri: str) -> Dict[str, Any]:
+        """GET /result/<uri>: the result (handed out once), "expired" for
+        an evicted uri, else "pending"."""
+        with self._results_lock:
+            if uri in self._results:
+                return self._results.pop(uri)[1]
+            if uri in self._expired:
+                return {"status": "expired"}
+        return {"status": "pending"}
+
+    @property
+    def records_served(self) -> int:
+        return self.model.records_served if self.model is not None else 0
+
+    def _batcher(self):
+        """Drain the queue into batches.  Batches run concurrently, up
+        to the model's `supported_concurrent_num` on an executor, with a
+        semaphore of twice that bounding the batches in flight (so the
+        executor's queue cannot grow without bound under overload)."""
+        executor = gate = None
+        n_conc = getattr(self.model, "supported_concurrent_num", 1)
+        if n_conc > 1:
+            executor = ThreadPoolExecutor(max_workers=n_conc)
+            gate = threading.Semaphore(2 * n_conc)
+        # adaptive deadline state: EMA of the gaps between the requests'
+        # enqueue times, seeded at the full window
+        last_enq = None
+
+        def observe(p: _Pending):
+            nonlocal last_enq
+            if last_enq is not None:
+                gap = max(p.t_enqueue - last_enq, 0.0)
+                self._ema_gap_s += 0.2 * (gap - self._ema_gap_s)
+            last_enq = p.t_enqueue
+
+        try:
+            while not self._stop.is_set():
+                try:
+                    first = self._queue.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                batch = [first]
+                observe(first)
+                # flush on full first: records already waiting never pay
+                # a straggler window
+                while len(batch) < self.max_batch_size:
+                    try:
+                        p = self._queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    batch.append(p)
+                    observe(p)
+                window = self.batch_timeout_s
+                if self.adaptive_batching:
+                    window = min(window, self.adaptive_k * self._ema_gap_s)
+                deadline = time.monotonic() + window
+                while len(batch) < self.max_batch_size:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        p = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    batch.append(p)
+                    observe(p)
+                if executor is None:
+                    self._run_batch(batch)
+                    continue
+                # polled, so stop() still ends this thread when every
+                # slot is held
+                while not self._stop.is_set():
+                    if gate.acquire(timeout=0.05):
+                        fut = executor.submit(self._run_batch, batch)
+                        fut.add_done_callback(lambda _f: gate.release())
+                        break
+                else:
+                    for p in batch:
+                        p.error = "server stopped"
+                        p.event.set()
+        finally:
+            if executor is not None:
+                executor.shutdown(wait=False)
+
+    def _run_batch(self, batch: List[_Pending]):
+        try:
+            sizes = [len(p.inputs[0]) for p in batch]
+            # timings are recorded only on success: the mixed-shape
+            # fallback re-runs per request
+            t0 = now()
+            stacked = tuple(np.concatenate([p.inputs[i] for p in batch])
+                            for i in range(len(batch[0].inputs)))
+            t1 = now()
+            outs = self._predict(*stacked)
+            t2 = now()
+            self.timer.record(
+                "queue_wait",
+                sum(t0 - p.t_enqueue for p in batch) / len(batch),
+                sum(sizes))
+            self.timer.record("batch_assemble", t1 - t0, sum(sizes))
+            self.timer.record("predict", t2 - t1, sum(sizes))
+            self._c_records.inc(sum(sizes))
+            self._c_batches.inc()
+            with self._stats_lock:
+                self._batches_run += 1
+            if not isinstance(outs, tuple):
+                outs = (outs,)
+            off = 0
+            for p, n in zip(batch, sizes):
+                p.outputs = [o[off:off + n] for o in outs]
+                off += n
+                p.event.set()
+        except Exception as e:
+            # mixed shapes in one batch: fall back to per request
+            if len(batch) > 1:
+                for p in batch:
+                    self._run_batch([p])
+                return
+            batch[0].error = f"{type(e).__name__}: {e}"
+            _log.warning("batch of %d records failed: %s",
+                         len(batch[0].inputs[0]), batch[0].error)
+            batch[0].event.set()
+
+    def stats(self) -> Dict[str, Any]:
+        """The GET /stats payload: counters, the batcher's queue depth
+        and window, the per-op timer summaries and the engine's lanes."""
+        out: Dict[str, Any] = {
+            "records_served": self.records_served,
+            "batches_run": self._batches_run,
+            "queue_depth": self._queue.qsize(),
+            "replicas": 1,
+            "timers": self.timer.summary(),
+            "batcher": {
+                "adaptive": self.adaptive_batching,
+                "window_s": self.batch_timeout_s,
+                "ema_interarrival_s": round(self._ema_gap_s, 6),
+            },
+        }
+        eng = self.generation_engine
+        if eng is not None:
+            out["generation"] = {
+                "active_slots": len(eng.scheduler.running()),
+                "max_slots": eng.max_slots,
+                "queue_depth": len(eng.scheduler.waiting),
+                "cache_occupancy": eng.cache.allocator.occupancy(),
+                "preemptions": eng.scheduler.n_preemptions,
+                "tokens_total": eng.n_tokens,
+            }
+        return out
+
+    # ------------------------------------------------------------------
+
+    def start(self, block: bool = False):
+        """Start the batcher, the engine's loop and the HTTP listener;
+        with `block`, serve until stop()."""
+        self._stop.clear()
+        t1 = threading.Thread(target=self._batcher, daemon=True,
+                              name="serving-batcher")
+        t1.start()
+        self._threads = [t1]
+        if self.generation_engine is not None:
+            self.generation_engine.ensure_started()
+        if self._httpd is None:
+            self._httpd = _HTTPServer(self._requested_addr,
+                                      self._handler_class())
+            self.host, self.port = self._httpd.server_address[:2]
+        t2 = threading.Thread(target=self._httpd.serve_forever, daemon=True,
+                              name="serving-http")
+        t2.start()
+        self._threads.append(t2)
+        if block:
+            t2.join()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self.generation_engine is not None:
+            self.generation_engine.stop()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        # wake requests still queued behind the stopped batcher: their
+        # handler threads wait on event.wait() with no timeout
+        try:
+            while True:
+                p = self._queue.get_nowait()
+                p.error = "server stopped"
+                p.event.set()
+        except queue.Empty:
+            pass
+        for t in self._threads:
+            t.join(timeout=5)
+        self._threads = []
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # the default backlog of 5 would refuse a burst of concurrent
+    # clients, the point of a batching server
+    request_queue_size = 128
+    daemon_threads = True

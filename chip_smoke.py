@@ -17,8 +17,10 @@ fine-tuning through `Estimator.fit` (with remat, a learning-rate
 schedule, checkpoints, a failure and its retry, and validation data in
 phase 12), and recommendation training (NeuralCF, WideAndDeep,
 SessionRecommender) through `Estimator.fit` from the DEVICE data
-store, and Orca's data path (XShards, the DISK tier, pinned
-prefetch, the new optimizers and losses) in phase 13; each path's
+store, Orca's data path (XShards, the DISK tier, pinned
+prefetch, the new optimizers and losses) in phase 13, and the serving
+front end (ServingServer over HTTP: NCF, BERT-base and GPT-2 small) in
+phase 15; each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
 versions or the port on the CPU.
@@ -152,10 +154,40 @@ Phases (each one failing exits non-zero, with no result line):
      phase 11's gate (a) at their registry rates, a non-finite step
      leaving weights and optimizer state bitwise with no host read, and
      one-logit NCF fits with binary_crossentropy and mse whose loss
-     falls; no kernel launched in (a)-(c), (e); (d) phase 8's BERT-base
-     recipe fed XShards of 100/70/90/64/60 rows: launches per step K1
-     25, K1b 25, K2 12 (sm90), K3 12, K4a 12, K4b 12, losses bitwise a
-     dict-input fit's, step p50 beside phase 8's;
+     falls; (f) a BatchNorm model's non-finite step on the DRAM and the
+     DEVICE store leaving its running stats finite and its count
+     unmoved, and the buffer snapshot's cost a step on ResNet-50's 53
+     BatchNorm layers; no kernel launched in (a)-(c), (e), (f); (d)
+     phase 8's BERT-base recipe fed XShards of 100/70/90/64/60 rows:
+     launches per step K1 25, K1b 25, K2 12 (sm90), K3 12, K4a 12, K4b
+     12, losses bitwise a dict-input fit's, step p50 beside phase 8's;
+  15. the serving front end (after phase 13, before phase 10's profiles;
+     results under "serving"): (a) bench.py's serving cell: NeuralCF at
+     its widths (f32) behind InferenceModel(4, 512) and
+     ServingServer(max_batch_size=64, batch_timeout_ms=2), 64
+     per-record clients (2 s warm-up, 6 s timed), then 4 pre-batched
+     clients x 512 records for 3 s: records/s, p50 / p99, queue wait
+     and predict p50 read through GET /metrics (bench.py's 40 ms
+     queue-wait check reported), the card's busy share over a profiled
+     second; no client error, 64 served rows within 1e-5 of a direct
+     predict, no kernel launched; (b) phase 7's BERT-base (bf16, flash)
+     over /predict: 16 per-record clients at t = 128, then 4
+     pre-batched clients of 32 x 512: sequences/s and p50 / p99 beside
+     phase 7's, launches exact (K1 25, K2 12 on its sm90 body, K3 12 a
+     forward, forwards = the /stats batches), logits within 0.05 of a
+     direct predict; (c) phase 6's f32 engine behind /generate: 12
+     greedy requests (prompts 32-512, 64 new tokens) through the port's
+     InputQueue, each stream equal to engine.generate of its prompt, the
+     done lines and X-Request-Id right, K1 25 a forward and K6 12 a
+     decode step (split body), logits within 1e-3 of the plain
+     recompute, tokens/s over HTTP beside phase 6's; (d) 400 on a
+     malformed body, 413 past max_context, a serving.admission refusal
+     answering 503 with the Retry-After the decode steps give, then the
+     stream through a RetryPolicy, and a poisoned lane among 4 evicted
+     alone (its neighbours' streams and a fifth request unchanged); (e)
+     the NeuralCF of (a) saved and served through
+     start_serving(ServingConfig(modelPath=...)) within 1e-5 of
+     ZooModel.predict, its port closed after stop_serving;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -2630,15 +2662,96 @@ def phase_data_path(torch, seed: int, card: str, rec: dict, train: dict):
               f"XShards, 3 epochs of {LOSS_FIT_STEPS} steps: epoch losses "
               f"{epochs}", flush=True)
         del model, est
+    out["f"] = bn_skip_on_card(torch, seed, card)
     launches = kernels.launch_counts()
     check(not any(launches.values()),
-          f"phase 13 (a)-(c), (e) launched a kernel: {launches}")
+          f"phase 13 (a)-(c), (e), (f) launched a kernel: {launches}")
     out["launches_recommendation"] = launches
 
     # (d) BERT-base fine-tuned from XShards of uneven shards
     out["d"] = phase_data_bert(torch, seed, card, train)
     (OrcaContext.train_data_store, OrcaContext.host_input_prefetch,
      OrcaContext.device_cache_bytes) = prev
+    return out
+
+
+#: ResNet-50's BatchNorm widths (stem, then each stage's bottlenecks
+#: and its downsample): 53 layers, 159 buffers
+RESNET50_BN = ([64] + [64, 64, 256] * 3 + [256] + [128, 128, 512] * 4
+               + [512] + [256, 256, 1024] * 6 + [1024] + [512, 512, 2048] * 3
+               + [2048])
+
+
+def bn_skip_on_card(torch, seed: int, card: str) -> dict:
+    """Phase 13 (f): a BatchNorm model's non-finite step on the card
+    leaves its running stats and count as the finite steps left them
+    (DRAM and DEVICE stores), and what the engine's buffer snapshot and
+    restore cost a step on ResNet-50's 53 BatchNorm layers."""
+    from torch import nn
+
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    from analytics_zoo_tpu_torch.orca.learn.spmd import (
+        restore_buffers,
+        snapshot_buffers,
+    )
+    rng = np.random.default_rng(seed + 60)
+    n, batch = 1024, 256
+    x = rng.normal(size=(n, 64)).astype(np.float32)
+    x[2 * batch:3 * batch] = np.nan           # the third step's rows
+    y = rng.integers(0, 10, n).astype(np.int32)
+    out = {}
+    prev = OrcaContext.train_data_store
+    try:
+        for store in ("DRAM", "DEVICE"):
+            OrcaContext.train_data_store = store
+            torch.manual_seed(seed)
+            m = nn.Sequential(nn.Linear(64, 256), nn.BatchNorm1d(256),
+                              nn.ReLU(), nn.Linear(256, 10)).cuda()
+            est = Estimator.from_torch(
+                m, loss="sparse_categorical_crossentropy", optimizer="sgd",
+                learning_rate=0.1)
+            est.fit({"x": x, "y": y}, epochs=1, batch_size=batch,
+                    shuffle=False)
+            bn = m[1]
+            nan_steps = est.train_summary[-1].get("nan_steps", 0)
+            finite = bool(torch.isfinite(bn.running_mean).all()
+                          and torch.isfinite(bn.running_var).all())
+            # four steps, the third skipped: the count is 3
+            check(nan_steps == 1 and int(bn.num_batches_tracked) == 3
+                  and finite,
+                  f"phase 13 (f) {store}: {nan_steps} skipped steps, count "
+                  f"{int(bn.num_batches_tracked)}, running stats finite "
+                  f"{finite}")
+            pred = est.predict({"x": x[:batch]}, batch_size=batch)
+            check(bool(np.isfinite(pred).all()),
+                  f"phase 13 (f) {store}: non-finite predictions after the "
+                  "skipped step")
+            out[store] = dict(nan_steps=nan_steps,
+                              num_batches_tracked=int(
+                                  bn.num_batches_tracked))
+            del m, est
+    finally:
+        OrcaContext.train_data_store = prev
+    # the snapshot and restore of ResNet-50's BatchNorm buffers, on a
+    # skipped step (where keeps the old values)
+    bns = nn.Sequential(*(nn.BatchNorm2d(c) for c in RESNET50_BN)).cuda()
+    skipped = torch.zeros((), dtype=torch.bool, device="cuda")
+    n_buf = sum(1 for _ in bns.buffers())
+
+    def snap_restore():
+        restore_buffers(bns, snapshot_buffers(bns), skipped)
+
+    host_ms = cuda_ms(snap_restore, iters=100, warm=10)
+    dev_ms, _, _ = device_ms(snap_restore, iters=20)
+    out["snapshot_resnet50_bn"] = dict(layers=len(RESNET50_BN),
+                                       buffers=n_buf, call_ms=host_ms,
+                                       device_ms=dev_ms)
+    print(f"data path [{card}] (f) a BatchNorm model's non-finite step left "
+          f"its running stats and count (DRAM and DEVICE stores); the "
+          f"buffer snapshot and restore on ResNet-50's {len(RESNET50_BN)} "
+          f"BatchNorm layers ({n_buf} buffers): {host_ms:.4f} ms a step "
+          f"between CUDA events, {dev_ms} ms of device work", flush=True)
     return out
 
 
@@ -4061,6 +4174,655 @@ def kernel_entry(name, route, source, replaces, launches, shapes,
     return entry
 
 
+# ----------------------------------------------------------------------
+# phase 15: the serving front end (ServingServer over HTTP)
+# ----------------------------------------------------------------------
+
+#: bench.py's serving cell (bench.py:731-856): per-record clients,
+#: their warm-up and timed seconds, then pre-batched clients x records
+#: for their seconds; the batcher's max batch and window
+SRV_CLIENTS, SRV_WARM_S, SRV_TIMED_S = 64, 2.0, 6.0
+SRV_BATCHED_CLIENTS, SRV_BATCHED_ROWS, SRV_BATCHED_S = 4, 512, 3.0
+SRV_MAX_BATCH, SRV_WINDOW_MS = 64, 2.0
+#: bench.py's queue-wait check (reported, not gated here)
+SRV_QUEUE_WAIT_P50_MS = 40.0
+#: (b): per-record clients x requests each at t = 128, then pre-batched
+#: clients x requests of 32 x 512
+SRV_BERT_CLIENTS, SRV_BERT_REQS = 16, 8
+SRV_BERT_BATCHED, SRV_BERT_BATCHED_REQS = 4, 3
+#: (c): phase 6's requests over /generate
+SRV_GEN_REQUESTS, SRV_GEN_NEW = 12, 64
+SRV_SEED = 15
+HTTP_TIMEOUT_S = 60.0
+
+
+def http_call(srv, method: str, path: str, body=None, headers=None):
+    """(status, headers, body bytes) of one request to `srv`."""
+    import urllib.error
+    import urllib.request
+    data = body if isinstance(body, (bytes, type(None))) \
+        else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://{srv.host}:{srv.port}{path}", data=data, method=method,
+        headers=dict({"Content-Type": "application/json"},
+                     **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def served_metrics(srv) -> dict:
+    """queue wait and predict p50 (ms) and the batches, read back
+    through GET /metrics with the port's Prometheus parser."""
+    from analytics_zoo_tpu_torch.observability import parse_prometheus_text
+    code, _, body = http_call(srv, "GET", "/metrics")
+    check(code == 200, f"GET /metrics answered {code}")
+    prom = parse_prometheus_text(body.decode())
+    q = {op: prom[f"serving_{op}_seconds"]["quantiles"][0.5] * 1e3
+         for op in ("queue_wait", "predict", "batch_assemble")}
+    return dict(queue_wait_ms_p50=q["queue_wait"],
+                predict_ms_p50=q["predict"],
+                batch_assemble_ms_p50=q["batch_assemble"],
+                batches_total=prom["serving_batches_total"]["value"],
+                records_total=prom["serving_records_served_total"]["value"])
+
+
+def busy_share(torch, fn) -> dict:
+    """The card's busy share while `fn()` runs: device time of every
+    kernel, copy and fill in a profiled window over host wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sum(e.time_range.elapsed_us() / 1e6 for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation)
+    return dict(profiled_wall_s=wall, device_s=dev,
+                device_busy_share=dev / wall if wall else None)
+
+
+def predict_alone_ms(torch, im, inputs, iters: int = 30) -> float:
+    """p50 host wall (ms) of `im.predict(*inputs)` called from this one
+    thread, nothing else running."""
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        im.predict(*inputs)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def client_burst(fn, n_threads: int, seconds: float, warm_s: float = 0.0):
+    """Run `fn(k, rng)` in a loop on `n_threads` threads for warm_s +
+    seconds; returns (latencies in s of the calls that started after the
+    warm-up and ended inside the window, errors, the window's s)."""
+    import threading
+    lat, errors = [], []
+    lock = threading.Lock()
+    t_warm = time.monotonic() + warm_s
+    t_end = t_warm + seconds
+
+    def run(k):
+        rng = np.random.default_rng(SRV_SEED + k)
+        mine = []
+        try:
+            while True:
+                t_now = time.monotonic()
+                if t_now >= t_end:
+                    break
+                t0 = time.perf_counter()
+                fn(k, rng)
+                if t_now >= t_warm and time.monotonic() <= t_end:
+                    mine.append(time.perf_counter() - t0)
+        except Exception as e:
+            with lock:
+                errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            with lock:
+                lat.extend(mine)
+
+    threads = [threading.Thread(target=run, args=(k,), daemon=True)
+               for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=warm_s + seconds + HTTP_TIMEOUT_S)
+    return lat, errors, seconds
+
+
+def pct_ms(lat, q: float) -> float:
+    return float(np.percentile(np.asarray(lat) * 1e3, q))
+
+
+def serve_ncf(torch, seed: int, card: str, out: dict):
+    """(a): bench.py's serving cell on the port: NCF behind
+    InferenceModel and ServingServer, per-record then pre-batched
+    clients; no kernel on this path."""
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.serving import (
+        InferenceModel,
+        InputQueue,
+        ServingServer,
+    )
+    torch.manual_seed(seed)
+    model = NeuralCF(**NCF_CELL, compute_dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(0)
+    u = rng.integers(1, NCF_CELL["user_count"] + 1, 4096).astype(np.int32)
+    i = rng.integers(1, NCF_CELL["item_count"] + 1, 4096).astype(np.int32)
+    im = InferenceModel(supported_concurrent_num=4, max_batch_size=512
+                        ).load_module(model)
+    for b in (1, 2, 4, 8, 16, 32, 64, 512):   # every bucket the run hits
+        im.predict(u[:b], i[:b])
+    # the same predict alone, from one thread: what the served predict
+    # costs without the clients' and handlers' threads around it
+    alone = predict_alone_ms(torch, im, (u[:4], i[:4]))
+    srv = ServingServer(im, max_batch_size=SRV_MAX_BATCH,
+                        batch_timeout_ms=SRV_WINDOW_MS).start()
+    try:
+        kernels.reset_launch_counts()
+
+        def one(k, r):
+            q = queues[k]
+            j = int(r.integers(0, len(u)))
+            q.predict(u[j], i[j])
+
+        queues = [InputQueue(srv.host, srv.port)
+                  for _ in range(SRV_CLIENTS)]
+        lat, errors, secs = client_burst(one, SRV_CLIENTS, SRV_TIMED_S,
+                                         SRV_WARM_S)
+        check(not errors, f"phase 15 (a): {len(errors)} client errors, "
+              f"first {errors[:1]}")
+        check(lat, "phase 15 (a): no request completed in the window")
+        met = served_metrics(srv)
+        stats = json.loads(http_call(srv, "GET", "/stats")[2])
+
+        def batched(k, r):
+            b_queues[k].predict(u[:SRV_BATCHED_ROWS], i[:SRV_BATCHED_ROWS],
+                                batched=True)
+
+        b_queues = [InputQueue(srv.host, srv.port)
+                    for _ in range(SRV_BATCHED_CLIENTS)]
+        b_queues[0].predict(u[:SRV_BATCHED_ROWS], i[:SRV_BATCHED_ROWS],
+                            batched=True)
+        b_lat, b_err, b_secs = client_burst(batched, SRV_BATCHED_CLIENTS,
+                                            SRV_BATCHED_S)
+        check(not b_err, f"phase 15 (a): {len(b_err)} pre-batched client "
+              f"errors, first {b_err[:1]}")
+        busy = busy_share(torch, lambda: client_burst(
+            one, SRV_CLIENTS, 1.0))
+        # 64 rows served one record a request, against one direct
+        # predict of the same rows
+        import threading
+        got = [None] * SRV_MAX_BATCH
+
+        def fetch(j):
+            got[j] = InputQueue(srv.host, srv.port).predict(u[j], i[j])
+        threads = [threading.Thread(target=fetch, args=(j,))
+                   for j in range(SRV_MAX_BATCH)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+        launched = kernels.launch_counts()
+        want = im.predict(u[:SRV_MAX_BATCH], i[:SRV_MAX_BATCH])
+        err = float(np.abs(np.stack(got) - want).max())
+        check(err <= 1e-5, f"phase 15 (a): served rows differ from a "
+              f"direct predict by {err} > 1e-5")
+        check(not any(launched.values()),
+              f"phase 15 (a): kernels launched on the NCF path: {launched}")
+    finally:
+        srv.stop()
+    res = dict(
+        clients=SRV_CLIENTS, records_per_s=len(lat) / secs,
+        p50_ms=pct_ms(lat, 50), p99_ms=pct_ms(lat, 99),
+        batched_clients=SRV_BATCHED_CLIENTS,
+        batched_records_per_s=len(b_lat) * SRV_BATCHED_ROWS / b_secs,
+        batched_p50_ms=pct_ms(b_lat, 50) if b_lat else None,
+        client_errors=len(errors) + len(b_err), max_abs_err=err,
+        launches=launched, batches_run=stats["batches_run"],
+        mean_records_per_batch=(stats["timers"]["predict"]["records"]
+                                / stats["timers"]["predict"]["calls"]),
+        queue_wait_p50_within_bench_check=(
+            met["queue_wait_ms_p50"] <= SRV_QUEUE_WAIT_P50_MS), **met,
+        predict_alone_ms_p50_4_rows=alone, **busy)
+    out["a"] = res
+    print(f"phase 15 (a) [{card}] NCF served over HTTP: "
+          f"{res['records_per_s']:.1f} records/s from {SRV_CLIENTS} "
+          f"per-record clients, p50 {res['p50_ms']:.2f} ms, p99 "
+          f"{res['p99_ms']:.2f} ms; {res['batched_records_per_s']:.1f} "
+          f"records/s pre-batched ({SRV_BATCHED_CLIENTS} x "
+          f"{SRV_BATCHED_ROWS}); queue wait p50 "
+          f"{res['queue_wait_ms_p50']:.3f} ms (bench.py's check <= "
+          f"{SRV_QUEUE_WAIT_P50_MS} ms: "
+          f"{res['queue_wait_p50_within_bench_check']}), predict p50 "
+          f"{res['predict_ms_p50']:.3f} ms (alone, 4 rows: {alone:.3f} ms), "
+          f"{res['mean_records_per_batch']:.1f} records a batch; card busy "
+          f"{res['device_busy_share']:.3f} of a profiled second; max abs "
+          f"err {err:.3e}; launches {launched}",
+          flush=True)
+    return model
+
+
+def serve_bert_http(torch, seed: int, card: str, model, phase7: dict,
+                    out: dict):
+    """(b): phase 7's BERT-base (bf16, flash) over /predict: per-record
+    clients at t = 128, then pre-batched 32 x 512; launches exact per
+    forward, every K2 launch on its sm90 body, the served logits against
+    a direct predict of the same rows."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.serving import (
+        InferenceModel,
+        InputQueue,
+        ServingServer,
+    )
+    import threading
+    vocab = model.bert.token_embed.num_embeddings
+    n_blk = len(model.bert.blocks)
+    im = InferenceModel(supported_concurrent_num=4, max_batch_size=32
+                        ).load_module(model)
+    rng = np.random.default_rng(seed + 40)
+    # per client: (inputs, sequences) of each request; a per-record
+    # request is one sequence without its batch dim
+    per_record = [[tuple(a[0] for a in bert_request(rng, 1, 128, vocab)[0])
+                   for _ in range(SRV_BERT_REQS)]
+                  for _ in range(SRV_BERT_CLIENTS)]
+    blocks = [bert_request(rng, 32, 512, vocab)[0]
+              for _ in range(SRV_BERT_BATCHED)]
+    pre_batched = [[blk] * SRV_BERT_BATCHED_REQS for blk in blocks]
+    res, results = {}, {}
+    # a 2-row forward at t = 128 (the per-record batches' size) and a
+    # 32 x 512 one, from this one thread
+    res["predict_alone_ms_p50"] = {
+        "2x128": predict_alone_ms(torch, im, tuple(
+            np.stack([a, a]) for a in per_record[0][0])),
+        "32x512": predict_alone_ms(torch, im, blocks[0], iters=10)}
+    for label, max_batch, plans, batched in (
+            ("per_record_t128", 32, per_record, False),
+            ("pre_batched_32x512", 1, pre_batched, True)):
+        # a pre-batched request runs alone in its batch: one forward
+        srv = ServingServer(im, max_batch_size=max_batch,
+                            batch_timeout_ms=SRV_WINDOW_MS).start()
+        lat, errors, served = [], [], []
+        lock = threading.Lock()
+
+        def run(plan, keep=True):
+            q = InputQueue(srv.host, srv.port)
+            try:
+                for inputs in plan:
+                    t0 = time.perf_counter()
+                    o = q.predict(*inputs, batched=batched)
+                    if keep:
+                        with lock:
+                            lat.append(time.perf_counter() - t0)
+                            served.append((inputs, o))
+            except Exception as e:
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}")
+
+        def traffic(plans, keep=True):
+            threads = [threading.Thread(target=run, args=(plan, keep))
+                       for plan in plans]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=10 * HTTP_TIMEOUT_S)
+
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            traffic(plans)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            check(not errors, f"phase 15 (b) {label}: client errors "
+                  f"{errors[:1]}")
+            bodies = k2_bodies(f"phase 15 (b) {label}", counts)
+            stats = json.loads(http_call(srv, "GET", "/stats")[2])
+            met = served_metrics(srv)
+            # the card's busy share over a repeat of each client's first
+            # request, profiled (after the counts and timings)
+            busy = busy_share(torch, lambda: traffic(
+                [plan[:1] for plan in plans], keep=False))
+        finally:
+            srv.stop()
+        forwards = stats["batches_run"]
+        want = dict({name: 0 for name in counts},
+                    layer_norm_fwd=(2 * n_blk + 1) * forwards,
+                    fused_dense_gelu=n_blk * forwards,
+                    flash_fwd=n_blk * forwards)
+        check(counts == want, f"phase 15 (b) {label}: launches {counts}, "
+              f"expected {want} for {forwards} batches")
+        # the served logits against a direct predict of the same rows
+        worst = 0.0
+        for inputs, o in served:
+            direct = im.predict(*(a if batched else a[None]
+                                  for a in inputs))
+            worst = max(worst, float(np.abs(
+                o - (direct if batched else direct[0])).max()))
+        check(worst <= 0.05, f"phase 15 (b) {label}: served logits differ "
+              f"from a direct predict by {worst} > 0.05")
+        n_seq = sum(len(inputs[0]) if batched else 1
+                    for inputs, _ in served)
+        res[label] = dict(
+            clients=len(plans), requests=len(lat), sequences=n_seq,
+            wall_s=wall, sequences_per_s=n_seq / wall,
+            p50_ms=pct_ms(lat, 50), p99_ms=pct_ms(lat, 99),
+            batches=forwards, launches=counts, k2_launches_by_body=bodies,
+            logits_max_abs_err_vs_direct=worst, **met, **busy)
+        results[label] = counts
+    res["phase7_in_process_sequences_per_s"] = phase7["sequences_per_s"]
+    res["phase7_in_process_predict_ms_p50"] = phase7["predict_ms_p50"]
+    out["b"] = res
+    for label in ("per_record_t128", "pre_batched_32x512"):
+        r = res[label]
+        print(f"phase 15 (b) [{card}] BERT-base {label} over HTTP: "
+              f"{r['clients']} clients, {r['sequences']} sequences in "
+              f"{r['wall_s']:.3f} s = {r['sequences_per_s']:.1f} "
+              f"sequences/s, p50 {r['p50_ms']:.2f} ms, p99 "
+              f"{r['p99_ms']:.2f} ms, {r['batches']} batches, queue "
+              f"wait p50 {r['queue_wait_ms_p50']:.3f} ms, predict p50 "
+              f"{r['predict_ms_p50']:.3f} ms, card busy "
+              f"{r['device_busy_share']:.3f} of a profiled repeat, launches "
+              f"{r['launches']}, logits vs direct "
+              f"{r['logits_max_abs_err_vs_direct']:.3e} (phase 7 in process: "
+              f"{phase7['sequences_per_s']:.1f} sequences/s over its mix)",
+              flush=True)
+    print(f"phase 15 (b) [{card}] BERT-base predict alone from one thread, "
+          f"p50 ms: {res['predict_alone_ms_p50']}", flush=True)
+    total = {name: sum(c[name] for c in results.values())
+             for name in results["per_record_t128"]}
+    return total
+
+
+def serve_generate_http(torch, seed: int, card: str, model, phase6: dict,
+                        out: dict):
+    """(c) and (d): phase 6's f32 engine behind /generate; greedy streams
+    over the port's InputQueue against `engine.generate`, launches exact,
+    logits against the plain recompute; then 400 / 413, a refused
+    admission with its Retry-After and the retry, and a poisoned lane."""
+    import threading
+
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode,
+    )
+    from analytics_zoo_tpu_torch.resilience import RetryPolicy
+    from analytics_zoo_tpu_torch.serving import InputQueue, ServingServer
+    from analytics_zoo_tpu_torch.serving.generation import GenerationEngine
+
+    n_block = model.n_block
+    engine = GenerationEngine(model, **GB_GEOM, keep_logits=True,
+                              device="cuda")
+    engine.warmup()
+    served = {}
+    submit = engine.submit
+
+    def keep(*a, **kw):
+        # the server's streams, for the logits gate
+        s = submit(*a, **kw)
+        served[s.request_id] = s
+        return s
+    engine.submit = keep
+    rng = np.random.default_rng(seed + 50)
+    prompts = [rng.integers(0, model.vocab, int(n)).tolist()
+               for n in rng.integers(32, 513, SRV_GEN_REQUESTS)]
+    srv = ServingServer(generation_engine=engine).start()
+    res = {}
+    try:
+        # (c)
+        outs, meta, errors = [None] * len(prompts), [None] * len(prompts), []
+
+        got_at = [None] * len(prompts)
+
+        def client(j):
+            q = InputQueue(srv.host, srv.port)
+            try:
+                toks, at = [], []
+                for tok in q.generate(prompts[j], max_new_tokens=SRV_GEN_NEW,
+                                      request_id=f"c-{j}",
+                                      timeout=HTTP_TIMEOUT_S):
+                    at.append(time.perf_counter())
+                    toks.append(tok)
+                outs[j], got_at[j] = toks, at
+                meta[j] = (q.last_request_id, q.last_generate)
+            except Exception as e:
+                errors.append(f"{type(e).__name__}: {e}")
+
+        pre0, dec0 = engine.n_prefills, engine.n_decode_steps
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(j,))
+                   for j in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10 * HTTP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(not errors, f"phase 15 (c): client errors {errors[:1]}")
+        n_pre = engine.n_prefills - pre0
+        n_dec = engine.n_decode_steps - dec0
+        want = dict({name: 0 for name in counts},
+                    layer_norm_fwd=(2 * n_block + 1) * (n_pre + n_dec),
+                    paged_decode=n_block * n_dec)
+        check(counts == want, f"phase 15 (c): launches {counts}, expected "
+              f"{want} ({n_pre} prefills, {n_dec} decode steps)")
+        split = paged_decode.launches_by_body["split"]
+        check(split == want["paged_decode"],
+              f"phase 15 (c): {split} of {want['paged_decode']} K6 launches "
+              "on the split body")
+        for j, (rid, done) in enumerate(meta):
+            check(rid == f"c-{j}", f"phase 15 (c): X-Request-Id {rid!r} "
+                  f"echoed for c-{j}")
+            check(done["n_tokens"] == SRV_GEN_NEW
+                  and done["finish_reason"] == "length"
+                  and done["request_id"] == rid,
+                  f"phase 15 (c): done line {done}")
+        worst, n_cmp, _ = logits_gate(
+            torch, model, [served[f"c-{j}"] for j in range(len(prompts))],
+            prompts, outs, GB_TOL_F32, "phase 15 (c)")
+        http_tps = sum(len(o) for o in outs) / wall
+        # a token's way from the engine's push to the client's hands: the
+        # handler's chunk write, the socket, the client's parse (one
+        # process, one clock)
+        deliver = [g - p for j in range(len(prompts))
+                   for g, p in zip(got_at[j], served[f"c-{j}"].token_times)]
+        dec_ms = statistics.median(list(engine.decode_seconds)[-n_dec:]) \
+            * 1e3
+        # (d): errors and recovery
+        code, _, _ = http_call(srv, "POST", "/generate", b"{not json")
+        check(code == 400, f"phase 15 (d): a malformed body answered {code}")
+        code, _, _ = http_call(srv, "POST", "/generate", {
+            "tokens": [1] * GB_GEOM["max_context"],
+            "max_new_tokens": SRV_GEN_NEW})
+        check(code == 413, f"phase 15 (d): a prompt past max_context "
+              f"answered {code}")
+        OrcaContext.fault_plan = {"faults": [{
+            "site": "serving.admission", "at": 2, "times": 2,
+            "action": "refuse"}]}
+        try:
+            q = InputQueue(srv.host, srv.port)
+            first = q.generate_tokens(prompts[1], max_new_tokens=SRV_GEN_NEW,
+                                      timeout=HTTP_TIMEOUT_S)
+            walls = list(engine.decode_seconds)
+            expect = min(10.0, max(0.05, (len(engine.scheduler.waiting) + 1)
+                                   * sum(walls) / len(walls)))
+            code, hdrs, body = http_call(srv, "POST", "/generate", {
+                "tokens": prompts[0], "max_new_tokens": SRV_GEN_NEW})
+            ra = float(hdrs.get("Retry-After") or "nan")
+            check(code == 503 and 0.05 <= ra <= 10.0
+                  and abs(ra - expect) <= 5e-4 and ra != 0.5
+                  and json.loads(body)["retry_after_s"] == round(ra, 3),
+                  f"phase 15 (d): refused admission answered {code}, "
+                  f"Retry-After {hdrs.get('Retry-After')} (expected "
+                  f"{expect:.3f} from the decode steps)")
+            retried = q.generate_tokens(
+                prompts[0], max_new_tokens=SRV_GEN_NEW,
+                retry=RetryPolicy(max_attempts=4), timeout=HTTP_TIMEOUT_S)
+            check(retried == outs[0] and first == outs[1]
+                  and q.last_retries == 1,
+                  f"phase 15 (d): after {q.last_retries} retries the stream "
+                  "differs from (c)'s")
+        finally:
+            OrcaContext.fault_plan = None
+        res["refused_retry_after_s"] = ra
+        # a poisoned lane among 4: pause the loop so the four requests
+        # share the poisoned decode round
+        engine.stop()
+        victims = {}
+
+        def lane(j):
+            q = InputQueue(srv.host, srv.port)
+            try:
+                toks = q.generate_tokens(prompts[j],
+                                         max_new_tokens=SRV_GEN_NEW,
+                                         request_id=f"p-{j}",
+                                         timeout=HTTP_TIMEOUT_S)
+                victims[j] = (toks, q.last_generate)
+            except Exception as e:
+                victims[j] = (None, f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=lane, args=(j,))
+                   for j in range(4)]
+        for t in threads:
+            t.start()
+        t_end = time.monotonic() + HTTP_TIMEOUT_S
+        while len(engine.scheduler.waiting) < 4:
+            check(time.monotonic() < t_end, "phase 15 (d): the four "
+                  "requests never queued")
+            time.sleep(0.005)
+        OrcaContext.fault_plan = {"faults": [{
+            "site": "generation.decode", "at": 3,
+            "action": "poison_request", "request_id": "p-2"}]}
+        try:
+            engine.ensure_started()
+            for t in threads:
+                t.join(timeout=10 * HTTP_TIMEOUT_S)
+        finally:
+            OrcaContext.fault_plan = None
+        toks, done = victims[2]
+        check(done["finish_reason"].startswith("error: evicted")
+              and done["n_tokens"] < SRV_GEN_NEW,
+              f"phase 15 (d): the victim's stream ended {done}")
+        for j in (0, 1, 3):
+            check(victims[j][0] == outs[j],
+                  f"phase 15 (d): survivor p-{j} differs from its "
+                  "unpoisoned stream")
+        fifth = InputQueue(srv.host, srv.port).generate_tokens(
+            prompts[4], max_new_tokens=SRV_GEN_NEW, timeout=HTTP_TIMEOUT_S)
+        check(fifth == outs[4], "phase 15 (d): the request after the "
+              "eviction differs from (c)'s")
+        check(engine.n_evictions == 1,
+              f"phase 15 (d): {engine.n_evictions} evictions")
+        res["victim_tokens"] = done["n_tokens"]
+    finally:
+        srv.stop()
+        del engine.submit
+    # the in-process reference: each prompt alone through engine.generate
+    for j, p in enumerate(prompts):
+        check(engine.generate(p, max_new_tokens=SRV_GEN_NEW) == outs[j],
+              f"phase 15 (c): the stream of c-{j} over HTTP differs from "
+              "engine.generate of its prompt")
+    res.update(requests=len(prompts), new_tokens=SRV_GEN_NEW,
+               tokens_per_s_http=http_tps,
+               phase6_tokens_per_s_in_process=phase6["tokens_per_s"],
+               decode_step_ms_p50=dec_ms, prefills=n_pre, decode_steps=n_dec,
+               launches=counts, logits_max_abs_err=worst,
+               logits_compared=n_cmp,
+               token_delivery_ms_p50=pct_ms(deliver, 50),
+               token_delivery_ms_p99=pct_ms(deliver, 99))
+    out["c_d"] = res
+    print(f"phase 15 (c) [{card}] GPT-2 small over /generate: "
+          f"{len(prompts)} requests, {http_tps:.1f} tokens/s over HTTP "
+          f"(phase 6 in process: {phase6['tokens_per_s']:.1f}); decode "
+          f"step p50 {dec_ms:.3f} ms; a token from the engine's push to "
+          f"the client p50 {res['token_delivery_ms_p50']:.3f} ms, p99 "
+          f"{res['token_delivery_ms_p99']:.3f} ms; launches {counts}; "
+          f"logits max abs "
+          f"err {worst:.3e} over {n_cmp} positions; streams equal "
+          f"engine.generate", flush=True)
+    print(f"phase 15 (d) [{card}]: 400 and 413 answered; a refused "
+          f"admission gave 503 with Retry-After {ra:.3f} s and the retry "
+          f"its stream; the poisoned lane stopped after "
+          f"{res['victim_tokens']} tokens, its 3 neighbours and a fifth "
+          "request unchanged", flush=True)
+    return counts
+
+
+def serve_saved_ncf(torch, card: str, model, out: dict):
+    """(e): the NCF of (a) saved with save_model and served through
+    start_serving(ServingConfig(modelPath=...)); /predict against
+    ZooModel.predict, the port closed after stop_serving."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    from analytics_zoo_tpu_torch.serving import (
+        InputQueue,
+        ServingConfig,
+        start_serving,
+        stop_serving,
+    )
+    tmp = tempfile.mkdtemp()
+    try:
+        path = model.save_model(os.path.join(tmp, "ncf"))
+        rng = np.random.default_rng(SRV_SEED)
+        u = rng.integers(1, NCF_CELL["user_count"] + 1, 300).astype(np.int32)
+        i = rng.integers(1, NCF_CELL["item_count"] + 1, 300).astype(np.int32)
+        want = model.predict({"x": [u, i]}, batch_size=128)
+        servers = start_serving(ServingConfig(modelPath=path, port=0))
+        try:
+            srv = servers["http"]
+            got = InputQueue(srv.host, srv.port).predict(u, i, batched=True)
+        finally:
+            stop_serving(servers)
+        err = float(np.abs(got - want).max())
+        check(err <= 1e-5, f"phase 15 (e): the served saved model differs "
+              f"from ZooModel.predict by {err}")
+        with socket.socket() as s:
+            s.settimeout(5)
+            closed = s.connect_ex(("127.0.0.1", srv.port)) != 0
+        check(closed, "phase 15 (e): the port is still open after "
+              "stop_serving")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["e"] = dict(rows=len(u), max_abs_err=err, port_closed=closed)
+    print(f"phase 15 (e) [{card}]: a saved NeuralCF served through "
+          f"start_serving: {len(u)} rows within {err:.3e} of "
+          "ZooModel.predict; the port closed after stop_serving",
+          flush=True)
+
+
+def phase_serving(torch, seed: int, card: str, gpt2_model, bert_model,
+                  phase6: dict, phase7: dict):
+    """Phase 15: the serving front end on the card, scenes (a)-(e)."""
+    out = {}
+    t0 = time.perf_counter()
+    ncf = serve_ncf(torch, seed, card, out)
+    launches = {"serving_ncf": out["a"]["launches"]}
+    launches["serving_bert"] = serve_bert_http(torch, seed, card,
+                                               bert_model, phase7, out)
+    launches["serving_generate"] = serve_generate_http(
+        torch, seed, card, gpt2_model, phase6, out)
+    serve_saved_ncf(torch, card, ncf, out)
+    del ncf
+    free_card(torch)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -4124,6 +4886,9 @@ def main(argv=None) -> int:
     clocks("after phase 11", start)
     data_path = phase_data_path(torch, args.seed, card, rec, train)
     clocks("after phase 13", start)
+    serving = phase_serving(torch, args.seed, card, engine.model,
+                            bert_model, runs[0], bert_runs[0])
+    clocks("after phase 15", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -4172,6 +4937,8 @@ def main(argv=None) -> int:
     gpt2, bert = runs[0]["launches"], bert_runs[0]["launches"]
     tr, remat = train["launches"], fit_surface["launches"]
     xs_bert = data_path["d"]["launches"]
+    srv_bert = serving["launches"]["serving_bert"]
+    srv_gen = serving["launches"]["serving_generate"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -4216,18 +4983,22 @@ def main(argv=None) -> int:
                                   "bert_serving": bert,
                                   "bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
-                                  "bert_fine_tune_xshards": xs_bert},
+                                  "bert_fine_tune_xshards": xs_bert,
+                                  "serving_bert_http": srv_bert,
+                                  "serving_generate_http": srv_gen},
                "layer_norm_bwd": {"bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert},
                "fused_dense_gelu": {"bert_serving": bert,
                                     "bert_fine_tune": tr,
                                     "bert_fine_tune_remat": remat,
-                                    "bert_fine_tune_xshards": xs_bert},
+                                    "bert_fine_tune_xshards": xs_bert,
+                                    "serving_bert_http": srv_bert},
                "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
                              "learnable_bias": bias_run["launches"],
                              "bert_fine_tune_remat": remat,
-                             "bert_fine_tune_xshards": xs_bert},
+                             "bert_fine_tune_xshards": xs_bert,
+                             "serving_bert_http": srv_bert},
                "flash_bwd_dq": {"bert_fine_tune": tr,
                                 "learnable_bias": bias_run["launches"],
                                 "bert_fine_tune_remat": remat,
@@ -4238,7 +5009,8 @@ def main(argv=None) -> int:
                                  "bert_fine_tune_xshards": xs_bert},
                "paged_decode": dict(
                    {f"generation_{r['label']}": r["launches"]
-                    for r in runs}, generation_breadth=breadth)}
+                    for r in runs}, generation_breadth=breadth,
+                   serving_generate_http=srv_gen)}
     for k in kernels:
         paths = by_path.get(k["name"])
         if paths:
@@ -4249,12 +5021,15 @@ def main(argv=None) -> int:
             rec["launches"][k["name"]]
         k["launches_by_path"]["data_path_recommendation"] = \
             data_path["launches_recommendation"][k["name"]]
+        # nor on phase 15's NCF served over HTTP (checked there: all 0)
+        k["launches_by_path"]["serving_ncf_http"] = \
+            serving["launches"]["serving_ncf"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs,
                       "generation_breadth": gen_breadth, "bert": bert_runs,
                       "train": train, "bias_path": bias_run,
                       "recommendation": rec, "fit_surface": fit_surface,
-                      "data_path": data_path,
+                      "data_path": data_path, "serving": serving,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,
