@@ -22,7 +22,11 @@ classification serving (`serving.inference_model`) and fine-tuning
 (`models.recommendation`) from the DEVICE data store
 (`common.context.OrcaContext`), and Orca's data path (`orca.data`:
 XShards, the DISK tier, the pandas readers; DataFrame and XShards input
-to the Estimator, staged to the card through pinned double buffering).
+to the Estimator, staged to the card through pinned double buffering),
+the HTTP serving front end (`serving`), int8 weight serving
+(`serving.quantize`), and the image models (`models.image`: ResNet,
+Inception-v1, MobileNetV2, VGG-16, SSD, Faster R-CNN) with the image
+feature pipeline (`feature`) and readers (`orca.data.image`).
 """
 
 from analytics_zoo_tpu_torch.device import resolve_device  # noqa: F401

@@ -14,7 +14,14 @@ weights in the flax tree, to compare with the JAX Estimator's.
 `ncf_from_flax`, `wide_and_deep_from_flax` and
 `session_recommender_from_flax` do it for the recommendation family
 (`models/recommendation/`); its shapes are checked by the module's
-`load_state_dict`.
+`load_state_dict`.  `image_from_flax` does it for every image model
+(`models/image/`: ResNet, Inception-v1, MobileNetV2, VGG-16, SSD and
+Faster R-CNN), whose modules are named as the flax ones: a Conv
+`kernel (kh, kw, in, out)` becomes `weight (out, in, kh, kw)`, a
+BatchNorm's `scale` its `weight` and its `batch_stats` `mean` / `var`
+its `running_mean` / `running_var`.  Each `*_to_flax` is the inverse
+of its `*_from_flax` (the flax tree of the port's weights, which
+`serving/quantize.py` quantizes as JAX does).
 """
 
 from __future__ import annotations
@@ -234,7 +241,7 @@ def bert_to_flax(state_dict: Mapping, config: Mapping,
     default), else the unrolled one (`bert/block_{i}/...`).  Raises on
     a missing or unknown entry and on a shape that disagrees with
     `config`."""
-    sd = {k: np.asarray(v.detach().cpu().float() if torch.is_tensor(v)
+    sd = {k: np.array(v.detach().cpu().float() if torch.is_tensor(v)
                         else v, dtype=np.float32)
           for k, v in state_dict.items()}
     heads = [h for h in _BERT_HEADS if f"{h}.weight" in sd]
@@ -418,3 +425,127 @@ def session_recommender_from_flax(params: Mapping
         [(r"(session|history)_embed", r"\g<0>"),
          (r"mlp_(\d+)", r"mlp.\1"), (r"head", "head")])))
     return _tensors(out)
+
+
+def _renamed_to_flax(state_dict: Mapping, rules) -> Dict:
+    """The inverse of `_renamed_from_flax`: each (pattern, flax name,
+    is_embedding) rule maps the port module names it matches; a Linear
+    `weight` becomes its transposed `kernel`, an Embedding's its
+    `embedding`."""
+    flat = {}
+    for name, t in state_dict.items():
+        mod, leaf = name.rsplit(".", 1)
+        for pattern, repl, embed in rules:
+            if re.fullmatch(pattern, mod):
+                flax = re.sub(pattern, repl, mod)
+                break
+        else:
+            raise ValueError(f"unknown entry in the state_dict: {name}")
+        arr = np.array(t.detach().cpu().float())
+        if leaf == "bias":
+            flat[f"{flax}/bias"] = arr
+        else:
+            flat[f"{flax}/{'embedding' if embed else 'kernel'}"] = \
+                arr if embed else np.ascontiguousarray(arr.T)
+    return _unflatten(flat)
+
+
+def ncf_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `NeuralCF` param tree of the port's weights (the inverse
+    of `ncf_from_flax`)."""
+    return _renamed_to_flax(state_dict, [
+        (r"(mlp|mf)_(user|item)_embed", r"\g<0>", True),
+        (r"hidden\.(\d+)", r"Dense_\1", False), (r"head", "head", False)])
+
+
+def wide_and_deep_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `WideAndDeep` param tree of the port's weights (the
+    inverse of `wide_and_deep_from_flax`)."""
+    return _renamed_to_flax(state_dict, [
+        (r"(wide_embed|deep_embed)\.(\d+)", r"\1_\2", True),
+        (r"deep_fc\.(\d+)", r"deep_fc_\1", False),
+        (r"deep_head", "deep_head", False)])
+
+
+def session_recommender_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `SessionRecommender` param tree of the port's weights
+    (the inverse of `session_recommender_from_flax`): each GRU's
+    stacked (r, z, n) weights split back into flax's Denses, of the
+    hidden-side biases only hn's (flax's hr and hz have none)."""
+    sd = dict(state_dict)
+    tree: Dict = {}
+    grus = sorted({n.split(".")[1] for n in sd if n.startswith("gru.")},
+                  key=int)
+    for j in grus:
+        def take(leaf):
+            return np.array(sd.pop(f"gru.{j}.{leaf}").detach().cpu()
+                            .float())
+        w_ih, w_hh = take("weight_ih_l0"), take("weight_hh_l0")
+        b_ih, b_hh = take("bias_ih_l0"), take("bias_hh_l0")
+        cell = {}
+        for g, w, b in zip("rzn", np.split(w_ih, 3), np.split(b_ih, 3)):
+            cell[f"i{g}"] = {"kernel": np.ascontiguousarray(w.T), "bias": b}
+        for g, w in zip("rzn", np.split(w_hh, 3)):
+            cell[f"h{g}"] = {"kernel": np.ascontiguousarray(w.T)}
+        cell["hn"]["bias"] = np.split(b_hh, 3)[2]
+        tree[f"gru_cell_{j}"] = cell
+    tree.update(_renamed_to_flax(sd, [
+        (r"(session|history)_embed", r"\g<0>", True),
+        (r"mlp\.(\d+)", r"mlp_\1", False), (r"head", "head", False)]))
+    return tree
+
+
+#: the image models' batch_stats leaves and their buffers
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def image_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None,
+                    prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The state_dict of a port image model (`models/image/`) from the
+    flax `params` and `batch_stats` of its JAX counterpart: module path
+    `a/b` becomes `prefix + "a.b"`; a Conv kernel (kh, kw, in, out)
+    the weight (out, in, kh, kw), a Dense kernel the transposed weight,
+    a BatchNorm scale its weight, mean / var its running_mean /
+    running_var.  With `batch_stats` None only the parameters."""
+    out = {}
+    for path, arr in _flatten(params).items():
+        mod, leaf = path.rsplit("/", 1)
+        name = prefix + mod.replace("/", ".")
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif leaf not in ("scale", "bias"):
+            raise ValueError(f"unknown entry in the param tree: {path}")
+        out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = arr
+    for path, arr in _flatten(batch_stats or {}).items():
+        mod, leaf = path.rsplit("/", 1)
+        if leaf not in _STATS:
+            raise ValueError(f"unknown entry in batch_stats: {path}")
+        out[f"{prefix}{mod.replace('/', '.')}.{_STATS[leaf]}"] = arr
+    return _tensors(out)
+
+
+def image_to_flax(state_dict: Mapping, prefix: str = ""):
+    """(params, batch_stats) in the flax layout of a port image model's
+    state_dict: the inverse of `image_from_flax`.  A 4-D weight is a
+    Conv kernel, a 2-D one a Dense kernel, a 1-D one a BatchNorm
+    scale."""
+    params, stats = {}, {}
+    inverse = {v: k for k, v in _STATS.items()}
+    for name, t in state_dict.items():
+        if not name.startswith(prefix):
+            raise ValueError(f"{name} is not under {prefix!r}")
+        mod, leaf = name[len(prefix):].rsplit(".", 1)
+        path = mod.replace(".", "/")
+        arr = np.array(t.detach().cpu().float())
+        if leaf in inverse:
+            stats[f"{path}/{inverse[leaf]}"] = arr
+        elif leaf == "bias":
+            params[f"{path}/bias"] = arr
+        elif leaf == "weight" and arr.ndim in (2, 4):
+            params[f"{path}/kernel"] = np.ascontiguousarray(
+                arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)
+        elif leaf == "weight" and arr.ndim == 1:
+            params[f"{path}/scale"] = arr
+        else:
+            raise ValueError(f"unknown entry in the state_dict: {name}")
+    return _unflatten(params), _unflatten(stats)

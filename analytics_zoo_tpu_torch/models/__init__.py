@@ -1,2 +1,2 @@
-"""Model zoo of the port: the BERT family and the recommendation
-family."""
+"""Model zoo of the port: the BERT family, the recommendation family
+and the image models (`image/`)."""

@@ -49,6 +49,24 @@ class _BERT(nn.Module):
             attn_impl=attn_impl, compute_dtype=compute_dtype,
             remat=remat, remat_policy=remat_policy, device=self.device_)
 
+    def flax_layout(self):
+        """(to_flax(state_dict), from_flax(tree)): the JAX module's
+        param tree, its blocks scan-stacked (`convert.bert_to_flax` and
+        `bert_from_flax` at this model's widths)."""
+        from analytics_zoo_tpu_torch import convert
+        enc, blk = self.bert, self.bert.blocks[0]
+        cfg = dict(vocab=enc.token_embed.num_embeddings,
+                   hidden_size=enc.token_embed.embedding_dim,
+                   n_block=len(enc.blocks),
+                   intermediate_size=blk.fc1.weight.shape[0],
+                   max_position_len=enc.position_embed.num_embeddings)
+        for head, field in (("classifier", "num_classes"),
+                            ("ner_head", "num_entities")):
+            if hasattr(self, head):
+                cfg[field] = getattr(self, head).weight.shape[0]
+        return (lambda sd: convert.bert_to_flax(sd, cfg),
+                lambda tree: convert.bert_from_flax(tree, cfg))
+
 
 class BERTClassifier(_BERT):
     """BERT encoder + pooled classification head: (input_ids [b, t],

@@ -85,6 +85,13 @@ class NeuralCF(ZooModel, Recommender, nn.Module):
         self.head = linear(widths[-1] + (mf_embed if include_mf else 0),
                            class_num, dev)
 
+    def flax_layout(self):
+        """(to_flax(state_dict), from_flax(tree)): the JAX module's
+        param tree (`convert.ncf_to_flax` and
+        `ncf_from_flax`)."""
+        from analytics_zoo_tpu_torch import convert
+        return convert.ncf_to_flax, convert.ncf_from_flax
+
     def forward(self, user_ids, item_ids):
         u = (user_ids.reshape(-1).long() - 1).clamp(0, self.user_count - 1)
         i = (item_ids.reshape(-1).long() - 1).clamp(0, self.item_count - 1)
@@ -93,6 +100,8 @@ class NeuralCF(ZooModel, Recommender, nn.Module):
         for lin in self.hidden:
             h = torch.relu(dense(h, lin, self.compute_dtype))
         if self.include_mf:
-            mf = self.mf_user_embed(u) * self.mf_item_embed(i)
+            # f32 even for a quantized model's bf16 tables: XLA computes
+            # the bf16 product in f32 and drops the rounding
+            mf = self.mf_user_embed(u).float() * self.mf_item_embed(i).float()
             h = torch.cat([h, mf.to(self.compute_dtype)], dim=-1)
         return F.linear(h.float(), self.head.weight, self.head.bias)

@@ -81,8 +81,19 @@ class SessionRecommender(ZooModel, nn.Module):
             head_in += mlp[-1]
         self.head = linear(head_in, item_count + 1, dev)
 
+    def flax_layout(self):
+        """(to_flax(state_dict), from_flax(tree)): the JAX module's
+        param tree (`convert.session_recommender_to_flax` and
+        `session_recommender_from_flax`)."""
+        from analytics_zoo_tpu_torch import convert
+        return convert.session_recommender_to_flax, convert.session_recommender_from_flax
+
     def forward(self, session_items, history_items=None):
-        x = self.session_embed(session_items.long().clamp(0, self.item_count))
+        # a quantized table's rows are bf16: they enter the f32 GRU and
+        # MLP as f32, flax's promotion (ROADMAP's known differences: JAX's
+        # Dense computes bf16 where its kernel is quantized too)
+        x = self.session_embed(session_items.long().clamp(
+            0, self.item_count)).float()
         for gru in self.gru:
             x, _ = gru(x)
         h = x[:, -1]
@@ -90,7 +101,7 @@ class SessionRecommender(ZooModel, nn.Module):
             if history_items is None:
                 raise ValueError("include_history=True needs history_items")
             hist = self.history_embed(
-                history_items.long().clamp(0, self.item_count))
+                history_items.long().clamp(0, self.item_count)).float()
             hist = hist.reshape(hist.shape[0], -1)
             for lin in self.mlp:
                 hist = torch.relu(lin(hist))

@@ -125,6 +125,13 @@ class WideAndDeep(ZooModel, Recommender, nn.Module):
                 "them with rows_to_features/to_user_item_feature")
         return [np.asarray(feats, np.float32)]
 
+    def flax_layout(self):
+        """(to_flax(state_dict), from_flax(tree)): the JAX module's
+        param tree (`convert.wide_and_deep_to_flax` and
+        `wide_and_deep_from_flax`)."""
+        from analytics_zoo_tpu_torch import convert
+        return convert.wide_and_deep_to_flax, convert.wide_and_deep_from_flax
+
     def forward(self, features):
         ci = self.ci
         n_wide, n_ind = len(ci.wide_dims), len(ci.indicator_cols)

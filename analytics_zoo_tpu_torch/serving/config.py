@@ -8,7 +8,8 @@ the JAX package's:
   modelParallelism  -> InferenceModel(supported_concurrent_num=...)
   maxBatchSize      -> InferenceModel(max_batch_size=...) and the
                        batcher's max batch
-  quantize          -> int8 weights (not ported yet: raises)
+  quantize          -> int8 weights (InferenceModel.load_model's
+                       quantize=True, serving/quantize.py)
   protocol          -> "http" ("grpc" and "both" are not ported yet)
   host/port/grpcPort-> bind addresses
   batchTimeoutMs    -> the batcher's window

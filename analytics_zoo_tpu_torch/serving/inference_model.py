@@ -12,11 +12,18 @@ parameters live on.
 
 Loaders: `load_module` (a built module), `load_model` (a
 `ZooModel.save_model` directory, JAX inference_model.py:154) and
-`load_estimator` (an Estimator's current module, :179).
+`load_estimator` (an Estimator's current module, :179).  With
+`quantize=True` the first two serve int8 weights (`quantize.py`): the
+scales are computed on the module's flax-layout tree at load, on the
+host, as JAX's `load_flax(quantize=True)` computes them (:59-97), the
+int8 values stay resident on the module's device and each forward
+dequantizes them to bf16 as it reaches them; `quantize_stats` holds
+the byte counts JAX reports.
 """
 
 from __future__ import annotations
 
+import copy
 import importlib
 import os
 import pickle
@@ -42,12 +49,6 @@ def _pad_to(a: np.ndarray, target: int) -> np.ndarray:
     return np.pad(a, pad)
 
 
-def _refuse_quantize():
-    raise NotImplementedError(
-        "InferenceModel(quantize=True) needs serving/quantize.py, which is "
-        "not ported yet (ROADMAP Queue 1 item 2)")
-
-
 def _to_numpy(out: torch.Tensor, n: int) -> np.ndarray:
     out = out[:n]
     if out.dtype == torch.bfloat16:     # numpy has no bfloat16
@@ -70,10 +71,18 @@ class InferenceModel:
 
     def load_module(self, module: nn.Module, quantize: bool = False):
         """Serve `module` (its weights already loaded, on its device).
-        The counterpart of `load_flax`; `quantize=True` (int8 weights)
-        waits for the port of serving/quantize.py and raises."""
+        The counterpart of `load_flax`; `quantize=True` serves int8
+        weights from a quantized copy of the module (the caller's module
+        keeps its own) and sets `quantize_stats`."""
         if quantize:
-            _refuse_quantize()
+            from analytics_zoo_tpu_torch.serving.quantize import (
+                quantize_module,
+            )
+            module = copy.deepcopy(module)
+            self.quantize_stats = quantize_module(module)
+        return self._serve(module)
+
+    def _serve(self, module: nn.Module):
         params = list(module.parameters())
         if not params:
             raise ValueError("load_module: the module has no parameters to "
@@ -88,15 +97,13 @@ class InferenceModel:
         `path`, built on `device` (None = the CUDA card).  `model_cls`
         overrides the saved class name, which is otherwise resolved in
         the port's model namespaces.  `config.pkl` is unpickled: load
-        only what this program saved.  Encrypted weights
-        (`decrypt_key`) and `quantize=True` are not ported yet and
-        raise."""
+        only what this program saved.  `quantize=True` serves int8
+        weights (the model is quantized as it is loaded).  Encrypted
+        weights (`decrypt_key`) are not ported yet and raise."""
         if decrypt_key is not None:
             raise NotImplementedError(
                 "weights encrypted at rest need serving/encrypt.py, which "
                 "is not ported yet (ROADMAP Queue 1 item 7)")
-        if quantize:
-            _refuse_quantize()
         from analytics_zoo_tpu_torch.models.common.zoo_model import (
             _CONFIG,
             _WEIGHTS,
@@ -110,7 +117,12 @@ class InferenceModel:
         state = torch.load(os.path.join(path, _WEIGHTS),
                            map_location=module.device_, weights_only=True)
         module.load_state_dict(state)
-        return self.load_module(module)
+        if quantize:
+            from analytics_zoo_tpu_torch.serving.quantize import (
+                quantize_module,
+            )
+            self.quantize_stats = quantize_module(module)
+        return self._serve(module)
 
     def load_estimator(self, estimator):
         """Serve an Estimator's current module (trained or still
@@ -158,6 +170,8 @@ def find_zoo_model_class(name: str):
     """Resolve a saved ZooModel class name to its class in the port's
     model namespaces."""
     for mod in ("analytics_zoo_tpu_torch.models.recommendation",
+                "analytics_zoo_tpu_torch.models.image.imageclassification",
+                "analytics_zoo_tpu_torch.models.image.objectdetection",
                 "analytics_zoo_tpu_torch.models.bert"):
         m = importlib.import_module(mod)
         if hasattr(m, name):

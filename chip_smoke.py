@@ -18,9 +18,11 @@ schedule, checkpoints, a failure and its retry, and validation data in
 phase 12), and recommendation training (NeuralCF, WideAndDeep,
 SessionRecommender) through `Estimator.fit` from the DEVICE data
 store, Orca's data path (XShards, the DISK tier, pinned
-prefetch, the new optimizers and losses) in phase 13, and the serving
+prefetch, the new optimizers and losses) in phase 13, the serving
 front end (ServingServer over HTTP: NCF, BERT-base and GPT-2 small) in
-phase 15; each path's
+phase 15, int8 weight serving (BERT-base, ResNet-50, NCF) in phase 16
+and the image zoo (ResNet-50 fine-tuning, Inception-v1, MobileNetV2,
+VGG-16, SSD and Faster R-CNN) in phase 17; each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
 versions or the port on the CPU.
@@ -188,6 +190,40 @@ Phases (each one failing exits non-zero, with no result line):
      the NeuralCF of (a) saved and served through
      start_serving(ServingConfig(modelPath=...)) within 1e-5 of
      ZooModel.predict, its port closed after stop_serving;
+  16. int8 weight serving (after phase 15; results under
+     "int8_serving"): (a) phase 7's BERT-base behind
+     InferenceModel(4, 32).load_module(model, quantize=True):
+     quantize_stats equal JAX's for the same tree, the bytes resident on
+     the card beside them, sequences/s and predict p50 at phase 7's
+     shapes in turns with the bf16 model, peak card memory over a 32 x
+     512 predict for both, launches exact (K1 25, K2 12 on its sm90
+     body, K3 12 a forward), logits within 0.05 of the plain recompute
+     with the same dequantized weights, top-1 agreement with bf16
+     reported; (b) ResNet-50 (ImageClassifier, 2 classes) int8 and bf16
+     in turns at 32 x 224^2: bytes, images/s, logits within 0.05 of the
+     same network with the dequantized weights as plain parameters, no
+     kernel of ours launched; (c) a saved NeuralCF at bench.py's widths
+     served by start_serving with quantize: true, /predict within 1e-5
+     of a direct quantized predict;
+  17. the image zoo (after phase 16; results under "image_zoo"), no
+     kernel of ours launched in any scene: (a) ResNet-50 fine-tuning
+     (BASELINE config #3, ImageClassifier("resnet-50", 2), bf16, Adam)
+     through model.estimator(...).fit on synthetic 224^2 images with a
+     learnable label, at batch 128 and 256 from the arrays (3 epochs of
+     3 steps; the epoch loss falls) and at 256 from ImageSet.from_arrays
+     through a seeded crop / flip / normalize chain: step p50 (CUDA
+     events), images/s, the card's busy share, peak memory and MFU (3 x
+     the forward FLOPs of the convs' and the head's shapes, of 989
+     TFLOP/s); predict after fit equals an eval-mode forward; (b) with
+     TF32 off, an f32 ResNet-50 takes 2 SGD steps at batch 8 on the card
+     and on the port's CPU path from the same weights: per-step losses,
+     the first step's update and the running statistics within 1e-3
+     relative; predict equals an eval-mode forward; save_model ->
+     load_model bitwise, buffers included; (c) Inception-v1, MobileNetV2
+     and VGG-16 at full width, 5 steps at batch 64: finite losses,
+     images/s; (d) SSD and Faster R-CNN at JAX's defaults, 5 steps on a
+     repeated batch: losses finite and falling, detect (host NMS) at
+     most max_det boxes an image, inside [0, 1];
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -4229,9 +4265,10 @@ def served_metrics(srv) -> dict:
                 records_total=prom["serving_records_served_total"]["value"])
 
 
-def busy_share(torch, fn) -> dict:
+def busy_share(torch, fn, top_host: int = 0) -> dict:
     """The card's busy share while `fn()` runs: device time of every
-    kernel, copy and fill in a profiled window over host wall."""
+    kernel, copy and fill in a profiled window over host wall; with
+    `top_host`, that many host ops by their own time (ms, calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -4244,8 +4281,14 @@ def busy_share(torch, fn) -> dict:
     dev = sum(e.time_range.elapsed_us() / 1e6 for e in prof.events()
               if e.device_type == DeviceType.CUDA
               and not e.is_user_annotation)
-    return dict(profiled_wall_s=wall, device_s=dev,
-                device_busy_share=dev / wall if wall else None)
+    out = dict(profiled_wall_s=wall, device_s=dev,
+               device_busy_share=dev / wall if wall else None)
+    if top_host:
+        out["top_host_ops_self_ms_and_calls"] = [
+            (e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+            for e in sorted(prof.key_averages(),
+                            key=lambda e: -e.self_cpu_time_total)[:top_host]]
+    return out
 
 
 def predict_alone_ms(torch, im, inputs, iters: int = 30) -> float:
@@ -4823,6 +4866,791 @@ def phase_serving(torch, seed: int, card: str, gpt2_model, bert_model,
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 16: int8 weight serving
+# ----------------------------------------------------------------------
+
+#: JAX's `quantize_params` on BERT-base's flax tree (`init_bert_params`,
+#: 2 classes), read with the JAX package on the CPU: the bytes of the
+#: f32 tree and of its quantized form
+JAX_BERT_BASE_QUANT = dict(orig_bytes=437_935_112, quant_bytes=109_570_576)
+#: the models served in turns in phase 16's comparisons
+Q_TURNS = ("bf16", "int8", "int8", "bf16")
+#: phase 16 (b): images of one ResNet-50 predict, and predicts a window
+Q_IMAGES, Q_IMAGE_REPS = 32, 5
+#: the side of phases 16 (b) and 17's images (ImageNet's crop)
+ZOO_SIZE = 224
+
+
+def peak_predict_bytes(torch, im, inputs) -> int:
+    """Card memory allocated over one `im.predict(*inputs)` above what
+    was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    im.predict(*inputs)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def int8_bert(torch, seed: int, card: str, bert_model):
+    """(a): phase 7's BERT-base behind InferenceModel(4, 32), int8 and
+    bf16 in turns at phase 7's shapes."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.serving import InferenceModel
+    from analytics_zoo_tpu_torch.serving.quantize import resident_bytes
+    t0 = time.perf_counter()
+    ims = {"bf16": InferenceModel(4, 32).load_module(bert_model),
+           "int8": InferenceModel(4, 32).load_module(bert_model,
+                                                     quantize=True)}
+    load_s = time.perf_counter() - t0
+    qmodel = ims["int8"]._module
+    stats = ims["int8"].quantize_stats
+    check({k: stats[k] for k in JAX_BERT_BASE_QUANT} == JAX_BERT_BASE_QUANT,
+          f"phase 16 (a): quantize_stats {stats}, JAX's "
+          f"{JAX_BERT_BASE_QUANT}")
+    vocab = bert_model.bert.token_embed.num_embeddings
+    rng = np.random.default_rng(seed + 21)
+    reqs = [(n, t) + bert_request(rng, n, t, vocab)
+            for t in BERT_LENGTHS for n in BERT_BATCHES for _ in range(2)]
+    for im in ims.values():               # every bucket, both models
+        for n, t, inputs, _ in reqs[::2]:
+            im.predict(*inputs)
+    torch.cuda.synchronize()
+    walls = {k: [] for k in ims}
+    lat = {k: {} for k in ims}
+    outs = {k: {} for k in ims}
+    counts = None
+    for label in Q_TURNS:
+        im = ims[label]
+        first_int8 = label == "int8" and counts is None
+        if first_int8:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for n, t, inputs, valid in reqs:
+            s = time.perf_counter()
+            out = im.predict(*inputs)
+            lat[label].setdefault(f"{n}x{t}", []).append(
+                (time.perf_counter() - s) * 1e3)
+            outs[label].setdefault((n, t), (inputs, valid, out))
+        walls[label].append(time.perf_counter() - t0)
+        if first_int8:
+            counts = kernels.launch_counts()
+            # by body right after the counts, before the next window
+            bodies = k2_bodies("phase 16 (a)", counts)
+    forwards = sum(-(-n // 32) for n, *_ in reqs)
+    n_blk = len(bert_model.bert.blocks)
+    want = dict({name: 0 for name in counts},
+                layer_norm_fwd=(2 * n_blk + 1) * forwards,
+                fused_dense_gelu=n_blk * forwards,
+                flash_fwd=n_blk * forwards)
+    check(counts == want, f"phase 16 (a): launches {counts}, expected "
+          f"{want} for {forwards} quantized forwards")
+    done = [(n, t, inputs, valid, out, 0.0)
+            for (n, t), (inputs, valid, out) in outs["int8"].items()]
+    gate = check_bert_logits(torch, qmodel, done, 0.05, "phase 16 (a) int8")
+    agree = [outs["int8"][k][2].argmax(-1) == outs["bf16"][k][2].argmax(-1)
+             for k in outs["int8"]]
+    n_seq = sum(n for n, *_ in reqs)
+    big = next(r[2] for r in reqs if r[:2] == (32, BERT_LENGTHS[-1]))
+    peak = {k: peak_predict_bytes(torch, im, big) for k, im in ims.items()}
+    res = dict(
+        load_s=load_s, quantize_stats=stats,
+        jax_quantize_stats=JAX_BERT_BASE_QUANT,
+        resident_bytes={"int8": resident_bytes(qmodel),
+                        "bf16": resident_bytes(bert_model)},
+        sequences_per_s={k: n_seq / statistics.median(v)
+                         for k, v in walls.items()},
+        windows_s=walls,
+        predict_ms_p50={k: {s: statistics.median(v)
+                            for s, v in sorted(d.items())}
+                        for k, d in lat.items()},
+        peak_predict_bytes_32x512=peak, forwards=forwards,
+        launches=counts, k2_launches_by_body=bodies,
+        top1_agreement_with_bf16=float(np.mean(np.concatenate(agree))),
+        **gate)
+    print(f"phase 16 (a) [{card}] BERT-base int8: quantize_stats {stats} "
+          f"(JAX's {JAX_BERT_BASE_QUANT}), resident bytes "
+          f"{res['resident_bytes']}, loaded in {load_s:.1f} s; sequences/s "
+          f"{res['sequences_per_s']} (windows in turns {walls}); predict "
+          f"p50 ms {res['predict_ms_p50']}; peak bytes over a 32 x 512 "
+          f"predict {peak}; launches {counts} over {forwards} forwards; "
+          f"logits within {gate['logits_max_abs_err']:.3e} of the plain "
+          f"recompute (tol 0.05); top-1 agreement with bf16 "
+          f"{res['top1_agreement_with_bf16']:.4f}", flush=True)
+    del ims, qmodel
+    return res
+
+
+def settle_batchnorm(torch, model, x) -> None:
+    """Running statistics of one batch (as after training): each
+    BatchNorm's momentum at 0 for one training forward."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification.layers \
+        import BatchNorm
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.momentum = 0.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    for m in bns:
+        m.momentum = 0.99
+    model.eval()
+
+
+def int8_resnet(torch, seed: int, card: str):
+    """(b): ResNet-50 (ImageClassifier, 2 classes, bf16) int8 and bf16 in
+    turns at 32 x ZOO_SIZE^2; the int8 logits against the same
+    network with the dequantized weights as plain parameters."""
+    import copy
+
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        ImageClassifier,
+    )
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.serving import InferenceModel
+    from analytics_zoo_tpu_torch.serving.quantize import resident_bytes
+    torch.manual_seed(seed + 22)
+    clf = ImageClassifier("resnet-50", num_classes=2, device="cuda")
+    x = np.random.default_rng(seed + 23).standard_normal(
+        (Q_IMAGES, ZOO_SIZE, ZOO_SIZE, 3), dtype=np.float32)
+    settle_batchnorm(torch, clf, torch.from_numpy(x).cuda())
+    kernels.reset_launch_counts()
+    ims = {"bf16": InferenceModel(4, Q_IMAGES).load_module(clf),
+           "int8": InferenceModel(4, Q_IMAGES).load_module(clf,
+                                                           quantize=True)}
+    qmodel = ims["int8"]._module
+    for im in ims.values():
+        im.predict(x)
+    walls = {k: [] for k in ims}
+    for label in Q_TURNS:
+        t0 = time.perf_counter()
+        for _ in range(Q_IMAGE_REPS):
+            ims[label].predict(x)
+        walls[label].append(time.perf_counter() - t0)
+    got = ims["int8"].predict(x)
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"phase 16 (b): a kernel of ours "
+          f"launched on ResNet-50: {counts}")
+    plain = copy.deepcopy(clf)
+    with torch.no_grad():
+        for name, p in plain.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            p.copy_(getattr(qmodel.get_submodule(owner), leaf))
+        want = plain(torch.from_numpy(x).cuda()).float().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    check(np.isfinite(got).all() and err <= 0.05,
+          f"phase 16 (b): int8 logits differ from the plain recompute by "
+          f"{err} > 0.05")
+    res = dict(
+        quantize_stats=ims["int8"].quantize_stats,
+        resident_bytes={"int8": resident_bytes(qmodel),
+                        "bf16": resident_bytes(clf)},
+        images_per_s={k: Q_IMAGES * Q_IMAGE_REPS / statistics.median(v)
+                      for k, v in walls.items()},
+        windows_s=walls,
+        peak_predict_bytes={k: peak_predict_bytes(torch, im, (x,))
+                            for k, im in ims.items()},
+        logits_max_abs_err=err, logits_tol=0.05,
+        top1_agreement_with_bf16=float(
+            (got.argmax(-1) == ims["bf16"].predict(x).argmax(-1)).mean()),
+        launches=counts)
+    print(f"phase 16 (b) [{card}] ResNet-50 int8 at {Q_IMAGES} x "
+          f"{ZOO_SIZE}^2: "
+          f"quantize_stats {res['quantize_stats']}, resident bytes "
+          f"{res['resident_bytes']}; images/s {res['images_per_s']} "
+          f"(windows in turns {walls}); peak bytes over a predict "
+          f"{res['peak_predict_bytes']}; logits within {err:.3e} of the "
+          f"plain recompute (tol 0.05); no kernel of ours launched",
+          flush=True)
+    del ims, qmodel, plain, clf
+    return res
+
+
+def int8_ncf_served(torch, seed: int, card: str):
+    """(c): NeuralCF at bench.py's widths saved and served by
+    start_serving from a config with quantize: true (JAX's
+    examples/quantized_encrypted_serving.py, without the encryption);
+    /predict rows against a direct quantized predict."""
+    import os
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.models.recommendation import NeuralCF
+    from analytics_zoo_tpu_torch.serving import (
+        InferenceModel,
+        InputQueue,
+        ServingConfig,
+        start_serving,
+        stop_serving,
+    )
+    torch.manual_seed(seed + 24)
+    model = NeuralCF(**NCF_CELL, device="cuda")
+    tmp = tempfile.mkdtemp()
+    try:
+        path = model.save_model(os.path.join(tmp, "ncf"))
+        rng = np.random.default_rng(seed + 25)
+        u = rng.integers(1, NCF_CELL["user_count"] + 1, 300).astype(np.int32)
+        i = rng.integers(1, NCF_CELL["item_count"] + 1, 300).astype(np.int32)
+        direct = InferenceModel().load_model(path, quantize=True)
+        want = direct.predict(u, i)
+        servers = start_serving(ServingConfig(modelPath=path, port=0,
+                                              quantize=True))
+        try:
+            srv = servers["http"]
+            got = InputQueue(srv.host, srv.port).predict(u, i, batched=True)
+            stats = servers["model"].quantize_stats
+        finally:
+            stop_serving(servers)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = float(np.abs(got - want).max())
+    check(err <= 1e-5, f"phase 16 (c): /predict differs from a direct "
+          f"quantized predict by {err}")
+    print(f"phase 16 (c) [{card}]: a saved NeuralCF served int8 through "
+          f"start_serving(quantize: true): {len(u)} rows within {err:.3e} "
+          f"of a direct quantized predict; compression "
+          f"{stats['compression']:.4f} ({stats})", flush=True)
+    return dict(rows=len(u), max_abs_err=err, quantize_stats=stats)
+
+
+def phase_int8_serving(torch, seed: int, card: str, bert_model):
+    """Phase 16: int8 weight serving, scenes (a)-(c)."""
+    t0 = time.perf_counter()
+    out = dict(a=int8_bert(torch, seed, card, bert_model))
+    free_card(torch)
+    out["b"] = int8_resnet(torch, seed, card)
+    free_card(torch)
+    out["c"] = int8_ncf_served(torch, seed, card)
+    free_card(torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 17: the image zoo
+# ----------------------------------------------------------------------
+
+#: phase 17 (a): ResNet-50 fine-tune batches, steps an epoch, epochs
+ZOO_BATCHES = (128, 256)
+ZOO_STEPS, ZOO_EPOCHS = 3, 3
+#: the first steps of a fit left out of the step times
+ZOO_WARM = 2
+#: phase 17 (b): the relative tolerance of the f32 ResNet-50 on the card
+#: against the port's CPU path for losses, parameters (of the model's
+#: largest) and running statistics; each parameter tensor's update (L2,
+#: against an f64 step on the CPU from the same state) within the larger
+#: of that tolerance and ZOO_UPDATE_K times the f32 CPU path's own error
+#: there: an f32 ResNet-50's backward at init, through 53 training-mode
+#: BatchNorms, sits percents from f64's in every tensor (PERF.md §6);
+#: the f32 CPU path itself must stay within ZOO_REF_TOL of f64's
+ZOO_F32_TOL, ZOO_UPDATE_K, ZOO_REF_TOL = 1e-3, 4.0, 0.1
+#: phase 17 (c): the other backbones' batch and fit steps
+ZOO_OTHER_BATCH, ZOO_OTHER_STEPS = 64, 5
+#: phase 17 (d): detector batch and fit steps (epochs on one batch)
+DET_BATCH, DET_STEPS = 32, 5
+
+
+def zoo_images(rng, n: int, size: int = ZOO_SIZE):
+    """n NHWC f32 images (standard normal) with a learnable label: class
+    1's top-left quarter is brighter by 0.5 in the red channel."""
+    y = rng.permutation(np.arange(n) % 2).astype(np.int32)
+    x = rng.standard_normal((n, size, size, 3), dtype=np.float32)
+    x[y == 1, :size // 2, :size // 2, 0] += 0.5
+    return x, y
+
+
+def forward_flops(torch, model, size: int = ZOO_SIZE) -> float:
+    """Multiply-add FLOPs (2 per MAC) of one image's forward, from the
+    shapes the convs and dense layers see."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification.layers \
+        import Conv, Dense
+    total = [0.0]
+
+    def hook(mod, args, out):
+        if isinstance(mod, Conv):
+            kh, kw = mod.kernel
+            total[0] += 2.0 * out.numel() * mod.weight.shape[1] * kh * kw
+        else:
+            total[0] += 2.0 * out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv, Dense))]
+    was = model.training
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, size, size, 3, device="cuda"))
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def marked_fit(torch, model, data, batch: int, epochs: int):
+    """`model.fit` with a CUDA event as each step is queued (phase 8's
+    timing), the peak of allocated card memory over it: (step times in
+    s after the first ZOO_WARM, peak bytes above the bytes before, wall
+    s, epoch losses)."""
+    est = model._require_estimator()
+    eng = est.engine
+    marks = []
+
+    def marked_step(b, step=eng.train_step):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return step(b)
+
+    eng.train_step = marked_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n_before = len(est.train_summary)
+    t0 = time.perf_counter()
+    model.fit(data, epochs=epochs, batch_size=batch, shuffle=False)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng.train_step
+    times = [a.elapsed_time(b) / 1e3
+             for a, b in zip(marks[ZOO_WARM:-1], marks[ZOO_WARM + 1:])]
+    losses = [s["loss"] for s in est.train_summary[n_before:]]
+    return times, torch.cuda.max_memory_allocated() - base, wall, losses
+
+
+#: phase 17 (a)'s step profile: substrings of cuDNN's and cuBLAS's
+#: kernel names (everything else is glue: casts, elementwise passes,
+#: reductions, copies)
+CONV_KERNELS = ("conv", "cudnn", "xmma", "implicit", "gemm", "cutlass",
+                "wgrad", "dgrad", "fprop")
+
+
+def zoo_step_profile(torch, model, x, y, iters: int = 3) -> dict:
+    """Where one training step's time goes on a staged batch: host wall
+    a step, device ms by op from the profiler (every event summed),
+    split into cuDNN's and cuBLAS's kernels and the rest, and the host's
+    own time by op."""
+    eng = model._require_estimator().engine
+    batch = eng.put_batch({"features": (x,), "labels": (y,),
+                           "mask": np.ones(len(x), np.float32)})
+
+    def step():
+        eng.train_step(batch)
+
+    step()
+    walls = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    from torch.autograd import DeviceType
+    _, _, prof = device_ms(step, iters=iters)
+    # summed, not a median per name: one name covers elementwise passes
+    # over every layer's size
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            per[e.name] = per.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3 / iters
+    dev = sum(per.values()) or None
+    conv = sum(v for n, v in per.items()
+               if any(k in n.lower() for k in CONV_KERNELS))
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / iters, e.count
+                    / iters) for e in prof.key_averages()),
+                  key=lambda t: -t[1])[:12]
+    return dict(batch=len(x), wall_ms_per_step=statistics.median(walls),
+                device_ms_per_step=dev, conv_and_gemm_ms=conv,
+                other_ms=(dev - conv) if dev else None,
+                device_busy_share=(dev / statistics.median(walls)
+                                   if dev else None),
+                top_device_ops_ms=[(n[:90], v) for n, v in top],
+                top_host_ops_self_ms_and_calls=[(n[:60], v, c)
+                                                for n, v, c in host])
+
+
+def image_set_feed(seed: int, n: int):
+    """ImageSet.from_arrays of n uint8 images 8 pixels wider than
+    ZOO_SIZE through a seeded chain (random crop to ZOO_SIZE, flip,
+    channel normalization, to f32) and to_dataset(): (XShards, seconds
+    the transforms took)."""
+    from analytics_zoo_tpu_torch.feature.image import (
+        ImageChannelNormalize,
+        ImageHFlip,
+        ImageMatToTensor,
+        ImageRandomCrop,
+        ImageSet,
+    )
+    rng = np.random.default_rng(seed)
+    y = rng.permutation(np.arange(n) % 2).astype(np.int32)
+    side = ZOO_SIZE + 8
+    imgs = rng.integers(0, 200, (n, side, side, 3), dtype=np.uint8)
+    imgs[y == 1, :side // 2, :side // 2, 0] += 55
+    t0 = time.perf_counter()
+    chain = (ImageRandomCrop(ZOO_SIZE, ZOO_SIZE, seed=seed)
+             >> ImageHFlip(0.5, seed=seed + 1)
+             >> ImageChannelNormalize(123.0, 117.0, 104.0, 58.4, 57.1, 57.4)
+             >> ImageMatToTensor())
+    ds = ImageSet.from_arrays(list(imgs), list(y)).transform(chain) \
+        .to_dataset()
+    return ds, time.perf_counter() - t0
+
+
+def resnet50_finetune(torch, seed: int, card: str):
+    """(a): ImageClassifier("resnet-50", 2) bf16 through
+    model.estimator(...).fit at batch 128 and 256 from the arrays, and
+    at 256 from an ImageSet chain."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        ImageClassifier,
+    )
+    runs = []
+    for batch, feed in [(b, "arrays") for b in ZOO_BATCHES] + [
+            (ZOO_BATCHES[-1], "image_set")]:
+        torch.manual_seed(seed + 26)
+        model = ImageClassifier("resnet-50", num_classes=2, device="cuda")
+        model.estimator(optimizer="adam", learning_rate=1e-3, seed=seed)
+        n = batch * ZOO_STEPS
+        t0 = time.perf_counter()
+        if feed == "arrays":
+            x, y = zoo_images(np.random.default_rng(seed + 27), n)
+            data, epochs, transform_s = {"x": x, "y": y}, ZOO_EPOCHS, None
+        else:
+            data, transform_s = image_set_feed(seed + 28, n)
+            epochs = 2
+        make_s = time.perf_counter() - t0
+        times, peak, wall, losses = marked_fit(torch, model, data, batch,
+                                               epochs)
+        check(all(np.isfinite(losses)), f"phase 17 (a): epoch losses "
+              f"{losses}")
+        p50 = statistics.median(times)
+        flops = forward_flops(torch, model)
+        busy = busy_share(torch, lambda: model.fit(
+            data, epochs=1, batch_size=batch, shuffle=False), top_host=10)
+        run = dict(batch=batch, feed=feed, epochs=epochs, steps_per_epoch=
+                   ZOO_STEPS, data_s=make_s, transform_s=transform_s,
+                   step_ms_p50=p50 * 1e3, step_ms=[t * 1e3 for t in times],
+                   images_per_s=batch / p50, fit_wall_s=wall,
+                   images_per_s_wall=n * epochs / wall,
+                   peak_bytes_above_start=peak,
+                   forward_gflops_per_image=flops / 1e9,
+                   resnet50_train_mfu=3 * flops * batch / p50 / BF16_FLOPS,
+                   epoch_losses=losses, **busy)
+        if feed == "arrays" and batch == ZOO_BATCHES[-1]:
+            run["step_profile"] = zoo_step_profile(torch, model, x[:batch],
+                                                   y[:batch])
+            print(f"phase 17 (a) [{card}] ResNet-50 step profile at batch "
+                  f"{batch}: {json.dumps(run['step_profile'])}; host ops "
+                  f"over a profiled fit epoch ({ZOO_STEPS} steps): "
+                  f"{json.dumps(busy['top_host_ops_self_ms_and_calls'])}",
+                  flush=True)
+        if feed == "arrays" and batch == ZOO_BATCHES[0]:
+            check(losses[-1] < losses[0], f"phase 17 (a): the epoch loss "
+                  f"did not fall over {ZOO_EPOCHS} epochs: {losses}")
+            xb = x[:batch]
+            got = model.predict({"x": xb}, batch_size=batch)
+            with torch.no_grad():
+                want = model.eval()(torch.from_numpy(xb).cuda()).float()
+            check(np.array_equal(got, want.cpu().numpy()),
+                  "phase 17 (a): predict after fit differs from an "
+                  "eval-mode forward")
+            run["predict_equals_eval_forward"] = True
+        runs.append(run)
+        print(f"phase 17 (a) [{card}] ResNet-50 fine-tune bf16, batch "
+              f"{batch} from {feed}: step p50 {run['step_ms_p50']:.3f} ms = "
+              f"{run['images_per_s']:.1f} images/s, resnet50_train_mfu "
+              f"{run['resnet50_train_mfu']:.4f} (3 x "
+              f"{run['forward_gflops_per_image']:.3f} GFLOP an image, of "
+              f"989 TFLOP/s bf16), card busy share "
+              f"{run['device_busy_share']:.3f}, peak "
+              f"{peak / 2**30:.2f} GiB above the start, epoch losses "
+              f"{[round(v, 4) for v in losses]}, fit wall {wall:.2f} s"
+              + (f", transforms {transform_s:.2f} s" if transform_s
+                 else ""), flush=True)
+        del model, data
+        free_card(torch)
+    return runs
+
+
+def sgd_step_f64(torch, m, x, y, lr: float) -> float:
+    """One SGD step of `m`, a ResNet in f64 on the CPU, by hand: the
+    model's forward with its head in f64 too (the model's own takes
+    the pooled features to f32), the mean cross-entropy, p -= lr * grad;
+    returns the loss."""
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.models.image.imageclassification.layers \
+        import max_pool, to_nchw
+    m.train()
+    m.zero_grad(set_to_none=True)
+    h = torch.relu(m.stem_bn(m.stem(to_nchw(
+        torch.from_numpy(x).double()))))
+    h = max_pool(h, 3, 2, "SAME")
+    for name, blk in m.named_children():
+        if name.startswith("stage"):
+            h = blk(h)
+    logits = F.linear(h.mean(dim=(2, 3)), m.head.weight, m.head.bias)
+    loss = F.cross_entropy(logits, torch.from_numpy(y).long())
+    loss.backward()
+    with torch.no_grad():
+        for p in m.parameters():
+            p -= lr * p.grad
+    return loss.item()
+
+
+def gate_f32_resnet50(torch, seed: int, card: str):
+    """(b): an f32 ResNet-50, 2 SGD steps at batch 8 on the card and on
+    the port's CPU path (TF32 off), with an f64 step on the CPU beside
+    them, the CPU copies taking each step from the card's state before
+    it: each step's loss, the parameters and the running statistics
+    after it within ZOO_F32_TOL of the CPU path's; each parameter
+    tensor's update against the f64 one (ZOO_UPDATE_K, ZOO_REF_TOL);
+    then predict and save / load."""
+    import os
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        ResNet50,
+    )
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "phase 17 (b) needs TF32 off")
+    lr = 1e-3
+    x, y = zoo_images(np.random.default_rng(seed + 29), 16)
+    torch.manual_seed(seed + 30)
+    card_m = ResNet50(num_classes=2, dtype=torch.float32, device="cuda")
+    cpu_m = ResNet50(num_classes=2, dtype=torch.float32, device="cpu")
+    ref_m = ResNet50(num_classes=2, dtype=torch.float64,
+                     device="cpu").double()
+    ests = {m: Estimator.from_torch(
+        m, loss="sparse_categorical_crossentropy", optimizer="sgd",
+        learning_rate=lr) for m in (card_m, cpu_m)}
+
+    def host(m, params=True):
+        items = m.named_parameters() if params else m.named_buffers()
+        return {k: v.detach().cpu().double() for k, v in items}
+
+    def l2(a, b):
+        return float((a - b).norm())
+
+    errs = {k: 0.0 for k in ("losses", "ref_losses", "params",
+                             "running_stats")}
+    worst, losses = {}, {"card": [], "cpu": [], "f64": []}
+    upd = {"card": {}, "cpu": {}}
+    for step in range(2):
+        state = {k: v.cpu() for k, v in card_m.state_dict().items()}
+        cpu_m.load_state_dict(state)
+        ref_m.load_state_dict(state)
+        p0 = host(cpu_m)
+        xb, yb = x[8 * step:8 * step + 8], y[8 * step:8 * step + 8]
+        for label, m in (("card", card_m), ("cpu", cpu_m)):
+            ests[m].fit({"x": xb, "y": yb}, epochs=1, batch_size=8,
+                        shuffle=False)
+            losses[label].append(ests[m].train_summary[-1]["loss"])
+        losses["f64"].append(sgd_step_f64(torch, ref_m, xb, yb, lr))
+        pc, ph, pr = host(card_m), host(cpu_m), host(ref_m)
+        bc, bh = host(card_m, False), host(cpu_m, False)
+        # each tensor's update (L2) against the f64 one, the card's and
+        # the f32 CPU path's
+        for label, p in (("card", pc), ("cpu", ph)):
+            for k, v in p.items():
+                ref = max(l2(pr[k], p0[k]), 1e-300)
+                e = l2(v, pr[k]) / ref
+                upd[label][k] = max(upd[label].get(k, 0.0), e)
+        # parameters against the model's largest; a running mean in
+        # units of its feature's spread, a running variance against its
+        # largest
+        p_scale = max(float(v.abs().max()) for v in ph.values())
+        parts = dict(
+            params={k: float((pc[k] - v).abs().max()) / p_scale
+                    for k, v in ph.items()},
+            running_stats={k: float((bc[k] - v).abs().max() / (
+                bh[k.replace("mean", "var")].sqrt().max()
+                if k.endswith("running_mean") else v.abs().max()))
+                for k, v in bh.items()})
+        for name, d in parts.items():
+            k = max(d, key=d.get)
+            if d[k] >= errs[name]:
+                errs[name], worst[name] = d[k], f"{k} (step {step + 1})"
+        for name, a, b in (("losses", "card", "cpu"),
+                           ("ref_losses", "cpu", "f64")):
+            errs[name] = max(errs[name], abs(
+                losses[a][-1] - losses[b][-1]) / abs(losses[b][-1]))
+    allowed = {k: max(ZOO_F32_TOL, ZOO_UPDATE_K * e)
+               for k, e in upd["cpu"].items()}
+    over = {k: (e, allowed[k]) for k, e in upd["card"].items()
+            if e > allowed[k]}
+    ratio = {k: e / max(upd["cpu"][k], 1e-300)
+             for k, e in upd["card"].items()}
+    update = dict(
+        card_max=max(upd["card"].values()),
+        card_median=float(np.median(list(upd["card"].values()))),
+        cpu_max=max(upd["cpu"].values()),
+        cpu_median=float(np.median(list(upd["cpu"].values()))),
+        ratio_max=max(ratio.values()),
+        worst_ratio=max(ratio, key=ratio.get),
+        n_tensors=len(ratio))
+    check(all(v <= ZOO_F32_TOL for v in errs.values()),
+          f"phase 17 (b): card vs CPU relative errors {errs} (tol "
+          f"{ZOO_F32_TOL}; worst {worst}; losses {losses})")
+    check(update["cpu_max"] <= ZOO_REF_TOL,
+          f"phase 17 (b): the f32 CPU path's updates are "
+          f"{update['cpu_max']} from the f64 step's (tol {ZOO_REF_TOL}): "
+          f"the reference does not take the same step")
+    check(not over, f"phase 17 (b): updates on the card past "
+          f"max({ZOO_F32_TOL}, {ZOO_UPDATE_K} x the f32 CPU path's "
+          f"error) from the f64 step: {over}")
+    got = ests[card_m].predict({"x": x}, batch_size=8)
+    card_m.eval()
+    with torch.no_grad():       # batch by batch, at predict's shapes
+        want = np.concatenate([card_m(torch.from_numpy(x[i:i + 8]).cuda())
+                               .cpu().numpy() for i in (0, 8)])
+    check(np.array_equal(got, want), "phase 17 (b): predict after fit "
+          "differs from an eval-mode forward")
+    tmp = tempfile.mkdtemp()
+    try:
+        path = card_m.save_model(os.path.join(tmp, "resnet50"))
+        back = type(card_m).load_model(path)
+        a, b = card_m.state_dict(), back.state_dict()
+        same = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in a)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(same, "phase 17 (b): save_model -> load_model is not bitwise")
+    n_buffers = sum(1 for k in a if "running" in k)
+    print(f"phase 17 (b) [{card}] f32 ResNet-50, 2 SGD steps ({lr}) at "
+          f"batch 8, card vs CPU from the card's state before each step "
+          f"(TF32 off): relative errors {errs} (tol {ZOO_F32_TOL}; worst "
+          f"{worst}); each tensor's update (L2) against an f64 step: "
+          f"{update} (tol max({ZOO_F32_TOL}, {ZOO_UPDATE_K} x the CPU's), "
+          f"the CPU's within {ZOO_REF_TOL}); losses {losses}; predict == "
+          f"eval forward; save/load bitwise over {len(a)} tensors "
+          f"({n_buffers} running statistics)", flush=True)
+    return dict(rel_errors=errs, worst=worst, tol=ZOO_F32_TOL,
+                update_vs_f64=update, update_k=ZOO_UPDATE_K,
+                ref_tol=ZOO_REF_TOL, losses=losses,
+                predict_equals_eval_forward=True, save_load_bitwise=True,
+                tensors=len(a))
+
+
+def other_backbones(torch, seed: int, card: str):
+    """(c): Inception-v1, MobileNetV2 and VGG-16 at full width, at
+    ZOO_SIZE^2, 5 fit steps each at batch 64."""
+    from analytics_zoo_tpu_torch.models.image.imageclassification import (
+        InceptionV1,
+        MobileNetV2,
+        VGG16,
+    )
+    x, y = zoo_images(np.random.default_rng(seed + 31), ZOO_OTHER_BATCH)
+    n = ZOO_OTHER_STEPS
+    data = {"x": np.concatenate([x] * n), "y": np.concatenate([y] * n)}
+    out = {}
+    for name, cls in (("inception-v1", InceptionV1),
+                      ("mobilenet-v2", MobileNetV2), ("vgg-16", VGG16)):
+        torch.manual_seed(seed + 32)
+        model = cls(num_classes=2, device="cuda", **(
+            {"image_size": ZOO_SIZE} if cls is VGG16 else {}))
+        model.estimator(optimizer="adam", learning_rate=1e-3, seed=seed)
+        times, peak, wall, _ = marked_fit(torch, model, data,
+                                          ZOO_OTHER_BATCH, 1)
+        steps = [s["loss"] for s in model._estimator.engine.last_steps]
+        check(len(steps) == n and all(np.isfinite(steps)),
+              f"phase 17 (c): {name} step losses {steps}")
+        p50 = statistics.median(times)
+        out[name] = dict(step_ms_p50=p50 * 1e3,
+                         images_per_s=ZOO_OTHER_BATCH / p50,
+                         peak_bytes_above_start=peak, step_losses=steps,
+                         fit_wall_s=wall)
+        print(f"phase 17 (c) [{card}] {name} bf16, batch {ZOO_OTHER_BATCH} "
+              f"at {ZOO_SIZE}^2: step p50 {p50 * 1e3:.3f} ms = "
+              f"{ZOO_OTHER_BATCH / p50:.1f} images/s, peak "
+              f"{peak / 2**30:.2f} GiB, step losses "
+              f"{[round(v, 4) for v in steps]}", flush=True)
+        del model
+        free_card(torch)
+    return out
+
+
+def squares(rng, n: int, size: int):
+    """n images of one bright square each, its box and label 1, padded
+    to 4 boxes an image."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection.box_utils \
+        import pad_ground_truth
+    imgs = rng.uniform(0, 0.2, (n, size, size, 3)).astype(np.float32)
+    boxes, labels = [], []
+    for i in range(n):
+        w = int(rng.integers(size // 4, size // 2))
+        x0, y0 = rng.integers(0, size - w, 2)
+        imgs[i, y0:y0 + w, x0:x0 + w] = 1.0
+        boxes.append(np.array([[x0, y0, x0 + w, y0 + w]], np.float32) / size)
+        labels.append(np.array([1]))
+    return imgs, pad_ground_truth(boxes, labels, 4)
+
+
+def detectors(torch, seed: int, card: str):
+    """(d): SSD and Faster R-CNN at JAX's defaults, DET_STEPS fit steps
+    on one repeated batch; detect with the host NMS."""
+    from analytics_zoo_tpu_torch.models.image.objectdetection import (
+        FasterRCNNDetector,
+        SSDDetector,
+    )
+    out = {}
+    for name, cls in (("ssd", SSDDetector),
+                      ("faster_rcnn", FasterRCNNDetector)):
+        torch.manual_seed(seed + 33)
+        det = cls(num_classes=1, device="cuda")
+        imgs, (boxes, labels) = squares(np.random.default_rng(seed + 34),
+                                        DET_BATCH, det._config["image_size"])
+        t0 = time.perf_counter()
+        det.fit({"x": imgs, "y": [boxes, labels]}, epochs=DET_STEPS,
+                batch_size=DET_BATCH, shuffle=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [s["loss"] for s in det._estimator.train_summary]
+        check(len(losses) == DET_STEPS and all(np.isfinite(losses))
+              and losses[-1] < losses[0],
+              f"phase 17 (d): {name} losses {losses} (finite and falling)")
+        max_det = 20
+        found = det.detect(imgs[:8], score_threshold=0.0, max_det=max_det)
+        counts = [len(b) for b, _, _ in found]
+        inside = all(((b >= 0) & (b <= 1)).all() for b, _, _ in found)
+        check(len(found) == 8 and max(counts) <= max_det and inside,
+              f"phase 17 (d): {name} detections {counts} (at most "
+              f"{max_det}), inside [0, 1]: {inside}")
+        out[name] = dict(losses=losses, fit_wall_s=wall,
+                         detections_per_image=counts)
+        print(f"phase 17 (d) [{card}] {name} at JAX's defaults: "
+              f"{DET_STEPS} steps at batch {DET_BATCH}, losses "
+              f"{[round(v, 4) for v in losses]} in {wall:.2f} s; detect: "
+              f"{counts} boxes an image (max {max_det}), all inside [0, 1]",
+              flush=True)
+        del det
+        free_card(torch)
+    return out
+
+
+def phase_image_zoo(torch, seed: int, card: str):
+    """Phase 17: the image zoo, scenes (a)-(d); no kernel of ours
+    launches in any of them."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = dict(a=resnet50_finetune(torch, seed, card))
+    out["b"] = gate_f32_resnet50(torch, seed, card)
+    free_card(torch)
+    out["c"] = other_backbones(torch, seed, card)
+    out["d"] = detectors(torch, seed, card)
+    torch.cuda.synchronize()
+    out["launches"] = kernels.launch_counts()
+    check(not any(out["launches"].values()),
+          f"phase 17 launched a kernel of ours: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -4889,6 +5717,10 @@ def main(argv=None) -> int:
     serving = phase_serving(torch, args.seed, card, engine.model,
                             bert_model, runs[0], bert_runs[0])
     clocks("after phase 15", start)
+    int8 = phase_int8_serving(torch, args.seed, card, bert_model)
+    clocks("after phase 16", start)
+    zoo = phase_image_zoo(torch, args.seed, card)
+    clocks("after phase 17", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -4939,6 +5771,7 @@ def main(argv=None) -> int:
     xs_bert = data_path["d"]["launches"]
     srv_bert = serving["launches"]["serving_bert"]
     srv_gen = serving["launches"]["serving_generate"]
+    int8_bert = int8["a"]["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -4985,7 +5818,8 @@ def main(argv=None) -> int:
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert,
                                   "serving_bert_http": srv_bert,
-                                  "serving_generate_http": srv_gen},
+                                  "serving_generate_http": srv_gen,
+                                  "int8_bert_serving": int8_bert},
                "layer_norm_bwd": {"bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert},
@@ -4993,12 +5827,14 @@ def main(argv=None) -> int:
                                     "bert_fine_tune": tr,
                                     "bert_fine_tune_remat": remat,
                                     "bert_fine_tune_xshards": xs_bert,
-                                    "serving_bert_http": srv_bert},
+                                    "serving_bert_http": srv_bert,
+                                    "int8_bert_serving": int8_bert},
                "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
                              "learnable_bias": bias_run["launches"],
                              "bert_fine_tune_remat": remat,
                              "bert_fine_tune_xshards": xs_bert,
-                             "serving_bert_http": srv_bert},
+                             "serving_bert_http": srv_bert,
+                             "int8_bert_serving": int8_bert},
                "flash_bwd_dq": {"bert_fine_tune": tr,
                                 "learnable_bias": bias_run["launches"],
                                 "bert_fine_tune_remat": remat,
@@ -5024,12 +5860,18 @@ def main(argv=None) -> int:
         # nor on phase 15's NCF served over HTTP (checked there: all 0)
         k["launches_by_path"]["serving_ncf_http"] = \
             serving["launches"]["serving_ncf"][k["name"]]
+        # nor on phase 16's ResNet-50 nor anywhere in phase 17 (checked
+        # there: all 0)
+        k["launches_by_path"]["int8_resnet50_serving"] = \
+            int8["b"]["launches"][k["name"]]
+        k["launches_by_path"]["image_zoo"] = zoo["launches"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs,
                       "generation_breadth": gen_breadth, "bert": bert_runs,
                       "train": train, "bias_path": bias_run,
                       "recommendation": rec, "fit_surface": fit_surface,
                       "data_path": data_path, "serving": serving,
+                      "int8_serving": int8, "image_zoo": zoo,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,

@@ -133,8 +133,10 @@ def test_raises_without_card_model_or_quantizer(monkeypatch):
     with pytest.raises(RuntimeError, match="no model loaded"):
         InferenceModel().predict(np.zeros((1, 4), np.int32))
     model, _ = _model()
-    with pytest.raises(NotImplementedError, match="quantize"):
-        InferenceModel().load_module(model, quantize=True)
+    # int8 weights are served now (tests/test_torch_quantize.py holds
+    # them against JAX's); a quantizer of the module's weights is found
+    im = InferenceModel().load_module(model, quantize=True)
+    assert im.quantize_stats["compression"] > 1.0
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BERTClassifier(**CFG)

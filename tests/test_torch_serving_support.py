@@ -207,8 +207,14 @@ def test_load_model_predicts_as_the_saved_model(saved_ncf):
     im2 = InferenceModel().load_model(path, model_cls=NeuralCF,
                                       device="cpu")
     np.testing.assert_allclose(im2.predict(u, i), want, atol=TOL)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        InferenceModel().load_model(path, quantize=True, device="cpu")
+    # int8 weights: the loaded model quantized as a quantized copy of
+    # the module is (tests/test_torch_quantize.py holds both against JAX)
+    direct = InferenceModel().load_model(path, device="cpu")
+    np.testing.assert_array_equal(
+        InferenceModel().load_model(path, quantize=True,
+                                    device="cpu").predict(u, i),
+        InferenceModel().load_module(direct._module, quantize=True
+                                     ).predict(u, i))
     with pytest.raises(NotImplementedError, match="item 7"):
         InferenceModel().load_model(path, decrypt_key="k", device="cpu")
 
