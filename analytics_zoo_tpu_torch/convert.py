@@ -19,7 +19,12 @@ weights in the flax tree, to compare with the JAX Estimator's.
 Faster R-CNN), whose modules are named as the flax ones: a Conv
 `kernel (kh, kw, in, out)` becomes `weight (out, in, kh, kw)`, a
 BatchNorm's `scale` its `weight` and its `batch_stats` `mean` / `var`
-its `running_mean` / `running_var`.  Each `*_to_flax` is the inverse
+its `running_mean` / `running_var`.  `text_classifier_from_flax`,
+`anomaly_detector_from_flax`, `seq2seq_from_flax`, `knrm_from_flax`
+and `vae_from_flax` do it for the rest of the zoo: a flax recurrent cell
+becomes its one-layer torch RNN's weights (`models/common/recurrent.py`,
+shared with SessionRecommender), a 1-D Conv `kernel (k, in, out)` a
+`weight (out, in, k)`.  Each `*_to_flax` is the inverse
 of its `*_from_flax` (the flax tree of the port's weights, which
 `serving/quantize.py` quantizes as JAX does).
 """
@@ -27,10 +32,12 @@ of its `*_from_flax` (the flax tree of the port's weights, which
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from analytics_zoo_tpu_torch.models.common import recurrent
 
 _DENSES = ("qkv", "proj", "fc1", "fc2")
 _NORMS = ("ln1", "ln2")
@@ -347,23 +354,6 @@ def init_bert_params(config: Mapping, seed: int = 0,
     return {"bert": bert, head: dense(hid, width)}
 
 
-def _renamed_from_flax(params: Mapping,
-                       rename: Callable[[str], Optional[str]]
-                       ) -> Dict[str, np.ndarray]:
-    """The state_dict entries of a tree of flax Embed and Dense modules:
-    module `m` becomes `rename(m)` (None: an unknown entry, raising), an
-    `embedding` its `weight`, a `kernel` its transposed `weight`."""
-    out = {}
-    for path, arr in _flatten(params).items():
-        mod, leaf = path.rsplit("/", 1)
-        name = rename(mod)
-        if name is None or leaf not in ("embedding", "kernel", "bias"):
-            raise ValueError(f"unknown entry in the param tree: {path}")
-        out[f"{name}.{'bias' if leaf == 'bias' else 'weight'}"] = \
-            arr.T if leaf == "kernel" else arr
-    return out
-
-
 def _tensors(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
             for k, v in flat.items()}
@@ -378,76 +368,80 @@ def _rename(rules):
     return rename
 
 
-def ncf_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's `NeuralCF` state_dict from the JAX module's param tree:
-    the four embedding tables by name, the hidden layers' flax auto-names
-    `Dense_j` as `hidden.j`, and `head` (its input rows [h; mf])."""
-    return _tensors(_renamed_from_flax(params, _rename(
-        [(r"(mlp|mf)_(user|item)_embed", r"\g<0>"),
-         (r"Dense_(\d+)", r"hidden.\1"), (r"head", "head")])))
+def _kernel_from_flax(arr: np.ndarray) -> np.ndarray:
+    """A flax kernel as the port's weight: a Dense's (in, out)
+    transposed, a 1-D Conv's (k, in, out) as (out, in, k); each its own
+    inverse, so `_renamed_to_flax` takes a weight back through it."""
+    return arr.transpose({2: (1, 0), 3: (2, 1, 0)}[arr.ndim])
 
 
-def wide_and_deep_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's `WideAndDeep` state_dict from the JAX module's param
-    tree (`wide_embed_j`, `deep_embed_j`, `deep_fc_j`, `deep_head`)."""
-    return _tensors(_renamed_from_flax(params, _rename(
-        [(r"(wide_embed|deep_embed|deep_fc)_(\d+)", r"\1.\2"),
-         (r"deep_head", "deep_head")])))
-
-
-def session_recommender_from_flax(params: Mapping
-                                  ) -> Dict[str, torch.Tensor]:
-    """The port's `SessionRecommender` state_dict from the JAX module's
-    param tree.  GRU cell j's input Denses ir, iz, in stack into
-    `gru.j.weight_ih_l0` and `bias_ih_l0`, its hidden Denses hr, hz, hn
-    into `weight_hh_l0`, in torch's (r, z, n) order; `bias_hh_l0` is
-    [0, 0, hn.bias] (flax's hr and hz have no bias)."""
-    params = dict(params)
+def _renamed_from_flax(params: Mapping, rules) -> Dict[str, torch.Tensor]:
+    """The state_dict of a port model whose flax modules each map to
+    one port module by the (pattern, replacement) `rules`: a recurrent
+    cell its RNN's weights (`recurrent.cell_from_flax`), an `embedding`
+    its `weight`, a kernel its weight (`_kernel_from_flax`).  Raises on
+    a module no rule names and on an unknown leaf."""
+    rename = _rename(rules)
     out = {}
-    for name in sorted(k for k in params if re.fullmatch(r"gru_cell_\d+", k)):
-        cell = _flatten(params.pop(name))
-        j = name.rsplit("_", 1)[1]
-        known = {f"{g}/{leaf}" for g in ("ir", "iz", "in", "hn")
-                 for leaf in ("kernel", "bias")} | {"hr/kernel", "hz/kernel"}
-        if set(cell) != known:
-            raise ValueError(f"{name}: entries {sorted(cell)}, expected "
-                             f"{sorted(known)}")
-        hn_b = cell["hn/bias"]
-        out[f"gru.{j}.weight_ih_l0"] = np.concatenate(
-            [cell[f"i{g}/kernel"].T for g in "rzn"])
-        out[f"gru.{j}.weight_hh_l0"] = np.concatenate(
-            [cell[f"h{g}/kernel"].T for g in "rzn"])
-        out[f"gru.{j}.bias_ih_l0"] = np.concatenate(
-            [cell[f"i{g}/bias"] for g in "rzn"])
-        out[f"gru.{j}.bias_hh_l0"] = np.concatenate(
-            [np.zeros_like(hn_b), np.zeros_like(hn_b), hn_b])
-    out.update(_renamed_from_flax(params, _rename(
-        [(r"(session|history)_embed", r"\g<0>"),
-         (r"mlp_(\d+)", r"mlp.\1"), (r"head", "head")])))
+    for mod, tree in params.items():
+        name = rename(mod)
+        if name is None or not isinstance(tree, Mapping):
+            raise ValueError(f"unknown entry in the param tree: {mod}")
+        if recurrent.is_cell(tree):
+            weights = recurrent.cell_from_flax(tree, mod)
+        else:
+            weights = {}
+            for leaf, arr in tree.items():
+                if leaf not in ("embedding", "kernel", "bias"):
+                    raise ValueError(f"unknown entry in the param tree: "
+                                     f"{mod}/{leaf}")
+                arr = np.asarray(arr)
+                weights["bias" if leaf == "bias" else "weight"] = \
+                    _kernel_from_flax(arr) if leaf == "kernel" else arr
+        out.update({f"{name}.{k}": v for k, v in weights.items()})
     return _tensors(out)
+
+
+#: the weights of a one-layer torch RNN
+_RNN_LEAVES = ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")
 
 
 def _renamed_to_flax(state_dict: Mapping, rules) -> Dict:
     """The inverse of `_renamed_from_flax`: each (pattern, flax name,
-    is_embedding) rule maps the port module names it matches; a Linear
-    `weight` becomes its transposed `kernel`, an Embedding's its
-    `embedding`."""
-    flat = {}
+    is_embedding) rule maps the port modules it matches; an RNN's
+    weights become its flax cell (`recurrent.cell_to_flax`), a weight an
+    `embedding` or a kernel, a bias a bias."""
+    modules: Dict[str, Dict[str, np.ndarray]] = {}
     for name, t in state_dict.items():
         mod, leaf = name.rsplit(".", 1)
-        for pattern, repl, embed in rules:
-            if re.fullmatch(pattern, mod):
-                flax = re.sub(pattern, repl, mod)
-                break
+        modules.setdefault(mod, {})[leaf] = np.array(
+            t.detach().cpu().float())
+    tree = {}
+    for mod, leaves in modules.items():
+        rule = next((r for r in rules if re.fullmatch(r[0], mod)), None)
+        if rule is None:
+            raise ValueError(f"unknown entry in the state_dict: {mod}")
+        flax = re.sub(rule[0], rule[1], mod)
+        if set(leaves) == set(_RNN_LEAVES):
+            tree[flax] = recurrent.cell_to_flax(leaves)
+        elif set(leaves) in ({"weight"}, {"weight", "bias"}):
+            w = leaves["weight"]
+            tree[flax] = {"embedding": w} if rule[2] else {
+                "kernel": np.ascontiguousarray(_kernel_from_flax(w))}
+            if "bias" in leaves:
+                tree[flax]["bias"] = leaves["bias"]
         else:
-            raise ValueError(f"unknown entry in the state_dict: {name}")
-        arr = np.array(t.detach().cpu().float())
-        if leaf == "bias":
-            flat[f"{flax}/bias"] = arr
-        else:
-            flat[f"{flax}/{'embedding' if embed else 'kernel'}"] = \
-                arr if embed else np.ascontiguousarray(arr.T)
-    return _unflatten(flat)
+            raise ValueError(f"unknown entries of {mod}: {sorted(leaves)}")
+    return tree
+
+
+def ncf_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `NeuralCF` state_dict from the JAX module's param tree:
+    the four embedding tables by name, the hidden layers' flax auto-names
+    `Dense_j` as `hidden.j`, and `head` (its input rows [h; mf])."""
+    return _renamed_from_flax(params, [
+        (r"(mlp|mf)_(user|item)_embed", r"\g<0>"),
+        (r"Dense_(\d+)", r"hidden.\1"), (r"head", "head")])
 
 
 def ncf_to_flax(state_dict: Mapping) -> Dict:
@@ -456,6 +450,14 @@ def ncf_to_flax(state_dict: Mapping) -> Dict:
     return _renamed_to_flax(state_dict, [
         (r"(mlp|mf)_(user|item)_embed", r"\g<0>", True),
         (r"hidden\.(\d+)", r"Dense_\1", False), (r"head", "head", False)])
+
+
+def wide_and_deep_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `WideAndDeep` state_dict from the JAX module's param
+    tree (`wide_embed_j`, `deep_embed_j`, `deep_fc_j`, `deep_head`)."""
+    return _renamed_from_flax(params, [
+        (r"(wide_embed|deep_embed|deep_fc)_(\d+)", r"\1.\2"),
+        (r"deep_head", "deep_head")])
 
 
 def wide_and_deep_to_flax(state_dict: Mapping) -> Dict:
@@ -467,32 +469,22 @@ def wide_and_deep_to_flax(state_dict: Mapping) -> Dict:
         (r"deep_head", "deep_head", False)])
 
 
+def session_recommender_from_flax(params: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """The port's `SessionRecommender` state_dict from the JAX module's
+    param tree: GRU cell j (`gru_cell_j`) as `gru.j`."""
+    return _renamed_from_flax(params, [
+        (r"gru_cell_(\d+)", r"gru.\1"), (r"(session|history)_embed", r"\g<0>"),
+        (r"mlp_(\d+)", r"mlp.\1"), (r"head", "head")])
+
+
 def session_recommender_to_flax(state_dict: Mapping) -> Dict:
     """The JAX `SessionRecommender` param tree of the port's weights
-    (the inverse of `session_recommender_from_flax`): each GRU's
-    stacked (r, z, n) weights split back into flax's Denses, of the
-    hidden-side biases only hn's (flax's hr and hz have none)."""
-    sd = dict(state_dict)
-    tree: Dict = {}
-    grus = sorted({n.split(".")[1] for n in sd if n.startswith("gru.")},
-                  key=int)
-    for j in grus:
-        def take(leaf):
-            return np.array(sd.pop(f"gru.{j}.{leaf}").detach().cpu()
-                            .float())
-        w_ih, w_hh = take("weight_ih_l0"), take("weight_hh_l0")
-        b_ih, b_hh = take("bias_ih_l0"), take("bias_hh_l0")
-        cell = {}
-        for g, w, b in zip("rzn", np.split(w_ih, 3), np.split(b_ih, 3)):
-            cell[f"i{g}"] = {"kernel": np.ascontiguousarray(w.T), "bias": b}
-        for g, w in zip("rzn", np.split(w_hh, 3)):
-            cell[f"h{g}"] = {"kernel": np.ascontiguousarray(w.T)}
-        cell["hn"]["bias"] = np.split(b_hh, 3)[2]
-        tree[f"gru_cell_{j}"] = cell
-    tree.update(_renamed_to_flax(sd, [
+    (the inverse of `session_recommender_from_flax`)."""
+    return _renamed_to_flax(state_dict, [
+        (r"gru\.(\d+)", r"gru_cell_\1", False),
         (r"(session|history)_embed", r"\g<0>", True),
-        (r"mlp\.(\d+)", r"mlp_\1", False), (r"head", "head", False)]))
-    return tree
+        (r"mlp\.(\d+)", r"mlp_\1", False), (r"head", "head", False)])
 
 
 #: the image models' batch_stats leaves and their buffers
@@ -549,3 +541,71 @@ def image_to_flax(state_dict: Mapping, prefix: str = ""):
         else:
             raise ValueError(f"unknown entry in the state_dict: {name}")
     return _unflatten(params), _unflatten(stats)
+
+
+def text_classifier_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `TextClassifier` state_dict from the JAX module's param
+    tree (`embed`, `conv` or the recurrent `cell`, `fc`, `head`)."""
+    return _renamed_from_flax(params, [(r"embed|conv|cell|fc|head", r"\g<0>")])
+
+
+def text_classifier_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `TextClassifier` param tree of the port's weights."""
+    return _renamed_to_flax(state_dict, [(r"embed", "embed", True),
+                                         (r"conv|cell|fc|head", r"\g<0>",
+                                          False)])
+
+
+def anomaly_detector_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `AnomalyDetector` state_dict from the JAX module's
+    param tree: LSTM cell i (`lstm_cell_i`) as `lstm.i`, `head`."""
+    return _renamed_from_flax(params, [(r"lstm_cell_(\d+)", r"lstm.\1"),
+                                       (r"head", "head")])
+
+
+def anomaly_detector_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `AnomalyDetector` param tree of the port's weights."""
+    return _renamed_to_flax(state_dict, [
+        (r"lstm\.(\d+)", r"lstm_cell_\1", False), (r"head", "head", False)])
+
+
+def seq2seq_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `Seq2Seq` state_dict from the JAX module's param tree:
+    `enc_cells_i` / `dec_cells_i` as `enc_cells.i` / `dec_cells.i`,
+    `bridge_dense_i_j` as `bridge_dense.i.j`, `generator`."""
+    return _renamed_from_flax(params, [
+        (r"(enc|dec)_cells_(\d+)", r"\1_cells.\2"),
+        (r"bridge_dense_(\d+)_(\d+)", r"bridge_dense.\1.\2"),
+        (r"generator", "generator")])
+
+
+def seq2seq_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `Seq2Seq` param tree of the port's weights."""
+    return _renamed_to_flax(state_dict, [
+        (r"(enc|dec)_cells\.(\d+)", r"\1_cells_\2", False),
+        (r"bridge_dense\.(\d+)\.(\d+)", r"bridge_dense_\1_\2", False),
+        (r"generator", "generator", False)])
+
+
+def knrm_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `KNRM` state_dict from the JAX module's param tree
+    (`embed`, `head`)."""
+    return _renamed_from_flax(params, [(r"embed|head", r"\g<0>")])
+
+
+def knrm_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `KNRM` param tree of the port's weights."""
+    return _renamed_to_flax(state_dict, [(r"embed", "embed", True),
+                                         (r"head", "head", False)])
+
+
+def vae_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `VAE` state_dict from the JAX module's param tree: its
+    modules are named as the flax ones (`image_from_flax`; a
+    ConvTranspose kernel is laid out as a Conv's, unflipped)."""
+    return image_from_flax(params)
+
+
+def vae_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `VAE` param tree of the port's weights."""
+    return image_to_flax(state_dict)[0]

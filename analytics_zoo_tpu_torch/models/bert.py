@@ -13,6 +13,8 @@ param tree through `convert.bert_from_flax` and go back through
 
 from __future__ import annotations
 
+import re
+
 import torch
 from torch import nn
 
@@ -26,6 +28,27 @@ from analytics_zoo_tpu_torch.keras.layers.self_attention import (
 #: intermediate 3072, 512 positions, WordPiece vocab 30522)
 BERT_BASE = dict(vocab=30522, hidden_size=768, n_head=12, n_block=12,
                  intermediate_size=3072, max_position_len=512)
+
+
+def bert_layout(state_dict):
+    """(to_flax(state_dict), from_flax(tree)) of the port BERT model
+    whose state_dict this is: `convert.bert_to_flax` and
+    `bert_from_flax` at the widths its tensors' shapes give."""
+    from analytics_zoo_tpu_torch import convert
+    vocab, hidden = state_dict["bert.token_embed.weight"].shape
+    n_block = sum(1 for k in state_dict
+                  if re.fullmatch(r"bert\.blocks\.\d+\.fc1\.weight", k))
+    cfg = dict(vocab=vocab, hidden_size=hidden, n_block=n_block,
+               intermediate_size=state_dict[
+                   "bert.blocks.0.fc1.weight"].shape[0],
+               max_position_len=state_dict[
+                   "bert.position_embed.weight"].shape[0])
+    for head, field in (("classifier", "num_classes"),
+                        ("ner_head", "num_entities")):
+        if f"{head}.weight" in state_dict:
+            cfg[field] = state_dict[f"{head}.weight"].shape[0]
+    return (lambda sd: convert.bert_to_flax(sd, cfg),
+            lambda tree: convert.bert_from_flax(tree, cfg))
 
 
 class _BERT(nn.Module):
@@ -51,21 +74,9 @@ class _BERT(nn.Module):
 
     def flax_layout(self):
         """(to_flax(state_dict), from_flax(tree)): the JAX module's
-        param tree, its blocks scan-stacked (`convert.bert_to_flax` and
-        `bert_from_flax` at this model's widths)."""
-        from analytics_zoo_tpu_torch import convert
-        enc, blk = self.bert, self.bert.blocks[0]
-        cfg = dict(vocab=enc.token_embed.num_embeddings,
-                   hidden_size=enc.token_embed.embedding_dim,
-                   n_block=len(enc.blocks),
-                   intermediate_size=blk.fc1.weight.shape[0],
-                   max_position_len=enc.position_embed.num_embeddings)
-        for head, field in (("classifier", "num_classes"),
-                            ("ner_head", "num_entities")):
-            if hasattr(self, head):
-                cfg[field] = getattr(self, head).weight.shape[0]
-        return (lambda sd: convert.bert_to_flax(sd, cfg),
-                lambda tree: convert.bert_from_flax(tree, cfg))
+        param tree, its blocks scan-stacked (`bert_layout` of this
+        model's state_dict)."""
+        return bert_layout(self.state_dict())
 
 
 class BERTClassifier(_BERT):

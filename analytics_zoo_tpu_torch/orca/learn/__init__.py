@@ -6,6 +6,10 @@ from analytics_zoo_tpu_torch.orca.learn.estimator import (  # noqa: F401
     Estimator,
     NaNLossError,
 )
+from analytics_zoo_tpu_torch.orca.learn.gan import GANEstimator  # noqa: F401
+from analytics_zoo_tpu_torch.orca.learn.inference_estimator import (  # noqa: F401,E501
+    InferenceEstimator,
+)
 from analytics_zoo_tpu_torch.orca.learn.trigger import (  # noqa: F401
     EveryEpoch,
     MaxIteration,

@@ -7,7 +7,15 @@ they train as they are (the JAX `from_torch`, which imports a torch
 module into flax, has no role here).  The module trains on the device
 its parameters are on; the port's models are built on the card unless
 given another device.  Loss and metrics default to the module's
-`default_loss` / `default_metrics` where it names them.
+`default_loss` / `default_metrics` where it names them.  With
+`aux_loss_weight` the module returns `(predictions, aux)` and the train
+loss adds weight * aux (the engine's `_split_aux`; `aux_loss` in
+`train_summary` and in `evaluate`), as JAX's `from_flax` takes it
+(estimator.py:112-121).  `set_params` replaces the module's parameters
+(a state_dict, or a callable of the current one) and
+`get_model_state` returns its buffers, as JAX's (estimator.py:611-660);
+the engine is built eagerly, so neither is deferred, and of `load` and
+`set_params` the last call wins.
 
 Data: {"x": ndarray(s), "y": ndarray(s)} or (x, y) tuples of numpy
 arrays, pandas DataFrames with `feature_cols` / `label_cols`, XShards of
@@ -72,7 +80,8 @@ class Estimator:
 
     def __init__(self, module, *, loss=None, optimizer=None, metrics=None,
                  learning_rate=None, clip_norm=None, clip_value=None,
-                 model_dir: Optional[str] = None, seed: int = 0):
+                 model_dir: Optional[str] = None, seed: int = 0,
+                 aux_loss_weight: Optional[float] = None):
         if loss is None:
             loss = getattr(module, "default_loss", None)
         if metrics is None:
@@ -83,7 +92,8 @@ class Estimator:
             module, optim_mod.resolve(optimizer, learning_rate, clip_norm,
                                       clip_value),
             loss_fn=losses_mod.resolve(loss),
-            metric_fns=metrics_mod.resolve_all(metrics), seed=seed)
+            metric_fns=metrics_mod.resolve_all(metrics), seed=seed,
+            aux_loss_weight=aux_loss_weight)
         self._epoch = 0
         self.train_summary: List[Dict[str, Any]] = []
         self.val_summary: List[Dict[str, Any]] = []
@@ -104,8 +114,9 @@ class Estimator:
         schedule), or None (adam); `learning_rate` its
         rate; `clip_norm` / `clip_value` the gradient clipping;
         `model_dir` where checkpoints go; `seed` the shuffling and the
-        dropout generator.  `loss` also takes a torch criterion
-        (`nn.CrossEntropyLoss()` and the others
+        dropout generator; `aux_loss_weight` the weight of the aux term
+        of a module returning (predictions, aux).  `loss` also takes a
+        torch criterion (`nn.CrossEntropyLoss()` and the others
         `torch_adapter.resolve_torch_loss` maps), as JAX's `from_torch`
         does (estimator.py:146-150)."""
         from analytics_zoo_tpu_torch.orca.learn.torch_adapter import (
@@ -385,6 +396,36 @@ class Estimator:
     def get_model(self):
         """The trained torch module (its parameters are the engine's)."""
         return self._engine.model
+
+    def get_model_state(self) -> Dict[str, Any]:
+        """The module's buffers (BatchNorm's running statistics and
+        counts), as host tensors: JAX's mutable model collections."""
+        params = {n for n, _ in self._engine.model.named_parameters()}
+        return {k: v.detach().cpu().clone()
+                for k, v in self._engine.model.state_dict().items()
+                if k not in params}
+
+    def set_params(self, params) -> "Estimator":
+        """Replace the module's parameters on its device.  `params` is a
+        state_dict (every parameter by name; buffers it names are loaded
+        too), or a callable mapping the current state_dict to one, e.g.
+        a pretrained-weight loader::
+
+            est.set_params(lambda p: load_bert_pretrained(p, ckpt_path))
+
+        The optimizer state is kept, as JAX's engine keeps it."""
+        model = self._engine.model
+        if callable(params):
+            params = params(model.state_dict())
+        missing = sorted({n for n, _ in model.named_parameters()}
+                         - set(params))
+        unknown = sorted(set(params) - set(model.state_dict()))
+        if missing or unknown:
+            raise ValueError(f"set_params: missing parameters {missing}, "
+                             f"unknown entries {unknown}")
+        # copied into the parameters in place: the optimizer holds them
+        model.load_state_dict(params, strict=False)
+        return self
 
     # ------------------------------------------------------------------
     # checkpoints

@@ -11,6 +11,12 @@ optimizer's `found_inf`: parameters and optimizer state keep their
 values, module buffers are put back from a copy taken before the
 forward, and the host never waits on the check), and per-step stats with
 `_count` (real rows, 0 on a skipped step) and `_nan_steps`.
+With `aux_loss_weight` the module returns `(predictions, aux)` (JAX
+spmd.py:126-142): a `[batch]` aux is masked-mean'd over the real rows
+(`_split_aux`, spmd.py:337-347), the step minimizes `loss + weight *
+aux` and reports the data loss as `loss` and the aux term as
+`aux_loss` (zero on a skipped step), evaluate reports `aux_loss` too,
+and predict drops it.
 `run_epoch` takes host batches and copies each to the card, double
 buffered (`_HostPrefetcher`, `OrcaContext.host_input_prefetch`): the
 loop pops a batch already staged and stages the next one right after
@@ -288,7 +294,7 @@ class TrainEngine:
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  loss_fn: Optional[Callable] = None,
                  metric_fns: Optional[Dict[str, Callable]] = None,
-                 seed: int = 0):
+                 seed: int = 0, aux_loss_weight: Optional[float] = None):
         params = list(model.parameters())
         if not params:
             raise ValueError("the module has no parameters to train")
@@ -299,6 +305,9 @@ class TrainEngine:
         self.opt, self.schedule = optimizer.build(self.params)
         self.loss_fn = loss_fn
         self.metric_fns = dict(metric_fns or {})
+        #: set when the module returns (predictions, aux): the train
+        #: loss adds weight * aux; metrics see the predictions alone
+        self.aux_loss_weight = aux_loss_weight
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._takes_generator = _declares(model.forward, "generator")
@@ -349,15 +358,29 @@ class TrainEngine:
             return self.model(*features, generator=self.generator)
         return self.model(*features)
 
+    def _split_aux(self, preds, mask=None):
+        """(predictions, aux or None) per `aux_loss_weight`: a scalar aux
+        as it is, a per-example `[batch]` aux masked-mean'd over the real
+        rows, so the padding of a ragged tail never biases it."""
+        if self.aux_loss_weight is None:
+            return preds, None
+        preds, aux = preds
+        if aux is not None and aux.dim() == 1 and mask is not None:
+            aux = masked_mean(aux, mask)
+        return preds, aux
+
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         mask = batch["mask"]
         self.opt.zero_grad(set_to_none=True)
         # the forward updates buffers (BatchNorm's running stats and
         # count) before the step is known finite
         saved = snapshot_buffers(self.model)
-        preds = self._forward(batch["features"], True)
-        loss = masked_mean(self._per_example_loss(preds, batch["labels"],
-                                                  mask), mask)
+        preds, aux = self._split_aux(self._forward(batch["features"], True),
+                                     mask)
+        data_loss = masked_mean(self._per_example_loss(
+            preds, batch["labels"], mask), mask)
+        loss = data_loss if aux is None else \
+            data_loss + self.aux_loss_weight * aux
         loss.backward()
         grads = [p.grad for p in self.params if p.grad is not None]
         finite = torch.isfinite(loss.detach())
@@ -386,7 +409,10 @@ class TrainEngine:
             self.schedule.after_step(fin)
         self.step += 1
         with torch.no_grad():
-            stats = {"loss": torch.where(finite, loss.detach(), 0.0)}
+            # the data loss, so train and eval losses compare 1:1
+            stats = {"loss": torch.where(finite, data_loss.detach(), 0.0)}
+            if aux is not None:
+                stats["aux_loss"] = torch.where(finite, aux.detach(), 0.0)
             for name, fn in self.metric_fns.items():
                 m = masked_mean(fn(preds, batch["labels"]), mask)
                 stats[name] = torch.where(finite, m, 0.0)
@@ -396,9 +422,12 @@ class TrainEngine:
 
     @torch.no_grad()
     def eval_step(self, batch) -> Dict[str, torch.Tensor]:
-        preds = self._forward(batch["features"], False)
         mask = batch["mask"]
+        preds, aux = self._split_aux(self._forward(batch["features"], False),
+                                     mask)
         stats = {}
+        if aux is not None:
+            stats["aux_loss"] = aux
         if batch["labels"]:
             if self.loss_fn is not None:
                 stats["loss"] = masked_mean(
@@ -574,7 +603,8 @@ class TrainEngine:
         outs = []
         while (item := pre.pop()) is not None:
             n_real, batch = item
-            preds = self._forward(batch["features"], False)
+            preds, _ = self._split_aux(self._forward(batch["features"],
+                                                     False))
             if pre.depth > 0:
                 pre.stage(1)
             outs.append(_strip(preds, n_real))

@@ -172,7 +172,12 @@ def find_zoo_model_class(name: str):
     for mod in ("analytics_zoo_tpu_torch.models.recommendation",
                 "analytics_zoo_tpu_torch.models.image.imageclassification",
                 "analytics_zoo_tpu_torch.models.image.objectdetection",
-                "analytics_zoo_tpu_torch.models.bert"):
+                "analytics_zoo_tpu_torch.models.bert",
+                "analytics_zoo_tpu_torch.models",
+                "analytics_zoo_tpu_torch.models.textclassification",
+                "analytics_zoo_tpu_torch.models.anomalydetection",
+                "analytics_zoo_tpu_torch.models.seq2seq",
+                "analytics_zoo_tpu_torch.models.textmatching"):
         m = importlib.import_module(mod)
         if hasattr(m, name):
             return getattr(m, name)

@@ -22,7 +22,10 @@ prefetch, the new optimizers and losses) in phase 13, the serving
 front end (ServingServer over HTTP: NCF, BERT-base and GPT-2 small) in
 phase 15, int8 weight serving (BERT-base, ResNet-50, NCF) in phase 16
 and the image zoo (ResNet-50 fine-tuning, Inception-v1, MobileNetV2,
-VGG-16, SSD and Faster R-CNN) in phase 17; each path's
+VGG-16, SSD and Faster R-CNN) in phase 17 and the rest of the model
+zoo (BERT-base from a checkpoint file, TextClassifier, KNRM, Seq2Seq,
+AnomalyDetector, VAE, GANEstimator, InferenceEstimator) in phase 18;
+each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
 versions or the port on the CPU.
@@ -224,6 +227,32 @@ Phases (each one failing exits non-zero, with no result line):
      images/s; (d) SSD and Faster R-CNN at JAX's defaults, 5 steps on a
      repeated batch: losses finite and falling, detect (host NMS) at
      most max_det boxes an image, inside [0, 1];
+  18. the rest of the model zoo (after phase 17; results under
+     "zoo_rest" and on a `zoo_rest` line), TF32 off: (a) BERT-base
+     (dropout off) loaded from a seeded `pytorch_model.bin` through
+     `est.set_params(lambda p: load_bert_pretrained(p, dir))`: every
+     encoder tensor bitwise the file's, the head kept, export -> re-read
+     -> load bitwise; 3 fine-tune steps at 32 x 128 with launches per
+     step exact (K1 25, K1b 25, K2 12 on its sm90 body, K3 12, K4a 12,
+     K4b 12), the first step's loss within 0.1 of an f32 CPU recompute;
+     (b) TextClassifier at the JAX defaults (20 classes), cnn, lstm and
+     gru: 2 epochs of 4 steps at batch 128, steps/s and sequences/s,
+     logits within 1e-4 of the CPU path; (c) KNRM at the JAX defaults:
+     4 steps at batch 256, NDCG@3, NDCG@5 and MAP over an XShards of 64
+     queries x 10 candidates equal to the CPU path's, scores within
+     1e-4; (d) Seq2Seq (hidden 64, 2 layers, dense bridge; LSTM and GRU)
+     fit, `infer` of 24 steps within 1e-4 of the CPU path;
+     AnomalyDetector (8, 32, 15) unrolled by 24: fit, predictions within
+     1e-4 of the CPU path, `detect_anomalies` 5 indices; (e) the VAE at
+     the JAX defaults: 2 epochs at batch 128, `aux_loss` in
+     train_summary, `generate(16)` in [0, 1], `reconstruct` equal on two
+     calls under deterministic algorithms (cuDNN's transposed convs sum
+     in a varying order otherwise: the spread is reported); (f) GANEstimator on the 2-d Gaussian of JAX's GAN test: the
+     first batch's update within 1e-5 of the CPU step on the same noise,
+     then 20 epochs; (g) InferenceEstimator.from_saved_model on (b)'s
+     GRU classifier: predict bitwise the model's own, accuracy
+     Estimator.evaluate's, fit raising; no kernel of ours launched in
+     (b)-(g);
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -5651,6 +5680,577 @@ def phase_image_zoo(torch, seed: int, card: str):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 18: the rest of the model zoo
+# ----------------------------------------------------------------------
+
+#: (a): the fine-tune after the checkpoint load: batch x t, steps
+PT_BATCH, PT_T, PT_STEPS = 32, 128, 3
+#: (a): the first step's loss (bf16 on the card) against the f32 CPU
+#: recompute: |d CE| <= 2 max |d logit| (the CE's gradient in the
+#: logits has an L1 norm of at most 2), and phase 7's bf16 logits gate
+#: is 0.05
+PT_LOSS_TOL = 0.1
+#: (b): the TextClassifier's cell (the JAX defaults, news20's 20
+#: classes), batch, steps an epoch, epochs, rows compared with the CPU
+TC_CELL = dict(class_num=20, vocab_size=20000, embed_dim=200,
+               sequence_length=500, encoder_output_dim=256)
+TC_BATCH, TC_STEPS, TC_EPOCHS, TC_CMP = 128, 4, 2, 64
+#: f32 on both sides with TF32 off; the recurrences run 500 steps of
+#: f32 rounding in other orders (cuDNN against the CPU's kernels)
+ZR_F32_TOL = 1e-4
+#: (c): KNRM at the JAX defaults, its batch and steps; the grouped
+#: relations (queries x candidates)
+KNRM_BATCH, KNRM_STEPS, KNRM_QUERIES, KNRM_CANDS = 256, 4, 64, 10
+#: (d): Seq2Seq's hidden width, layers, features, encoder and decoder
+#: lengths, sequences, batch; AnomalyDetector's unroll and series length
+S2S_HIDDEN, S2S_LAYERS, S2S_FEATURES = 64, 2, 2
+S2S_T_ENC, S2S_T_DEC, S2S_N, S2S_BATCH = 32, 24, 256, 64
+AD_UNROLL, AD_SERIES, AD_BATCH, AD_ANOMALIES = 24, 2048, 256, 5
+#: (e): VAE images and batch; (f): GAN samples, batch, epochs
+VAE_N, VAE_BATCH = 1024, 128
+GAN_N, GAN_BATCH, GAN_EPOCHS, GAN_NOISE = 512, 64, 20, 4
+
+
+def cpu_copy(model, cls, **kw):
+    """The port's CPU path: `cls(**kw, device="cpu")` with `model`'s
+    weights, in eval mode."""
+    m = cls(**kw, device="cpu")
+    m.load_state_dict({k: v.detach().cpu()
+                       for k, v in model.state_dict().items()})
+    return m.eval()
+
+
+def zr_bert_pretrained(torch, seed: int, card: str):
+    """(a): BERT-base from a checkpoint file through `set_params`, then a
+    fine-tune of PT_STEPS steps with every kernel's launches exact."""
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.convert import (
+        _flatten,
+        bert_from_flax,
+        bert_to_flax,
+        init_bert_params,
+    )
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE, BERTClassifier
+    from analytics_zoo_tpu_torch.models.bert_pretrained import (
+        export_bert_weights,
+        load_bert_pretrained,
+        read_pretrained,
+    )
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    cfg = dict(BERT_BASE, num_classes=2)
+    tmp = tempfile.mkdtemp(prefix="zoo_rest_")
+    try:
+        src = init_bert_params(cfg, seed + 41)
+        named = export_bert_weights(src, fmt="hf")
+        t0 = time.perf_counter()
+        torch.save({k: torch.from_numpy(v) for k, v in named.items()},
+                   f"{tmp}/pytorch_model.bin")
+        save_s = time.perf_counter() - t0
+        # the model's own weights are another seed's: the load must
+        # replace every encoder tensor and keep the head
+        model = BERTClassifier(**cfg, attn_impl="flash", hidden_drop=0.0,
+                               attn_drop=0.0, device="cuda")
+        model.load_state_dict(bert_from_flax(init_bert_params(cfg, seed + 42),
+                                             cfg))
+        head = {k: v.clone() for k, v in model.state_dict().items()
+                if k.startswith("classifier.")}
+        est = Estimator.from_torch(model,
+                                   loss="sparse_categorical_crossentropy",
+                                   optimizer="adam", learning_rate=2e-5,
+                                   metrics=["accuracy"], seed=seed)
+        t0 = time.perf_counter()
+        est.set_params(lambda p: load_bert_pretrained(p, tmp))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = _flatten(bert_to_flax(model.state_dict(), cfg)["bert"])
+        want = _flatten(src["bert"])
+        bad = [k for k in want if not np.array_equal(got.get(k), want[k])]
+        check(not bad and got.keys() == want.keys(),
+              f"phase 18 (a): encoder tensors differ from the file's: "
+              f"{bad[:5]}")
+        check(all(torch.equal(model.state_dict()[k], v)
+                  for k, v in head.items()),
+              "phase 18 (a): the classifier head did not keep its init")
+        # export -> re-read -> load, bitwise
+        again = export_bert_weights(model, fmt="hf")
+        check(again.keys() == named.keys() and all(
+            np.array_equal(again[k], named[k]) for k in named),
+            "phase 18 (a): the loaded model exports other tensors")
+        torch.save({k: torch.from_numpy(v) for k, v in again.items()},
+                   f"{tmp}/again.bin")
+        reread = read_pretrained(f"{tmp}/again.bin")
+        check(reread.keys() == again.keys() and all(
+            np.array_equal(reread[k], again[k]) for k in again),
+            "phase 18 (a): the re-read file differs from the export")
+        reloaded = load_bert_pretrained(model, reread)
+        check(all(torch.equal(v.cpu(), model.state_dict()[k].cpu())
+                  for k, v in reloaded.items()),
+              "phase 18 (a): export -> re-read -> load is not bitwise")
+        del reloaded, reread, again, got, want
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rng = np.random.default_rng(seed + 43)
+    inputs, y, valid = train_batch(rng, PT_BATCH, PT_T, cfg["vocab"])
+    data = {"x": [np.concatenate([a] * PT_STEPS) for a in inputs],
+            "y": np.concatenate([y] * PT_STEPS)}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    est.fit(data, epochs=1, batch_size=PT_BATCH, shuffle=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n_blk = cfg["n_block"]
+    want = {"layer_norm_fwd": (2 * n_blk + 1) * PT_STEPS,
+            "layer_norm_bwd": (2 * n_blk + 1) * PT_STEPS,
+            "fused_dense_gelu": n_blk * PT_STEPS,
+            "flash_fwd": n_blk * PT_STEPS, "flash_bwd_dq": n_blk * PT_STEPS,
+            "flash_bwd_dkv": n_blk * PT_STEPS, "flash_bwd_dbias": 0,
+            "paged_decode": 0}
+    check(counts == want, f"phase 18 (a): launches {counts}, expected "
+          f"{want} for {PT_STEPS} steps (phase 8's per step)")
+    bodies = k2_bodies("phase 18 (a)", counts)
+    losses = [s["loss"] for s in est.engine.last_steps]
+    check(len(losses) == PT_STEPS and all(np.isfinite(losses)),
+          f"phase 18 (a): step losses {losses}")
+    # the first step's loss: dropout is off, so it is the loss of the
+    # loaded weights, recomputed in f32 on the CPU through the plain path
+    ref = BERTClassifier(**cfg, attn_impl="flash", hidden_drop=0.0,
+                         attn_drop=0.0, compute_dtype=torch.float32,
+                         device="cpu").eval()
+    ref.load_state_dict(before)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = ref(*(torch.from_numpy(a) for a in inputs))
+        cpu_loss = float(F.cross_entropy(logits, torch.from_numpy(y).long()))
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(losses[0] - cpu_loss)
+    check(loss_err <= PT_LOSS_TOL, f"phase 18 (a): first step's loss "
+          f"{losses[0]} vs the f32 CPU recompute {cpu_loss}: {loss_err} > "
+          f"{PT_LOSS_TOL}")
+    del ref, model, est, before
+    free_card(torch)
+    return dict(checkpoint_bytes=int(sum(v.nbytes for v in named.values())),
+                save_s=save_s, set_params_s=load_s, fit_s=fit_s,
+                steps=PT_STEPS, batch=PT_BATCH, t=PT_T, valid_tokens=valid,
+                losses=losses, first_loss_cpu_f32=cpu_loss,
+                first_loss_err=loss_err, first_loss_tol=PT_LOSS_TOL,
+                launches=counts, k2_launches_by_body=bodies,
+                launches_per_step={k: v / PT_STEPS for k, v in counts.items()},
+                cpu_recompute_s=cpu_s)
+
+
+def zr_fit(torch, model, data, batch: int, epochs: int, **kw):
+    """`epochs` of `model.fit` (the model's own estimator, keywords
+    passed to it), no shuffle; (estimator, wall s of the last epoch)."""
+    est = model.estimator(**kw)
+    est.fit(data, epochs=epochs, batch_size=batch, shuffle=False)
+    torch.cuda.synchronize()
+    return est, est.train_summary[-1]["wall_s"]
+
+
+def zr_text_classifiers(torch, seed: int, card: str):
+    """(b): TextClassifier at the JAX defaults, 20 classes, for each
+    encoder: a fit, predict, and the logits against the CPU path."""
+    from analytics_zoo_tpu_torch.models.textclassification import (
+        TextClassifier,
+    )
+    rng = np.random.default_rng(seed + 44)
+    n = TC_BATCH * TC_STEPS
+    ids = rng.integers(0, TC_CELL["vocab_size"],
+                       (n, TC_CELL["sequence_length"])).astype(np.int32)
+    # a learnable label: the class of the first token
+    y = (ids[:, 0] % TC_CELL["class_num"]).astype(np.int32)
+    out, kept = {}, None
+    for enc in ("cnn", "lstm", "gru"):
+        torch.manual_seed(seed + 45)
+        model = TextClassifier(**TC_CELL, encoder=enc, device="cuda")
+        est, wall = zr_fit(torch, model, {"x": ids, "y": y}, TC_BATCH,
+                           TC_EPOCHS, optimizer="adam", learning_rate=1e-3,
+                           seed=seed)
+        losses = [s["loss"] for s in est.train_summary]
+        check(all(np.isfinite(losses)), f"phase 18 (b) {enc}: {losses}")
+        logits = model.predict({"x": ids[:TC_CMP]}, batch_size=TC_BATCH)
+        ref = cpu_copy(model, TextClassifier, **TC_CELL, encoder=enc)
+        with torch.no_grad():
+            want = ref(torch.from_numpy(ids[:TC_CMP])).numpy()
+        err = float(np.abs(logits - want).max())
+        check(logits.shape == (TC_CMP, TC_CELL["class_num"])
+              and np.isfinite(logits).all() and err <= ZR_F32_TOL,
+              f"phase 18 (b) {enc}: logits vs the CPU path {err} > "
+              f"{ZR_F32_TOL}")
+        out[enc] = dict(epoch_losses=losses, last_epoch_s=wall,
+                        steps_per_s=TC_STEPS / wall,
+                        sequences_per_s=n / wall, logits_max_abs_err=err)
+        print(f"phase 18 (b) [{card}] TextClassifier {enc}, batch "
+              f"{TC_BATCH} x {TC_CELL['sequence_length']} tokens: "
+              f"{TC_STEPS / wall:.2f} steps/s = {n / wall:.1f} "
+              f"sequences/s (last epoch of {TC_EPOCHS}), epoch losses "
+              f"{[round(v, 4) for v in losses]}, logits vs CPU "
+              f"{err:.3e}", flush=True)
+        if enc == "gru":
+            kept = (model, ids[:2 * TC_BATCH], y[:2 * TC_BATCH])
+        else:
+            del model, est
+    return out, kept
+
+
+def grouped_relations(rng, n_q: int, n_c: int, q_len: int, d_len: int,
+                      vocab: int):
+    """{"x": [n_q, n_c, q_len + d_len] ids, "y": [n_q, n_c]}: a relevant
+    candidate shares half the query's tokens with probability 0.7, an
+    irrelevant one with probability 0.2; the last candidate of every
+    other query is padding (label -1)."""
+    q = rng.integers(0, vocab, (n_q, 1, q_len))
+    d = rng.integers(0, vocab, (n_q, n_c, d_len))
+    y = rng.integers(0, 2, (n_q, n_c)).astype(np.float32)
+    hit = rng.random((n_q, n_c)) < np.where(y > 0, 0.7, 0.2)
+    d[..., :q_len // 2] = np.where(hit[..., None], q[..., :q_len // 2],
+                                   d[..., :q_len // 2])
+    y[::2, -1] = -1
+    x = np.concatenate([np.broadcast_to(q, (n_q, n_c, q_len)), d], axis=-1)
+    return {"x": x.astype(np.int32), "y": y}
+
+
+def zr_knrm(torch, seed: int, card: str):
+    """(c): KNRM at the JAX defaults: a fit, then NDCG@3, NDCG@5 and MAP
+    over an XShards of grouped relations, against the CPU path."""
+    from analytics_zoo_tpu_torch.models.common import ranker
+    from analytics_zoo_tpu_torch.models.textmatching import KNRM
+    from analytics_zoo_tpu_torch.orca.data import XShards
+    rng = np.random.default_rng(seed + 46)
+    torch.manual_seed(seed + 47)
+    model = KNRM(device="cuda")
+    q_len, d_len, vocab = 10, 40, 20000
+    n = KNRM_BATCH * KNRM_STEPS
+    train = grouped_relations(rng, n, 1, q_len, d_len, vocab)
+    x = train["x"][:, 0]
+    est, wall = zr_fit(torch, model, {"x": [x[:, :q_len], x[:, q_len:]],
+                                      "y": np.maximum(train["y"][:, 0], 0)},
+                       KNRM_BATCH, 1, optimizer="adam", learning_rate=1e-3,
+                       seed=seed)
+    loss = est.train_summary[-1]["loss"]
+    check(np.isfinite(loss), f"phase 18 (c): KNRM loss {loss}")
+    rel = grouped_relations(rng, KNRM_QUERIES, KNRM_CANDS, q_len, d_len,
+                            vocab)
+    half = KNRM_QUERIES // 2
+    shards = XShards([{"x": rel["x"][:half], "y": rel["y"][:half]},
+                      {"x": rel["x"][half:], "y": rel["y"][half:]}])
+    scores, labels = model.score_relations(shards)
+    metrics = dict(ndcg_3=model.evaluate_ndcg(shards, 3),
+                   ndcg_5=model.evaluate_ndcg(shards, 5),
+                   map=model.evaluate_map(shards))
+    ref = cpu_copy(model, KNRM)
+    cpu_scores, cpu_labels = ref.score_relations(shards)
+    err = float(np.abs(scores - cpu_scores).max())
+    same_order = bool((np.argsort(-scores, axis=1)
+                       == np.argsort(-cpu_scores, axis=1)).all())
+    cpu_metrics = dict(ndcg_3=ranker.ndcg_at_k(cpu_scores, cpu_labels, 3),
+                       ndcg_5=ranker.ndcg_at_k(cpu_scores, cpu_labels, 5),
+                       map=ranker.mean_average_precision(cpu_scores,
+                                                         cpu_labels))
+    check(err <= ZR_F32_TOL and same_order and metrics == cpu_metrics
+          and np.array_equal(labels, cpu_labels),
+          f"phase 18 (c): scores vs the CPU path {err} (tol {ZR_F32_TOL}), "
+          f"same order {same_order}, metrics {metrics} vs {cpu_metrics}")
+    out = dict(fit_s=wall, steps=KNRM_STEPS, batch=KNRM_BATCH,
+               samples_per_s=n / wall, loss=loss, scores_max_abs_err=err,
+               **metrics)
+    print(f"phase 18 (c) [{card}] KNRM at the JAX defaults: {KNRM_STEPS} "
+          f"steps at batch {KNRM_BATCH} in {wall:.3f} s, loss {loss:.4f}; "
+          f"over {KNRM_QUERIES} queries x {KNRM_CANDS} candidates NDCG@3 "
+          f"{metrics['ndcg_3']:.4f}, NDCG@5 {metrics['ndcg_5']:.4f}, MAP "
+          f"{metrics['map']:.4f} (equal to the CPU path's), scores vs "
+          f"CPU {err:.3e}", flush=True)
+    return out
+
+
+def zr_sequences(torch, seed: int, card: str):
+    """(d): Seq2Seq (LSTM and GRU, 2 layers, the dense bridge) fit and
+    `infer` against the CPU path; AnomalyDetector fit and
+    `detect_anomalies`."""
+    from analytics_zoo_tpu_torch.models.anomalydetection import (
+        AnomalyDetector,
+        detect_anomalies,
+    )
+    from analytics_zoo_tpu_torch.models.seq2seq import Seq2Seq
+    rng = np.random.default_rng(seed + 48)
+    # two phase-shifted sines per sequence: decode the continuation
+    t = np.arange(S2S_T_ENC + S2S_T_DEC + 1)[None, :, None]
+    phase = rng.uniform(0, 2 * np.pi, (S2S_N, 1, S2S_FEATURES))
+    wave = np.sin(t / 4.0 + phase).astype(np.float32)
+    enc = wave[:, :S2S_T_ENC]
+    dec_in = wave[:, S2S_T_ENC - 1:-2]
+    dec_out = wave[:, S2S_T_ENC:-1]
+    out = {}
+    for cell in ("lstm", "gru"):
+        kw = dict(hidden_size=S2S_HIDDEN, num_layers=S2S_LAYERS,
+                  output_dim=S2S_FEATURES, bridge="dense", cell_type=cell,
+                  input_dim=S2S_FEATURES)
+        torch.manual_seed(seed + 49)
+        model = Seq2Seq(**kw, device="cuda")
+        est, wall = zr_fit(torch, model, {"x": [enc, dec_in], "y": dec_out},
+                           S2S_BATCH, 2, optimizer="adam", learning_rate=1e-3,
+                           seed=seed)
+        losses = [s["loss"] for s in est.train_summary]
+        check(all(np.isfinite(losses)), f"phase 18 (d) {cell}: {losses}")
+        with torch.no_grad():
+            got = model.infer(torch.from_numpy(enc[:S2S_BATCH]).cuda(),
+                              torch.from_numpy(dec_in[:S2S_BATCH, 0]).cuda(),
+                              S2S_T_DEC).cpu().numpy()
+        ref = cpu_copy(model, Seq2Seq, **kw)
+        want = ref.infer(torch.from_numpy(enc[:S2S_BATCH]),
+                         torch.from_numpy(dec_in[:S2S_BATCH, 0]),
+                         S2S_T_DEC).numpy()
+        err = float(np.abs(got - want).max())
+        check(got.shape == (S2S_BATCH, S2S_T_DEC, S2S_FEATURES)
+              and err <= ZR_F32_TOL,
+              f"phase 18 (d) {cell}: infer vs the CPU path {err} > "
+              f"{ZR_F32_TOL}")
+        out[f"seq2seq_{cell}"] = dict(epoch_losses=losses, last_epoch_s=wall,
+                                      infer_max_abs_err=err)
+        del model, est
+    series = (np.sin(np.arange(AD_SERIES + AD_UNROLL) / 8.0)
+              + rng.normal(0, 0.05, AD_SERIES + AD_UNROLL)).astype(np.float32)
+    spikes = rng.choice(np.arange(AD_UNROLL, len(series)), AD_ANOMALIES,
+                        replace=False)
+    series[spikes] += 3.0
+    x, y = AnomalyDetector.unroll(series, AD_UNROLL)
+    torch.manual_seed(seed + 50)
+    det = AnomalyDetector(device="cuda")
+    est, wall = zr_fit(torch, det, {"x": x, "y": y}, AD_BATCH, 2,
+                       optimizer="adam", learning_rate=1e-3, seed=seed)
+    pred = det.predict({"x": x}, batch_size=AD_BATCH)
+    found = detect_anomalies(y, pred, AD_ANOMALIES)
+    ref = cpu_copy(det, AnomalyDetector)
+    with torch.no_grad():
+        want = ref(torch.from_numpy(x[:AD_BATCH])).numpy()
+    err = float(np.abs(pred[:AD_BATCH] - want).max())
+    check(len(found) == AD_ANOMALIES and len(set(found.tolist()))
+          == AD_ANOMALIES and err <= ZR_F32_TOL,
+          f"phase 18 (d) AnomalyDetector: {found} ({AD_ANOMALIES} wanted), "
+          f"predictions vs the CPU path {err}")
+    out["anomaly_detector"] = dict(
+        epoch_losses=[s["loss"] for s in est.train_summary],
+        last_epoch_s=wall, windows=len(x), anomalies=found.tolist(),
+        spikes_found=len(set((spikes - AD_UNROLL).tolist())
+                         & set(found.tolist())),
+        predict_max_abs_err=err)
+    print(f"phase 18 (d) [{card}] Seq2Seq {S2S_LAYERS} layers x "
+          f"{S2S_HIDDEN}, dense bridge: "
+          + ", ".join(f"{c} infer vs CPU "
+                      f"{out[f'seq2seq_{c}']['infer_max_abs_err']:.3e}"
+                      for c in ("lstm", "gru"))
+          + f"; AnomalyDetector {len(x)} windows of {AD_UNROLL}: anomalies "
+          f"{found.tolist()} ({out['anomaly_detector']['spikes_found']} of "
+          f"{AD_ANOMALIES} spikes), predictions vs CPU {err:.3e}", flush=True)
+    return out
+
+
+def zr_vae(torch, seed: int, card: str):
+    """(e): the VAE at the JAX defaults through `VAE.estimator()`."""
+    from analytics_zoo_tpu_torch.models import VAE
+    rng = np.random.default_rng(seed + 51)
+    # a bright disc at a random place in each image
+    yy, xx = np.mgrid[:28, :28]
+    cy, cx = rng.uniform(8, 20, (2, VAE_N, 1, 1))
+    imgs = (((yy - cy) ** 2 + (xx - cx) ** 2) < 25).astype(np.float32)
+    imgs = imgs[..., None]
+    torch.manual_seed(seed + 52)
+    vae = VAE(device="cuda")
+    est, wall = zr_fit(torch, vae, {"x": imgs, "y": imgs}, VAE_BATCH, 2,
+                       seed=seed)
+    rows = est.train_summary
+    check(all("aux_loss" in r and np.isfinite(r["aux_loss"])
+              and np.isfinite(r["loss"]) for r in rows),
+          f"phase 18 (e): train_summary {rows}")
+    gen = vae.generate(16)
+    check(gen.shape == (16, 28, 28, 1) and gen.min() >= 0.0
+          and gen.max() <= 1.0, "phase 18 (e): generate(16) out of [0, 1]")
+    # eval decodes the posterior mean, so two calls agree; cuDNN's
+    # transposed convs pick algorithms that sum in a varying order unless
+    # deterministic ones are asked for (the spread reported)
+    rec = vae.reconstruct(imgs[:64])
+    spread = float(np.abs(rec - vae.reconstruct(imgs[:64])).max())
+    with deterministic(torch):
+        rec = vae.reconstruct(imgs[:64])
+        check(np.array_equal(rec, vae.reconstruct(imgs[:64])),
+              "phase 18 (e): reconstruct differs between two calls under "
+              "deterministic algorithms")
+    out = dict(epoch_losses=[r["loss"] for r in rows],
+               epoch_aux_losses=[r["aux_loss"] for r in rows],
+               last_epoch_s=wall, images_per_s=VAE_N / wall,
+               reconstruct_spread_default_algorithms=spread,
+               reconstruction_bce_per_image=float(np.mean(
+                   -(imgs[:64] * np.log(np.clip(rec, 1e-7, 1))
+                     + (1 - imgs[:64]) * np.log(np.clip(1 - rec, 1e-7, 1)))
+                   .sum(axis=(1, 2, 3)))))
+    print(f"phase 18 (e) [{card}] VAE 28x28x1, latent 2: epoch losses "
+          f"{[round(v, 3) for v in out['epoch_losses']]}, aux (KL) "
+          f"{[round(v, 3) for v in out['epoch_aux_losses']]}, "
+          f"{out['images_per_s']:.0f} images/s; reconstruct bitwise on two "
+          f"calls under deterministic algorithms ({spread:.3e} apart "
+          f"without)", flush=True)
+    return out
+
+
+def zr_gan(torch, seed: int, card: str):
+    """(f): GANEstimator on the 2-d Gaussian of JAX's GAN test (MLP G and
+    D); its first batch's update against the CPU step on the same
+    noise."""
+    from torch import nn
+
+    from analytics_zoo_tpu_torch.orca.learn import GANEstimator
+
+    def mlp(fan_in, out):
+        return nn.Sequential(nn.Linear(fan_in, 32), nn.ReLU(),
+                             nn.Linear(32, out))
+
+    real = np.random.default_rng(seed + 53).normal(
+        [3.0, -2.0], 0.3, (GAN_N, 2)).astype(np.float32)
+    torch.manual_seed(seed + 54)
+    g0, d0 = mlp(GAN_NOISE, 2), mlp(2, 1)
+    sides = {}
+    for device in ("cpu", "cuda"):
+        gan = GANEstimator(mlp(GAN_NOISE, 2).to(device),
+                           mlp(2, 1).to(device), noise_dim=GAN_NOISE,
+                           seed=seed)
+        gan.gen.load_state_dict(g0.state_dict())
+        gan.disc.load_state_dict(d0.state_dict())
+        sides[device] = gan
+    # the first batch and its noise as fit draws them on the card
+    order = np.random.default_rng(seed).permutation(GAN_N)
+    first = real[order[:GAN_BATCH]]
+    draw = torch.Generator(device="cuda")
+    draw.manual_seed(seed)
+    noise = [torch.randn((GAN_BATCH, GAN_NOISE), generator=draw,
+                         device="cuda") for _ in range(2)]
+    for device, gan in sides.items():
+        gan._step(torch.from_numpy(first).to(device),
+                  [noise[0].to(device)], [noise[1].to(device)])
+    err = max(float((a.detach().cpu() - b.detach()).abs().max())
+              for side in ("gen", "disc")
+              for a, b in zip(getattr(sides["cuda"], side).parameters(),
+                              getattr(sides["cpu"], side).parameters()))
+    check(err <= 1e-5, f"phase 18 (f): the first batch's update on the "
+          f"card differs from the CPU step's by {err} > 1e-5")
+    gan = GANEstimator(mlp(GAN_NOISE, 2).cuda(), mlp(2, 1).cuda(),
+                       noise_dim=GAN_NOISE, seed=seed)
+    gan.gen.load_state_dict(g0.state_dict())
+    gan.disc.load_state_dict(d0.state_dict())
+    t0 = time.perf_counter()
+    gan.fit({"x": real}, epochs=GAN_EPOCHS, batch_size=GAN_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fake = gan.generate(256)
+    center = fake.mean(axis=0)
+    check(np.isfinite(fake).all() and len(gan.train_summary) == GAN_EPOCHS,
+          f"phase 18 (f): generate {center}, summary {gan.train_summary}")
+    steps = GAN_EPOCHS * (GAN_N // GAN_BATCH)
+    out = dict(first_batch_max_abs_err=err, fit_s=wall,
+               batches_per_s=steps / wall, fake_center=center.tolist(),
+               last=gan.train_summary[-1])
+    print(f"phase 18 (f) [{card}] GANEstimator: first batch vs CPU "
+          f"{err:.3e}; {steps} batches of {GAN_BATCH} in {wall:.2f} s "
+          f"({steps / wall:.1f} batches/s), generated mean {center} "
+          f"(real (3, -2))", flush=True)
+    return out
+
+
+def zr_inference_estimator(torch, kept, card: str):
+    """(g): InferenceEstimator.from_saved_model on (b)'s GRU
+    TextClassifier: predict bitwise the model's own, evaluate's accuracy
+    Estimator.evaluate's, fit raising."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.orca.learn import InferenceEstimator
+    model, ids, y = kept
+    tmp = tempfile.mkdtemp(prefix="zoo_rest_tc_")
+    try:
+        path = model.save_model(f"{tmp}/tc")
+        inf = InferenceEstimator.from_saved_model(path)
+        got = inf.predict({"x": ids}, batch_size=TC_BATCH)
+        own = model.predict({"x": ids}, batch_size=TC_BATCH)
+        check(np.array_equal(got, own), "phase 18 (g): predict differs from "
+              f"the model's own by {float(np.abs(got - own).max())}")
+        acc = inf.evaluate({"x": ids, "y": y}, batch_size=TC_BATCH)
+        want = model.evaluate({"x": ids, "y": y},
+                              batch_size=TC_BATCH)["accuracy"]
+        check(abs(acc["accuracy"] - want) <= 1e-6,
+              f"phase 18 (g): accuracy {acc} vs Estimator.evaluate's {want}")
+        try:
+            inf.fit({"x": ids, "y": y})
+            raised = False
+        except NotImplementedError:
+            raised = True
+        check(raised, "phase 18 (g): InferenceEstimator.fit did not raise")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 18 (g) [{card}] InferenceEstimator.from_saved_model: "
+          f"predict bitwise the model's, accuracy {acc['accuracy']:.4f} = "
+          f"Estimator.evaluate's, fit raises", flush=True)
+    return dict(accuracy=acc["accuracy"], rows=len(ids))
+
+
+def phase_zoo_rest(torch, seed: int, card: str):
+    """Phase 18: the rest of the model zoo, scenes (a)-(g); (a) on the
+    kernels, the others on none of ours."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    out = dict(a=zr_bert_pretrained(torch, seed, card))
+    print(f"phase 18 (a) [{card}] BERT-base from pytorch_model.bin "
+          f"({out['a']['checkpoint_bytes']} bytes) through set_params in "
+          f"{out['a']['set_params_s']:.2f} s, encoder bitwise the file's, "
+          f"head kept, export -> re-read -> load bitwise; {PT_STEPS} steps "
+          f"at {PT_BATCH} x {PT_T}: losses "
+          f"{[round(v, 4) for v in out['a']['losses']]}, first vs the f32 "
+          f"CPU recompute {out['a']['first_loss_err']:.3e} (tol "
+          f"{PT_LOSS_TOL}); launches per step "
+          f"{out['a']['launches_per_step']}", flush=True)
+    kernels.reset_launch_counts()
+    out["b"], kept = zr_text_classifiers(torch, seed, card)
+    out["c"] = zr_knrm(torch, seed, card)
+    out["d"] = zr_sequences(torch, seed, card)
+    out["e"] = zr_vae(torch, seed, card)
+    out["f"] = zr_gan(torch, seed, card)
+    out["g"] = zr_inference_estimator(torch, kept, card)
+    del kept
+    torch.cuda.synchronize()
+    # the models of (b)-(g) run on cuDNN and cuBLAS alone
+    out["launches"] = kernels.launch_counts()
+    check(not any(out["launches"].values()),
+          f"phase 18 (b)-(g) launched a kernel of ours: {out['launches']}")
+    free_card(torch)
+    out["seconds"] = time.perf_counter() - t0
+    print("zoo_rest " + json.dumps(dict(
+        card=card, seconds=out["seconds"],
+        bert_pretrained={k: out["a"][k] for k in (
+            "set_params_s", "fit_s", "losses", "first_loss_err",
+            "launches_per_step")},
+        text_classifier={k: {m: v[m] for m in ("steps_per_s",
+                                               "sequences_per_s",
+                                               "logits_max_abs_err")}
+                         for k, v in out["b"].items()},
+        knrm={k: out["c"][k] for k in ("ndcg_3", "ndcg_5", "map",
+                                        "samples_per_s")},
+        seq2seq={k: v for k, v in out["d"].items()},
+        vae={k: out["e"][k] for k in ("epoch_losses", "epoch_aux_losses",
+                                       "images_per_s")},
+        gan={k: out["f"][k] for k in ("first_batch_max_abs_err",
+                                       "batches_per_s")},
+        inference_estimator=out["g"])), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -5721,6 +6321,8 @@ def main(argv=None) -> int:
     clocks("after phase 16", start)
     zoo = phase_image_zoo(torch, args.seed, card)
     clocks("after phase 17", start)
+    zoo_rest = phase_zoo_rest(torch, args.seed, card)
+    clocks("after phase 18", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -5772,6 +6374,7 @@ def main(argv=None) -> int:
     srv_bert = serving["launches"]["serving_bert"]
     srv_gen = serving["launches"]["serving_generate"]
     int8_bert = int8["a"]["launches"]
+    pretrained = zoo_rest["a"]["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -5819,30 +6422,36 @@ def main(argv=None) -> int:
                                   "bert_fine_tune_xshards": xs_bert,
                                   "serving_bert_http": srv_bert,
                                   "serving_generate_http": srv_gen,
-                                  "int8_bert_serving": int8_bert},
+                                  "int8_bert_serving": int8_bert,
+                                  "bert_pretrained_fine_tune": pretrained},
                "layer_norm_bwd": {"bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
-                                  "bert_fine_tune_xshards": xs_bert},
+                                  "bert_fine_tune_xshards": xs_bert,
+                                  "bert_pretrained_fine_tune": pretrained},
                "fused_dense_gelu": {"bert_serving": bert,
                                     "bert_fine_tune": tr,
                                     "bert_fine_tune_remat": remat,
                                     "bert_fine_tune_xshards": xs_bert,
                                     "serving_bert_http": srv_bert,
-                                    "int8_bert_serving": int8_bert},
+                                    "int8_bert_serving": int8_bert,
+                                    "bert_pretrained_fine_tune": pretrained},
                "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
                              "learnable_bias": bias_run["launches"],
                              "bert_fine_tune_remat": remat,
                              "bert_fine_tune_xshards": xs_bert,
                              "serving_bert_http": srv_bert,
-                             "int8_bert_serving": int8_bert},
+                             "int8_bert_serving": int8_bert,
+                             "bert_pretrained_fine_tune": pretrained},
                "flash_bwd_dq": {"bert_fine_tune": tr,
                                 "learnable_bias": bias_run["launches"],
                                 "bert_fine_tune_remat": remat,
-                                "bert_fine_tune_xshards": xs_bert},
+                                "bert_fine_tune_xshards": xs_bert,
+                                "bert_pretrained_fine_tune": pretrained},
                "flash_bwd_dkv": {"bert_fine_tune": tr,
                                  "learnable_bias": bias_run["launches"],
                                  "bert_fine_tune_remat": remat,
-                                 "bert_fine_tune_xshards": xs_bert},
+                                 "bert_fine_tune_xshards": xs_bert,
+                                 "bert_pretrained_fine_tune": pretrained},
                "paged_decode": dict(
                    {f"generation_{r['label']}": r["launches"]
                     for r in runs}, generation_breadth=breadth,
@@ -5865,6 +6474,9 @@ def main(argv=None) -> int:
         k["launches_by_path"]["int8_resnet50_serving"] = \
             int8["b"]["launches"][k["name"]]
         k["launches_by_path"]["image_zoo"] = zoo["launches"][k["name"]]
+        # nor on phase 18's models other than BERT (checked there: all 0)
+        k["launches_by_path"]["zoo_rest_other_models"] = \
+            zoo_rest["launches"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs,
                       "generation_breadth": gen_breadth, "bert": bert_runs,
@@ -5872,6 +6484,7 @@ def main(argv=None) -> int:
                       "recommendation": rec, "fit_surface": fit_surface,
                       "data_path": data_path, "serving": serving,
                       "int8_serving": int8, "image_zoo": zoo,
+                      "zoo_rest": zoo_rest,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,

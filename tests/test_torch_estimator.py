@@ -62,6 +62,26 @@ N, T, LR, STEPS = 8, 128, 1e-3, 3
 F32_TOL, BF16_TOL = 1e-5, 0.05
 
 
+@pytest.fixture(autouse=True)
+def _no_persistent_compile_cache():
+    """The JAX reference fits compile without `.jax_cache_tests`.  In a
+    contended full run the BERT fit's `jit_scan` and `_train_step_impl`
+    compiles pass the 5 s persistence floor; a later run that loads both
+    back deadlocks in XLA:CPU's 8-device all-reduce (7 of 8 participants
+    arrive, then the 40 s rendezvous timeout aborts the process), while
+    fresh compiles of the same programs run clean.  As in
+    `test_pipeline_parallel.py`, `reset_cache()` drops the memo of
+    `is_cache_used` so the setting takes effect, on the way in and out."""
+    from jax._src import compilation_cache
+
+    prev = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_compilation_cache_dir", prev)
+    compilation_cache.reset_cache()
+
+
 class _JaxF32Classifier(fnn.Module):
     """The JAX `BERTClassifier` with compute_dtype f32 and dropout off:
     the same tree ("bert", "classifier"), so `bert_from_flax` reads it."""

@@ -193,20 +193,32 @@ def test_enqueue_and_result_match_jax(servers):
     assert againj == againp == {"status": "pending"}
 
 
+def _wait_stored(srv, uri, deadline_s=HTTP_TIMEOUT):
+    """Wait until `srv` holds `uri`'s result in its result store, read
+    without handing the result out."""
+    t_end = time.monotonic() + deadline_s
+    while uri not in srv._results:
+        if time.monotonic() > t_end:
+            raise AssertionError(f"{uri} never stored")
+        time.sleep(0.005)
+
+
 def test_expired_uri_matches_jax():
     jim, pim = _models()
     started = []
     try:
         docs = []
         for cls, im in ((JaxServer, jim), (ServingServer, pim)):
-            # a TTL of 0: storing the next result evicts the older ones
+            # a TTL of 0: storing the next result evicts the older ones;
+            # "old" is stored before "new" is enqueued, so the two never
+            # share a batch and "old" is older when "new" is stored
             srv = cls(im, result_ttl_s=0.0)
             started.append(srv.start())
             for uri in ("old", "new"):
                 assert _http(srv, "POST", "/enqueue", {
                     "uri": uri, "inputs": [jax_encode(_records(1))]})[0] \
                     == 200
-                time.sleep(0.05)
+                _wait_stored(srv, uri)
             _poll(srv, "new")
             docs.append(json.loads(_http(srv, "GET", "/result/old")[2]))
         assert docs[0] == docs[1] == {"status": "expired"}
