@@ -609,3 +609,222 @@ def vae_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 def vae_to_flax(state_dict: Mapping) -> Dict:
     """The JAX `VAE` param tree of the port's weights."""
     return image_to_flax(state_dict)[0]
+
+
+def _keras_roots(gm) -> Dict[str, tuple]:
+    """{flax top-level key: (state_dict prefix, module)} of a built Keras
+    graph module: a layer's module under its name, save the recurrent
+    layers, whose flax cells sit beside it (`lstm_1_cell`, and a
+    Bidirectional's `_fwd_cell` / `_bwd_cell`; ConvLSTM's `_cell`)."""
+    from analytics_zoo_tpu_torch.keras.layers.convolutional_recurrent import (
+        _ConvLSTMCell)
+    from analytics_zoo_tpu_torch.keras.layers.recurrent import (
+        Recurrent, _Bidirectional)
+    roots = {}
+    for name, mod in gm.named_children():
+        if isinstance(mod, (Recurrent, _ConvLSTMCell)):
+            roots[f"{name}_cell"] = (name + ".", mod)
+        elif isinstance(mod, _Bidirectional):
+            roots[f"{name}_fwd_cell"] = (f"{name}.fwd.", mod.fwd)
+            roots[f"{name}_bwd_cell"] = (f"{name}.bwd.", mod.bwd)
+        else:
+            roots[name] = (name + ".", mod)
+    return roots
+
+
+def _keras_leaf_rules(mod):
+    """[(flax leaf, torch entry, to_torch(arr), to_flax(arr))] of a
+    module whose own entries flax names otherwise or lays out otherwise;
+    None for a module whose entries carry flax's names and layouts."""
+    from torch import nn as tnn
+
+    from analytics_zoo_tpu_torch.keras.layers.conv import ConvND
+    from analytics_zoo_tpu_torch.models.image.imageclassification.layers \
+        import BatchNorm
+    from analytics_zoo_tpu_torch.ops.dense import DenseGelu
+    from analytics_zoo_tpu_torch.ops.normalization import LayerNorm
+
+    def same(a):
+        return a
+
+    def transpose(a):
+        return np.ascontiguousarray(a.T)
+
+    if isinstance(mod, (tnn.Linear, DenseGelu)):
+        return [("kernel", "weight", transpose, transpose),
+                ("bias", "bias", same, same)]
+    if isinstance(mod, ConvND):
+        n = mod.weight.dim()
+        return [("kernel", "weight",
+                 lambda a: np.ascontiguousarray(
+                     np.moveaxis(a, (n - 1, n - 2), (0, 1))),
+                 lambda a: np.ascontiguousarray(
+                     np.moveaxis(a, (0, 1), (n - 1, n - 2)))),
+                ("bias", "bias", same, same)]
+    if isinstance(mod, tnn.Embedding):
+        return [("embedding", "weight", same, same)]
+    if isinstance(mod, (LayerNorm, BatchNorm)):
+        return [("scale", "weight", same, same), ("bias", "bias", same, same)]
+    return None
+
+
+def _keras_module_from_flax(mod, tree: Mapping, stats: Mapping, prefix: str,
+                            out: Dict[str, np.ndarray], where: str) -> None:
+    from analytics_zoo_tpu_torch.keras.layers.recurrent import Recurrent
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        TransformerEncoder)
+    tree, stats = dict(tree), dict(stats or {})
+
+    def pop(key):
+        if key not in tree:
+            raise ValueError(f"missing {where}/{key} in the param tree")
+        return tree.pop(key)
+
+    if isinstance(mod, Recurrent):
+        for k, v in recurrent.cell_from_flax(tree, where).items():
+            out[f"{prefix}cell.{k}"] = v
+        return
+    if isinstance(mod, TransformerEncoder) and "blocks" in tree:
+        # the scan-stacked layout: each leaf's leading axis is the block
+        stacked = tree.pop("blocks")
+        for i in range(len(mod.blocks)):
+            tree[f"block_{i}"] = _map_tree(stacked, lambda a, i=i: a[i])
+    rules = _keras_leaf_rules(mod)
+    if rules is not None:
+        for leaf, entry, to_torch, _ in rules:
+            if getattr(mod, entry, None) is not None:
+                out[prefix + entry] = to_torch(np.asarray(pop(leaf)))
+        for leaf, buf in _STATS.items():
+            if hasattr(mod, buf):
+                if leaf not in stats:
+                    raise ValueError(f"missing {where}/{leaf} in batch_stats")
+                out[prefix + buf] = np.asarray(stats.pop(leaf))
+    else:
+        for name, _ in mod.named_parameters(recurse=False):
+            out[prefix + name] = np.asarray(pop(name))
+    for name, child in mod.named_children():
+        if isinstance(mod, TransformerEncoder) and name == "blocks":
+            for i, blk in enumerate(child):
+                _keras_module_from_flax(blk, pop(f"block_{i}"),
+                                        stats.pop(f"block_{i}", None),
+                                        f"{prefix}blocks.{i}.", out,
+                                        f"{where}/block_{i}")
+            continue
+        if not any(True for _ in child.parameters()) and not any(
+                True for _ in child.buffers()):
+            continue
+        _keras_module_from_flax(child, pop(name), stats.pop(name, None),
+                                f"{prefix}{name}.", out, f"{where}/{name}")
+    if tree or stats:
+        raise ValueError(f"unknown entries under {where}: "
+                         f"{sorted(tree) + sorted(stats)}")
+
+
+def _map_tree(tree: Mapping, fn) -> Dict:
+    return {k: _map_tree(v, fn) if isinstance(v, Mapping) else fn(np.asarray(v))
+            for k, v in tree.items()}
+
+
+def keras_from_flax(model, params: Mapping,
+                    batch_stats: Optional[Mapping] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The state_dict of a built Keras graph module (`model`: the module
+    `Estimator.from_keras(...).get_model()` trains, or `keras_model.
+    to_torch().build(*sample)`) from the flax `params` (and
+    `batch_stats`) of the JAX package's same graph, matched by layer
+    name.  Each module takes its layer's flax subtree: Dense kernels
+    transposed, Conv kernels (*k, in, out) as weights (out, in, *k),
+    Embed tables, LayerNorm / BatchNorm scales (and batch_stats mean /
+    var as running_mean / running_var), a recurrent cell through
+    `models/common/recurrent.cell_from_flax`, a transformer encoder's
+    blocks in either of flax's layouts (scan-stacked `blocks/...` or
+    `block_{i}`, as `bert_from_flax` takes them), and every other
+    parameter under its flax name and layout.  Raises on a missing or
+    unknown entry."""
+    params, stats = dict(params), dict(batch_stats or {})
+    out: Dict[str, np.ndarray] = {}
+    for key, (prefix, mod) in _keras_roots(model).items():
+        if not any(True for _ in mod.parameters()):
+            continue
+        if key not in params:
+            raise ValueError(f"missing {key} in the param tree")
+        _keras_module_from_flax(mod, params.pop(key), stats.pop(key, None),
+                                prefix, out, key)
+    if params or stats:
+        raise ValueError(f"unknown entries in the param tree: "
+                         f"{sorted(params) + sorted(stats)}")
+    return _tensors(out)
+
+
+def _keras_module_to_flax(mod, sd: Dict[str, np.ndarray], prefix: str,
+                          stacked: bool):
+    """(params, batch_stats) subtrees of one module (the inverse of
+    `_keras_module_from_flax`)."""
+    from analytics_zoo_tpu_torch.keras.layers.recurrent import Recurrent
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        TransformerEncoder)
+    tree: Dict = {}
+    stats: Dict = {}
+    if isinstance(mod, Recurrent):
+        cell = {k: sd.pop(f"{prefix}cell.{k}") for k in
+                ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")}
+        return recurrent.cell_to_flax(cell), {}
+    rules = _keras_leaf_rules(mod)
+    if rules is not None:
+        for leaf, entry, _, to_flax in rules:
+            if getattr(mod, entry, None) is not None:
+                tree[leaf] = to_flax(sd.pop(prefix + entry))
+        for leaf, buf in _STATS.items():
+            if hasattr(mod, buf):
+                stats[leaf] = sd.pop(prefix + buf)
+    else:
+        for name, _ in mod.named_parameters(recurse=False):
+            tree[name] = sd.pop(prefix + name)
+    for name, child in mod.named_children():
+        if isinstance(mod, TransformerEncoder) and name == "blocks":
+            blocks = [_keras_module_to_flax(b, sd, f"{prefix}blocks.{i}.",
+                                            stacked)[0]
+                      for i, b in enumerate(child)]
+            if stacked and blocks:
+                tree["blocks"] = _stack_trees(blocks)
+            else:
+                tree.update({f"block_{i}": b for i, b in enumerate(blocks)})
+            continue
+        if not any(True for _ in child.parameters()) and not any(
+                True for _ in child.buffers()):
+            continue
+        sub, sub_stats = _keras_module_to_flax(child, sd, f"{prefix}{name}.",
+                                               stacked)
+        tree[name] = sub
+        if sub_stats:
+            stats[name] = sub_stats
+    return tree, stats
+
+
+def _stack_trees(trees):
+    first = trees[0]
+    return {k: _stack_trees([t[k] for t in trees]) if isinstance(v, Mapping)
+            else np.stack([t[k] for t in trees]) for k, v in first.items()}
+
+
+def keras_to_flax(model, state_dict: Optional[Mapping] = None,
+                  stacked: bool = True):
+    """(params, batch_stats) in the flax layout of the JAX package's same
+    Keras graph: the inverse of `keras_from_flax`.  `state_dict`
+    defaults to the module's own; `stacked` gives a transformer
+    encoder's blocks scan-stacked (JAX's default), else unrolled."""
+    if state_dict is None:
+        state_dict = model.state_dict()
+    sd = {k: np.array(v.detach().cpu().float() if torch.is_tensor(v) else v)
+          for k, v in state_dict.items()}
+    params, stats = {}, {}
+    for key, (prefix, mod) in _keras_roots(model).items():
+        if not any(True for _ in mod.parameters()):
+            continue
+        tree, st = _keras_module_to_flax(mod, sd, prefix, stacked)
+        params[key] = tree
+        if st:
+            stats[key] = st
+    if sd:
+        raise ValueError(f"unknown entries in the state_dict: {sorted(sd)}")
+    return params, stats

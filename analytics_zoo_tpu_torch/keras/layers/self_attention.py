@@ -1,7 +1,10 @@
 """Transformer layers (counterpart of
 analytics_zoo_tpu/keras/layers/self_attention.py): `MultiHeadAttention`,
 `RelativePositionBias`, `TransformerBlock` and the post-LN
-`TransformerEncoder` BERT is built on.
+`TransformerEncoder` BERT is built on, and the Keras layers over it,
+`TransformerLayer` (causal, no pooler) and `BERT` (2 segments, a
+pooler, two outputs), with JAX's config mapping and flax's
+initializers (`flax_init_`).
 
 Mixed precision as in the JAX package: with compute_dtype bf16 the four
 dense outputs (qkv, proj, fc1, fc2) and the attention operands are bf16,
@@ -49,6 +52,7 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from analytics_zoo_tpu_torch.device import resolve_device
+from analytics_zoo_tpu_torch.keras.engine import Layer
 from analytics_zoo_tpu_torch.ops.attention import (
     dot_product_attention,
     flash_attention,
@@ -327,3 +331,72 @@ class TransformerEncoder(nn.Module):
         if self.pooler is not None:
             return x, torch.tanh(self.pooler(x[:, 0]))
         return x
+
+
+def flax_init_(module: nn.Module) -> nn.Module:
+    """Redraw an encoder's weights as flax draws them: lecun-normal
+    (truncated) Dense kernels and zero biases, embeddings N(0, 1/width);
+    LayerNorms keep their ones and zeros."""
+    from analytics_zoo_tpu_torch.keras.layers.core import lecun_normal_
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, DenseGelu)):
+                lecun_normal_(m.weight, m.weight.shape[1])
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, m.weight.shape[1] ** -0.5)
+    return module
+
+
+class _EncoderLayer(Layer):
+    """A Keras layer over `TransformerEncoder(**self.cfg)`, its inputs
+    (token ids[, segment ids, position ids, attention mask]) the
+    encoder's."""
+
+    cfg: dict
+
+    def build(self, *xs):
+        return flax_init_(TransformerEncoder(**self.cfg, device=xs[0].device))
+
+    def apply(self, m, *xs, training=False, generator=None, impl="auto"):
+        return m(*xs, impl=impl, generator=generator)
+
+
+class TransformerLayer(_EncoderLayer):
+    """GPT-style causal transformer over token ids (no segments, no
+    pooler); attention "auto" (flash at t >= 4096)."""
+
+    def __init__(self, vocab: int, hidden_size: int = 768, n_head: int = 12,
+                 seq_len: int = 512, n_block: int = 12,
+                 intermediate_size=None, embedding_drop: float = 0.1,
+                 attn_drop: float = 0.1, residual_drop: float = 0.1,
+                 name=None, **_):
+        super().__init__(name)
+        self.cfg = dict(
+            vocab=vocab, hidden_size=hidden_size, n_head=n_head,
+            n_block=n_block,
+            intermediate_size=intermediate_size or 4 * hidden_size,
+            max_position_len=seq_len, n_segments=0,
+            embedding_dropout=embedding_drop, attn_dropout=attn_drop,
+            residual_dropout=residual_drop, causal=True, with_pooler=False)
+
+
+class BERT(_EncoderLayer):
+    """BERT encoder layer: inputs (token_ids, segment_ids, position_ids,
+    attention_mask) -> (sequence_output, pooled_output)."""
+
+    n_outputs = 2
+
+    def __init__(self, vocab: int = 40990, hidden_size: int = 768,
+                 n_block: int = 12, n_head: int = 12,
+                 intermediate_size: int = 3072,
+                 max_position_len: int = 512, seq_len: int = 512,
+                 hidden_drop: float = 0.1, attn_drop: float = 0.1,
+                 name=None, **_):
+        super().__init__(name)
+        self.cfg = dict(
+            vocab=vocab, hidden_size=hidden_size, n_head=n_head,
+            n_block=n_block, intermediate_size=intermediate_size,
+            max_position_len=max(max_position_len, seq_len), n_segments=2,
+            embedding_dropout=hidden_drop, attn_dropout=attn_drop,
+            residual_dropout=hidden_drop, causal=False, with_pooler=True)

@@ -16,6 +16,9 @@ no `seq_lengths`, so no sequence is ever packed.
   `bias_ih_l0` is zero, held there by a gradient hook, so the optimizer
   moves one bias per gate as in flax (Adam would otherwise see two).
   Flax's carry is (c, h); torch's state is (h, c).
+* Simple (`SimpleCell`): `h' = act(W_i x + b_i + W_h h)`, a one-layer
+  `nn.RNN` of tanh or relu; flax's bias is the input side's, torch's
+  `bias_hh_l0` is held at zero.
 
 Both draw their weights as flax does: lecun-normal input kernels,
 orthogonal recurrent kernels per gate, zero biases.  `cell_from_flax` /
@@ -71,12 +74,25 @@ def lstm(fan_in: int, width: int, device) -> nn.LSTM:
     return cell
 
 
+def simple(fan_in: int, width: int, device,
+           nonlinearity: str = "tanh") -> nn.RNN:
+    """flax's `SimpleCell(width)` (activation tanh, its default, or
+    relu) as a one-layer RNN, its hidden-side bias held at zero."""
+    cell = nn.RNN(fan_in, width, nonlinearity=nonlinearity,
+                  batch_first=True, device=device)
+    _draw(cell, fan_in, width, 1)
+    _hold_at_zero(cell.bias_hh_l0, slice(None))
+    return cell
+
+
 def make(kind: str, fan_in: int, width: int, device) -> nn.RNNBase:
-    """`lstm` or `gru` by name."""
+    """`lstm`, `gru` or `simple` (tanh) by name."""
     if kind == "lstm":
         return lstm(fan_in, width, device)
     if kind == "gru":
         return gru(fan_in, width, device)
+    if kind == "simple":
+        return simple(fan_in, width, device)
     raise ValueError(f"unknown cell type '{kind}'")
 
 
@@ -91,6 +107,14 @@ def cell_from_flax(tree: Mapping, name: str = "cell"
     entries) as its RNN's `weight_ih_l0`, `weight_hh_l0`, `bias_ih_l0`
     and `bias_hh_l0`; `name` (the cell's flax name) for the error of
     an entry missing or unknown."""
+    if set(tree) == {"i", "h"}:
+        if {k: set(v) for k, v in tree.items()} != {"i": {"kernel", "bias"},
+                                                     "h": {"kernel"}}:
+            raise ValueError(f"{name}: entries are not a flax SimpleCell")
+        bias = np.asarray(tree["i"]["bias"])
+        return {"weight_ih_l0": np.asarray(tree["i"]["kernel"]).T,
+                "weight_hh_l0": np.asarray(tree["h"]["kernel"]).T,
+                "bias_ih_l0": bias, "bias_hh_l0": np.zeros_like(bias)}
     lstm_cell = "ii" in tree
     gates = _LSTM_GATES if lstm_cell else _GRU_GATES
     # flax's entries: (gate Dense, has a bias)
@@ -122,10 +146,15 @@ def cell_from_flax(tree: Mapping, name: str = "cell"
 
 def cell_to_flax(weights: Mapping[str, np.ndarray]) -> Dict[str, Dict]:
     """The inverse of `cell_from_flax` (an LSTM's `weight_hh_l0` has 4
-    gates of rows, a GRU's 3): of the biases held at zero, none."""
+    gates of rows, a GRU's 3, a SimpleCell's 1): of the biases held at
+    zero, none."""
     w_ih, w_hh = np.asarray(weights["weight_ih_l0"]), \
         np.asarray(weights["weight_hh_l0"])
     width = w_hh.shape[1]
+    if w_hh.shape[0] == width:              # a SimpleCell
+        return {"i": {"kernel": np.ascontiguousarray(w_ih.T),
+                      "bias": np.asarray(weights["bias_ih_l0"])},
+                "h": {"kernel": np.ascontiguousarray(w_hh.T)}}
     lstm_cell = w_hh.shape[0] == 4 * width
     gates = _LSTM_GATES if lstm_cell else _GRU_GATES
     parts = {side: np.split(w, len(gates)) for side, w in

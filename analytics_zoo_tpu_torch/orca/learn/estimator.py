@@ -14,8 +14,18 @@ loss adds weight * aux (the engine's `_split_aux`; `aux_loss` in
 (estimator.py:112-121).  `set_params` replaces the module's parameters
 (a state_dict, or a callable of the current one) and
 `get_model_state` returns its buffers, as JAX's (estimator.py:611-660);
-the engine is built eagerly, so neither is deferred, and of `load` and
-`set_params` the last call wins.
+of `load` and `set_params` the last call wins.
+
+`Estimator.from_keras(model)` trains a Keras-style model
+(`analytics_zoo_tpu_torch.keras`) as JAX's does (estimator.py:124-136):
+a compiled model's loss, optimizer and metrics unless overridden.  Its
+graph module has no parameters until it has seen data (flax infers the
+widths at `init`), so the engine waits for the first batch of
+whichever of `fit`, `evaluate` or `predict` comes first, builds the
+module on that batch's first row with the Estimator's `seed`
+(`GraphModule.build`), and only then exists; `load` and `set_params`
+calls made before are queued and replayed in call order, as JAX's
+`_deferred_ops` (estimator.py:176-199).
 
 Data: {"x": ndarray(s), "y": ndarray(s)} or (x, y) tuples of numpy
 arrays, pandas DataFrames with `feature_cols` / `label_cols`, XShards of
@@ -88,12 +98,19 @@ class Estimator:
             metrics = list(getattr(module, "default_metrics", ()))
         self._seed = seed
         self.model_dir = model_dir
-        self._engine = TrainEngine(
-            module, optim_mod.resolve(optimizer, learning_rate, clip_norm,
-                                      clip_value),
+        self._module = module
+        self._engine_args = dict(
+            optimizer=optim_mod.resolve(optimizer, learning_rate, clip_norm,
+                                        clip_value),
             loss_fn=losses_mod.resolve(loss),
             metric_fns=metrics_mod.resolve_all(metrics), seed=seed,
             aux_loss_weight=aux_loss_weight)
+        self._engine: Optional[TrainEngine] = None
+        #: load() / set_params() calls made before the engine exists,
+        #: replayed in call order when it is built
+        self._deferred_ops: list = []
+        if getattr(module, "built", True):
+            self._build_engine()
         self._epoch = 0
         self.train_summary: List[Dict[str, Any]] = []
         self.val_summary: List[Dict[str, Any]] = []
@@ -126,9 +143,54 @@ class Estimator:
             kwargs["loss"] = resolve_torch_loss(kwargs["loss"])
         return cls(module, **kwargs)
 
+    @classmethod
+    def from_keras(cls, model, *, loss=None, optimizer=None, metrics=None,
+                   model_dir=None, shard_rules=None, **kwargs
+                   ) -> "Estimator":
+        """Train a `keras.Model` / `Sequential`: its `compile()`d loss,
+        optimizer and metrics unless given here; the other keywords are
+        `from_torch`'s.  The model's graph module is built on the first
+        batch (module docstring).  `shard_rules` (JAX's mesh sharding)
+        has no mesh to act on with one card: only None is taken."""
+        if shard_rules is not None:
+            raise ValueError("shard_rules needs a device mesh; the port "
+                             "trains on one card")
+        loss = loss if loss is not None else getattr(model, "_loss", None)
+        optimizer = (optimizer if optimizer is not None
+                     else getattr(model, "_optimizer", None))
+        metrics = (metrics if metrics is not None
+                   else getattr(model, "_metrics", None))
+        return cls(model.to_torch(), loss=loss, optimizer=optimizer,
+                   metrics=metrics, model_dir=model_dir, **kwargs)
+
+    def _build_engine(self) -> None:
+        self._engine = TrainEngine(self._module, **self._engine_args)
+        ops, self._deferred_ops = self._deferred_ops, []
+        for kind, value in ops:
+            if kind == "load":
+                self.load(value)
+            else:
+                self.set_params(value)
+
+    def _ensure_engine(self, ds: HostDataset, batch_size: int) -> None:
+        """Build a graph module waiting for data on the first row of
+        `ds`'s first batch, then the engine."""
+        if self._engine is not None:
+            return
+        feats = ds.probe(batch_size)["features"]
+        self._module.build(*(a[:1] for a in feats), seed=self._seed)
+        self._build_engine()
+
     @property
-    def engine(self) -> TrainEngine:
+    def engine(self) -> Optional[TrainEngine]:
+        """The training engine (None until a Keras model has seen its
+        first batch)."""
         return self._engine
+
+    def _device_type(self) -> str:
+        if self._engine is not None:
+            return self._engine.device.type
+        return self._module.device.type
 
     def fit(self, data, epochs: int = 1, batch_size: int = 32,
             feature_cols: Optional[Sequence[str]] = None,
@@ -167,8 +229,9 @@ class Estimator:
         val_ds = (HostDataset.from_data(validation_data, feature_cols,
                                         label_cols)
                   if validation_data is not None else None)
-        if self._engine.loss_fn is None:
+        if self._engine_args["loss_fn"] is None:
             raise ValueError("fit needs a loss")
+        self._ensure_engine(ds, batch_size)
         dds = (self._device_dataset(ds, batch_size, shuffle)
                if OrcaContext.train_data_store == "DEVICE" else None)
         trigger = Trigger.resolve(checkpoint_trigger)
@@ -220,7 +283,7 @@ class Estimator:
         (`fit-<pid>-<n>.pt.trace.json`, viewable in Perfetto)."""
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
-        if self._engine.device.type == "cuda":
+        if self._device_type() == "cuda":
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(profiler_dir, exist_ok=True)
         with profile(activities=activities) as prof:
@@ -378,6 +441,7 @@ class Estimator:
             raise ValueError(
                 "evaluate requires labels: pass {'x': ..., 'y': ...}, an "
                 "(x, y) tuple, or label_cols for DataFrame input")
+        self._ensure_engine(ds, batch_size)
         return self._engine.run_epoch(ds.batches(batch_size), train=False)
 
     def predict(self, data, batch_size: int = 32, feature_cols=None):
@@ -385,6 +449,7 @@ class Estimator:
         dropped, in the input's row order (XShards and DataFrames
         included)."""
         ds = HostDataset.from_data(data, feature_cols, None)
+        self._ensure_engine(ds, batch_size)
         outs = self._engine.predict_all(ds.batches(batch_size))
         if not outs:
             return None
@@ -395,14 +460,14 @@ class Estimator:
 
     def get_model(self):
         """The trained torch module (its parameters are the engine's)."""
-        return self._engine.model
+        return self._module
 
     def get_model_state(self) -> Dict[str, Any]:
         """The module's buffers (BatchNorm's running statistics and
         counts), as host tensors: JAX's mutable model collections."""
-        params = {n for n, _ in self._engine.model.named_parameters()}
+        params = {n for n, _ in self._module.named_parameters()}
         return {k: v.detach().cpu().clone()
-                for k, v in self._engine.model.state_dict().items()
+                for k, v in self._module.state_dict().items()
                 if k not in params}
 
     def set_params(self, params) -> "Estimator":
@@ -413,7 +478,11 @@ class Estimator:
 
             est.set_params(lambda p: load_bert_pretrained(p, ckpt_path))
 
-        The optimizer state is kept, as JAX's engine keeps it."""
+        The optimizer state is kept, as JAX's engine keeps it.  Before
+        a Keras model's first batch the call is queued."""
+        if self._engine is None:
+            self._deferred_ops.append(("set_params", params))
+            return self
         model = self._engine.model
         if callable(params):
             params = params(model.state_dict())
@@ -434,12 +503,17 @@ class Estimator:
     def save(self, path: str) -> str:
         """Write the engine's state to `path` through the commit
         protocol (synchronous on the CPU, background on the card)."""
+        self._require_engine("save")
         ckpt_mod.save_checkpoint(path, self._engine.state_dict())
         return path
 
     def load(self, path: str) -> "Estimator":
         """Restore the state saved at `path`: parameters, optimizer and
-        schedule state, the dropout generator and the step count."""
+        schedule state, the dropout generator and the step count.
+        Before a Keras model's first batch the call is queued."""
+        if self._engine is None:
+            self._deferred_ops.append(("load", path))
+            return self
         self._engine.load_state_dict(ckpt_mod.load_checkpoint(path))
         return self
 
@@ -450,6 +524,7 @@ class Estimator:
         tensors; otherwise `checkpoint.async_save_enabled` decides.
         Mid-epoch callers must pass the loop-local `step`: `host_step`
         commits only at an epoch's end."""
+        self._require_engine("save_checkpoint")
         if step is None:
             step = self._engine.host_step
         path = os.path.join(self.model_dir, f"ckpt-{step}")
@@ -457,6 +532,11 @@ class Estimator:
         return ckpt_mod.save_checkpoint(
             path, self._engine.state_dict(), block=block,
             meta={"epoch": self._epoch, "step": step})
+
+    def _require_engine(self, what: str) -> None:
+        if self._engine is None:
+            raise RuntimeError(f"{what}: the Keras model has not seen data "
+                               "yet, so it has no weights to save")
 
     def load_orca_checkpoint(self, path: str,
                              version: Optional[int] = None) -> "Estimator":

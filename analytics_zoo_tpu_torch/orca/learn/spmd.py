@@ -296,13 +296,18 @@ class TrainEngine:
                  metric_fns: Optional[Dict[str, Callable]] = None,
                  seed: int = 0, aux_loss_weight: Optional[float] = None):
         params = list(model.parameters())
-        if not params:
+        # a module without parameters (a Keras graph of stateless layers)
+        # evaluates and predicts on the device it names, and cannot train
+        device = params[0].device if params else getattr(model, "device",
+                                                         None)
+        if device is None:
             raise ValueError("the module has no parameters to train")
         self.model = model
-        self.device = params[0].device
+        self.device = torch.device(device)
         self.params = [p for p in params if p.requires_grad]
         self.optimizer = optimizer
-        self.opt, self.schedule = optimizer.build(self.params)
+        self.opt, self.schedule = (optimizer.build(self.params)
+                                   if self.params else (None, None))
         self.loss_fn = loss_fn
         self.metric_fns = dict(metric_fns or {})
         #: set when the module returns (predictions, aux): the train
@@ -370,6 +375,8 @@ class TrainEngine:
         return preds, aux
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        if self.opt is None:
+            raise ValueError("the module has no parameters to train")
         mask = batch["mask"]
         self.opt.zero_grad(set_to_none=True)
         # the forward updates buffers (BatchNorm's running stats and
@@ -563,7 +570,8 @@ class TrainEngine:
         it): the module's and the optimizer's state dicts, the
         schedule's count, the dropout generator's state and `step`."""
         return {"model": self.model.state_dict(),
-                "optimizer": self.opt.state_dict(),
+                "optimizer": (None if self.opt is None
+                              else self.opt.state_dict()),
                 "schedule_count": (None if self.schedule is None
                                    else self.schedule.count),
                 "generator": self.generator.get_state(),
@@ -577,10 +585,11 @@ class TrainEngine:
         # whose optimizer state holds none): the loaded groups carry the
         # saved one, and a scheduled optimizer must keep reading the
         # schedule's own device tensor
-        lrs = [group["lr"] for group in self.opt.param_groups]
-        self.opt.load_state_dict(state["optimizer"])
-        for group, lr in zip(self.opt.param_groups, lrs):
-            group["lr"] = lr
+        if self.opt is not None:
+            lrs = [group["lr"] for group in self.opt.param_groups]
+            self.opt.load_state_dict(state["optimizer"])
+            for group, lr in zip(self.opt.param_groups, lrs):
+                group["lr"] = lr
         if self.schedule is not None:
             # a checkpoint of an engine without a schedule starts it
             count = state["schedule_count"]

@@ -24,7 +24,9 @@ phase 15, int8 weight serving (BERT-base, ResNet-50, NCF) in phase 16
 and the image zoo (ResNet-50 fine-tuning, Inception-v1, MobileNetV2,
 VGG-16, SSD and Faster R-CNN) in phase 17 and the rest of the model
 zoo (BERT-base from a checkpoint file, TextClassifier, KNRM, Seq2Seq,
-AnomalyDetector, VAE, GANEstimator, InferenceEstimator) in phase 18;
+AnomalyDetector, VAE, GANEstimator, InferenceEstimator) in phase 18 and
+the Keras-style API (`Estimator.from_keras`, the NCF toy, a Keras BERT
+and TransformerLayer, conv and recurrent stacks) in phase 19;
 each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
@@ -253,6 +255,29 @@ Phases (each one failing exits non-zero, with no result line):
      GRU classifier: predict bitwise the model's own, accuracy
      Estimator.evaluate's, fit raising; no kernel of ours launched in
      (b)-(g);
+  19. the Keras-style API (after phase 18; results under "keras" and on
+     a `keras` line): (a) the README NCF toy (BASELINE config #1: two
+     Inputs, Embedding, Flatten, Concat, Dense relu 256-256-128,
+     Dense(2, "softmax")) at bench.py's NCF widths (200,000 x 50,000 x
+     64) through `Estimator.from_keras` at batch 16384, built on its
+     first batch, 3 epochs of 6 steps (the epoch loss falls) and once
+     through `model.fit`; samples/s, peak memory, host against card
+     time a step; no kernel of ours; (b) a Keras `BERT` layer at
+     BERT-base's widths, `LayerNormalization` and `Dense(2)` on its
+     pooled output, compiled and fit at 32 x 128 (dropout 0.1):
+     launches per step exact (K1 26, K1b 26, K2 12 on its sm90 body,
+     no flash: einsum below t = 4096, as JAX), the Keras BERT forward
+     bitwise the port's `TransformerEncoder` on the same weights; (c) a
+     Keras `TransformerLayer` at GPT-2 small's widths, `Select(1, -1)`
+     and `Dense(2)`, fit at 2 x 4096 (flash): launches per step exact
+     (K1 25, K1b 25, K2 12, K3 12, K4a 12, K4b 12), one eval forward's
+     logits within 0.05 of max(1, |ref|) of the plain versions on the
+     same weights; (d) test_keras_api.py's conv / BatchNorm / pool
+     stack, an LSTM / GRU / Bidirectional / TimeDistributed stack and a
+     ConvLSTM2D graph fit on the card, each eval output within 1e-4 of
+     max(1, |CPU|) of the same weights on the CPU in f32, under
+     deterministic algorithms; no kernel of ours in (d); step p50, peak
+     memory and host against card time a step for (a)-(c);
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -796,18 +821,20 @@ def flash_variants(scene, b):
     return variants
 
 
-def check_flash_fwd(torch, scene, b, t, dtype, what=""):
-    """Hold K3 against its plain version in every case of `scene`: out
-    per element, lse to 1e-4, zeros on the fully padded batch row 0.
-    Returns ({label: (out err, lse err)}, {label: out err as a share of
-    its tolerance})."""
+def check_flash_fwd(torch, scene, b, t, dtype, what="", extra=None):
+    """Hold K3 against its plain version in every case of `scene`, and
+    in the `extra` cases ({label: ((q, k, v), kwargs)}): out per
+    element, lse to 1e-4, zeros on the fully padded batch row 0 where a
+    case has the kv_mask.  Returns ({label: (out err, lse err)},
+    {label: out err as a share of its tolerance})."""
     from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
         flash_fwd,
         flash_fwd_reference,
     )
     name = "bf16" if dtype == torch.bfloat16 else "f32"
     errs, shares = {}, {}
-    for label, (args, kw) in flash_variants(scene, b).items():
+    for label, (args, kw) in {**flash_variants(scene, b),
+                              **(extra or {})}.items():
         out, lse = flash_fwd(*args, **kw)
         rout, rlse = flash_fwd_reference(*args, **kw)
         torch.cuda.synchronize()
@@ -831,7 +858,7 @@ def check_flash_fwd(torch, scene, b, t, dtype, what=""):
         check(share <= 1.0 and e_lse <= 1e-4,
               f"K3 {name} b={b} t={t}{what} {label}: out err {e_out} "
               f"({share:.3f} of its tolerance), lse err {e_lse} (tol 1e-4)")
-        check(bool((out[0] == 0).all()),
+        check("kv_mask" not in kw or bool((out[0] == 0).all()),
               f"K3 {name}{what} {label}: a fully padded row must give zeros")
         errs[label] = (e_out, e_lse)
         shares[label] = share
@@ -1036,13 +1063,14 @@ def dbias_zero_at_padding(dbias, padded):
                for i in range(dbias.shape[0]))
 
 
-def check_flash_bwd(torch, gen, scene, b, t, dtype, what=""):
+def check_flash_bwd(torch, gen, scene, b, t, dtype, what="", extra=None):
     """Hold K4a, K4b and K5 against their plain version in every case of
-    phase 5 plus a loss on the lse and the fine-tune's own case, each
-    from the kernels' own forward and a cotangent drawn from `gen`: per
-    element, zeros on the fully padded batch row 0, dk and dv exactly 0
-    at every padded key.  Returns ({label: max abs err of dq, dk, dv[,
-    dbias]}, {label: the worst as a share of its tolerance})."""
+    phase 5 plus a loss on the lse, the fine-tune's own case and the
+    `extra` cases, each from the kernels' own forward and a cotangent
+    drawn from `gen`: per element; where a case has the kv_mask, zeros
+    on the fully padded batch row 0 and dk and dv exactly 0 at every
+    padded key.  Returns ({label: max abs err of dq, dk, dv[, dbias]},
+    {label: the worst as a share of its tolerance})."""
     from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
         flash_bwd,
         flash_bwd_reference,
@@ -1066,6 +1094,7 @@ def check_flash_bwd(torch, gen, scene, b, t, dtype, what=""):
     variants[f"fused-qkv+bias[{b}x1]+causal+dropout0.1+mask"] = (
         fused, dict(kv_mask=mask, bias=biases[f"{b}x1"],
                     causal=True, seed3=seed3, dropout=0.1))
+    variants.update(extra or {})
     errs, shares = {}, {}
     for label, (args, kw) in variants.items():
         out, lse = flash_fwd(*args, **kw)
@@ -1109,6 +1138,10 @@ def check_flash_bwd(torch, gen, scene, b, t, dtype, what=""):
               f"{at}: kernel {float(got[worst].flatten()[at])}, plain "
               f"{float(want[worst].flatten()[at])}, tolerance "
               f"{float(tols[worst].flatten()[at])}")
+        errs[label] = e
+        shares[label] = share
+        if "kv_mask" not in kw:
+            continue
         check(all(bool((a[0] == 0).all()) for a in got[:3]),
               f"flash bwd {name}{what} {label}: a fully padded batch row "
               "must give zero dq, dk, dv")
@@ -1120,8 +1153,6 @@ def check_flash_bwd(torch, gen, scene, b, t, dtype, what=""):
             check(dbias_zero_at_padding(got[3], padded),
                   f"flash bwd {name}{what} {label}: dbias must be exactly "
                   "zero at every key all of a plane's replicas pad")
-        errs[label] = e
-        shares[label] = share
     return errs, shares
 
 
@@ -6251,6 +6282,466 @@ def phase_zoo_rest(torch, seed: int, card: str):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 19: the Keras-style API (keras/, keras2/, Estimator.from_keras)
+# ----------------------------------------------------------------------
+
+#: (a): BASELINE.json config #1, the README NCF toy, at bench.py's NCF
+#: widths (bench.py:65-70)
+KERAS_NCF = dict(users=200_000, items=50_000, embed=64,
+                 hidden=(256, 256, 128), classes=2)
+KERAS_NCF_BATCH, KERAS_NCF_STEPS = 16384, 6
+#: (b): a Keras BERT layer at BERT-base's widths + LayerNormalization +
+#: Dense(2) on the pooled output
+KERAS_BERT_BATCH, KERAS_BERT_T, KERAS_BERT_STEPS = 32, 128, 4
+#: (c): a Keras TransformerLayer at GPT-2 small's widths, t = 4096
+KERAS_GPT = dict(vocab=50257, hidden_size=768, n_head=12, n_block=12,
+                 seq_len=4096)
+KERAS_GPT_BATCH, KERAS_GPT_STEPS = 2, 3
+#: (b), (c): the logits through the kernels against the plain versions,
+#: bf16 on both (phase 7's logit gate), of max(1, |plain|)
+KERAS_LOGITS_TOL = 0.05
+#: (c): seed of the scene that holds K3, K4a, K4b and K5 at the
+#: TransformerLayer's shape, drawn from a generator of its own
+KERAS_FLASH_SEED = 13
+#: (d): eval-mode outputs on the card against the CPU path in f32 (TF32
+#: off), of max(1, |CPU|): f32 sums in other orders (cuDNN's convs and
+#: RNNs against the CPU's)
+KERAS_STACK_TOL = 1e-4
+
+
+def keras_fit(torch, est, data, batch: int, epochs: int = 1):
+    """`est.fit` with a CUDA event as each step is queued (phase 8's
+    timing) and the launches it made, the first step a warm one: (step
+    periods in s after the first, peak bytes above the bytes before,
+    host wall s per step, launches, per-step losses)."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    eng = est.engine
+    marks = []
+
+    def marked_step(b, step=eng.train_step):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return step(b)
+
+    eng.train_step = marked_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    est.fit(data, epochs=epochs, batch_size=batch, shuffle=False)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng.train_step
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(marks[1:-1], marks[2:])]
+    losses = [s["loss"] for s in eng.last_steps]
+    return (times, torch.cuda.max_memory_allocated() - base,
+            wall / (len(marks) - 1), kernels.launch_counts(), losses)
+
+
+def keras_step_profile(torch, est, feats, y, iters: int = 3) -> dict:
+    """Host wall per train step (synchronized, without the profiler)
+    beside the card's time per step (every device event of a profiled
+    window summed) and their ratio, the card's busy share."""
+    from torch.autograd import DeviceType
+    eng = est.engine
+    host = {"features": tuple(feats), "labels": (y,),
+            "mask": np.ones(len(y), np.float32)}
+
+    def step():
+        eng.train_step(eng.put_batch(host))
+
+    step()
+    walls = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    _, _, prof = device_ms(step, iters=iters)
+    dev = sum(e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation) / 1e3 / iters
+    wall = statistics.median(walls)
+    return dict(host_wall_ms_per_step=wall, device_ms_per_step=dev,
+                device_busy_share=dev / wall)
+
+
+def keras_launches_want(steps: int, ln: int, k2: int, flash: int) -> dict:
+    return {"layer_norm_fwd": ln * steps, "layer_norm_bwd": ln * steps,
+            "fused_dense_gelu": k2 * steps, "flash_fwd": flash * steps,
+            "flash_bwd_dq": flash * steps, "flash_bwd_dkv": flash * steps,
+            "flash_bwd_dbias": 0, "paged_decode": 0}
+
+
+def keras_ncf(torch, seed: int, card: str) -> dict:
+    """(a): the README NCF toy at bench.py's widths, fit through
+    `Estimator.from_keras(model)` and once through `model.fit`."""
+    from functools import partial as _partial
+
+    from analytics_zoo_tpu_torch.keras import Input, Model, optimizers
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.orca.learn import Estimator, losses
+    c = KERAS_NCF
+    u_in, i_in = Input(shape=(), name="user"), Input(shape=(), name="item")
+    u_emb = L.Embedding(c["users"] + 1, c["embed"])
+    i_emb = L.Embedding(c["items"] + 1, c["embed"])
+    h = L.Concat()([L.Flatten()(u_emb(u_in)), L.Flatten()(i_emb(i_in))])
+    first = L.Dense(c["hidden"][0], activation="relu")
+    h = first(h)
+    for width in c["hidden"][1:]:
+        h = L.Dense(width, activation="relu")(h)
+    out = L.Dense(c["classes"], activation="softmax")(h)
+    model = Model(input=[u_in, i_in], output=out, device="cuda")
+    # a softmax output: the cross-entropy of probabilities
+    loss = _partial(losses.sparse_categorical_crossentropy,
+                    from_logits=False)
+    model.compile(optimizer=optimizers.Adam(learning_rate=5e-3), loss=loss,
+                  metrics=["accuracy"])
+    n = KERAS_NCF_BATCH * KERAS_NCF_STEPS
+    rng = np.random.default_rng(seed + 61)
+    # ids from a tenth of each table, so that each recurs within an
+    # epoch and the loss can fall in three; the tables keep their widths
+    user = rng.integers(1, c["users"] // 10 + 1, n).astype(np.int32)
+    item = rng.integers(1, c["items"] // 10 + 1, n).astype(np.int32)
+    y = ((user + item) % 2).astype(np.int32)
+    data = {"x": [user, item], "y": y}
+    est = Estimator.from_keras(model, seed=seed)
+    check(est.engine is None, "phase 19 (a): the engine exists before data")
+    t0 = time.perf_counter()
+    est.fit(data, epochs=1, batch_size=KERAS_NCF_BATCH, shuffle=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    gm = est.get_model()
+    check(getattr(gm, u_emb.name).weight.shape == (c["users"] + 1, c["embed"])
+          and getattr(gm, first.name).weight.shape
+          == (c["hidden"][0], 2 * c["embed"]),
+          "phase 19 (a): the graph was not built at its widths")
+    times, peak, host_s, counts, losses_ = keras_fit(
+        torch, est, data, KERAS_NCF_BATCH, epochs=2)
+    check(not any(counts.values()),
+          f"phase 19 (a): the NCF toy launched a kernel of ours: {counts}")
+    epochs = [s["loss"] for s in est.train_summary]
+    check(all(np.isfinite(epochs)) and epochs[-1] < epochs[0],
+          f"phase 19 (a): epoch losses {epochs} did not fall")
+    step = statistics.median(times)
+    prof = keras_step_profile(torch, est, (user[:KERAS_NCF_BATCH],
+                                           item[:KERAS_NCF_BATCH]),
+                              y[:KERAS_NCF_BATCH])
+    # and once through the model's own fit (its own estimator)
+    model.fit(data, batch_size=KERAS_NCF_BATCH, nb_epoch=1, shuffle=False)
+    mest = model._ensure_estimator()
+    check(mest.engine.host_step == KERAS_NCF_STEPS
+          and np.isfinite(mest.train_summary[-1]["loss"]),
+          f"phase 19 (a): model.fit ran {mest.engine.host_step} steps")
+    k = min(4096, n)
+    preds = model.predict({"x": [user[:k], item[:k]]}, batch_size=k)
+    check(preds.shape == (k, 2) and np.allclose(preds.sum(1), 1.0,
+                                                atol=1e-5),
+          "phase 19 (a): predictions are not softmax rows")
+    out = dict(batch=KERAS_NCF_BATCH, steps_per_epoch=KERAS_NCF_STEPS,
+               first_epoch_s_with_build=first_s, epoch_losses=epochs,
+               step_ms_p50=step * 1e3,
+               samples_per_s=KERAS_NCF_BATCH / step,
+               peak_bytes_above_weights=peak, host_wall_ms_per_step=host_s
+               * 1e3, step_profile=prof, launches=counts,
+               model_fit_loss=mest.train_summary[-1]["loss"])
+    print(f"phase 19 (a) [{card}] NCF toy (from_keras) at 200,000 x 50,000 "
+          f"x 64, MLP 256-256-128, batch {KERAS_NCF_BATCH}: step p50 "
+          f"{step * 1e3:.3f} ms, {out['samples_per_s']:.0f} samples/s, "
+          f"peak {peak / 2**20:.1f} MiB above the weights, host "
+          f"{prof['host_wall_ms_per_step']:.3f} ms vs card "
+          f"{prof['device_ms_per_step']:.3f} ms a step; epoch losses "
+          f"{[round(v, 5) for v in epochs]}; no kernel of ours launched",
+          flush=True)
+    del model, est, mest, gm
+    free_card(torch)
+    return out
+
+
+def keras_bert(torch, seed: int, card: str) -> dict:
+    """(b): a Keras BERT layer at BERT-base's widths, LayerNormalization
+    and Dense(2) on its pooled output, compiled and fit; launches per
+    step exact; the Keras BERT forward bitwise the port's
+    TransformerEncoder's on the same weights."""
+    from analytics_zoo_tpu_torch.keras import Input, Model, optimizers
+    from analytics_zoo_tpu_torch.keras import layers as L
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        TransformerEncoder)
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE
+    vocab = BERT_BASE["vocab"]
+    inputs = [Input(shape=(KERAS_BERT_T,)) for _ in range(4)]
+    bert = L.BERT(vocab=vocab, hidden_size=768, n_block=12, n_head=12,
+                  intermediate_size=3072, seq_len=512)
+    seq, pooled = bert(inputs)
+    out = L.Dense(2)(L.LayerNormalization()(pooled))
+    model = Model(inputs, out, device="cuda")
+    model.compile(optimizer=optimizers.Adam(learning_rate=2e-5),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    rng = np.random.default_rng(seed + 62)
+    b, t = KERAS_BERT_BATCH, KERAS_BERT_T
+    (ids, seg, mask), y, _ = train_batch(rng, b, t, vocab)
+    pos = np.tile(np.arange(t, dtype=np.int32), (b, 1))
+    one = [ids, seg, pos, mask]
+    steps = KERAS_BERT_STEPS + 1
+    data = {"x": [np.concatenate([a] * steps) for a in one],
+            "y": np.concatenate([y] * steps)}
+    # the first fit builds the graph on its first batch and warms up
+    model.fit({"x": one, "y": y}, batch_size=b, nb_epoch=1, shuffle=False)
+    est = model._ensure_estimator()
+    times, peak, host_s, counts, losses_ = keras_fit(torch, est, data, b)
+    want = keras_launches_want(steps, 2 * 12 + 2, 12, 0)
+    check(counts == want, f"phase 19 (b): launches {counts}, expected "
+          f"{want} for {steps} steps (K1 26, K1b 26, K2 12 a step)")
+    bodies = k2_bodies("phase 19 (b)", counts)
+    check(all(np.isfinite(losses_)), f"phase 19 (b): losses {losses_}")
+    prof = keras_step_profile(torch, est, one, y)
+    # the Keras BERT against the encoder on the same weights, eval mode
+    gm = est.get_model().eval()
+    enc = TransformerEncoder(**bert.cfg, device="cuda").eval()
+    enc.load_state_dict({k[len(bert.name) + 1:]: v for k, v in
+                         gm.state_dict().items()
+                         if k.startswith(bert.name + ".")})
+    probe = Model(inputs, [seq, pooled], device="cuda").to_torch()
+    on_card = [torch.from_numpy(a).cuda() for a in one]
+    probe.build(*[a[:1] for a in on_card])
+    probe.load_state_dict({k: v for k, v in gm.state_dict().items()
+                           if k.startswith(bert.name + ".")})
+    with torch.no_grad():
+        got = probe.eval()(*on_card)
+        want_out = enc(*on_card)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want_out))
+    check(bitwise, "phase 19 (b): the Keras BERT forward is not bitwise "
+          "the TransformerEncoder's on the same weights")
+    # and the whole graph's logits against the plain versions (K1, K2)
+    with torch.no_grad():
+        logits = gm(*on_card).float()
+        ref = gm(*on_card, impl="reference").float()
+    err = float((logits - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    check(bool(torch.isfinite(logits).all())
+          and err <= KERAS_LOGITS_TOL * scale, f"phase 19 (b): logits vs "
+          f"the plain versions {err} > {KERAS_LOGITS_TOL} x {scale}")
+    step = statistics.median(times)
+    res = dict(batch=b, t=t, steps=steps, losses=losses_,
+               step_ms_p50=step * 1e3, steps_per_s=1 / step,
+               samples_per_s=b / step, tokens_per_s=b * t / step,
+               peak_bytes_above_weights=peak,
+               host_wall_ms_per_step=host_s * 1e3, step_profile=prof,
+               launches=counts, k2_launches_by_body=bodies,
+               launches_per_step={k: v / steps for k, v in counts.items()},
+               keras_bert_bitwise_encoder=bitwise, logits_max_abs_err=err,
+               logits_tol=KERAS_LOGITS_TOL * scale)
+    print(f"phase 19 (b) [{card}] Keras BERT-base + LayerNormalization + "
+          f"Dense(2), {b} x {t}: step p50 {step * 1e3:.3f} ms "
+          f"({res['steps_per_s']:.2f} steps/s, {res['samples_per_s']:.1f} "
+          f"samples/s), peak {peak / 2**30:.3f} GiB above the weights, host "
+          f"{prof['host_wall_ms_per_step']:.3f} ms vs card "
+          f"{prof['device_ms_per_step']:.3f} ms a step; launches per step "
+          f"{res['launches_per_step']}; the BERT forward bitwise the "
+          f"encoder's; logits vs the plain versions {err:.3e} (tol "
+          f"{KERAS_LOGITS_TOL * scale:.3f})", flush=True)
+    del model, est, gm, enc, probe, got, want_out, logits, ref
+    free_card(torch)
+    return res
+
+
+def keras_gpt_kernels(torch, b: int, t: int, h: int, d: int) -> dict:
+    """(c)'s flash kernels at the TransformerLayer's own shape, bf16:
+    K3, K4a, K4b (and K5 on the bias cases) against their plain versions
+    in phase 5's cases, gated as at t <= 512, and in the layer's own:
+    causal q, k, v read in place from a fused qkv, no key mask, with and
+    without dropout 0.1 at the seed triple (seed, 0, 0) that fit gives
+    it.  Returns the errors and their shares of the tolerance."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(KERAS_FLASH_SEED)
+    scene = flash_scene(torch, gen, b, t, h, d, torch.bfloat16)
+    fused = scene[1]
+    seed3 = torch.tensor([1234, 0, 0], dtype=torch.int32, device="cuda")
+    own = {"fused-qkv+causal": (fused, dict(causal=True)),
+           "fused-qkv+causal+dropout0.1": (fused, dict(
+               causal=True, seed3=seed3, dropout=0.1))}
+    what = " (phase 19 (c))"
+    f_errs, f_shares = check_flash_fwd(torch, scene, b, t, torch.bfloat16,
+                                       what, extra=own)
+    b_errs, b_shares = check_flash_bwd(torch, gen, scene, b, t,
+                                       torch.bfloat16, what, extra=own)
+    del scene, fused, own
+    free_card(torch)
+    return dict(fwd_errors={k: list(e) for k, e in f_errs.items()},
+                fwd_max_share_of_tol=max(f_shares.values()),
+                bwd_errors=b_errs,
+                bwd_max_share_of_tol=max(b_shares.values()))
+
+
+def keras_gpt(torch, seed: int, card: str) -> dict:
+    """(c): a Keras TransformerLayer at GPT-2 small's widths with
+    Select(1, -1) -> Dense(2), fit at t = 4096 (auto attention: flash);
+    launches per step exact; one forward's logits against the plain
+    versions on the same weights; then the flash kernels against their
+    plain versions at the layer's shape (`keras_gpt_kernels`)."""
+    from analytics_zoo_tpu_torch.keras import Input, Model, optimizers
+    from analytics_zoo_tpu_torch.keras import layers as L
+    c = KERAS_GPT
+    t_in = Input(shape=(c["seq_len"],))
+    h = L.TransformerLayer(**c)(t_in)
+    out = L.Dense(2)(L.Select(1, -1)(h))
+    model = Model(t_in, out, device="cuda")
+    model.compile(optimizer=optimizers.Adam(learning_rate=1e-4),
+                  loss="sparse_categorical_crossentropy")
+    rng = np.random.default_rng(seed + 63)
+    b, t = KERAS_GPT_BATCH, c["seq_len"]
+    ids = rng.integers(0, c["vocab"], (b, t)).astype(np.int32)
+    y = (ids[:, -1] < c["vocab"] // 2).astype(np.int32)
+    steps = KERAS_GPT_STEPS + 1
+    data = {"x": np.concatenate([ids] * steps),
+            "y": np.concatenate([y] * steps)}
+    model.fit(ids, y, batch_size=b, nb_epoch=1, shuffle=False)
+    est = model._ensure_estimator()
+    times, peak, host_s, counts, losses_ = keras_fit(torch, est, data, b)
+    want = keras_launches_want(steps, 2 * 12 + 1, 12, 12)
+    check(counts == want, f"phase 19 (c): launches {counts}, expected "
+          f"{want} for {steps} steps (K1 25, K1b 25, K2 12, K3 12, K4a 12, "
+          f"K4b 12 a step)")
+    bodies = k2_bodies("phase 19 (c)", counts)
+    check(all(np.isfinite(losses_)), f"phase 19 (c): losses {losses_}")
+    prof = keras_step_profile(torch, est, [ids], y)
+    gm = est.get_model().eval()
+    x = torch.from_numpy(ids).cuda()
+    with torch.no_grad():
+        got = gm(x).float()
+        ref = gm(x, impl="reference").float()
+    err = float((got - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    check(err <= KERAS_LOGITS_TOL * scale, f"phase 19 (c): logits vs the plain "
+          f"versions {err} > {KERAS_LOGITS_TOL} x {scale}")
+    step = statistics.median(times)
+    res = dict(batch=b, t=t, steps=steps, losses=losses_,
+               step_ms_p50=step * 1e3, steps_per_s=1 / step,
+               tokens_per_s=b * t / step, peak_bytes_above_weights=peak,
+               host_wall_ms_per_step=host_s * 1e3, step_profile=prof,
+               launches=counts, k2_launches_by_body=bodies,
+               launches_per_step={k: v / steps for k, v in counts.items()},
+               logits_max_abs_err=err, logits_tol=KERAS_LOGITS_TOL * scale)
+    print(f"phase 19 (c) [{card}] Keras TransformerLayer at GPT-2 small, "
+          f"{b} x {t}: step p50 {step * 1e3:.3f} ms "
+          f"({res['tokens_per_s']:.0f} tokens/s), peak "
+          f"{peak / 2**30:.3f} GiB above the weights, host "
+          f"{prof['host_wall_ms_per_step']:.3f} ms vs card "
+          f"{prof['device_ms_per_step']:.3f} ms a step; launches per step "
+          f"{res['launches_per_step']}; logits vs the plain versions "
+          f"{err:.3e} (tol {KERAS_LOGITS_TOL * scale:.3f})", flush=True)
+    del model, est, gm, got, ref
+    free_card(torch)
+    res["kernels"] = kern = keras_gpt_kernels(torch, b, t, c["n_head"],
+                                              c["hidden_size"] // c["n_head"])
+    print(f"phase 19 (c) [{card}] K3 bf16 b={b} t={t} vs its plain "
+          f"version: (out, lse) max abs err {kern['fwd_errors']}, at most "
+          f"{kern['fwd_max_share_of_tol']:.3f} of the tolerance; K4a/K4b/K5: "
+          f"max abs err (dq, dk, dv[, dbias]) {kern['bwd_errors']}, at most "
+          f"{kern['bwd_max_share_of_tol']:.3f} of the tolerance", flush=True)
+    return res
+
+
+def keras_stacks(torch, seed: int, card: str) -> dict:
+    """(d): test_keras_api.py's conv / BatchNorm / pool stack, its LSTM /
+    GRU / Bidirectional stack and a ConvLSTM2D graph: each fits on the
+    card, then its eval-mode output against the same weights on the CPU
+    in f32, under deterministic algorithms."""
+    from analytics_zoo_tpu_torch.keras import Sequential, optimizers
+    from analytics_zoo_tpu_torch.keras import layers as L
+    rng = np.random.default_rng(seed + 64)
+    scenes = {
+        "conv_bn_pool": (lambda: [
+            L.Conv2D(8, 3, border_mode="same", activation="relu"),
+            L.BatchNormalization(), L.MaxPooling2D(2),
+            L.GlobalAveragePooling2D(), L.Dense(2)],
+            rng.normal(size=(64, 8, 8, 3)).astype(np.float32)),
+        "lstm_gru_bidirectional": (lambda: [
+            L.LSTM(16, return_sequences=True),
+            L.Bidirectional(L.GRU(8, return_sequences=True)),
+            L.TimeDistributed(L.Dense(4)), L.GRU(8, activation="relu"),
+            L.Dense(2)],
+            rng.normal(size=(64, 12, 6)).astype(np.float32)),
+        "convlstm2d": (lambda: [
+            L.ConvLSTM2D(4, (3, 3), return_sequences=True),
+            L.ConvLSTM2D(4, (3, 3)), L.GlobalAveragePooling2D(),
+            L.Dense(2)],
+            rng.normal(size=(32, 4, 8, 8, 2)).astype(np.float32)),
+    }
+    out = {}
+    from analytics_zoo_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    with deterministic(torch):
+        for name, (layers, x) in scenes.items():
+            y = (x.reshape(len(x), -1).mean(1) > 0).astype(np.int32)
+            stack = layers()
+            model = Sequential(stack, device="cuda")
+            model.compile(optimizer=optimizers.Adam(learning_rate=1e-2),
+                          loss="sparse_categorical_crossentropy")
+            model.fit(x, y, batch_size=32, nb_epoch=1, shuffle=False)
+            est = model._ensure_estimator()
+            loss = est.train_summary[-1]["loss"]
+            check(np.isfinite(loss), f"phase 19 (d) {name}: loss {loss}")
+            gm = est.get_model().eval()
+            cpu = Sequential(stack, device="cpu").to_torch().build(x[:1])
+            cpu.load_state_dict({k: v.cpu() for k, v in
+                                 gm.state_dict().items()})
+            with torch.no_grad():
+                got = gm(torch.from_numpy(x).cuda()).cpu().numpy()
+                want = cpu.eval()(torch.from_numpy(x)).numpy()
+            err = float(np.abs(got - want).max())
+            scale = max(1.0, float(np.abs(want).max()))
+            check(err <= KERAS_STACK_TOL * scale,
+                  f"phase 19 (d) {name}: card vs CPU {err} > "
+                  f"{KERAS_STACK_TOL} x {scale}")
+            out[name] = dict(loss=loss, max_abs_err=err,
+                             tol=KERAS_STACK_TOL * scale,
+                             steps=est.engine.host_step)
+            del model, est, gm, cpu
+    counts = kernels.launch_counts()
+    check(not any(counts.values()),
+          f"phase 19 (d) launched a kernel of ours: {counts}")
+    out["launches"] = counts
+    print(f"phase 19 (d) [{card}] stacks fit on the card, eval outputs vs "
+          f"the CPU in f32: " + ", ".join(
+              f"{k} {v['max_abs_err']:.3e}" for k, v in out.items()
+              if k != "launches"), flush=True)
+    free_card(torch)
+    return out
+
+
+def phase_keras(torch, seed: int, card: str) -> dict:
+    """Phase 19: the Keras-style API, scenes (a)-(d)."""
+    t0 = time.perf_counter()
+    out = dict(a=keras_ncf(torch, seed, card), b=keras_bert(torch, seed, card),
+               c=keras_gpt(torch, seed, card), d=keras_stacks(torch, seed,
+                                                              card))
+    out["seconds"] = time.perf_counter() - t0
+    print("keras " + json.dumps(dict(
+        card=card, seconds=out["seconds"],
+        ncf_toy={k: out["a"][k] for k in (
+            "samples_per_s", "step_ms_p50", "peak_bytes_above_weights",
+            "host_wall_ms_per_step", "step_profile", "epoch_losses")},
+        bert={k: out["b"][k] for k in (
+            "steps_per_s", "samples_per_s", "step_ms_p50",
+            "peak_bytes_above_weights", "host_wall_ms_per_step",
+            "step_profile", "launches_per_step", "logits_max_abs_err")},
+        transformer_layer={k: out["c"][k] for k in (
+            "steps_per_s", "tokens_per_s", "step_ms_p50",
+            "peak_bytes_above_weights", "host_wall_ms_per_step",
+            "step_profile", "launches_per_step", "logits_max_abs_err",
+            "kernels")},
+        stacks={k: v for k, v in out["d"].items() if k != "launches"})),
+        flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -6323,6 +6814,8 @@ def main(argv=None) -> int:
     clocks("after phase 17", start)
     zoo_rest = phase_zoo_rest(torch, args.seed, card)
     clocks("after phase 18", start)
+    keras = phase_keras(torch, args.seed, card)
+    clocks("after phase 19", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -6375,6 +6868,7 @@ def main(argv=None) -> int:
     srv_gen = serving["launches"]["serving_generate"]
     int8_bert = int8["a"]["launches"]
     pretrained = zoo_rest["a"]["launches"]
+    k_bert, k_gpt = keras["b"]["launches"], keras["c"]["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -6423,35 +6917,44 @@ def main(argv=None) -> int:
                                   "serving_bert_http": srv_bert,
                                   "serving_generate_http": srv_gen,
                                   "int8_bert_serving": int8_bert,
-                                  "bert_pretrained_fine_tune": pretrained},
+                                  "bert_pretrained_fine_tune": pretrained,
+                                  "keras_bert_fit": k_bert,
+                                  "keras_transformer_layer_fit": k_gpt},
                "layer_norm_bwd": {"bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert,
-                                  "bert_pretrained_fine_tune": pretrained},
+                                  "bert_pretrained_fine_tune": pretrained,
+                                  "keras_bert_fit": k_bert,
+                                  "keras_transformer_layer_fit": k_gpt},
                "fused_dense_gelu": {"bert_serving": bert,
                                     "bert_fine_tune": tr,
                                     "bert_fine_tune_remat": remat,
                                     "bert_fine_tune_xshards": xs_bert,
                                     "serving_bert_http": srv_bert,
                                     "int8_bert_serving": int8_bert,
-                                    "bert_pretrained_fine_tune": pretrained},
+                                    "bert_pretrained_fine_tune": pretrained,
+                                    "keras_bert_fit": k_bert,
+                                    "keras_transformer_layer_fit": k_gpt},
                "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
                              "learnable_bias": bias_run["launches"],
                              "bert_fine_tune_remat": remat,
                              "bert_fine_tune_xshards": xs_bert,
                              "serving_bert_http": srv_bert,
                              "int8_bert_serving": int8_bert,
-                             "bert_pretrained_fine_tune": pretrained},
+                             "bert_pretrained_fine_tune": pretrained,
+                             "keras_transformer_layer_fit": k_gpt},
                "flash_bwd_dq": {"bert_fine_tune": tr,
                                 "learnable_bias": bias_run["launches"],
                                 "bert_fine_tune_remat": remat,
                                 "bert_fine_tune_xshards": xs_bert,
-                                "bert_pretrained_fine_tune": pretrained},
+                                "bert_pretrained_fine_tune": pretrained,
+                                "keras_transformer_layer_fit": k_gpt},
                "flash_bwd_dkv": {"bert_fine_tune": tr,
                                  "learnable_bias": bias_run["launches"],
                                  "bert_fine_tune_remat": remat,
                                  "bert_fine_tune_xshards": xs_bert,
-                                 "bert_pretrained_fine_tune": pretrained},
+                                 "bert_pretrained_fine_tune": pretrained,
+                                 "keras_transformer_layer_fit": k_gpt},
                "paged_decode": dict(
                    {f"generation_{r['label']}": r["launches"]
                     for r in runs}, generation_breadth=breadth,
@@ -6477,6 +6980,12 @@ def main(argv=None) -> int:
         # nor on phase 18's models other than BERT (checked there: all 0)
         k["launches_by_path"]["zoo_rest_other_models"] = \
             zoo_rest["launches"][k["name"]]
+        # nor on phase 19's NCF toy and conv / recurrent stacks (checked
+        # there: all 0)
+        k["launches_by_path"]["keras_ncf_toy"] = \
+            keras["a"]["launches"][k["name"]]
+        k["launches_by_path"]["keras_stacks"] = \
+            keras["d"]["launches"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs,
                       "generation_breadth": gen_breadth, "bert": bert_runs,
@@ -6484,7 +6993,7 @@ def main(argv=None) -> int:
                       "recommendation": rec, "fit_surface": fit_surface,
                       "data_path": data_path, "serving": serving,
                       "int8_serving": int8, "image_zoo": zoo,
-                      "zoo_rest": zoo_rest,
+                      "zoo_rest": zoo_rest, "keras": keras,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,
