@@ -26,7 +26,10 @@ becomes its one-layer torch RNN's weights (`models/common/recurrent.py`,
 shared with SessionRecommender), a 1-D Conv `kernel (k, in, out)` a
 `weight (out, in, k)`.  Each `*_to_flax` is the inverse
 of its `*_from_flax` (the flax tree of the port's weights, which
-`serving/quantize.py` quantizes as JAX does).
+`serving/quantize.py` quantizes as JAX does).  `onnx_from_flax` and
+`onnx_to_flax` move an imported ONNX graph's weights
+(`pipeline/onnx/`): JAX's `{"params", "batch_stats"}` under the
+initializers' safe names, to and from the port's `OnnxModule`.
 """
 
 from __future__ import annotations
@@ -828,3 +831,36 @@ def keras_to_flax(model, state_dict: Optional[Mapping] = None,
     if sd:
         raise ValueError(f"unknown entries in the state_dict: {sorted(sd)}")
     return params, stats
+
+
+def onnx_from_flax(module, variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The state_dict of an `OnnxModule` from the JAX `OnnxModule`'s
+    variables: `params` are its parameters, `batch_stats` its BatchNorm
+    buffers, both under the initializers' safe names.  Copies (the
+    arrays are never viewed).  Raises on a missing or unknown entry."""
+    want = {safe for safe in module.bound.values()}
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for name, arr in dict(variables.get(coll, {})).items():
+            if name not in want:
+                raise ValueError(f"unknown entry {coll}/{name}")
+            out[name] = torch.tensor(np.array(arr))
+    missing = want - set(out)
+    if missing:
+        raise ValueError(f"missing entries {sorted(missing)}")
+    return out
+
+
+def onnx_to_flax(module) -> Dict[str, Dict[str, np.ndarray]]:
+    """The JAX `OnnxModule`'s variables of an `OnnxModule`'s weights:
+    {"params": parameters, "batch_stats": BatchNorm buffers}, as numpy
+    copies (the inverse of `onnx_from_flax`)."""
+    params = dict(module.named_parameters())
+    out: Dict[str, Dict[str, np.ndarray]] = {"params": {}}
+    for safe in module.bound.values():
+        t = params.get(safe)
+        coll = "params"
+        if t is None:
+            t, coll = getattr(module, safe), "batch_stats"
+        out.setdefault(coll, {})[safe] = np.array(t.detach().cpu())
+    return out

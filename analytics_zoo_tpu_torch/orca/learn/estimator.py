@@ -16,6 +16,9 @@ loss adds weight * aux (the engine's `_split_aux`; `aux_loss` in
 `get_model_state` returns its buffers, as JAX's (estimator.py:611-660);
 of `load` and `set_params` the last call wins.
 
+`Estimator.from_onnx(path_or_bytes)` trains an imported ONNX graph
+(`pipeline/onnx/`), as JAX's `from_onnx` (estimator.py:159-170).
+
 `Estimator.from_keras(model)` trains a Keras-style model
 (`analytics_zoo_tpu_torch.keras`) as JAX's does (estimator.py:124-136):
 a compiled model's loss, optimizer and metrics unless overridden.  Its
@@ -162,6 +165,23 @@ class Estimator:
                    else getattr(model, "_metrics", None))
         return cls(model.to_torch(), loss=loss, optimizer=optimizer,
                    metrics=metrics, model_dir=model_dir, **kwargs)
+
+    @classmethod
+    def from_onnx(cls, path_or_bytes, *, loss=None, optimizer=None,
+                  metrics=None, model_dir=None, device=None,
+                  **kwargs) -> "Estimator":
+        """Train an imported .onnx model (path or bytes), as JAX's
+        `from_onnx` does (estimator.py:159-170): the graph becomes an
+        `OnnxModule` on `device` (None = the CUDA card) whose weight
+        initializers are trainable parameters, then `from_torch`.  The
+        module reads shape-like inputs from graph constants only
+        (`static_shapes`), as JAX's jitted step does."""
+        from analytics_zoo_tpu_torch.pipeline.onnx import load_onnx
+        module, _ = load_onnx(path_or_bytes, device=device,
+                              static_shapes=True)
+        return cls.from_torch(module, loss=loss, optimizer=optimizer,
+                              metrics=metrics, model_dir=model_dir,
+                              **kwargs)
 
     def _build_engine(self) -> None:
         self._engine = TrainEngine(self._module, **self._engine_args)

@@ -11,8 +11,9 @@ rows.  The module runs under `torch.inference_mode()` on the device its
 parameters live on.
 
 Loaders: `load_module` (a built module), `load_model` (a
-`ZooModel.save_model` directory, JAX inference_model.py:154) and
-`load_estimator` (an Estimator's current module, :179).  With
+`ZooModel.save_model` directory, JAX inference_model.py:154),
+`load_estimator` (an Estimator's current module, :179) and `load_tf` (a
+frozen TF1 GraphDef through `pipeline/tf_graph.py`, :139).  With
 `quantize=True` the first two serve int8 weights (`quantize.py`): the
 scales are computed on the module's flax-layout tree at load, on the
 host, as JAX's `load_flax(quantize=True)` computes them (:59-97), the
@@ -123,6 +124,18 @@ class InferenceModel:
             )
             self.quantize_stats = quantize_module(module)
         return self._serve(module)
+
+    def load_tf(self, path_or_bytes, outputs=None, device=None):
+        """Serve a frozen TF1 GraphDef (reference doLoadTF, JAX
+        inference_model.py:139-152): the imported graph
+        (`pipeline/tf_graph.py`) on `device` (None = the CUDA card)
+        behind the same batch-bucketed, semaphore-bounded predict
+        path."""
+        from analytics_zoo_tpu_torch.pipeline.tf_graph import load_tf_graph
+        net = load_tf_graph(path_or_bytes, outputs=outputs, device=device)
+        self._device = net.device
+        self._module = net._eval
+        return self
 
     def load_estimator(self, estimator):
         """Serve an Estimator's current module (trained or still

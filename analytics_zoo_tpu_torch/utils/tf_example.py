@@ -1,8 +1,11 @@
 """Protobuf wire-format helpers (a copy of the part of
 analytics_zoo_tpu/utils/tf_example.py that TensorBoard's `Event` /
-`Summary` encoding and the TFRecord image datasets need): varints,
-tags, length-delimited fields, a field walker, and the
-`tf.train.Example` codec (`encode_example` / `decode_example`)."""
+`Summary` encoding, the TFRecord image datasets and the model
+importers need): varints, tags, length-delimited fields, a field
+walker, the `tf.train.Example` codec (`encode_example` /
+`decode_example`) and the repeated-field decoders (`packed_ints`,
+`packed_floats`, `packed_bools`).  `walk_fields` takes bytes or a
+memoryview; over a memoryview its values are views, not copies."""
 
 from __future__ import annotations
 
@@ -46,6 +49,11 @@ def _len_delim(field: int, payload: bytes) -> bytes:
 def to_signed(v: int) -> int:
     """Two's-complement view of a decoded uint64 varint."""
     return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def to_str(v) -> str:
+    """A length-delimited field's bytes (or memoryview) as text."""
+    return bytes(v).decode()
 
 
 def walk_fields(buf: bytes):
@@ -183,3 +191,29 @@ def decode_example(data: bytes) -> Dict[str, List]:
             else:
                 out[name] = []
     return out
+
+
+def packed_ints(val, wire) -> list:
+    """Repeated signed varint field: handles both packed (wire 2) and
+    unpacked (wire 0) encodings — shared by the GraphDef/caffemodel
+    parsers."""
+    if wire == 2:
+        out, pos = [], 0
+        while pos < len(val):
+            v, pos = _read_varint(val, pos)
+            out.append(to_signed(v))
+        return out
+    return [to_signed(val)]
+
+
+def packed_floats(val, wire) -> list:
+    """Repeated float32 field, packed or single fixed32 value."""
+    return np.frombuffer(val, "<f4").tolist() if wire == 2 else [
+        float(np.frombuffer(val, "<f4")[0])]
+
+
+def packed_bools(val, wire) -> list:
+    """Repeated bool field: packed chunks are one varint per element."""
+    if wire == 2:
+        return [bool(b) for b in val]
+    return [bool(val)]

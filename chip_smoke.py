@@ -26,7 +26,10 @@ VGG-16, SSD and Faster R-CNN) in phase 17 and the rest of the model
 zoo (BERT-base from a checkpoint file, TextClassifier, KNRM, Seq2Seq,
 AnomalyDetector, VAE, GANEstimator, InferenceEstimator) in phase 18 and
 the Keras-style API (`Estimator.from_keras`, the NCF toy, a Keras BERT
-and TransformerLayer, conv and recurrent stacks) in phase 19;
+and TransformerLayer, conv and recurrent stacks) in phase 19 and the
+model importers (an ONNX BERT-base through `Estimator.from_onnx`, a TF1
+MobileNet through `InferenceModel.load_tf`, CaffeNet through
+`Net.load_caffe`) in phase 20;
 each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
@@ -278,6 +281,21 @@ Phases (each one failing exits non-zero, with no result line):
      max(1, |CPU|) of the same weights on the CPU in f32, under
      deterministic algorithms; no kernel of ours in (d); step p50, peak
      memory and host against card time a step for (a)-(c);
+  20. the model importers (after phase 19; results under "importers"
+     and on an `importers` line), fixtures written here from seeds, f32,
+     TF32 off, no kernel of ours launched: (a) BERT-base written as a
+     static-shape ONNX graph (`bert_onnx`), imported through
+     `Estimator.from_onnx`, its logits within 2e-4 of max(1, |CPU|) of
+     the native BERTClassifier on the CPU on 4 rows, fit 1 + 5 Adam steps
+     at 32 x 128 (steps/s, samples/s, step p50, peak memory, host against
+     card time a step), served through `InferenceModel.load_module`
+     (sequences/s over 20 batches of 32 x 128); (b) a TF1 frozen
+     MobileNet v1 1.0/224 (`mobilenet_v1_graphdef`) served through
+     `InferenceModel.load_tf` at 64 x 224^2 NHWC (images/s, busy share);
+     (c) BVLC CaffeNet's deploy net (`caffenet_model`, 61M weights)
+     through `Net.load_caffe` at 64 x 3 x 227^2 (decode time, images/s);
+     (b) and (c) within 1e-3 of max(1, |CPU|) of the same net on the CPU
+     on two images;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -6742,6 +6760,614 @@ def phase_keras(torch, seed: int, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 20: the model importers (pipeline/: ONNX through
+# Estimator.from_onnx, a TF1 frozen graph through InferenceModel.load_tf,
+# a caffemodel through Net.load_caffe), fixtures written here
+# ----------------------------------------------------------------------
+
+#: (a): BERT-base written as a static-shape ONNX graph
+IMPORT_BERT_T = 128
+IMPORT_GATE_ROWS = 4
+IMPORT_FIT_BATCH, IMPORT_FIT_STEPS = 32, 5     # after one warm step
+IMPORT_SERVE_BATCH, IMPORT_SERVE_BATCHES = 32, 20
+#: (a): the imported forward on the card against the native model on
+#: the CPU, f32 with TF32 off, of max(1, |CPU|): f32 sums in other
+#: orders through 12 blocks
+IMPORT_BERT_TOL = 2e-4
+#: (b): TF-slim mobilenet_v1 (Howard et al. 2017) at 1.0 / 224, 1001
+#: classes: (output channels, stride) of the 13 depthwise-separable
+#: blocks after the 32-channel stride-2 stem
+MOBILENET_V1 = ((64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
+                (512, 1), (512, 1), (512, 1), (512, 1), (512, 1),
+                (1024, 2), (1024, 1))
+MOBILENET_BATCH, MOBILENET_SIZE, MOBILENET_CLASSES = 64, 224, 1001
+#: (c): bvlc_reference_caffenet's deploy widths (61M weights)
+CAFFENET = dict(conv1=96, conv2=256, conv3=384, conv4=384, conv5=256,
+                fc6=4096, fc7=4096, fc8=1000)
+CAFFENET_BATCH, CAFFENET_SIZE = 64, 227
+IMPORT_SERVE_REPS = 10
+#: (b), (c): card against the CPU on two images, f32 with TF32 off, of
+#: max(1, |CPU|): 28 (b) or 8 (c) conv / dense layers summed in other
+#: orders by cuDNN and the CPU
+IMPORT_IMAGE_TOL = 1e-3
+IMPORT_SEED = 17
+
+
+def pb_varint(v: int) -> bytes:
+    """A protobuf varint, negative values as 64-bit two's complement."""
+    from analytics_zoo_tpu_torch.utils.tf_example import _varint
+    return _varint(v + (1 << 64) if v < 0 else v)
+
+
+#: GraphDef DataType enums of the dtypes the writer emits
+_GD_DTYPES = {np.dtype(np.float32): 1, np.dtype(np.int32): 3}
+
+
+def gd_tensor(arr) -> bytes:
+    """TensorProto: dtype, shape, tensor_content."""
+    from analytics_zoo_tpu_torch.utils.tf_example import _len_delim, _tag
+    arr = np.ascontiguousarray(arr)
+    shape = b"".join(_len_delim(2, _tag(1, 0) + pb_varint(int(d)))
+                     for d in arr.shape)
+    return b"".join([_tag(1, 0) + pb_varint(_GD_DTYPES[arr.dtype]),
+                     _len_delim(2, shape), _len_delim(4, arr.tobytes())])
+
+
+def gd_attr(kind: str, value) -> bytes:
+    """AttrValue of `kind` "s", "i", "f", "b", "type", "ints" or
+    "tensor"."""
+    from analytics_zoo_tpu_torch.utils.tf_example import _len_delim, _tag
+    if kind == "s":
+        return _len_delim(2, value.encode())
+    if kind == "i":
+        return _tag(3, 0) + pb_varint(value)
+    if kind == "f":
+        return _tag(4, 5) + np.float32(value).tobytes()
+    if kind == "b":
+        return _tag(5, 0) + pb_varint(int(value))
+    if kind == "type":
+        return _tag(6, 0) + pb_varint(value)
+    if kind == "ints":
+        return _len_delim(1, b"".join(_tag(3, 0) + pb_varint(v)
+                                      for v in value))
+    return _len_delim(8, gd_tensor(value))
+
+
+def gd_node(name: str, op: str, inputs=(), attrs=None) -> bytes:
+    """NodeDef; `attrs` maps a key to (kind, value) for `gd_attr`."""
+    from analytics_zoo_tpu_torch.utils.tf_example import _len_delim
+    out = [_len_delim(1, name.encode()), _len_delim(2, op.encode())]
+    out += [_len_delim(3, i.encode()) for i in inputs]
+    for key, (kind, value) in (attrs or {}).items():
+        out.append(_len_delim(5, _len_delim(1, key.encode())
+                              + _len_delim(2, gd_attr(kind, value))))
+    return b"".join(out)
+
+
+def mobilenet_v1_graphdef(rng, width: float = 1.0, size: int = 224,
+                          classes: int = 1001) -> bytes:
+    """A frozen TF1 GraphDef of TF-slim's mobilenet_v1 at `width` and
+    `size`, seeded weights: Conv2D / DepthwiseConv2dNative (SAME, the
+    stride-2 ones with TF's asymmetric padding), FusedBatchNormV3,
+    Relu6, AvgPool, Squeeze, MatMul + BiasAdd to the logits, Softmax.
+    Input "input" [b, size, size, 3] NHWC; outputs "logits" and
+    "predictions"."""
+    from analytics_zoo_tpu_torch.utils.tf_example import _len_delim
+    f32 = ("type", 1)
+    nodes = [gd_node("input", "Placeholder", attrs={"dtype": f32})]
+
+    def const(name, arr):
+        nodes.append(gd_node(name, "Const", attrs={
+            "value": ("tensor", np.asarray(arr, np.float32)), "dtype": f32}))
+        return name
+
+    def conv_bn(prefix, x, shape, op, stride):
+        fan_in = shape[0] * shape[1] * (1 if op.startswith("Depth")
+                                        else shape[2])
+        w = const(f"{prefix}/weights", rng.standard_normal(
+            shape, dtype=np.float32) * np.float32(np.sqrt(2.0 / fan_in)))
+        c = shape[2] * shape[3] if op.startswith("Depth") else shape[3]
+        conv = f"{prefix}/{op}"
+        nodes.append(gd_node(conv, op, [x, w], {
+            "strides": ("ints", [1, stride, stride, 1]),
+            "padding": ("s", "SAME"), "data_format": ("s", "NHWC"),
+            "T": f32}))
+        bn = [const(f"{prefix}/BatchNorm/{n}", v) for n, v in (
+            ("gamma", 1 + 0.1 * rng.standard_normal(c)),
+            ("beta", 0.1 * rng.standard_normal(c)),
+            ("moving_mean", 0.1 * rng.standard_normal(c)),
+            ("moving_variance", 1 + 0.1 * np.abs(rng.standard_normal(c))))]
+        nodes.append(gd_node(f"{prefix}/BatchNorm/FusedBatchNormV3",
+                             "FusedBatchNormV3", [conv] + bn, {
+                                 "epsilon": ("f", 1e-3),
+                                 "is_training": ("b", False), "T": f32}))
+        nodes.append(gd_node(f"{prefix}/Relu6", "Relu6",
+                             [f"{prefix}/BatchNorm/FusedBatchNormV3"]))
+        return f"{prefix}/Relu6"
+
+    def ch(c):
+        return max(8, int(c * width))
+
+    x = conv_bn("MobilenetV1/Conv2d_0", "input", (3, 3, 3, ch(32)),
+                "Conv2D", 2)
+    cin = ch(32)
+    for i, (c, s) in enumerate(MOBILENET_V1, 1):
+        x = conv_bn(f"MobilenetV1/Conv2d_{i}_depthwise", x, (3, 3, cin, 1),
+                    "DepthwiseConv2dNative", s)
+        x = conv_bn(f"MobilenetV1/Conv2d_{i}_pointwise", x,
+                    (1, 1, cin, ch(c)), "Conv2D", 1)
+        cin = ch(c)
+    k = size // 32
+    nodes.append(gd_node("MobilenetV1/Logits/AvgPool", "AvgPool", [x], {
+        "ksize": ("ints", [1, k, k, 1]), "strides": ("ints", [1, 2, 2, 1]),
+        "padding": ("s", "VALID"), "T": f32}))
+    nodes.append(gd_node("MobilenetV1/Logits/Squeeze", "Squeeze",
+                         ["MobilenetV1/Logits/AvgPool"],
+                         {"squeeze_dims": ("ints", [1, 2])}))
+    w = const("MobilenetV1/Logits/weights", rng.standard_normal(
+        (cin, classes), dtype=np.float32) * np.float32(np.sqrt(1.0 / cin)))
+    b = const("MobilenetV1/Logits/biases",
+              0.01 * rng.standard_normal(classes))
+    nodes.append(gd_node("MobilenetV1/Logits/MatMul", "MatMul",
+                         ["MobilenetV1/Logits/Squeeze", w]))
+    nodes.append(gd_node("logits", "BiasAdd",
+                         ["MobilenetV1/Logits/MatMul", b]))
+    nodes.append(gd_node("predictions", "Softmax", ["logits"]))
+    return b"".join(_len_delim(1, n) for n in nodes)
+
+
+def caffe_params(field: int, fields: dict) -> bytes:
+    """A layer's *Parameter submessage: floats as fixed32, ints as
+    varints, lists as repeated varints."""
+    from analytics_zoo_tpu_torch.utils.tf_example import _len_delim, _tag
+    out = []
+    for fnum, v in fields.items():
+        if isinstance(v, float):
+            out.append(_tag(fnum, 5) + np.float32(v).tobytes())
+        elif isinstance(v, (list, tuple)):
+            out += [_tag(fnum, 0) + pb_varint(int(x)) for x in v]
+        else:
+            out.append(_tag(fnum, 0) + pb_varint(int(v)))
+    return _len_delim(field, b"".join(out))
+
+
+def caffe_blob(arr) -> bytes:
+    """BlobProto: shape (packed dims) and data as packed f32."""
+    from analytics_zoo_tpu_torch.utils.tf_example import _len_delim, _tag
+    arr = np.ascontiguousarray(arr, np.float32)
+    dims = b"".join(pb_varint(int(d)) for d in arr.shape)
+    return b"".join([_len_delim(7, _len_delim(1, dims)),
+                     _tag(5, 2) + pb_varint(arr.nbytes), arr.tobytes()])
+
+
+def caffe_layer(name: str, typ: str, bottoms, tops, blobs=(),
+                params: bytes = b"") -> bytes:
+    from analytics_zoo_tpu_torch.utils.tf_example import _len_delim
+    out = [_len_delim(1, name.encode()), _len_delim(2, typ.encode())]
+    out += [_len_delim(3, b.encode()) for b in bottoms]
+    out += [_len_delim(4, t.encode()) for t in tops]
+    out += [_len_delim(7, caffe_blob(b)) for b in blobs]
+    out.append(params)
+    return _len_delim(100, b"".join(out))
+
+
+def caffenet_model(rng, widths=CAFFENET, size: int = 227) -> bytes:
+    """A caffemodel (NetParameter, modern layers) of
+    bvlc_reference_caffenet's deploy net at `widths` and `size`, seeded
+    weights written packed: conv1 11 x 11 / 4, ceil-mode max pools 3 / 2,
+    LRN 5 (1e-4, 0.75), conv2 5 x 5 in group 2, conv3-5 3 x 3 (conv4 and
+    conv5 in group 2), fc6, fc7, fc8, Softmax "prob".  Input "data"
+    [b, 3, size, size]."""
+    from analytics_zoo_tpu_torch.utils.tf_example import _len_delim
+    layers = []
+
+    def conv(name, bottom, cin, cout, k, stride=1, pad=0, group=1):
+        w = rng.standard_normal((cout, cin // group, k, k),
+                                dtype=np.float32)
+        w *= np.float32(np.sqrt(2.0 / (cin // group * k * k)))
+        b = np.full(cout, 0.01, np.float32)
+        layers.append(caffe_layer(name, "Convolution", [bottom], [name],
+                                  [w, b], caffe_params(106, {
+                                      1: cout, 4: [k], 6: [stride],
+                                      3: [pad], 5: group})))
+        layers.append(caffe_layer(f"relu{name[-1]}", "ReLU", [name], [name]))
+
+    def pool(name, bottom, h):
+        layers.append(caffe_layer(name, "Pooling", [bottom], [name], [],
+                                  caffe_params(121, {1: 0, 2: 3, 3: 2})))
+        return int(np.ceil((h - 3) / 2)) + 1
+
+    def lrn(name, bottom):
+        layers.append(caffe_layer(name, "LRN", [bottom], [name], [],
+                                  caffe_params(118, {1: 5, 2: 1e-4,
+                                                     3: 0.75})))
+
+    def fc(name, bottom, cin, cout, relu=True):
+        w = rng.standard_normal((cout, cin), dtype=np.float32)
+        w *= np.float32(np.sqrt(2.0 / cin))
+        b = np.full(cout, 0.01, np.float32)
+        layers.append(caffe_layer(name, "InnerProduct", [bottom], [name],
+                                  [w, b], caffe_params(117, {1: cout})))
+        if relu:
+            n = name[-1]
+            layers.append(caffe_layer(f"relu{n}", "ReLU", [name], [name]))
+            layers.append(caffe_layer(f"drop{n}", "Dropout", [name], [name]))
+
+    c = widths
+    conv("conv1", "data", 3, c["conv1"], 11, stride=4)
+    h = pool("pool1", "conv1", (size - 11) // 4 + 1)
+    lrn("norm1", "pool1")
+    conv("conv2", "norm1", c["conv1"], c["conv2"], 5, pad=2, group=2)
+    h = pool("pool2", "conv2", h)
+    lrn("norm2", "pool2")
+    conv("conv3", "norm2", c["conv2"], c["conv3"], 3, pad=1)
+    conv("conv4", "conv3", c["conv3"], c["conv4"], 3, pad=1, group=2)
+    conv("conv5", "conv4", c["conv4"], c["conv5"], 3, pad=1, group=2)
+    h = pool("pool5", "conv5", h)
+    fc("fc6", "pool5", c["conv5"] * h * h, c["fc6"])
+    fc("fc7", "fc6", c["fc6"], c["fc7"])
+    fc("fc8", "fc7", c["fc7"], c["fc8"], relu=False)
+    layers.append(caffe_layer("prob", "Softmax", ["fc8"], ["prob"]))
+    dims = b"".join(pb_varint(d) for d in (1, 3, size, size))
+    head = [_len_delim(1, b"CaffeNet"), _len_delim(3, b"data"),
+            _len_delim(8, _len_delim(1, dims))]
+    return b"".join(head + layers)
+
+
+def bert_onnx(sd: dict, n_head: int, t: int) -> bytes:
+    """A BERTClassifier's state_dict (numpy) as an ONNX graph the way a
+    static-shape exporter writes it, every Reshape target a constant
+    (0 = copy the input's dim): Gather embeddings; LayerNorm as
+    ReduceMean / Sub / Pow / Add / Sqrt / Div / Mul / Add; MatMul + Add
+    dense layers; Reshape / Transpose heads; MatMul / Div / Add-mask /
+    Softmax / MatMul attention; tanh-GELU from Pow / Mul / Add / Tanh;
+    the tanh pooler over the first token and the classifier.  Inputs
+    input_ids, segment_ids, attention_mask [b, t] (int32); output
+    logits."""
+    from analytics_zoo_tpu_torch.pipeline.onnx.onnx_proto import (
+        encode_model)
+    hid = sd["bert.token_embed.weight"].shape[1]
+    dh = hid // n_head
+    n_block = len({k.split(".")[2] for k in sd
+                   if k.startswith("bert.blocks.")})
+    inits = {"pos_ids": np.arange(t, dtype=np.int64),
+             "first": np.zeros(1, np.int64),
+             "eps": np.array(1e-6, np.float32),
+             "two": np.array(2.0, np.float32),
+             "three": np.array(3.0, np.float32),
+             "half": np.array(0.5, np.float32),
+             "one": np.array(1.0, np.float32),
+             "gelu_c": np.array(np.sqrt(2.0 / np.pi), np.float32),
+             "gelu_k": np.array(0.044715, np.float32),
+             "neg_big": np.array(-1e9, np.float32),
+             "sqrt_dh": np.array(np.sqrt(dh), np.float32),
+             "heads": np.array([0, 0, n_head, dh], np.int64),
+             "merge": np.array([0, 0, hid], np.int64),
+             "mask_axes": np.array([1, 2], np.int64)}
+    nodes = []
+    counter = [0]
+
+    def op(kind, ins, attrs=None, n_out=1):
+        counter[0] += 1
+        outs = [f"{kind.lower()}_{counter[0]}_{i}" for i in range(n_out)]
+        nodes.append((kind, list(ins), outs) + ((attrs,) if attrs else ()))
+        return outs if n_out > 1 else outs[0]
+
+    def w(name, arr):
+        inits[name] = np.ascontiguousarray(arr, np.float32)
+        return name
+
+    def dense(x, prefix):
+        y = op("MatMul", [x, w(prefix + ".weight", sd[prefix + ".weight"].T)])
+        return op("Add", [y, w(prefix + ".bias", sd[prefix + ".bias"])])
+
+    def layer_norm(x, prefix):
+        mean = op("ReduceMean", [x], {"axes": [-1]})
+        d = op("Sub", [x, mean])
+        var = op("ReduceMean", [op("Pow", [d, "two"])], {"axes": [-1]})
+        n = op("Div", [d, op("Sqrt", [op("Add", [var, "eps"])])])
+        y = op("Mul", [n, w(prefix + ".weight", sd[prefix + ".weight"])])
+        return op("Add", [y, w(prefix + ".bias", sd[prefix + ".bias"])])
+
+    def gelu(x):
+        inner = op("Add", [x, op("Mul", ["gelu_k", op("Pow", [x, "three"])])])
+        th = op("Tanh", [op("Mul", ["gelu_c", inner])])
+        return op("Mul", ["half", op("Mul", [x, op("Add", ["one", th])])])
+
+    e = "bert."
+    x = op("Gather", [w(e + "token_embed.weight",
+                        sd[e + "token_embed.weight"]), "input_ids"])
+    x = op("Add", [x, op("Gather", [w(e + "position_embed.weight", sd[
+        e + "position_embed.weight"]), "pos_ids"])])
+    x = op("Add", [x, op("Gather", [w(e + "segment_embed.weight", sd[
+        e + "segment_embed.weight"]), "segment_ids"])])
+    x = layer_norm(x, e + "embed_ln")
+    keep = op("Cast", ["attention_mask"], {"to": 1})
+    bias = op("Unsqueeze", [op("Mul", [op("Sub", ["one", keep]), "neg_big"]),
+                            "mask_axes"])
+    for i in range(n_block):
+        p = f"{e}blocks.{i}."
+        q, k, v = op("Split", [dense(x, p + "attn.qkv")], {"axis": 2},
+                     n_out=3)
+        q = op("Transpose", [op("Reshape", [q, "heads"])],
+               {"perm": [0, 2, 1, 3]})
+        k = op("Transpose", [op("Reshape", [k, "heads"])],
+               {"perm": [0, 2, 3, 1]})
+        v = op("Transpose", [op("Reshape", [v, "heads"])],
+               {"perm": [0, 2, 1, 3]})
+        s = op("Add", [op("Div", [op("MatMul", [q, k]), "sqrt_dh"]), bias])
+        ctx = op("MatMul", [op("Softmax", [s], {"axis": -1}), v])
+        ctx = op("Reshape", [op("Transpose", [ctx], {"perm": [0, 2, 1, 3]}),
+                             "merge"])
+        x = layer_norm(op("Add", [x, dense(ctx, p + "attn.proj")]),
+                       p + "ln1")
+        f = dense(gelu(dense(x, p + "fc1")), p + "fc2")
+        x = layer_norm(op("Add", [x, f]), p + "ln2")
+    first = op("Flatten", [op("Gather", [x, "first"], {"axis": 1})])
+    pooled = op("Tanh", [dense(first, e + "pooler")])
+    logits = dense(pooled, "classifier")
+    nodes.append(("Identity", [logits], ["logits"]))
+    return encode_model(
+        nodes=nodes, initializers=inits,
+        inputs=[(n, [1, t]) for n in ("input_ids", "segment_ids",
+                                       "attention_mask")],
+        outputs=["logits"])
+
+
+def import_bert_rows(rng, n: int, t: int, vocab: int, pad: bool = True):
+    """input ids, segment ids and a key mask [n, t] (int32); with `pad`
+    every other row ends early."""
+    ids = rng.integers(1, vocab, (n, t)).astype(np.int32)
+    seg = (np.arange(t)[None, :] >= t // 2).astype(np.int32).repeat(n, 0)
+    mask = np.ones((n, t), np.int32)
+    if pad:
+        for r in range(0, n, 2):
+            mask[r, t - 1 - (r * 13) % (t // 2):] = 0
+    return ids, seg, mask
+
+
+def timed_predicts(torch, fn, reps: int) -> float:
+    """Seconds per call of `fn` over `reps` calls after a warm one,
+    synchronized at both ends."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def image_gate(label: str, got, want) -> dict:
+    """max abs err of each output (card against CPU), checked against
+    IMPORT_IMAGE_TOL of max(1, |CPU|)."""
+    out = {}
+    for name, g, w_ in zip(("logits", "predictions"), got, want):
+        err = float(np.abs(np.asarray(g) - np.asarray(w_)).max())
+        scale = max(1.0, float(np.abs(w_).max()))
+        check(np.isfinite(g).all() and err <= IMPORT_IMAGE_TOL * scale,
+              f"{label}: {name} card vs CPU {err} > {IMPORT_IMAGE_TOL} x "
+              f"{scale}")
+        out[name] = err
+    return out
+
+
+def import_onnx_bert(torch, seed: int, card: str) -> dict:
+    """(a): BERT-base as ONNX through Estimator.from_onnx: the logits
+    against the native model on the CPU, 1 + 5 Adam steps at 32 x 128,
+    then served through InferenceModel.load_module."""
+    from analytics_zoo_tpu_torch.convert import bert_from_flax, init_bert_params
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE, BERTClassifier
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    from analytics_zoo_tpu_torch.serving.inference_model import InferenceModel
+    cfg = dict(BERT_BASE, num_classes=2)
+    t = IMPORT_BERT_T
+    native = BERTClassifier(**cfg, compute_dtype=torch.float32,
+                            attn_impl="einsum", device="cpu").eval()
+    native.load_state_dict(bert_from_flax(init_bert_params(cfg, seed), cfg))
+    sd = {k: v.numpy() for k, v in native.state_dict().items()}
+    t0 = time.perf_counter()
+    data = bert_onnx(sd, cfg["n_head"], t)
+    encode_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + IMPORT_SEED)
+    gate = import_bert_rows(rng, IMPORT_GATE_ROWS, t, cfg["vocab"])
+    with torch.no_grad():
+        want = native(*(torch.from_numpy(a) for a in gate)).numpy()
+    del native
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = Estimator.from_onnx(data, loss="sparse_categorical_crossentropy",
+                              optimizer="adam", learning_rate=2e-5,
+                              seed=seed)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    onnx_bytes = len(data)
+    del data
+    gm = est.get_model()
+    n_params = sum(p.numel() for p in gm.parameters())
+    with torch.no_grad():
+        got = gm(*(torch.from_numpy(a).cuda() for a in gate)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    scale = max(1.0, float(np.abs(want).max()))
+    check(np.isfinite(got).all() and err <= IMPORT_BERT_TOL * scale,
+          f"phase 20 (a): imported logits vs the native model on the CPU "
+          f"{err} > {IMPORT_BERT_TOL} x {scale}")
+    from analytics_zoo_tpu_torch.ops import kernels
+    counts = kernels.launch_counts()
+    check(not any(counts.values()),
+          f"phase 20 (a): the import or the forward launched a kernel of "
+          f"ours: {counts}")
+    n = IMPORT_FIT_BATCH * (IMPORT_FIT_STEPS + 1)
+    ids, seg, mask = import_bert_rows(rng, n, t, cfg["vocab"])
+    y = rng.integers(0, 2, n).astype(np.int32)
+    times, peak, host_s, counts, losses_ = keras_fit(
+        torch, est, {"x": [ids, seg, mask], "y": y}, IMPORT_FIT_BATCH)
+    check(est.engine.host_step == IMPORT_FIT_STEPS + 1
+          and all(np.isfinite(losses_)),
+          f"phase 20 (a): fit ran {est.engine.host_step} steps, losses "
+          f"{losses_}")
+    check(not any(counts.values()),
+          f"phase 20 (a): the imported BERT launched a kernel of ours: "
+          f"{counts}")
+    step = statistics.median(times)
+    b = IMPORT_FIT_BATCH
+    prof = keras_step_profile(torch, est, (ids[:b], seg[:b], mask[:b]),
+                              y[:b])
+    im = InferenceModel(max_batch_size=IMPORT_SERVE_BATCH).load_module(gm)
+    sb = IMPORT_SERVE_BATCH
+    batches = [import_bert_rows(rng, sb, t, cfg["vocab"])
+               for _ in range(IMPORT_SERVE_BATCHES)]
+    served = im.predict(*batches[0])
+    check(served.shape == (sb, 2) and np.isfinite(served).all(),
+          f"phase 20 (a): served logits {served.shape}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bt in batches:
+        im.predict(*bt)
+    serve_s = time.perf_counter() - t0
+    serve_busy = busy_share(torch, lambda: [im.predict(*bt)
+                                            for bt in batches[:5]])
+    serve_counts = kernels.launch_counts()
+    check(not any(serve_counts.values()),
+          f"phase 20 (a): the step profile or serving launched a kernel of "
+          f"ours: {serve_counts}")
+    out = dict(onnx_bytes=onnx_bytes, encode_s=encode_s, import_s=import_s,
+               trainable_params=n_params, logits_max_abs_err=err,
+               logits_tol=IMPORT_BERT_TOL * scale, batch=b, t=t,
+               step_ms_p50=step * 1e3, steps_per_s=1.0 / step,
+               samples_per_s=b / step, peak_bytes_above_weights=peak,
+               host_wall_ms_per_step=host_s * 1e3, step_profile=prof,
+               losses=losses_, served_sequences_per_s=sb
+               * IMPORT_SERVE_BATCHES / serve_s,
+               serve_busy=serve_busy, launches=counts)
+    print(f"phase 20 (a) [{card}] BERT-base as ONNX ({onnx_bytes / 2**20:.1f}"
+          f" MiB, {n_params:,} trainable) through Estimator.from_onnx: "
+          f"import {import_s:.2f} s, logits vs the native CPU model "
+          f"{err:.3e}; fit {b} x {t} Adam: step p50 {step * 1e3:.3f} ms, "
+          f"{b / step:.1f} samples/s, peak {peak / 2**20:.1f} MiB above the "
+          f"weights, host {prof['host_wall_ms_per_step']:.3f} ms vs card "
+          f"{prof['device_ms_per_step']:.3f} ms a step; served "
+          f"{out['served_sequences_per_s']:.1f} sequences/s at {sb} x {t}; "
+          f"no kernel of ours launched", flush=True)
+    del est, gm, im
+    free_card(torch)
+    return out
+
+
+def import_tf_mobilenet(torch, seed: int, card: str) -> dict:
+    """(b): a frozen TF1 MobileNet v1 1.0/224 served through
+    InferenceModel.load_tf, held against the same TFNet on the CPU."""
+    from analytics_zoo_tpu_torch.pipeline.tf_graph import load_tf_graph
+    from analytics_zoo_tpu_torch.serving.inference_model import InferenceModel
+    rng = np.random.default_rng(seed + IMPORT_SEED + 1)
+    gd = mobilenet_v1_graphdef(rng, 1.0, MOBILENET_SIZE, MOBILENET_CLASSES)
+    s = MOBILENET_SIZE
+    x = rng.standard_normal((MOBILENET_BATCH, s, s, 3), dtype=np.float32)
+    outputs = ["logits", "predictions"]
+    t0 = time.perf_counter()
+    card_net = load_tf_graph(gd, outputs=outputs)
+    load_s = time.perf_counter() - t0
+    gate = image_gate("phase 20 (b)", card_net.predict(x[:2]),
+                      load_tf_graph(gd, outputs=outputs,
+                                    device="cpu").predict(x[:2]))
+    im = InferenceModel(max_batch_size=MOBILENET_BATCH).load_tf(gd)
+    served = im.predict(x)
+    check(served.shape == (MOBILENET_BATCH, MOBILENET_CLASSES)
+          and np.allclose(served.sum(1), 1.0, atol=1e-4),
+          "phase 20 (b): served rows are not softmax rows")
+    per = timed_predicts(torch, lambda: im.predict(x), IMPORT_SERVE_REPS)
+    busy = busy_share(torch, lambda: [im.predict(x) for _ in range(3)])
+    out = dict(graphdef_bytes=len(gd), load_s=load_s, max_abs_err=gate,
+               tol=IMPORT_IMAGE_TOL, batch=MOBILENET_BATCH,
+               predict_ms=per * 1e3, images_per_s=MOBILENET_BATCH / per,
+               serve_busy=busy)
+    print(f"phase 20 (b) [{card}] TF1 MobileNet v1 1.0/224 "
+          f"({len(gd) / 2**20:.1f} MiB GraphDef) through "
+          f"InferenceModel.load_tf at {MOBILENET_BATCH} x {s}^2 NHWC: "
+          f"{out['images_per_s']:.1f} images/s, predict {per * 1e3:.3f} ms,"
+          f" busy share {busy['device_busy_share']:.3f}; card vs CPU "
+          f"{gate}", flush=True)
+    del card_net, im
+    free_card(torch)
+    return out
+
+
+def import_caffenet(torch, seed: int, card: str) -> dict:
+    """(c): BVLC CaffeNet's deploy net as a caffemodel through
+    Net.load_caffe, held against the CPU."""
+    from analytics_zoo_tpu_torch.pipeline.caffe_graph import parse_caffemodel
+    from analytics_zoo_tpu_torch.pipeline.net import Net
+    rng = np.random.default_rng(seed + IMPORT_SEED + 2)
+    data = caffenet_model(rng, CAFFENET, CAFFENET_SIZE)
+    t0 = time.perf_counter()
+    desc = parse_caffemodel(data)
+    decode_s = time.perf_counter() - t0
+    n_weights = sum(b.size for ly in desc["layers"] for b in ly["blobs"])
+    del desc
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = Net.load_caffe(None, data, outputs=["fc8", "prob"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    s = CAFFENET_SIZE
+    x = rng.standard_normal((CAFFENET_BATCH, 3, s, s), dtype=np.float32)
+    gate = image_gate("phase 20 (c)", net.predict(x[:2]),
+                      Net.load_caffe(None, data, outputs=["fc8", "prob"],
+                                     device="cpu").predict(x[:2]))
+    served = net.predict(x)[1]
+    check(served.shape == (CAFFENET_BATCH, CAFFENET["fc8"])
+          and np.allclose(served.sum(1), 1.0, atol=1e-4),
+          "phase 20 (c): predictions are not softmax rows")
+    per = timed_predicts(torch, lambda: net.predict(x), IMPORT_SERVE_REPS)
+    busy = busy_share(torch, lambda: [net.predict(x) for _ in range(3)])
+    out = dict(caffemodel_bytes=len(data), weights=n_weights,
+               decode_s=decode_s, load_s=load_s, max_abs_err=gate,
+               tol=IMPORT_IMAGE_TOL, batch=CAFFENET_BATCH,
+               predict_ms=per * 1e3, images_per_s=CAFFENET_BATCH / per,
+               serve_busy=busy)
+    print(f"phase 20 (c) [{card}] BVLC CaffeNet ({n_weights:,} weights, "
+          f"{len(data) / 2**20:.1f} MiB) through Net.load_caffe: decode "
+          f"{decode_s:.3f} s, load {load_s:.3f} s; {CAFFENET_BATCH} x 3 x "
+          f"{s}^2: {out['images_per_s']:.1f} images/s, predict "
+          f"{per * 1e3:.3f} ms, busy share {busy['device_busy_share']:.3f}; "
+          f"card vs CPU {gate}", flush=True)
+    del net, data
+    free_card(torch)
+    return out
+
+
+def phase_importers(torch, seed: int, card: str) -> dict:
+    """Phase 20: the model importers, parts (a)-(c); no kernel of ours
+    is launched in any of them (checked before (a)'s fit, whose timing
+    resets the counts, and from there to the end of (c))."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = dict(a=import_onnx_bert(torch, seed, card),
+               b=import_tf_mobilenet(torch, seed, card),
+               c=import_caffenet(torch, seed, card))
+    counts = kernels.launch_counts()
+    check(not any(counts.values()),
+          f"phase 20 launched a kernel of ours: {counts}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    print("importers " + json.dumps(dict(
+        card=card, seconds=out["seconds"],
+        onnx_bert={k: out["a"][k] for k in (
+            "import_s", "logits_max_abs_err", "steps_per_s",
+            "samples_per_s", "step_ms_p50", "peak_bytes_above_weights",
+            "host_wall_ms_per_step", "step_profile",
+            "served_sequences_per_s", "serve_busy")},
+        tf_mobilenet_v1={k: out["b"][k] for k in (
+            "load_s", "max_abs_err", "images_per_s", "predict_ms",
+            "serve_busy")},
+        caffenet={k: out["c"][k] for k in (
+            "decode_s", "load_s", "max_abs_err", "images_per_s",
+            "predict_ms", "serve_busy")})), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -6816,6 +7442,8 @@ def main(argv=None) -> int:
     clocks("after phase 18", start)
     keras = phase_keras(torch, args.seed, card)
     clocks("after phase 19", start)
+    importers = phase_importers(torch, args.seed, card)
+    clocks("after phase 20", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -6986,6 +7614,9 @@ def main(argv=None) -> int:
             keras["a"]["launches"][k["name"]]
         k["launches_by_path"]["keras_stacks"] = \
             keras["d"]["launches"][k["name"]]
+        # nor anywhere in phase 20 (checked there: all 0)
+        k["launches_by_path"]["importers"] = \
+            importers["launches"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs,
                       "generation_breadth": gen_breadth, "bert": bert_runs,
@@ -6994,6 +7625,7 @@ def main(argv=None) -> int:
                       "data_path": data_path, "serving": serving,
                       "int8_serving": int8, "image_zoo": zoo,
                       "zoo_rest": zoo_rest, "keras": keras,
+                      "importers": importers,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,
