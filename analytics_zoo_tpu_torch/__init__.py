@@ -24,11 +24,28 @@ classification serving (`serving.inference_model`) and fine-tuning
 XShards, the DISK tier, the pandas readers; DataFrame and XShards input
 to the Estimator, staged to the card through pinned double buffering),
 the HTTP serving front end (`serving`), int8 weight serving
-(`serving.quantize`), and the image models (`models.image`: ResNet,
+(`serving.quantize`), the image models (`models.image`: ResNet,
 Inception-v1, MobileNetV2, VGG-16, SSD, Faster R-CNN) with the image
-feature pipeline (`feature`) and readers (`orca.data.image`).
+feature pipeline (`feature`) and readers (`orca.data.image`), the rest
+of the model zoo (text classification, KNRM, Seq2Seq, the anomaly
+detector, the VAE, `GANEstimator`, `InferenceEstimator`, pretrained
+BERT weights), the Keras-style API (`keras`, `keras2`,
+`Estimator.from_keras`), the model importers (`pipeline`: ONNX with
+`Estimator.from_onnx`, TF1 frozen graphs, Caffe, `Net`; `tfpark`), the
+runtime entry points (`init_orca_context`, `init_nncontext`,
+`stop_orca_context`, re-exported here as in the JAX package), and
+Chronos AutoTS (`chronos`: `TSDataset`, the TCN, LSTM and Seq2Seq
+forecasters, `AutoTSEstimator`, `TSPipeline`) over the AutoML search
+engine (`orca.automl`) and the device lease (`common.device_lease`).
 """
 
+from analytics_zoo_tpu_torch.common.context import (  # noqa: F401
+    OrcaContext,
+    init_nncontext,
+    init_orca_context,
+    stop_orca_context,
+)
 from analytics_zoo_tpu_torch.device import resolve_device  # noqa: F401
 
-__all__ = ["resolve_device"]
+__all__ = ["OrcaContext", "init_nncontext", "init_orca_context",
+           "resolve_device", "stop_orca_context"]

@@ -1,9 +1,24 @@
-"""`OrcaContext`: the class-level settings the port reads (counterpart
-of analytics_zoo_tpu/common/context.py's `OrcaContextMeta`, the part of
-it the training path reads; the mesh, the cluster modes and the other
-settings of the JAX class are not ported).
+"""The runtime entry points and `OrcaContext` (counterpart of
+analytics_zoo_tpu/common/context.py).
 
-User code reads and writes them as `OrcaContext.<setting>`:
+`init_orca_context(cluster_mode="local")` (and its alias
+`init_nncontext`) starts the runtime and `stop_orca_context` stops it,
+with JAX's rules (context.py:906-1004): a second call with the same
+mode returns what the first returned; another mode raises RuntimeError
+until `stop_orca_context`; an explicit call replaces the implicit local
+start made by reading `OrcaContext.device`; an unknown mode raises
+JAX's ValueError; `cores` sets `OMP_NUM_THREADS` unless it is set; an
+atexit hook stops the runtime.  JAX returns the global device `Mesh`;
+the port trains on one device and returns it, the `torch.device` that
+`resolve_device(device)` gives (None: the CUDA card, or a raise).
+"tpu_pod" and "distributed", and any `mesh_shape` but None or
+{"dp": 1}, raise NotImplementedError: multi-device runs come with the
+parallel axes (ROADMAP Queue 1 item 8).  `OrcaContext.initialized`,
+`cluster_mode`, `device` (JAX's `mesh`), `num_devices` and `devices`
+read the runtime's state.
+
+The settings user code reads and writes as `OrcaContext.<setting>` are
+the part of JAX's that the ported paths read:
 
   * `train_data_store`: "DRAM" (the default: host batches, copied to
     the card step by step), "DEVICE" (the dataset uploaded to the card
@@ -31,6 +46,17 @@ User code reads and writes them as `OrcaContext.<setting>`:
 
 from __future__ import annotations
 
+import atexit
+import logging
+import os
+import threading
+from typing import Dict, Optional
+
+logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+#: where the multi-device modes and meshes are queued
+_LATER = "multi-device runs are not ported yet (ROADMAP Queue 1 item 8)"
+
 
 class OrcaContextMeta(type):
     _train_data_store = "DRAM"
@@ -47,6 +73,44 @@ class OrcaContextMeta(type):
     _speculative_decoding = False
     _speculative_k = 4
     _kv_host_tier_bytes = 0
+
+    # --- runtime state ---
+    _device = None
+    _cluster_mode = None
+    _initialized = False
+    _auto_initialized = False
+    _lock = threading.Lock()
+
+    @property
+    def device(cls):
+        """The `torch.device` the runtime runs on (JAX's `mesh`).
+        Reading it before `init_orca_context` starts local mode on the
+        default device; a later explicit `init_orca_context` call
+        replaces that start."""
+        if cls._device is None:
+            init_orca_context(cluster_mode="local")
+            # on the metaclass, where init_orca_context reads it (JAX's
+            # `mesh` sets it on OrcaContext, so JAX never replaces its
+            # implicit start)
+            OrcaContextMeta._auto_initialized = True
+        return cls._device
+
+    @property
+    def cluster_mode(cls):
+        return cls._cluster_mode
+
+    @property
+    def initialized(cls):
+        return cls._initialized
+
+    @property
+    def num_devices(cls):
+        """The devices the runtime spans: one (JAX: the mesh's size)."""
+        return len(cls.devices)
+
+    @property
+    def devices(cls):
+        return [cls.device]
 
     @property
     def train_data_store(cls):
@@ -247,3 +311,78 @@ class OrcaContextMeta(type):
 
 class OrcaContext(metaclass=OrcaContextMeta):
     pass
+
+
+def init_orca_context(cluster_mode: str = "local",
+                      cores: Optional[int] = None,
+                      num_nodes: int = 1,
+                      mesh_shape: Optional[Dict[str, int]] = None,
+                      coordinator_address: Optional[str] = None,
+                      num_processes: Optional[int] = None,
+                      process_id: Optional[int] = None,
+                      device=None, **kwargs):
+    """Start the runtime (JAX context.py:906): `cluster_mode` "local"
+    runs on `device` (None: the CUDA card; without one this raises).
+    `cores` caps the host's OpenMP threads.  Returns the device."""
+    from analytics_zoo_tpu_torch.device import resolve_device
+
+    cluster_mode = cluster_mode.lower()
+    with OrcaContextMeta._lock:
+        if OrcaContextMeta._initialized:
+            if OrcaContextMeta._auto_initialized:
+                # an implicit local start never masks an explicit one
+                _stop_locked()
+            elif (cluster_mode == OrcaContextMeta._cluster_mode
+                    and mesh_shape is None):
+                logger.warning("init_orca_context called twice; returning "
+                               "the existing device")
+                return OrcaContextMeta._device
+            else:
+                raise RuntimeError(
+                    "runtime already initialized with cluster_mode="
+                    f"'{OrcaContextMeta._cluster_mode}'; call "
+                    "stop_orca_context() before re-initializing with a "
+                    "different configuration")
+
+        if cluster_mode in ("tpu_pod", "distributed"):
+            raise NotImplementedError(
+                f"cluster_mode '{cluster_mode}': {_LATER}")
+        if cluster_mode not in ("local",):
+            raise ValueError(
+                f"unsupported cluster_mode '{cluster_mode}'; the TPU build "
+                "supports 'local' and 'tpu_pod' (Spark modes like "
+                "'yarn'/'k8s' do not apply — hosts are provisioned by the "
+                "TPU platform)")
+        if mesh_shape is not None and dict(mesh_shape) != {"dp": 1}:
+            raise NotImplementedError(f"mesh_shape {mesh_shape}: {_LATER}")
+
+        dev = resolve_device(device)
+        if cores is not None:
+            os.environ.setdefault("OMP_NUM_THREADS", str(cores))
+        OrcaContextMeta._device = dev
+        OrcaContextMeta._cluster_mode = cluster_mode
+        OrcaContextMeta._initialized = True
+        atexit.register(stop_orca_context)
+        logger.info("init_orca_context: %s", dev)
+        return dev
+
+
+def init_nncontext(*args, **kwargs):
+    """Alias of `init_orca_context` (JAX context.py:977)."""
+    return init_orca_context(*args, **kwargs)
+
+
+def _stop_locked():
+    if not OrcaContextMeta._initialized:
+        return
+    OrcaContextMeta._device = None
+    OrcaContextMeta._cluster_mode = None
+    OrcaContextMeta._initialized = False
+    OrcaContextMeta._auto_initialized = False
+    logger.info("stop_orca_context: runtime stopped")
+
+
+def stop_orca_context():
+    """Stop the runtime (JAX context.py:999)."""
+    with OrcaContextMeta._lock:
+        _stop_locked()

@@ -30,6 +30,11 @@ of its `*_from_flax` (the flax tree of the port's weights, which
 `onnx_to_flax` move an imported ONNX graph's weights
 (`pipeline/onnx/`): JAX's `{"params", "batch_stats"}` under the
 initializers' safe names, to and from the port's `OnnxModule`.
+`tcn_forecaster_from_flax`, `lstm_forecaster_from_flax` and
+`seq2seq_forecaster_from_flax` (with their `*_to_flax` inverses) do it
+for Chronos's forecaster modules (`chronos/forecaster/`): the flax
+params of the JAX forecaster's module (its Estimator's `get_model()`)
+to the state_dict of the port's.
 """
 
 from __future__ import annotations
@@ -864,3 +869,70 @@ def onnx_to_flax(module) -> Dict[str, Dict[str, np.ndarray]]:
             t, coll = getattr(module, safe), "batch_stats"
         out.setdefault(coll, {})[safe] = np.array(t.detach().cpu())
     return out
+
+
+def _modules(params: Mapping) -> Dict[str, Dict]:
+    """A nested flax tree as {module path "a/b": {leaf: array}}."""
+    mods: Dict[str, Dict] = {}
+    for path, arr in _flatten(params).items():
+        mod, leaf = path.rsplit("/", 1)
+        mods.setdefault(mod, {})[leaf] = arr
+    return mods
+
+
+def _nested(tree: Mapping) -> Dict:
+    """The inverse of `_modules` on a tree whose keys are module paths."""
+    return _unflatten({f"{mod}/{leaf}": arr for mod, leaves in tree.items()
+                       for leaf, arr in _flatten(leaves).items()})
+
+
+def tcn_forecaster_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's TCN (`chronos/forecaster/tcn_forecaster.py`) state_dict
+    from the JAX `_TCN`'s param tree: `block_i/conv1|conv2|downsample`
+    as `blocks.i.*`, a conv kernel (k, in, out) as the weight (out, in,
+    k), `head`."""
+    return _renamed_from_flax(_modules(params), [
+        (r"block_(\d+)/(conv1|conv2|downsample)", r"blocks.\1.\2"),
+        (r"head", "head")])
+
+
+def tcn_forecaster_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `_TCN` param tree of the port's weights."""
+    return _nested(_renamed_to_flax(state_dict, [
+        (r"blocks\.(\d+)\.(conv1|conv2|downsample)", r"block_\1/\2", False),
+        (r"head", "head", False)]))
+
+
+def lstm_forecaster_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `VanillaLSTM` state_dict from the JAX module's param
+    tree: LSTM cell i (`lstm_cell_i`) as `lstm.i`, `head`."""
+    return _renamed_from_flax(params, [(r"lstm_cell_(\d+)", r"lstm.\1"),
+                                       (r"head", "head")])
+
+
+def lstm_forecaster_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `_VanillaLSTM` param tree of the port's weights."""
+    return _renamed_to_flax(state_dict, [
+        (r"lstm\.(\d+)", r"lstm_cell_\1", False), (r"head", "head", False)])
+
+
+#: a decoder cell's weights are an `nn.LSTMCell`'s: the RNN's without "_l0"
+_DEC_CELL = re.compile(r"(dec_cells\.\d+\.\w+)_l0")
+
+
+def seq2seq_forecaster_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `Seq2SeqForecastNet` state_dict from the JAX module's
+    param tree: `enc_cells_i` as the one-layer LSTM `enc_cells.i`,
+    `dec_cells_i` as the `nn.LSTMCell` `dec_cells.i`, `head`."""
+    sd = _renamed_from_flax(params, [
+        (r"(enc|dec)_cells_(\d+)", r"\1_cells.\2"), (r"head", "head")])
+    return {_DEC_CELL.sub(r"\1", k): v for k, v in sd.items()}
+
+
+def seq2seq_forecaster_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `_Seq2SeqForecastNet` param tree of the port's weights."""
+    sd = {re.sub(r"^(dec_cells\.\d+\.(?:weight|bias)_(?:ih|hh))$", r"\1_l0",
+                 k): v for k, v in state_dict.items()}
+    return _renamed_to_flax(sd, [
+        (r"(enc|dec)_cells\.(\d+)", r"\1_cells_\2", False),
+        (r"head", "head", False)])

@@ -20,8 +20,10 @@ no `seq_lengths`, so no sequence is ever packed.
   `nn.RNN` of tanh or relu; flax's bias is the input side's, torch's
   `bias_hh_l0` is held at zero.
 
-Both draw their weights as flax does: lecun-normal input kernels,
-orthogonal recurrent kernels per gate, zero biases.  `cell_from_flax` /
+`lstm_cell` is the LSTM stepped by hand, one `nn.LSTMCell` call a step
+(a decoder's closed loop).  All draw their weights as flax does:
+lecun-normal input kernels, orthogonal recurrent kernels per gate, zero
+biases.  `cell_from_flax` /
 `cell_to_flax` convert one cell between its flax tree and the RNN's
 weights.
 """
@@ -39,15 +41,19 @@ _GRU_GATES = "rzn"
 _LSTM_GATES = "ifgo"
 
 
-def _draw(rnn: nn.RNNBase, fan_in: int, width: int, gates: int) -> None:
+def _draw(rnn: nn.Module, fan_in: int, width: int, gates: int,
+          suffix: str = "_l0") -> None:
+    """flax's initializers on an RNN's weights (`suffix` "_l0") or an
+    RNN cell's ("")."""
     std = fan_in ** -0.5
+    w_hh = getattr(rnn, "weight_hh" + suffix)
     with torch.no_grad():
-        nn.init.trunc_normal_(rnn.weight_ih_l0, std=std, a=-2 * std,
-                              b=2 * std)
+        nn.init.trunc_normal_(getattr(rnn, "weight_ih" + suffix), std=std,
+                              a=-2 * std, b=2 * std)
         for g in range(gates):
-            nn.init.orthogonal_(rnn.weight_hh_l0[g * width:(g + 1) * width])
-        rnn.bias_ih_l0.zero_()
-        rnn.bias_hh_l0.zero_()
+            nn.init.orthogonal_(w_hh[g * width:(g + 1) * width])
+        getattr(rnn, "bias_ih" + suffix).zero_()
+        getattr(rnn, "bias_hh" + suffix).zero_()
 
 
 def _hold_at_zero(bias: nn.Parameter, rows: slice) -> None:
@@ -71,6 +77,17 @@ def lstm(fan_in: int, width: int, device) -> nn.LSTM:
     cell = nn.LSTM(fan_in, width, batch_first=True, device=device)
     _draw(cell, fan_in, width, 4)
     _hold_at_zero(cell.bias_ih_l0, slice(None))
+    return cell
+
+
+def lstm_cell(fan_in: int, width: int, device) -> nn.LSTMCell:
+    """flax's `OptimizedLSTMCell(width)` stepped once a call, as an
+    `nn.LSTMCell` (weights `weight_ih`, `weight_hh`, `bias_ih`,
+    `bias_hh`: `cell_from_flax`'s without "_l0"), its input-side bias
+    held at zero."""
+    cell = nn.LSTMCell(fan_in, width, device=device)
+    _draw(cell, fan_in, width, 4, suffix="")
+    _hold_at_zero(cell.bias_ih, slice(None))
     return cell
 
 
@@ -115,16 +132,16 @@ def cell_from_flax(tree: Mapping, name: str = "cell"
         return {"weight_ih_l0": np.asarray(tree["i"]["kernel"]).T,
                 "weight_hh_l0": np.asarray(tree["h"]["kernel"]).T,
                 "bias_ih_l0": bias, "bias_hh_l0": np.zeros_like(bias)}
-    lstm_cell = "ii" in tree
-    gates = _LSTM_GATES if lstm_cell else _GRU_GATES
+    is_lstm = "ii" in tree
+    gates = _LSTM_GATES if is_lstm else _GRU_GATES
     # flax's entries: (gate Dense, has a bias)
-    want = {f"i{g}": not lstm_cell for g in gates}
-    want.update({f"h{g}": lstm_cell or g == "n" for g in gates})
+    want = {f"i{g}": not is_lstm for g in gates}
+    want.update({f"h{g}": is_lstm or g == "n" for g in gates})
     got = {k: set(v) for k, v in tree.items()}
     if got != {k: {"kernel", "bias"} if b else {"kernel"}
                for k, b in want.items()}:
         raise ValueError(f"{name}: entries {got} are not a flax "
-                         f"{'OptimizedLSTMCell' if lstm_cell else 'GRUCell'}")
+                         f"{'OptimizedLSTMCell' if is_lstm else 'GRUCell'}")
 
     def stack(side, leaf):
         return np.concatenate([np.asarray(tree[f"{side}{g}"][leaf]).T
@@ -135,7 +152,7 @@ def cell_from_flax(tree: Mapping, name: str = "cell"
     w_hh = stack("h", "kernel")
     width = w_hh.shape[1]
     zeros = np.zeros(width, np.float32)
-    if lstm_cell:
+    if is_lstm:
         b_ih, b_hh = np.zeros(4 * width, np.float32), stack("h", "bias")
     else:
         b_ih = stack("i", "bias")
@@ -155,8 +172,8 @@ def cell_to_flax(weights: Mapping[str, np.ndarray]) -> Dict[str, Dict]:
         return {"i": {"kernel": np.ascontiguousarray(w_ih.T),
                       "bias": np.asarray(weights["bias_ih_l0"])},
                 "h": {"kernel": np.ascontiguousarray(w_hh.T)}}
-    lstm_cell = w_hh.shape[0] == 4 * width
-    gates = _LSTM_GATES if lstm_cell else _GRU_GATES
+    is_lstm = w_hh.shape[0] == 4 * width
+    gates = _LSTM_GATES if is_lstm else _GRU_GATES
     parts = {side: np.split(w, len(gates)) for side, w in
              (("i", w_ih), ("h", w_hh))}
     b_ih = np.split(np.asarray(weights["bias_ih_l0"]), len(gates))
@@ -166,10 +183,10 @@ def cell_to_flax(weights: Mapping[str, np.ndarray]) -> Dict[str, Dict]:
         for side in "ih":
             tree[f"{side}{g}"] = {
                 "kernel": np.ascontiguousarray(parts[side][j].T)}
-        if lstm_cell:
+        if is_lstm:
             tree[f"h{g}"]["bias"] = b_hh[j]
         else:
             tree[f"i{g}"]["bias"] = b_ih[j]
-    if not lstm_cell:
+    if not is_lstm:
         tree["hn"]["bias"] = b_hh[2]
     return tree

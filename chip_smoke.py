@@ -29,7 +29,9 @@ the Keras-style API (`Estimator.from_keras`, the NCF toy, a Keras BERT
 and TransformerLayer, conv and recurrent stacks) in phase 19 and the
 model importers (an ONNX BERT-base through `Estimator.from_onnx`, a TF1
 MobileNet through `InferenceModel.load_tf`, CaffeNet through
-`Net.load_caffe`) in phase 20;
+`Net.load_caffe`) in phase 20 and Chronos AutoTS (init_orca_context,
+the TCN / LSTM / Seq2Seq forecasters, AutoTSEstimator and TSPipeline,
+the search engine's device and process backends) in phase 21;
 each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
@@ -296,6 +298,31 @@ Phases (each one failing exits non-zero, with no result line):
      through `Net.load_caffe` at 64 x 3 x 227^2 (decode time, images/s);
      (b) and (c) within 1e-3 of max(1, |CPU|) of the same net on the CPU
      on two images;
+  21. Chronos AutoTS, BASELINE config #4's path (after phase 20; results
+     under "chronos" and on a `chronos` line), f32, TF32 off, no kernel
+     of ours launched, on a synthetic nyc-taxi-shaped series (10,320
+     half hours, daily and weekly seasons, standardized with numpy,
+     rolled at lookback 24 and horizon 1): (a) init_orca_context
+     ("local") gives the card and a second call the same, "yarn" raises
+     ValueError, stop_orca_context resets, an explicit call replaces
+     the implicit start of OrcaContext.device; (b) the TCN (48 x 3,
+     kernel 3), LSTM (64 x 2) and Seq2Seq (64 x 2) forecasters, the
+     widest widths of AutoTS's default spaces: predictions on every
+     window within 1e-5 of max(1, |CPU|) of the port on the CPU from the
+     same weights, the first step's loss within 1e-5 and gradients
+     within 1e-4 of each tensor's largest (dropout 0), 2 epochs of fit
+     whose loss falls (step p50, samples/s, host against card time a
+     step, busy share over a profiled epoch), save -> load bitwise;
+     (c) AutoTSEstimator(model="lstm") with the default space
+     (n_sampling 4, 2 epochs, batch 64): the trial configs equal the
+     same search with the port on the CPU, the pipeline predicts as its
+     best forecaster, save -> load bitwise; (d) SearchEngine
+     (backend="device") with 4 Estimator.from_torch trials: one lease
+     acquisition a trial call, no holder after, the winner's mse below
+     0.7 var(y); (e) AutoEstimator.from_torch over 2 process workers:
+     no worker initializes CUDA, the best model rebuilt here is on the
+     card, equals the worker's export and predicts as it does on the
+     CPU;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -317,7 +344,7 @@ import statistics
 import subprocess
 import sys
 import time
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 
@@ -7368,6 +7395,450 @@ def phase_importers(torch, seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: Chronos AutoTS (BASELINE config #4's path)
+# ---------------------------------------------------------------------------
+
+#: half-hourly points of NAB's nyc_taxi.csv, the series config #4 fits
+TAXI_POINTS = 10_320
+#: a day and a week of half hours: the series' two seasons
+TAXI_DAY, TAXI_WEEK = 48, 336
+CHRONOS_LOOKBACK, CHRONOS_HORIZON = 24, 1
+CHRONOS_BATCH = 64
+CHRONOS_EPOCHS = 2
+#: the widest widths of AutoTSEstimator's default search spaces
+CHRONOS_WIDEST = {
+    "tcn": dict(num_channels=[48, 48, 48], kernel_size=3),
+    "lstm": dict(hidden_dim=64, layer_num=2),
+    "seq2seq": dict(lstm_hidden_dim=64, lstm_layer_num=2),
+}
+#: card predictions against the port on the CPU: |d| <= tol * max(1, |CPU|)
+CHRONOS_PRED_TOL = 1e-5
+#: the first step's loss: |d| <= tol * max(1, |CPU|)
+CHRONOS_LOSS_TOL = 1e-5
+#: the first step's gradients: |d| <= tol * max |CPU| of each tensor
+CHRONOS_GRAD_TOL = 1e-4
+#: windows the CPU search of (c) fits (its configs do not depend on them)
+CHRONOS_CPU_WINDOWS = 1024
+CHRONOS_SEARCH = dict(n_sampling=4, epochs=2, batch_size=64)
+
+
+def taxi_series(seed: int, n: int = TAXI_POINTS) -> np.ndarray:
+    """A series of nyc-taxi's length and shape: a daily and a weekly
+    season and noise around a level, standardized with numpy."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n, dtype=np.float64)
+    v = (15000.0 + 6500.0 * np.sin(2 * np.pi * t / TAXI_DAY - 2.0)
+         + 2500.0 * np.sin(2 * np.pi * t / TAXI_WEEK)
+         + rng.normal(0.0, 900.0, n))
+    return ((v - v.mean()) / v.std()).astype(np.float32)
+
+
+def roll_series(series: np.ndarray, lookback: int, horizon: int):
+    """(x [n, lookback, 1], y [n, horizon, 1]) windows, as
+    TSDataset.roll makes them (which needs pandas)."""
+    n = len(series) - lookback - horizon + 1
+    idx = np.arange(lookback)[None] + np.arange(n)[:, None]
+    y_idx = lookback + np.arange(n)[:, None] + np.arange(horizon)[None]
+    return series[idx][..., None], series[y_idx][..., None]
+
+
+def chronos_context(torch) -> dict:
+    """(a): the runtime entry points on the card."""
+    import analytics_zoo_tpu_torch as zoo
+    from analytics_zoo_tpu_torch.common.context import OrcaContextMeta
+    zoo.stop_orca_context()
+    try:
+        zoo.init_orca_context(cluster_mode="yarn")
+        check(False, "init_orca_context('yarn') did not raise")
+    except ValueError:
+        pass
+    dev = zoo.init_orca_context(cluster_mode="local")
+    check(dev == torch.device("cuda"), f"init_orca_context gave {dev}")
+    check(zoo.init_orca_context(cluster_mode="local") is dev,
+          "a second init_orca_context gave another device")
+    check(zoo.OrcaContext.initialized and zoo.OrcaContext.num_devices == 1,
+          "OrcaContext does not read the runtime")
+    try:
+        zoo.init_orca_context(cluster_mode="tpu_pod")
+        check(False, "another mode did not raise while initialized")
+    except RuntimeError:
+        pass
+    zoo.stop_orca_context()
+    check(not zoo.OrcaContext.initialized, "stop_orca_context kept it")
+    implicit = zoo.OrcaContext.device
+    check(implicit.type == "cuda" and OrcaContextMeta._auto_initialized,
+          "reading OrcaContext.device did not start local mode")
+    zoo.init_orca_context(cluster_mode="local")
+    check(not OrcaContextMeta._auto_initialized,
+          "an explicit init_orca_context kept the implicit start")
+    return dict(device=str(dev), num_devices=zoo.OrcaContext.num_devices)
+
+
+def chronos_forecaster(name: str, device, seed: int, **kw):
+    from analytics_zoo_tpu_torch.chronos import forecaster
+    cls = {"tcn": forecaster.TCNForecaster,
+           "lstm": forecaster.LSTMForecaster,
+           "seq2seq": forecaster.Seq2SeqForecaster}[name]
+    return cls(past_seq_len=CHRONOS_LOOKBACK,
+               future_seq_len=CHRONOS_HORIZON, input_feature_num=1,
+               output_feature_num=1, seed=seed, device=device,
+               **CHRONOS_WIDEST[name], **kw)
+
+
+def chronos_first_step(torch, card_fc, cpu_fc, x, y) -> dict:
+    """One train step of each forecaster's engine on the same batch:
+    the losses and every gradient, card against CPU."""
+    host = {"features": (x,), "labels": (y,),
+            "mask": np.ones(len(x), np.float32)}
+    out = {}
+    for side, fc in (("card", card_fc), ("cpu", cpu_fc)):
+        eng = fc._estimator().engine
+        stats = eng.train_step(eng.put_batch(host))
+        out[side] = (float(stats["loss"]), {
+            k: p.grad.detach().cpu().numpy()
+            for k, p in fc._estimator().get_model().named_parameters()})
+    (loss, grads), (ref_loss, ref_grads) = out["card"], out["cpu"]
+    loss_err = abs(loss - ref_loss) / max(1.0, abs(ref_loss))
+    check(loss_err <= CHRONOS_LOSS_TOL,
+          f"first-step loss {loss} against the CPU's {ref_loss}")
+    worst = 0.0
+    for k, g in ref_grads.items():
+        err = float(np.abs(grads[k] - g).max())
+        rel = err / max(float(np.abs(g).max()), 1e-30) if err else 0.0
+        check(rel <= CHRONOS_GRAD_TOL,
+              f"first-step gradient of {k}: {rel:.3g} of its largest")
+        worst = max(worst, rel)
+    return dict(loss=loss, cpu_loss=ref_loss, loss_rel_err=loss_err,
+                grad_max_rel_err=worst)
+
+
+def chronos_fit(torch, fc, x, y, epochs: int) -> dict:
+    """`fc.fit` with a CUDA event recorded as each step is queued (a
+    step's period, with no host wait): per-epoch losses and walls, step
+    p50, samples/s of the last epoch."""
+    est = fc._estimator()
+    eng = est.engine
+    marks = []
+
+    def marked_step(b, step=eng.train_step):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return step(b)
+
+    eng.train_step = marked_step
+    torch.cuda.synchronize()
+    try:
+        fc.fit((x, y), epochs=epochs, batch_size=CHRONOS_BATCH)
+    finally:
+        del eng.train_step
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    periods = [a.elapsed_time(b) for a, b in zip(marks[1:], marks[2:])]
+    summary = est.train_summary[-epochs:]
+    return dict(epoch_losses=[s["loss"] for s in summary],
+                epoch_wall_s=[s["wall_s"] for s in summary],
+                steps=len(marks) - 1,
+                step_ms_p50=statistics.median(periods),
+                samples_per_s=len(x) / summary[-1]["wall_s"])
+
+
+def chronos_forecasters(torch, seed: int, x, y) -> dict:
+    """(b): each forecaster at the widest widths of AutoTS's default
+    space, f32: predictions and the first step against the port on the
+    CPU from the same weights (dropout 0), then a fit of
+    `CHRONOS_EPOCHS` epochs (dropout 0.1 where the model has it), its
+    step profile and busy share, and save -> load."""
+    import os
+    import tempfile
+    out = {}
+    batch = slice(0, CHRONOS_BATCH)
+    for name in CHRONOS_WIDEST:
+        t0 = time.perf_counter()
+        no_drop = {} if name == "seq2seq" else {"dropout": 0.0}
+        card = chronos_forecaster(name, None, seed, **no_drop)
+        cpu = chronos_forecaster(name, "cpu", seed, **no_drop)
+        cpu._estimator().set_params({
+            k: v.detach().cpu()
+            for k, v in card._estimator().get_model().state_dict().items()})
+        got = card.predict((x, None), batch_size=1024)
+        want = cpu.predict((x, None), batch_size=1024)
+        err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+        check(got.shape == (len(x), CHRONOS_HORIZON, 1)
+              and np.isfinite(got).all(), f"{name} predictions {got.shape}")
+        check(float(err.max()) <= CHRONOS_PRED_TOL,
+              f"{name} predictions {float(err.max()):.3g} off the CPU's")
+        r = dict(predict_max_rel_err=float(err.max()),
+                 first_step=chronos_first_step(torch, card, cpu, x[batch],
+                                               y[batch]))
+        del card, cpu
+        drop = {} if name == "seq2seq" else {"dropout": 0.1}
+        fc = chronos_forecaster(name, None, seed, **drop)
+        r["fit"] = chronos_fit(torch, fc, x, y, CHRONOS_EPOCHS)
+        losses = r["fit"]["epoch_losses"]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{name} loss did not fall over {CHRONOS_EPOCHS} epochs: "
+              f"{losses}")
+        r["step_profile"] = keras_step_profile(
+            torch, fc._estimator(), (x[batch],), y[batch])
+        r["epoch_busy"] = busy_share(torch, lambda: fc.fit(
+            (x, y), epochs=1, batch_size=CHRONOS_BATCH))
+        path = os.path.join(tempfile.mkdtemp(), f"{name}.pkl")
+        with deterministic(torch):
+            before = fc.predict((x, None), batch_size=1024)
+            fc.save(path)
+            after = type(fc).load(path).predict((x, None), batch_size=1024)
+        check(np.array_equal(before, after),
+              f"{name} save -> load does not predict bitwise")
+        os.remove(path)
+        r["params"] = sum(
+            p.numel() for p in fc._estimator().get_model().parameters())
+        r["seconds"] = time.perf_counter() - t0
+        out[name] = r
+    return out
+
+
+def chronos_autots(torch, seed: int, x, y) -> dict:
+    """(c): AutoTSEstimator(model="lstm") with the default space on the
+    card (80% of the windows to fit, the rest to validate); the same
+    search with the port on the CPU samples the same configs."""
+    import os
+    import tempfile
+    from analytics_zoo_tpu_torch.chronos.autots import (
+        AutoTSEstimator,
+        TSPipeline,
+    )
+    cut = int(0.8 * len(x))
+    train, val = (x[:cut], y[:cut]), (x[cut:], y[cut:])
+    auto = AutoTSEstimator(model="lstm", past_seq_len=CHRONOS_LOOKBACK,
+                           future_seq_len=CHRONOS_HORIZON)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = auto.fit(train, validation_data=val, **CHRONOS_SEARCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    small = (x[:CHRONOS_CPU_WINDOWS], y[:CHRONOS_CPU_WINDOWS])
+    cpu = AutoTSEstimator(model="lstm", past_seq_len=CHRONOS_LOOKBACK,
+                          future_seq_len=CHRONOS_HORIZON, device="cpu")
+    cpu.fit(small, **CHRONOS_SEARCH)
+    configs = [r["config"] for r in auto._trials]
+    check(configs == [r["config"] for r in cpu._trials],
+          "the card's trial configs differ from the CPU search's")
+    check(isinstance(pipe, TSPipeline)
+          and pipe.forecaster is auto._best.state
+          and pipe.forecaster.device.type == "cuda",
+          "AutoTSEstimator did not return the best forecaster's pipeline")
+    finishers = [r["metric"] for r in auto._trials if not r["stopped"]]
+    check(auto._best.best_metric == min(finishers),
+          "the pipeline's forecaster is not the best finisher")
+    with deterministic(torch):
+        preds = pipe.predict(val)
+        check(np.array_equal(preds, pipe.forecaster.predict(val)),
+              "the pipeline does not predict as its forecaster")
+        d = tempfile.mkdtemp()
+        pipe.save(d)
+        again = TSPipeline.load(d).predict(val)
+    check(np.array_equal(preds, again),
+          "TSPipeline save -> load does not predict bitwise")
+    for f in os.listdir(d):
+        os.remove(os.path.join(d, f))
+    os.rmdir(d)
+    trial_epochs = sum(r["epochs"] for r in auto._trials)
+    return dict(trials=auto._trials, best_config=auto.get_best_config(),
+                search_wall_s=wall, trial_epochs=trial_epochs,
+                wall_s_per_trial_epoch=wall / trial_epochs,
+                val_mse=float(((preds - val[1]) ** 2).mean()),
+                val_var=float(np.var(val[1])))
+
+
+def chronos_mlp(torch, width: int, device):
+    """x [b, 4] -> [b]: JAX's test MLP (Dense(width), relu, Dense(1))."""
+    return torch.nn.Sequential(
+        torch.nn.Linear(4, width, device=device), torch.nn.ReLU(),
+        torch.nn.Linear(width, 1, device=device), torch.nn.Flatten(0))
+
+
+@lru_cache(maxsize=None)
+def export_kept_estimator():
+    """An `Estimator` subclass that keeps a copy of what `set_params`
+    was given: the process backend's export of the best trial, which
+    the parent hands to the rebuilt Estimator."""
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    class ExportKept(Estimator):
+        exported = None
+
+        def set_params(self, params):
+            self.exported = {k: v.clone() for k, v in params.items()}
+            return super().set_params(params)
+    return ExportKept
+
+
+def chronos_mlp_creator(config):
+    """An `Estimator.from_torch` of a small MLP, its weights drawn from
+    the config's seed.  A process-backend worker sees no card and
+    builds it on the CPU; this process (the parent, rebuilding the best
+    trial) builds it on the card.  A worker writes what it sees of CUDA
+    into `config["report_dir"]`."""
+    import multiprocessing
+    import os
+    import torch
+    worker = multiprocessing.parent_process() is not None
+    if worker:
+        with open(os.path.join(config["report_dir"], f"{os.getpid()}"),
+                  "a") as f:
+            f.write(json.dumps(dict(
+                cuda_available=torch.cuda.is_available(),
+                cuda_initialized=torch.cuda.is_initialized(),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"))) + "\n")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(int(config["seed"]))
+        model = chronos_mlp(torch, int(config["width"]),
+                            "cpu" if worker else "cuda")
+    return export_kept_estimator().from_torch(
+        model, loss="mse", optimizer="adam",
+        learning_rate=float(config["lr"]))
+
+
+def _mlp_data(seed: int):
+    """JAX's test_device_backend_real_estimator_trials data."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(128, 4)).astype(np.float32)
+    w = np.array([1.0, -2.0, 0.5, 3.0], np.float32)
+    return x, (x @ w + 0.01 * rng.normal(size=128)).astype(np.float32)
+
+
+def chronos_device_backend(torch, seed: int) -> dict:
+    """(d): SearchEngine(backend="device") with 4 real
+    `Estimator.from_torch` trials on the card, each call through the
+    device lease."""
+    from analytics_zoo_tpu_torch.common import device_lease as lease
+    from analytics_zoo_tpu_torch.orca.automl import hp
+    from analytics_zoo_tpu_torch.orca.automl.search_engine import (
+        SearchEngine,
+    )
+    x, y = _mlp_data(seed)
+    walls = []
+
+    def trainable(config, state, add_epochs):
+        t0 = time.perf_counter()
+        state = state or chronos_mlp_creator(config)
+        state.fit({"x": x, "y": y}, epochs=add_epochs, batch_size=32)
+        mse = state.evaluate({"x": x, "y": y}, batch_size=64)["loss"]
+        walls.append(time.perf_counter() - t0)
+        return state, float(mse)
+
+    before = lease.stats()
+    engine = SearchEngine(trainable, {
+        "width": hp.grid_search([4, 8, 16, 32]), "lr": hp.choice([1e-2]),
+        "seed": seed, "report_dir": None}, epochs=4, grace_epochs=1,
+        backend="device")
+    best = engine.run()
+    after = lease.stats()
+    got = after["acquisitions"] - before["acquisitions"]
+    check(got == len(walls), f"{got} lease acquisitions for "
+          f"{len(walls)} trial calls")
+    check(lease.current_holder() is None, "the lease is still held")
+    check(best.best_metric < 0.7 * float(np.var(y)),
+          f"the best trial's mse {best.best_metric} did not train")
+    check(best.state.get_model()[0].weight.device.type == "cuda",
+          "a device trial did not run on the card")
+    return dict(trial_calls=len(walls), best_mse=best.best_metric,
+                var_y=float(np.var(y)),
+                trial_wall_ms_p50=1e3 * statistics.median(walls),
+                lease_wait_ms_mean=1e3 * (after["total_wait_s"]
+                                          - before["total_wait_s"]) / got,
+                lease_hold_ms_mean=1e3 * (after["total_hold_s"]
+                                          - before["total_hold_s"]) / got)
+
+
+def chronos_process_backend(torch, seed: int) -> dict:
+    """(e): AutoEstimator.from_torch over 2 spawned workers: no worker
+    initializes CUDA, and the best model, rebuilt here, lands on the
+    card and predicts as the worker's export does on the CPU."""
+    import os
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.orca.automl import AutoEstimator, hp
+    x, y = _mlp_data(seed)
+    report = tempfile.mkdtemp()
+    auto = AutoEstimator.from_torch(chronos_mlp_creator, metric="loss")
+    t0 = time.perf_counter()
+    auto.fit({"x": x, "y": y}, search_space={
+        "width": hp.grid_search([8, 16]), "lr": hp.choice([1e-2]),
+        "seed": seed, "report_dir": report}, epochs=2, batch_size=32,
+        parallelism=2, backend="process")
+    wall = time.perf_counter() - t0
+    seen = []
+    for f in sorted(os.listdir(report)):
+        with open(os.path.join(report, f)) as fh:
+            seen += [json.loads(line) for line in fh]
+    workers = len(os.listdir(report))
+    shutil.rmtree(report)
+    check(workers == 2 and seen and not any(
+        s["cuda_available"] or s["cuda_initialized"] for s in seen)
+        and all(s["visible"] == "" for s in seen),
+        f"the process-backend workers saw the card: {seen}")
+    best = auto.get_best_model()
+    model = best.get_model()
+    check(all(p.device.type == "cuda" for p in model.parameters()),
+          "the rebuilt best model is not on the card")
+    cpu = chronos_mlp(torch, int(auto.get_best_config()["width"]), "cpu")
+    cpu.load_state_dict(best.exported)
+    for k, v in model.state_dict().items():
+        check(torch.equal(v.cpu(), best.exported[k]),
+              f"the rebuilt {k} is not the worker's export")
+    got = best.predict({"x": x})
+    with torch.no_grad():
+        want = cpu(torch.from_numpy(x)).numpy()
+    err = float((np.abs(got - want) / np.maximum(1.0, np.abs(want))).max())
+    check(err <= CHRONOS_PRED_TOL,
+          f"the rebuilt model predicts {err:.3g} off the worker's export")
+    return dict(workers=workers, worker_reports=seen,
+                search_wall_s=wall, best_config=auto.get_best_config(),
+                predict_max_rel_err=err)
+
+
+def phase_chronos(torch, seed: int, card: str) -> dict:
+    """Phase 21: Chronos AutoTS, parts (a)-(e); no kernel of ours is
+    launched from its start to its end."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    x, y = roll_series(taxi_series(seed), CHRONOS_LOOKBACK, CHRONOS_HORIZON)
+    out, part_s = dict(windows=len(x)), {}
+    for part, fn in (("a", lambda: chronos_context(torch)),
+                     ("b", lambda: chronos_forecasters(torch, seed, x, y)),
+                     ("c", lambda: chronos_autots(torch, seed, x, y)),
+                     ("d", lambda: chronos_device_backend(torch, seed)),
+                     ("e", lambda: chronos_process_backend(torch, seed))):
+        t1 = time.perf_counter()
+        out[part] = fn()
+        part_s[part] = time.perf_counter() - t1
+    out["part_seconds"] = part_s
+    counts = kernels.launch_counts()
+    check(not any(counts.values()),
+          f"phase 21 launched a kernel of ours: {counts}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    print("chronos " + json.dumps(dict(
+        card=card, seconds=out["seconds"], windows=out["windows"],
+        part_seconds=out["part_seconds"],
+        forecasters={n: dict(
+            predict_max_rel_err=r["predict_max_rel_err"],
+            first_step=r["first_step"], fit=r["fit"],
+            step_profile=r["step_profile"],
+            epoch_busy_share=r["epoch_busy"]["device_busy_share"],
+            params=r["params"], seconds=r["seconds"])
+            for n, r in out["b"].items()},
+        autots={k: out["c"][k] for k in (
+            "best_config", "search_wall_s", "trial_epochs",
+            "wall_s_per_trial_epoch", "val_mse", "val_var")},
+        device_backend=out["d"], process_backend=out["e"])), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -7444,6 +7915,8 @@ def main(argv=None) -> int:
     clocks("after phase 19", start)
     importers = phase_importers(torch, args.seed, card)
     clocks("after phase 20", start)
+    chronos = phase_chronos(torch, args.seed, card)
+    clocks("after phase 21", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -7617,6 +8090,9 @@ def main(argv=None) -> int:
         # nor anywhere in phase 20 (checked there: all 0)
         k["launches_by_path"]["importers"] = \
             importers["launches"][k["name"]]
+        # nor anywhere in phase 21 (checked there: all 0)
+        k["launches_by_path"]["chronos_autots"] = \
+            chronos["launches"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs,
                       "generation_breadth": gen_breadth, "bert": bert_runs,
@@ -7626,6 +8102,7 @@ def main(argv=None) -> int:
                       "int8_serving": int8, "image_zoo": zoo,
                       "zoo_rest": zoo_rest, "keras": keras,
                       "importers": importers,
+                      "chronos": chronos,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,

@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from analytics_zoo_tpu.observability import request_log
 from analytics_zoo_tpu.serving.generation import (
     CausalLM as JaxCausalLM,
     GenerationEngine as JaxEngine,
@@ -23,6 +24,18 @@ from analytics_zoo_tpu_torch.serving.generation import (
     CausalLM,
     GenerationEngine,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reset_jax_request_log():
+    """The JAX engines this module drives write into the JAX package's
+    process-global request log, and a preempted request's record there
+    counts its recomputed prefill; `tests/test_speculation.py` checks
+    every finished record of that log, so the log is reset when the
+    module ends."""
+    yield
+    request_log.reset_request_log()
+
 
 CFG = dict(vocab=61, hidden_size=32, n_head=4, n_block=2,
            intermediate_size=64, max_position_len=128)

@@ -24,6 +24,7 @@ from _torch_generation_cases import (
     port_model,
     serve,
 )
+from analytics_zoo_tpu.observability import request_log
 from analytics_zoo_tpu.observability.registry import MetricsRegistry
 from analytics_zoo_tpu.serving.generation import (
     PagedKVCache as JaxPagedKVCache,
@@ -37,6 +38,17 @@ from analytics_zoo_tpu_torch.serving.generation import (
 )
 
 GEOM = dict(max_slots=4, block_size=8, max_context=64)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reset_jax_request_log():
+    """The JAX engines this module drives write into the JAX package's
+    process-global request log, and a preempted request's record there
+    counts its recomputed prefill; `tests/test_speculation.py` checks
+    every finished record of that log, so the log is reset when the
+    module ends."""
+    yield
+    request_log.reset_request_log()
 
 
 @pytest.fixture(scope="module")
