@@ -34,9 +34,12 @@ BERT weights), the Keras-style API (`keras`, `keras2`,
 `Estimator.from_onnx`, TF1 frozen graphs, Caffe, `Net`; `tfpark`), the
 runtime entry points (`init_orca_context`, `init_nncontext`,
 `stop_orca_context`, re-exported here as in the JAX package), and
-Chronos AutoTS (`chronos`: `TSDataset`, the TCN, LSTM and Seq2Seq
-forecasters, `AutoTSEstimator`, `TSPipeline`) over the AutoML search
-engine (`orca.automl`) and the device lease (`common.device_lease`).
+Chronos (`chronos`: `TSDataset` and `XShardsTSDataset`, the TCN, LSTM,
+Seq2Seq, MTNet, TCMF, ARIMA and Prophet forecasters, `AutoTSEstimator`
+with its classical legs, `TSPipeline`, the deprecated AutoTS API, the
+anomaly detectors, the DoppelGANger simulator) over the AutoML search
+engine (`orca.automl`, with the native GBDT behind AutoXGBoost) and the
+device lease (`common.device_lease`).
 """
 
 from analytics_zoo_tpu_torch.common.context import (  # noqa: F401

@@ -3,13 +3,14 @@ analytics_zoo_tpu/chronos/autots/autotsestimator.py): builds a model's
 search space, runs the AutoML search engine over forecasters made from
 the sampled configs, and returns a `TSPipeline` of the best one.
 
-`model` is "lstm", "tcn" or "seq2seq"; `device` (None: the CUDA card,
-or a raise) is passed on to every forecaster.  Trials run on the
+`model` is "lstm", "tcn" or "seq2seq", whose forecasters train on
+`device` (None: the CUDA card, or a raise), or one of the classical
+legs, "arima" and "prophet": AutoARIMA / AutoProphet search the raw
+target series (a TSDataset's first target, or an array; a ds/y frame
+for Prophet) on the host, as in JAX, and the pipeline wraps the best
+ARIMAForecaster / ProphetForecaster.  Trials run on the
 `SearchEngine`'s default backend, as in JAX: one at a time in this
-process.  "arima" and "prophet" (the classical legs, whose forecasters
-and AutoARIMA / AutoProphet come with the next Chronos slice, ROADMAP
-Queue 1 item 5) raise NotImplementedError; `_default_space` keeps their
-spaces as JAX's.
+process.
 """
 
 from __future__ import annotations
@@ -66,11 +67,6 @@ class AutoTSEstimator:
                  metric: str = "mse", metric_mode: str = "min",
                  device=None):
         self.model = model.lower()
-        if self.model in ("arima", "prophet"):
-            raise NotImplementedError(
-                f"model '{self.model}': the classical forecasters are not "
-                "ported yet (ROADMAP Queue 1 item 5, the next Chronos "
-                "slice)")
         self.search_space = search_space or _default_space(self.model)
         self.past_seq_len = past_seq_len
         self.future_seq_len = future_seq_len
@@ -116,6 +112,10 @@ class AutoTSEstimator:
     def fit(self, data, validation_data=None, epochs: int = 5,
             batch_size: int = 32, n_sampling: int = 4,
             grace_epochs: int = 1) -> TSPipeline:
+        if self.model == "arima":
+            return self._fit_arima(data, validation_data, n_sampling)
+        if self.model == "prophet":
+            return self._fit_prophet(data, validation_data, n_sampling)
         scaler = None
         if is_tsdataset(data):
             scaler = data.scaler
@@ -157,6 +157,64 @@ class AutoTSEstimator:
         return TSPipeline(forecaster=self._best.state,
                           best_config=dict(self._best.config),
                           scaler=scaler)
+
+    def _fit_arima(self, data, validation_data, n_sampling: int
+                   ) -> TSPipeline:
+        """Classical-model leg: search ARIMA orders over the raw target
+        series (no windowing) and return an ARIMA-backed TSPipeline."""
+        from analytics_zoo_tpu_torch.chronos.autots.model import AutoARIMA
+
+        train = TSPipeline._series(data)
+        val = (TSPipeline._series(validation_data)
+               if validation_data is not None else None)
+        space = dict(self.search_space)
+        auto = AutoARIMA(p=space.get("p"), q=space.get("q"),
+                         seasonal=space.get("seasonal", True),
+                         P=space.get("P"), Q=space.get("Q"),
+                         m=int(space.get("m", 7)), metric=self.metric)
+        auto.fit(train, val, n_sampling=n_sampling)
+        self._best = auto._best
+        self._trials = auto._trials
+        return TSPipeline(forecaster=auto.get_best_model(),
+                          best_config=auto.get_best_config(),
+                          scaler=None)
+
+    def _fit_prophet(self, data, validation_data, n_sampling: int
+                     ) -> TSPipeline:
+        """Classical-model leg: search Prophet prior scales over the
+        raw ds/y frame (no windowing)."""
+        from analytics_zoo_tpu_torch.chronos.autots.model import AutoProphet
+        from analytics_zoo_tpu_torch.orca.automl.hp import SampleSpace
+
+        train = TSPipeline._frame(data)
+        val = (TSPipeline._frame(validation_data)
+               if validation_data is not None else None)
+        space = dict(self.search_space)
+        searched = ("changepoint_prior_scale",
+                    "seasonality_prior_scale", "changepoint_range")
+        extras = {k: v for k, v in space.items() if k not in searched}
+        # extras go VERBATIM into the ProphetForecaster constructor: an
+        # hp.* object there would never be sampled (it would reach
+        # int()/float() as-is, or silently pin a value the user asked
+        # to search) — refuse instead of misbehaving
+        bad = [k for k, v in extras.items()
+               if isinstance(v, SampleSpace)]
+        if bad:
+            raise ValueError(
+                f"prophet leg only searches {searched}; {bad} must be "
+                "static values (or use AutoProphet directly with a "
+                "custom trainable)")
+        auto = AutoProphet(
+            changepoint_prior_scale=space.get("changepoint_prior_scale"),
+            seasonality_prior_scale=space.get("seasonality_prior_scale"),
+            changepoint_range=space.get("changepoint_range"),
+            metric=self.metric, **extras)
+        auto.fit(train, val, n_sampling=n_sampling)
+        self._best = auto._best
+        self._trials = auto._trials
+        return TSPipeline(forecaster=auto.get_best_model(),
+                          best_config=auto.get_best_config(),
+                          scaler=None)
 
     def get_best_config(self) -> Dict:
         if self._best is None:

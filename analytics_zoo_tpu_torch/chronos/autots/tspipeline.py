@@ -4,10 +4,12 @@ forecaster with the scaler of its training data; predict / evaluate in
 the data's original units (`_unscale`), fit on, save and load.
 
 Nothing here imports pandas or TSDataset at module top: a TSDataset is
-recognised through `sys.modules` (`base.is_tsdataset`), and the ARIMA
-and Prophet branches test the forecaster's class name, since those
-forecasters come with the next Chronos slice.  `load(path, device)`
-rebuilds the forecaster on `device` (None: the CUDA card).
+recognised through `sys.modules` (`base.is_tsdataset`).  An ARIMA or
+Prophet pipeline (the classical legs, told apart by the forecaster's
+class name) takes the horizon to `predict`, the raw series (or a ds/y
+frame) to `fit` and `evaluate`.  `load(path, device)` rebuilds the
+forecaster on `device` (None: the CUDA card; the classical forecasters
+ignore it).
 """
 
 from __future__ import annotations

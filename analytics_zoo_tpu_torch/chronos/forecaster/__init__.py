@@ -1,6 +1,8 @@
-"""The forecasters ported so far: TCN, LSTM and Seq2Seq.  JAX's package
-also exports ARIMA, Prophet, MTNet and TCMF, which come with the next
-Chronos slice (ROADMAP Queue 1 item 5).  Nothing here imports pandas."""
+"""The forecasters, as JAX's package exports them: TCN, LSTM, Seq2Seq
+and MTNet (torch modules on the port's Estimator), TCMF (a
+factorization and two TCNs), and the classical ARIMA and Prophet (host
+numpy and scipy).  Nothing here imports pandas: Prophet imports it
+inside the functions that take or make a DataFrame."""
 
 from analytics_zoo_tpu_torch.chronos.forecaster.lstm_forecaster import (  # noqa: F401,E501
     LSTMForecaster,
@@ -10,4 +12,16 @@ from analytics_zoo_tpu_torch.chronos.forecaster.tcn_forecaster import (  # noqa:
 )
 from analytics_zoo_tpu_torch.chronos.forecaster.seq2seq_forecaster import (  # noqa: F401,E501
     Seq2SeqForecaster,
+)
+from analytics_zoo_tpu_torch.chronos.forecaster.arima_forecaster import (  # noqa: F401,E501
+    ARIMAForecaster,
+)
+from analytics_zoo_tpu_torch.chronos.forecaster.prophet_forecaster import (  # noqa: F401,E501
+    ProphetForecaster,
+)
+from analytics_zoo_tpu_torch.chronos.forecaster.mtnet_forecaster import (  # noqa: F401,E501
+    MTNetForecaster,
+)
+from analytics_zoo_tpu_torch.chronos.forecaster.tcmf_forecaster import (  # noqa: F401,E501
+    TCMFForecaster,
 )

@@ -10,9 +10,10 @@ optimizer=..., learning_rate=lr, metrics=["mse"], seed=seed)`, where
 JAX uses `from_flax`.  Data: (x, y) tuples, {"x", "y"} dicts, or a
 `TSDataset` (rolled here with the forecaster's lookback and horizon
 unless its cached roll matches them: a predict-time horizon-0 roll never
-poisons a later fit).  The TSDataset class is looked up in
-`sys.modules`, so importing this module loads no pandas.  An
-`XShardsTSDataset` is not ported yet and raises.  `save` pickles the
+poisons a later fit), or an `XShardsTSDataset`, rolled per shard and
+streamed into the Estimator shard by shard (`_as_stream`), the caller's
+roll state left as it was.  Both classes are looked up in
+`sys.modules`, so importing this module loads no pandas.  `save` pickles the
 config and the parameters as numpy, in torch's layout (JAX pickles its
 flax tree); `load(path, device)` rebuilds the forecaster and restores
 them through `Estimator.set_params`.
@@ -29,8 +30,11 @@ import torch
 
 from analytics_zoo_tpu_torch.device import resolve_device
 
-#: the module holding TSDataset, read from sys.modules only
+#: the modules holding TSDataset and XShardsTSDataset, read from
+#: sys.modules only
 _TSDATASET = "analytics_zoo_tpu_torch.chronos.data.tsdataset"
+_XSHARDS_TSDATASET = \
+    "analytics_zoo_tpu_torch.chronos.data.experimental.xshards_tsdataset"
 
 
 def is_tsdataset(data) -> bool:
@@ -39,11 +43,10 @@ def is_tsdataset(data) -> bool:
     return mod is not None and isinstance(data, mod.TSDataset)
 
 
-def _refuse_xshards(data) -> None:
-    if type(data).__name__ == "XShardsTSDataset":
-        raise NotImplementedError(
-            "XShardsTSDataset is not ported yet (ROADMAP Queue 1 item 5, "
-            "the next Chronos slice): roll it to numpy windows first")
+def is_xshards_tsdataset(data) -> bool:
+    """Whether `data` is a port XShardsTSDataset (never imports it)."""
+    mod = sys.modules.get(_XSHARDS_TSDATASET)
+    return mod is not None and isinstance(data, mod.XShardsTSDataset)
 
 
 def _resolve_data(data, lookback=None, horizon=None):
@@ -52,7 +55,6 @@ def _resolve_data(data, lookback=None, horizon=None):
     lookback/horizon — a predict-time roll (horizon=0) must never poison a
     later fit/evaluate, and a different forecaster's window length must
     never leak through."""
-    _refuse_xshards(data)
     if is_tsdataset(data):
         cache_ok = (data.numpy_x is not None
                     and (lookback is None or data.lookback == lookback)
@@ -111,7 +113,28 @@ class BaseForecaster:
                 seed=self._seed)
         return self._est
 
+    def _as_stream(self, data, horizon):
+        """An XShardsTSDataset's {"x", "y"} shards, rolled with this
+        forecaster's lookback and `horizon`, to stream into the
+        Estimator (None for other data).  The caller's roll state is
+        restored afterwards: a predict-time horizon-0 roll never poisons
+        the user's own later `to_xshards()` (`to_xshards` captures
+        lookback and horizon by value, so restoring them after it is
+        safe although the shard transforms run lazily)."""
+        if not is_xshards_tsdataset(data):
+            return None
+        prev = (data.lookback, data.horizon)
+        try:
+            return data.roll(self.past_seq_len, horizon).to_xshards()
+        finally:
+            data.lookback, data.horizon = prev
+
     def fit(self, data, epochs: int = 1, batch_size: int = 32, **kwargs):
+        stream = self._as_stream(data, self.future_seq_len)
+        if stream is not None:
+            self._estimator().fit(stream, epochs=epochs,
+                                  batch_size=batch_size, **kwargs)
+            return self
         x, y = _resolve_data(data, self.past_seq_len, self.future_seq_len)
         if y is None:
             raise ValueError("fit requires targets")
@@ -124,10 +147,16 @@ class BaseForecaster:
         # horizon 0: the newest windows — the forecast past the end of
         # the observed data — are kept, not dropped for lack of future
         # rows
+        stream = self._as_stream(data, 0)
+        if stream is not None:
+            return self._estimator().predict(stream, batch_size=batch_size)
         x, _ = _resolve_data(data, self.past_seq_len, 0)
         return self._estimator().predict({"x": x}, batch_size=batch_size)
 
     def evaluate(self, data, batch_size: int = 32):
+        stream = self._as_stream(data, self.future_seq_len)
+        if stream is not None:
+            return self._estimator().evaluate(stream, batch_size=batch_size)
         x, y = _resolve_data(data, self.past_seq_len, self.future_seq_len)
         if y is None:
             raise ValueError("evaluate requires targets")

@@ -34,7 +34,12 @@ initializers' safe names, to and from the port's `OnnxModule`.
 `seq2seq_forecaster_from_flax` (with their `*_to_flax` inverses) do it
 for Chronos's forecaster modules (`chronos/forecaster/`): the flax
 params of the JAX forecaster's module (its Estimator's `get_model()`)
-to the state_dict of the port's.
+to the state_dict of the port's; `mtnet_forecaster_from_flax`,
+`tcmf_factorization_from_flax`, `ae_detector_from_flax`,
+`dpgan_generator_from_flax` and `dpgan_discriminator_from_flax` (each
+with its `*_to_flax`) for the rest of Chronos: MTNet, TCMF's
+factorization, the AE detector's autoencoder and the DoppelGANger
+simulator's networks.
 """
 
 from __future__ import annotations
@@ -936,3 +941,97 @@ def seq2seq_forecaster_to_flax(state_dict: Mapping) -> Dict:
     return _renamed_to_flax(sd, [
         (r"(enc|dec)_cells\.(\d+)", r"\1_cells_\2", False),
         (r"head", "head", False)])
+
+
+def _module_tree(params: Mapping, prefix: str = "") -> Dict[str, Mapping]:
+    """A nested flax tree as {module path "a/b": its subtree}, down to
+    the modules that hold leaves or are recurrent cells (which
+    `_renamed_from_flax` converts whole)."""
+    out: Dict[str, Mapping] = {}
+    for k, v in params.items():
+        path = f"{prefix}{k}"
+        if recurrent.is_cell(v) or not any(isinstance(c, Mapping)
+                                           for c in v.values()):
+            out[path] = v
+        else:
+            out.update(_module_tree(v, path + "/"))
+    return out
+
+
+_MTNET_FROM = [(r"(mem|short)_encoder/GRUCell_0", r"\1_encoder.gru"),
+               (r"(mem|short)_encoder/(conv|attn_proj|attn)",
+                r"\1_encoder.\2"),
+               (r"head", "head"), (r"ar", "ar")]
+_MTNET_TO = [(r"(mem|short)_encoder\.gru", r"\1_encoder/GRUCell_0", False),
+             (r"(mem|short)_encoder\.(conv|attn_proj|attn)",
+              r"\1_encoder/\2", False),
+             (r"head", "head", False), (r"ar", "ar", False)]
+
+
+def mtnet_forecaster_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's `MTNet` state_dict from the JAX `_MTNet`'s param tree:
+    each encoder's `conv` (kernel (3, in, out) as (out, in, 3)),
+    `attn_proj`, `attn` and `GRUCell_0` (as `gru`), `head`, and `ar`
+    (DenseGeneral's kernel (ar, horizon), transposed as a Linear's)."""
+    return _renamed_from_flax(_module_tree(params), _MTNET_FROM)
+
+
+def mtnet_forecaster_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `_MTNet` param tree of the port's weights."""
+    return _nested(_renamed_to_flax(state_dict, _MTNET_TO))
+
+
+def tcmf_factorization_from_flax(params: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """TCMF's factorization (`tcmf_forecaster._Factorization`): flax's
+    `embed_f` table as `embed_f.weight`, `x_basis` as it is."""
+    return _tensors({"embed_f.weight": params["embed_f"]["embedding"],
+                     "x_basis": params["x_basis"]})
+
+
+def tcmf_factorization_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX `_Factorization` param tree of the port's weights."""
+    def arr(k):
+        return np.array(state_dict[k].detach().cpu().float())
+    return {"embed_f": {"embedding": arr("embed_f.weight")},
+            "x_basis": arr("x_basis")}
+
+
+def ae_detector_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The AE detector's autoencoder (`detectors._AE`): `enc`, `dec`."""
+    return _renamed_from_flax(params, [(r"(enc|dec)", r"\1")])
+
+
+def ae_detector_to_flax(state_dict: Mapping) -> Dict:
+    """The JAX AE detector's param tree of the port's weights."""
+    return _renamed_to_flax(state_dict, [(r"(enc|dec)", r"\1", False)])
+
+
+def dpgan_generator_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The DoppelGANger simulator's generator
+    (`doppelganger_simulator._Generator`) from JAX's `{"attr", "seq"}`
+    tree: the attribute MLP's `Dense_i` as `attr.layers.i`, the sequence
+    generator's `GRUCell_0` as `seq.gru` and `out`."""
+    return _renamed_from_flax(_module_tree(params), [
+        (r"attr/Dense_(\d+)", r"attr.layers.\1"),
+        (r"seq/GRUCell_0", "seq.gru"), (r"seq/out", "seq.out")])
+
+
+def dpgan_generator_to_flax(state_dict: Mapping) -> Dict:
+    """JAX's generator tree `{"attr", "seq"}` of the port's weights."""
+    return _nested(_renamed_to_flax(state_dict, [
+        (r"attr\.layers\.(\d+)", r"attr/Dense_\1", False),
+        (r"seq\.gru", "seq/GRUCell_0", False),
+        (r"seq\.out", "seq/out", False)]))
+
+
+def dpgan_discriminator_from_flax(params: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """The simulator's discriminator: `Dense_i` as `layers.i`."""
+    return _renamed_from_flax(params, [(r"Dense_(\d+)", r"layers.\1")])
+
+
+def dpgan_discriminator_to_flax(state_dict: Mapping) -> Dict:
+    """JAX's discriminator tree of the port's weights."""
+    return _renamed_to_flax(state_dict,
+                            [(r"layers\.(\d+)", r"Dense_\1", False)])

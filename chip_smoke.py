@@ -31,7 +31,10 @@ model importers (an ONNX BERT-base through `Estimator.from_onnx`, a TF1
 MobileNet through `InferenceModel.load_tf`, CaffeNet through
 `Net.load_caffe`) in phase 20 and Chronos AutoTS (init_orca_context,
 the TCN / LSTM / Seq2Seq forecasters, AutoTSEstimator and TSPipeline,
-the search engine's device and process backends) in phase 21;
+the search engine's device and process backends) in phase 21 and the
+rest of Chronos and AutoML (MTNet, TCMF, the AE and threshold
+detectors, ARIMA with AutoARIMA through AutoTSEstimator, AutoXGBoost,
+the DoppelGANger simulator) in phase 22;
 each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
@@ -323,6 +326,32 @@ Phases (each one failing exits non-zero, with no result line):
      no worker initializes CUDA, the best model rebuilt here is on the
      card, equals the worker's export and predicts as it does on the
      CPU;
+  22. the rest of Chronos and AutoML (after phase 21; results under
+     "chronos_rest" and on a `chronos_rest` line), f32, TF32 off, no
+     kernel of ours launched: (a) MTNet at JAX's defaults (4 memory
+     chunks of 8 steps, widths 32, AR window 4) on phase 21's series in
+     40-step windows: predictions on every window within 1e-5 of
+     max(1, |CPU|) of the port on the CPU from the same weights, every
+     row of the memory attention summing to 1 within 1e-6, the first
+     step's loss within 1e-5 and gradients within 1e-4 (dropout 0), 2
+     epochs at batch 64 whose loss falls, save -> load bitwise; (b) TCMF
+     at DeepGLO's electricity shape (370 series of 25,968 hours,
+     synthetic, from the seed) at its defaults, 4 epochs: the
+     factorization's first Adam step within 1e-5 of the CPU's from the
+     same state, each stage's fit wall, predict(24) global and hybrid
+     within 1e-4 of max(1, |CPU|) of the same saved state on the CPU,
+     fit_incremental on 24 new hours; (c) on the host beside the card:
+     AEDetector (roll 24, JAX's defaults) trained on the card, its
+     anomaly indexes equal to the CPU's from its weights,
+     ThresholdDetector, ARIMAForecaster and AutoTSEstimator(model=
+     "arima") (3 samples, m = 48) with its TSPipeline, AutoXGBRegressor
+     on 24 lags; (d) DPGANSimulator at DoppelGANger's WWT shape (550
+     days, 1 feature, 3 attributes; 8,192 series, 2 epochs at batch
+     128): the first adversarial step's updates within 1e-4 of each
+     tensor's largest CPU update on the same noise, generate inside the
+     training range, save -> load -> generate bitwise.  Prophet,
+     XShardsTSDataset and DBScanDetector need pandas or sklearn, which
+     the card machine lacks: the CPU tests hold them;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -4370,15 +4399,19 @@ def served_metrics(srv) -> dict:
                 records_total=prom["serving_records_served_total"]["value"])
 
 
-def busy_share(torch, fn, top_host: int = 0) -> dict:
+def busy_share(torch, fn, top_host: int = 0, host: bool = True) -> dict:
     """The card's busy share while `fn()` runs: device time of every
     kernel, copy and fill in a profiled window over host wall; with
-    `top_host`, that many host ops by their own time (ms, calls)."""
+    `top_host`, that many host ops by their own time (ms, calls).
+    `host=False` traces the card alone: a window of thousands of small
+    steps then costs seconds to read back, not tens of seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -6391,14 +6424,18 @@ def keras_step_profile(torch, est, feats, y, iters: int = 3) -> dict:
     """Host wall per train step (synchronized, without the profiler)
     beside the card's time per step (every device event of a profiled
     window summed) and their ratio, the card's busy share."""
-    from torch.autograd import DeviceType
     eng = est.engine
     host = {"features": tuple(feats), "labels": (y,),
             "mask": np.ones(len(y), np.float32)}
+    return step_profile(torch, lambda: eng.train_step(eng.put_batch(host)),
+                        iters)
 
-    def step():
-        eng.train_step(eng.put_batch(host))
 
+def step_profile(torch, step, iters: int = 3) -> dict:
+    """Host wall of one `step()` (synchronized, without the profiler)
+    beside the card's time for it (every device event of a profiled
+    window summed) and their ratio, the card's busy share."""
+    from torch.autograd import DeviceType
     step()
     walls = []
     for _ in range(iters):
@@ -7486,9 +7523,12 @@ def chronos_forecaster(name: str, device, seed: int, **kw):
                **CHRONOS_WIDEST[name], **kw)
 
 
-def chronos_first_step(torch, card_fc, cpu_fc, x, y) -> dict:
+def chronos_first_step(torch, card_fc, cpu_fc, x, y, zero=()) -> dict:
     """One train step of each forecaster's engine on the same batch:
-    the losses and every gradient, card against CPU."""
+    the losses and every gradient, card against CPU.  The tensors named
+    in `zero` have an exact gradient of 0 (both sides rounding noise):
+    each side is held within the tolerance of the largest gradient of
+    the model instead."""
     host = {"features": (x,), "labels": (y,),
             "mask": np.ones(len(x), np.float32)}
     out = {}
@@ -7503,6 +7543,12 @@ def chronos_first_step(torch, card_fc, cpu_fc, x, y) -> dict:
     check(loss_err <= CHRONOS_LOSS_TOL,
           f"first-step loss {loss} against the CPU's {ref_loss}")
     worst = 0.0
+    top = max(float(np.abs(g).max()) for g in ref_grads.values())
+    for k in zero:
+        noise = max(float(np.abs(grads[k]).max()),
+                    float(np.abs(ref_grads.pop(k)).max()))
+        check(noise <= CHRONOS_GRAD_TOL * top,
+              f"first-step gradient of {k} (exactly 0): {noise:.3g}")
     for k, g in ref_grads.items():
         err = float(np.abs(grads[k] - g).max())
         rel = err / max(float(np.abs(g).max()), 1e-30) if err else 0.0
@@ -7513,12 +7559,11 @@ def chronos_first_step(torch, card_fc, cpu_fc, x, y) -> dict:
                 grad_max_rel_err=worst)
 
 
-def chronos_fit(torch, fc, x, y, epochs: int) -> dict:
-    """`fc.fit` with a CUDA event recorded as each step is queued (a
-    step's period, with no host wait): per-epoch losses and walls, step
-    p50, samples/s of the last epoch."""
-    est = fc._estimator()
-    eng = est.engine
+def marked_steps(torch, eng, run) -> list:
+    """`run()` with a CUDA event recorded as each of `eng`'s train steps
+    is queued: each step's period in ms (the time from one step's
+    queueing to the next's, with no host wait), the first left out, the
+    last to the end of `run`."""
     marks = []
 
     def marked_step(b, step=eng.train_step):
@@ -7529,17 +7574,25 @@ def chronos_fit(torch, fc, x, y, epochs: int) -> dict:
     eng.train_step = marked_step
     torch.cuda.synchronize()
     try:
-        fc.fit((x, y), epochs=epochs, batch_size=CHRONOS_BATCH)
+        run()
     finally:
         del eng.train_step
     marks.append(torch.cuda.Event(enable_timing=True))
     marks[-1].record()
     torch.cuda.synchronize()
-    periods = [a.elapsed_time(b) for a, b in zip(marks[1:], marks[2:])]
+    return [a.elapsed_time(b) for a, b in zip(marks[1:], marks[2:])]
+
+
+def chronos_fit(torch, fc, x, y, epochs: int) -> dict:
+    """`fc.fit` with each step's period (`marked_steps`): per-epoch
+    losses and walls, steps, step p50, samples/s of the last epoch."""
+    est = fc._estimator()
+    periods = marked_steps(torch, est.engine, lambda: fc.fit(
+        (x, y), epochs=epochs, batch_size=CHRONOS_BATCH))
     summary = est.train_summary[-epochs:]
     return dict(epoch_losses=[s["loss"] for s in summary],
                 epoch_wall_s=[s["wall_s"] for s in summary],
-                steps=len(marks) - 1,
+                steps=len(periods) + 1,
                 step_ms_p50=statistics.median(periods),
                 samples_per_s=len(x) / summary[-1]["wall_s"])
 
@@ -7839,6 +7892,596 @@ def phase_chronos(torch, seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the rest of Chronos and AutoML
+# ---------------------------------------------------------------------------
+
+#: MTNet at the JAX constructor's defaults: (4 memory chunks + 1) x 8
+MTNET_LOOKBACK = 40
+#: DeepGLO's electricity set (Sen et al., 2019): 370 hourly series
+ELEC_SERIES, ELEC_POINTS = 370, 25_968
+#: the day and the week of an hourly series
+ELEC_DAY, ELEC_WEEK = 24, 168
+TCMF_EPOCHS = 4
+TCMF_HORIZON = 24
+#: TCMF's predictions from the same fitted state: |d| <= tol * max(1, |CPU|)
+TCMF_PRED_TOL = 1e-4
+#: a first step's parameters after it and its losses, card against CPU:
+#: |d| <= STEP_TOL * max(1, |CPU|); the GAN's gradients:
+#: |d| <= GAN_GRAD_TOL * the CPU gradient's largest of each tensor
+STEP_TOL = 1e-5
+GAN_GRAD_TOL = 1e-4
+#: the GAN's updates are held where the CPU gradient is 1000 x Adam's eps
+GAN_WELL_SCALED = 1e-5
+#: the memory attention's rows: |sum - 1| <= MTNET_ATTN_TOL
+MTNET_ATTN_TOL = 1e-6
+#: DoppelGANger's WWT set (Lin et al., 2020): daily page views of 550
+#: days, 1 feature, 3 attributes (domain, access, agent); the series
+#: count is cut to what the phase's time allows
+WWT_POINTS, WWT_ATTRS = 550, 3
+WWT_SERIES = 8192
+GAN_BATCH, GAN_EPOCHS = 128, 2
+#: AutoXGBoost on lagged taxi windows
+XGB_LAGS = 24
+#: what phase 22 leaves to the CPU tests: they need pandas or sklearn,
+#: which the card machine lacks
+REST_LEFT_OUT = ("ProphetForecaster and AutoTSEstimator(model='prophet') "
+                 "(pandas frames), XShardsTSDataset (pandas shards) and "
+                 "DBScanDetector (sklearn): held by tests/"
+                 "test_torch_chronos_*.py on the CPU")
+
+
+class Laps(dict):
+    """Seconds between calls, by name: `laps("fit")` records the time
+    since the previous call (the card synchronized first)."""
+
+    def __init__(self, torch):
+        super().__init__()
+        self.torch, self.t = torch, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        self[name], self.t = now - self.t, now
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    return float((np.abs(got - want) / np.maximum(1.0, np.abs(want))).max())
+
+
+def rest_mtnet(torch, seed: int, series: np.ndarray) -> dict:
+    """(a): MTNet at JAX's defaults on the taxi series' 40-step windows:
+    predictions, the memory attention and the first step against the
+    port on the CPU from the same weights (dropout 0); a fit of 2
+    epochs at batch 64; save -> load bitwise."""
+    import os
+    import tempfile
+    from analytics_zoo_tpu_torch.chronos.forecaster import MTNetForecaster
+    laps = Laps(torch)
+    x, y = roll_series(series, MTNET_LOOKBACK, 1)
+    card = MTNetForecaster(seed=seed, dropout=0.0)
+    cpu = MTNetForecaster(seed=seed, dropout=0.0, device="cpu")
+    check(card.past_seq_len == MTNET_LOOKBACK, "MTNet's window is not 40")
+    cpu._estimator().set_params({
+        k: v.detach().cpu()
+        for k, v in card._estimator().get_model().state_dict().items()})
+    laps("build")
+    got = card.predict((x, None), batch_size=1024)
+    laps("predict")
+    want = cpu.predict((x, None), batch_size=1024)
+    laps("cpu_predict")
+    check(got.shape == (len(x), 1, 1) and np.isfinite(got).all(),
+          f"MTNet predictions {got.shape}")
+    err = rel_err(got, want)
+    check(err <= CHRONOS_PRED_TOL,
+          f"MTNet predictions {err:.3g} off the CPU's")
+    model = card._estimator().get_model().eval()
+    with torch.no_grad():
+        model(torch.from_numpy(x[:1024]).cuda())
+    attn = model.memory_attention
+    attn_err = float((attn.sum(dim=1) - 1.0).abs().max())
+    check(attn.shape == (1024, 4) and attn_err <= MTNET_ATTN_TOL,
+          f"MTNet memory attention rows sum to 1 +- {attn_err:.3g}")
+    out = dict(windows=len(x), predict_max_rel_err=err,
+               memory_attention_row_sum_err=attn_err,
+               # the time attention's bias shifts every score of a
+               # softmax alike: its exact gradient is 0
+               first_step=chronos_first_step(
+                   torch, card, cpu, x[:CHRONOS_BATCH], y[:CHRONOS_BATCH],
+                   zero=("mem_encoder.attn.bias",
+                         "short_encoder.attn.bias")))
+    laps("first_step")
+    del card, cpu
+    fc = MTNetForecaster(seed=seed)
+    out["fit"] = chronos_fit(torch, fc, x, y, CHRONOS_EPOCHS)
+    laps("fit")
+    losses = out["fit"]["epoch_losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"MTNet loss did not fall: {losses}")
+    batch = slice(0, CHRONOS_BATCH)
+    out["step_profile"] = keras_step_profile(
+        torch, fc._estimator(), (x[batch],), y[batch])
+    laps("step_profile")
+    out["epoch_busy"] = busy_share(torch, lambda: fc.fit(
+        (x, y), epochs=1, batch_size=CHRONOS_BATCH), host=False)
+    laps("epoch_busy")
+    path = os.path.join(tempfile.mkdtemp(), "mtnet.pkl")
+    with deterministic(torch):
+        before = fc.predict((x, None), batch_size=1024)
+        fc.save(path)
+        after = MTNetForecaster.load(path).predict((x, None),
+                                                   batch_size=1024)
+    check(np.array_equal(before, after),
+          "MTNet save -> load does not predict bitwise")
+    os.remove(path)
+    laps("save_load")
+    out["params"] = sum(p.numel()
+                        for p in fc._estimator().get_model().parameters())
+    out["laps_s"] = dict(laps)
+    return out
+
+
+def electricity_matrix(seed: int, n: int = ELEC_SERIES,
+                       t: int = ELEC_POINTS) -> np.ndarray:
+    """[n, t] f32 hourly loads of the electricity set's shape: per-series
+    level and scale, a daily and a weekly season of per-series phase,
+    and noise."""
+    rng = np.random.default_rng(seed)
+    hours = np.arange(t, dtype=np.float64)[None]
+    level = rng.lognormal(5.0, 1.0, (n, 1))
+    scale = level * rng.uniform(0.1, 0.4, (n, 1))
+    daily = np.sin(2 * np.pi * hours / ELEC_DAY
+                   + rng.uniform(0, 2 * np.pi, (n, 1)))
+    weekly = 0.5 * np.sin(2 * np.pi * hours / ELEC_WEEK
+                          + rng.uniform(0, 2 * np.pi, (n, 1)))
+    noise = 0.2 * rng.standard_normal((n, t))
+    return (level + scale * (daily + weekly + noise)).astype(np.float32)
+
+
+def tcmf_first_step(torch, seed: int, y: np.ndarray) -> dict:
+    """The factorization's first Adam step (one batch of `vbsize` ids)
+    on the card and on the CPU from the same state."""
+    from analytics_zoo_tpu_torch.chronos.forecaster import TCMFForecaster
+    ests = []
+    for device in (None, "cpu"):
+        fc = TCMFForecaster(seed=seed, device=device)
+        fc._prepare({"y": y})
+        ests.append(fc._factorization_estimator())
+    card, cpu = ests
+    cpu.set_params({k: v.detach().cpu()
+                    for k, v in card.get_model().state_dict().items()})
+    data = fc._factorization_data()
+    host = {"features": (data["x"][:fc.vbsize],),
+            "labels": (data["y"][:fc.vbsize],),
+            "mask": np.ones(fc.vbsize, np.float32)}
+    for est in ests:
+        est.engine.train_step(est.engine.put_batch(host))
+    errs = {}
+    for k, v in cpu.get_model().state_dict().items():
+        errs[k] = rel_err(card.get_model().state_dict()[k].cpu().numpy(),
+                          v.numpy())
+        check(errs[k] <= STEP_TOL,
+              f"TCMF's first step: {k} {errs[k]:.3g} off the CPU's")
+    return errs
+
+
+def rest_tcmf(torch, seed: int) -> dict:
+    """(b): TCMF at the electricity set's shape (370 series, 25,968
+    hours) at its defaults (rank 16, lookback 16, TCNs (32, 32) and
+    (16, 16)): the first factorization step against the CPU; a fit of
+    `TCMF_EPOCHS` epochs, each stage's wall; predict(24) global and
+    hybrid on the card and, from the same saved state, on the CPU;
+    fit_incremental on 24 new hours."""
+    import os
+    import tempfile
+    from analytics_zoo_tpu_torch.chronos.forecaster import TCMFForecaster
+    from analytics_zoo_tpu_torch.chronos.forecaster.tcmf_forecaster import (
+        _next_value_windows,
+    )
+    laps = Laps(torch)
+    full = electricity_matrix(seed, t=ELEC_POINTS + TCMF_HORIZON)
+    hist, new = full[:, :ELEC_POINTS], full[:, ELEC_POINTS:]
+    laps("data")
+    out = dict(series=ELEC_SERIES, points=ELEC_POINTS,
+               first_step_rel_err=tcmf_first_step(torch, seed, hist))
+    laps("first_step")
+    fc = TCMFForecaster(seed=seed)
+    # the basis TCN's steps of the first fit, each marked by a CUDA event
+    # as it is queued (phase 21's timing)
+    marks, basis = [], []
+    make = fc._tcn_forecaster
+
+    def marked_tcn(n_in, channels):
+        made = make(n_in, channels)
+        if n_in == 1 and not basis:
+            basis.append(made)
+            eng = made._estimator().engine
+
+            def marked_step(b, step=eng.train_step):
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+                return step(b)
+            eng.train_step = marked_step
+        return made
+
+    fc._tcn_forecaster = marked_tcn
+    walls = {}
+    for name in ("_fit_factorization", "_fit_basis_tcn", "_fit_local"):
+        def timed(*a, _fn=getattr(fc, name), _name=name, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            walls.setdefault(_name, []).append(time.perf_counter() - t1)
+            return r
+        setattr(fc, name, timed)
+    fc.fit({"y": hist}, epochs=TCMF_EPOCHS)
+    laps("fit")
+    del basis[0]._estimator().engine.train_step
+    periods = [p.elapsed_time(q) for p, q in zip(marks, marks[1:])]
+    summary = basis[0]._estimator().train_summary
+    out["basis_fit"] = dict(
+        steps=len(marks), step_ms_p50=statistics.median(periods),
+        epoch_losses=[r["loss"] for r in summary],
+        samples_per_s=summary[-1]["samples_per_s"])
+    check(np.isfinite(fc._X).all() and np.isfinite(fc._F).all(),
+          "TCMF's factorization is not finite")
+    recon = fc._F @ fc._X
+    out["factorization_recon_mse_normalized"] = float(
+        ((recon - fc._yn) ** 2).mean())
+    path = os.path.join(tempfile.mkdtemp(), "tcmf.pkl")
+    fc.save(path)
+    cpu = TCMFForecaster.load(path, device="cpu")
+    laps("save_load_cpu")
+    preds = {}
+    for hybrid in (False, True):
+        fc.hybrid = cpu.hybrid = hybrid
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = fc.predict(horizon=TCMF_HORIZON)
+        wall = time.perf_counter() - t1
+        want = cpu.predict(horizon=TCMF_HORIZON)
+        label = "hybrid" if hybrid else "global"
+        check(got.shape == (ELEC_SERIES, TCMF_HORIZON)
+              and np.isfinite(got).all(), f"TCMF {label} predict {got.shape}")
+        err = rel_err(got, want)
+        check(err <= TCMF_PRED_TOL,
+              f"TCMF {label} predict {err:.3g} off the CPU's")
+        preds[label] = dict(max_rel_err=err, wall_s=wall,
+                            mse=float(((got - new) ** 2).mean()))
+    out["predict"] = preds
+    laps("predicts")
+    out["naive_last_day_mse"] = float(
+        ((hist[:, -TCMF_HORIZON:] - new) ** 2).mean())
+    os.remove(path)
+    # host against card time for a basis step, and the local TCN's busy
+    # share over one refit, on the fitted forecasters
+    xs, ys = _next_value_windows(fc._X, fc._lookback())
+    out["basis_windows"] = len(xs)
+    out["basis_step_profile"] = keras_step_profile(
+        torch, fc._tcn._estimator(), (xs[:256, :, None],),
+        ys[:256, None, None])
+    laps("step_profile")
+    local_x, local_y = fc._local_windows()
+    out["local_epoch_busy"] = busy_share(torch, lambda: fc._local.fit(
+        {"x": local_x, "y": local_y}, epochs=1, batch_size=256), host=False)
+    laps("local_busy")
+    fc.fit_incremental({"y": new})
+    laps("fit_incremental")
+    again = fc.predict(horizon=TCMF_HORIZON)
+    check(fc.T == ELEC_POINTS + TCMF_HORIZON and again.shape ==
+          (ELEC_SERIES, TCMF_HORIZON) and np.isfinite(again).all(),
+          "TCMF fit_incremental did not roll forward")
+    out["stage_walls_s"] = walls
+    out["laps_s"] = dict(laps)
+    return out
+
+
+def rest_host(torch, seed: int, series: np.ndarray) -> dict:
+    """(c): the detectors and the classical legs on the host, beside the
+    card: AEDetector (roll 24, JAX's defaults) trained on the card and
+    re-scored on the CPU from its weights; ThresholdDetector; AutoARIMA
+    through AutoTSEstimator(model="arima"), whose TSPipeline holds the
+    best ARIMAForecaster; AutoXGBRegressor on lagged windows."""
+    import os
+    import tempfile
+    from analytics_zoo_tpu_torch.chronos.autots import (
+        AutoTSEstimator,
+        TSPipeline,
+    )
+    from analytics_zoo_tpu_torch.chronos.detector.anomaly import (
+        AEDetector,
+        ThresholdDetector,
+    )
+    from analytics_zoo_tpu_torch.orca.automl import hp
+    from analytics_zoo_tpu_torch.orca.automl.xgboost import AutoXGBRegressor
+    out = {}
+    t0 = time.perf_counter()
+    det = AEDetector(roll_len=24).fit(series)
+    torch.cuda.synchronize()
+    out["ae_fit_s"] = time.perf_counter() - t0
+    cpu = AEDetector(roll_len=24, device="cpu")
+    flat, win = cpu._windows(series)
+    cpu._est = cpu._estimator(win.shape[1])
+    cpu._est.set_params({k: v.detach().cpu() for k, v in
+                         det._est.get_model().state_dict().items()})
+    cpu._scores = cpu._score(flat, win)
+    check(np.array_equal(det.anomaly_indexes(), cpu.anomaly_indexes()),
+          "AEDetector's anomaly indexes differ from the CPU's on its "
+          "weights")
+    # an epoch more of the card's AE (after its gate), its steps timed,
+    # one synchronized and profiled step, and a profiled epoch
+    est, data = det._est, {"x": win, "y": win}
+    periods = marked_steps(torch, est.engine, lambda: est.fit(
+        data, epochs=1, batch_size=det.batch_size))
+    out["ae"] = dict(anomalies=len(det.anomaly_indexes()),
+                     score_max_rel_err=rel_err(det.score(), cpu.score()),
+                     epochs=det.epochs,
+                     step_ms_p50=statistics.median(periods),
+                     samples_per_s=est.train_summary[-1]["samples_per_s"],
+                     step_profile=keras_step_profile(
+                         torch, est, (win[:det.batch_size],),
+                         win[:det.batch_size]),
+                     epoch_busy_share=busy_share(torch, lambda: est.fit(
+                         data, epochs=1, batch_size=det.batch_size),
+                         host=False)["device_busy_share"])
+    th = ThresholdDetector().set_params(threshold=(-2.0, 2.0)).fit(series)
+    want = np.nonzero(np.abs(series) > 2.0)[0]
+    check(np.array_equal(th.anomaly_indexes(), want),
+          "ThresholdDetector's bounds")
+    out["threshold_anomalies"] = len(want)
+    # the classical legs: a day (48 half hours) held out
+    train, val = series[:-TAXI_DAY], series[-TAXI_DAY:]
+    space = {"p": hp.randint(0, 3), "q": hp.randint(0, 3),
+             "P": hp.randint(0, 2), "Q": hp.randint(0, 2),
+             "seasonal": True, "m": TAXI_DAY}
+    t0 = time.perf_counter()
+    auto = AutoTSEstimator(model="arima", search_space=space)
+    pipe = auto.fit(train, validation_data=val, n_sampling=3)
+    wall = time.perf_counter() - t0
+    preds = pipe.predict(TAXI_DAY)
+    stats = pipe.evaluate(val)
+    check(type(pipe.forecaster).__name__ == "ARIMAForecaster"
+          and preds.shape == (TAXI_DAY,) and np.isfinite(preds).all()
+          and np.array_equal(preds, pipe.forecaster.predict(TAXI_DAY)),
+          "AutoTSEstimator(model='arima') pipeline")
+    check(stats["mse"] < float(np.var(series)),
+          f"the ARIMA pipeline's mse {stats['mse']} is not below var")
+    d = tempfile.mkdtemp()
+    pipe.save(d)
+    check(np.array_equal(TSPipeline.load(d).predict(TAXI_DAY), preds),
+          "the ARIMA pipeline's save -> load")
+    for f in os.listdir(d):
+        os.remove(os.path.join(d, f))
+    os.rmdir(d)
+    arima = pipe.forecaster.model
+    out["auto_arima"] = dict(best_config=auto.get_best_config(),
+                             order=(arima.p, arima.d, arima.q, arima.P,
+                                    arima.D, arima.Q, arima.m),
+                             search_wall_s=wall, val=stats,
+                             seasonal_naive_mse=float(
+                                 ((series[-2 * TAXI_DAY:-TAXI_DAY] - val)
+                                  ** 2).mean()))
+    lags = np.lib.stride_tricks.sliding_window_view(series, XGB_LAGS + 1)
+    x, y = lags[:, :-1], lags[:, -1]
+    cut = int(0.8 * len(x))
+    t0 = time.perf_counter()
+    xgb = AutoXGBRegressor().fit(
+        (x[:cut], y[:cut]), (x[cut:], y[cut:]),
+        search_space={"max_depth": hp.choice([4, 6]),
+                      "learning_rate": hp.choice([0.1, 0.3])},
+        n_sampling=3, epochs=1, rounds_per_epoch=30)
+    wall = time.perf_counter() - t0
+    mse = float(((xgb.predict(x[cut:]) - y[cut:]) ** 2).mean())
+    check(mse < float(np.var(y[cut:])),
+          f"AutoXGBRegressor's mse {mse} is not below var")
+    out["auto_xgboost"] = dict(best_config=xgb.get_best_config(),
+                               val_mse=mse, search_wall_s=wall,
+                               rows=len(x), lags=XGB_LAGS)
+    return out
+
+
+def wwt_like(seed: int, n: int = WWT_SERIES):
+    """(features [n, 550, 1], attributes [n, 3]): log daily page views
+    with a weekly season and a trend per series; the attributes a
+    domain, an access type and an agent index, as the set's."""
+    rng = np.random.default_rng(seed)
+    days = np.arange(WWT_POINTS, dtype=np.float64)[None]
+    attrs = np.stack([rng.integers(0, 9, n), rng.integers(0, 3, n),
+                      rng.integers(0, 2, n)], axis=1).astype(np.float32)
+    level = rng.normal(6.0, 1.5, (n, 1)) + 0.3 * attrs[:, 1:2]
+    weekly = rng.uniform(0.05, 0.4, (n, 1)) * np.sin(
+        2 * np.pi * days / 7 + rng.uniform(0, 2 * np.pi, (n, 1)))
+    trend = rng.normal(0.0, 0.5, (n, 1)) * days / WWT_POINTS
+    noise = 0.2 * rng.standard_normal((n, WWT_POINTS))
+    return ((level + weekly + trend + noise)[..., None].astype(np.float32),
+            attrs)
+
+
+def gan_first_step(torch, seed: int, feats, attrs) -> dict:
+    """One adversarial step on the card and on the CPU from the same
+    weights, the same real batch and the same noise: both losses within
+    `STEP_TOL`, each tensor's gradient and its update within
+    `GAN_GRAD_TOL` of the tensor's largest.  Adam's first update is
+    lr * g / (|g| + eps): where |g| nears eps = 1e-8 it turns a
+    gradient's rounding into a visible share of an update, so the update
+    is held where the CPU's |g| >= `GAN_WELL_SCALED` (there an update
+    moves by under 1e-6 of lr for a gradient 1e-4 off), and its error
+    over every element is reported with the gradient it sat at."""
+    from analytics_zoo_tpu_torch.chronos.simulator import DPGANSimulator
+    sims = []
+    for device in (None, "cpu"):
+        sim = DPGANSimulator(seq_len=WWT_POINTS, feature_dim=1,
+                             attr_dim=WWT_ATTRS, seed=seed, device=device)
+        f01, a01 = sim._scale_fit(feats, attrs)
+        sim._build()
+        sims.append(sim)
+    card, cpu = sims
+    nets = ("generator", "discriminator")
+    for net in nets:
+        getattr(cpu, net).load_state_dict({
+            k: v.cpu() for k, v in getattr(card, net).state_dict().items()})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    z_a, z_s = card.noise(GAN_BATCH, gen)
+    real_a = torch.from_numpy(a01[:GAN_BATCH])
+    real_s = torch.from_numpy(f01[:GAN_BATCH])
+    before = {net: {k: p.detach().clone() for k, p in
+                    getattr(cpu, net).named_parameters()} for net in nets}
+    got = card.gan_step(real_a.cuda(), real_s.cuda(), z_a, z_s)
+    want = cpu.gan_step(real_a, real_s, z_a.cpu(), z_s.cpu())
+    for name in ("d_loss", "g_loss"):
+        err = rel_err(float(got[name]), float(want[name]))
+        check(err <= STEP_TOL, f"the GAN's first {name} {err:.3g} off")
+    worst = dict(grad=0.0, update=0.0, update_all=0.0)
+    for net in nets:
+        card_p = dict(getattr(card, net).named_parameters())
+        for k, p in getattr(cpu, net).named_parameters():
+            g_cpu, g_card = p.grad, card_p[k].grad.cpu()
+            top = float(g_cpu.abs().max())
+            grad = float((g_card - g_cpu).abs().max()) / top if top else \
+                float(g_card.abs().max())
+            d_cpu = p.detach() - before[net][k]
+            diff = (card_p[k].detach().cpu() - before[net][k] - d_cpu).abs()
+            top = float(d_cpu.abs().max()) or 1.0
+            scaled = g_cpu.abs() >= GAN_WELL_SCALED
+            update = float(diff[scaled].max()) / top if scaled.any() else 0.0
+            check(grad <= GAN_GRAD_TOL and update <= GAN_GRAD_TOL,
+                  f"the GAN's first step: {net}.{k} gradient {grad:.3g}, "
+                  f"update {update:.3g} of its largest off the CPU's")
+            worst["grad"] = max(worst["grad"], grad)
+            worst["update"] = max(worst["update"], update)
+            if float(diff.max()) / top > worst["update_all"]:
+                worst.update(update_all=float(diff.max()) / top,
+                             update_all_at=f"{net}.{k}",
+                             update_all_cpu_grad=float(
+                                 g_cpu.flatten()[int(diff.argmax())]))
+    return dict(worst, d_loss=float(got["d_loss"]),
+                cpu_d_loss=float(want["d_loss"]),
+                g_loss=float(got["g_loss"]),
+                cpu_g_loss=float(want["g_loss"]))
+
+
+def rest_gan(torch, seed: int) -> dict:
+    """(d): DPGANSimulator at the WWT set's shape: the first step
+    against the CPU on the same noise; a fit of `GAN_EPOCHS` epochs at
+    batch `GAN_BATCH`, each step timed between CUDA events; generate in
+    the training range; save -> load -> generate bitwise."""
+    import os
+    import tempfile
+    from analytics_zoo_tpu_torch.chronos.simulator import DPGANSimulator
+    feats, attrs = wwt_like(seed)
+    out = dict(series=len(feats), points=WWT_POINTS, attrs=WWT_ATTRS,
+               first_step=gan_first_step(torch, seed, feats, attrs))
+    sim = DPGANSimulator(seq_len=WWT_POINTS, feature_dim=1,
+                         attr_dim=WWT_ATTRS, seed=seed)
+    marks = []
+
+    def marked(*a, step=sim.gan_step):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return step(*a)
+
+    sim.gan_step = marked
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.fit(feats, attrs, epochs=GAN_EPOCHS, batch_size=GAN_BATCH)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del sim.gan_step
+    periods = [a.elapsed_time(b) for a, b in zip(marks[1:], marks[2:])]
+    check(len(sim.loss_history) == GAN_EPOCHS and np.isfinite(
+        [v for h in sim.loss_history for v in h.values()]).all(),
+        f"the GAN's losses {sim.loss_history}")
+    out["fit"] = dict(steps=len(marks) - 1, wall_s=wall,
+                      step_ms_p50=statistics.median(periods),
+                      samples_per_s=GAN_EPOCHS * len(feats) / wall,
+                      losses=list(sim.loss_history))
+    # host wall against card time for a step, on one batch and one noise
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    real_s = torch.from_numpy(feats[:GAN_BATCH]).cuda()
+    real_a = torch.from_numpy(attrs[:GAN_BATCH]).cuda()
+    noise = sim.noise(GAN_BATCH, gen)
+
+    out["step_profile"] = step_profile(
+        torch, lambda: sim.gan_step(real_a, real_s, *noise))
+    g_attrs, g_feats = sim.generate(256, seed=seed)
+    check(g_feats.shape == (256, WWT_POINTS, 1)
+          and g_attrs.shape == (256, WWT_ATTRS)
+          and g_feats.min() >= feats.min() - 1e-4
+          and g_feats.max() <= feats.max() + 1e-4
+          and (g_attrs.min(axis=0) >= attrs.min(axis=0) - 1e-4).all()
+          and (g_attrs.max(axis=0) <= attrs.max(axis=0) + 1e-4).all(),
+          "generated values outside the training range")
+    path = os.path.join(tempfile.mkdtemp(), "dpgan.pkl")
+    with deterministic(torch):
+        before = sim.generate(64, seed=seed + 1)
+        sim.save(path)
+        after = DPGANSimulator.load(path).generate(64, seed=seed + 1)
+    check(np.array_equal(before[0], after[0])
+          and np.array_equal(before[1], after[1]),
+          "DPGANSimulator save -> load -> generate is not bitwise")
+    os.remove(path)
+    out["epoch_busy"] = busy_share(torch, lambda: sim.fit(
+        feats, attrs, epochs=1, batch_size=GAN_BATCH), host=False)
+    out["generated_std_over_real_std"] = float(
+        g_feats.std(axis=1).mean() / feats.std(axis=1).mean())
+    return out
+
+
+def phase_chronos_rest(torch, seed: int, card: str) -> dict:
+    """Phase 22: the rest of Chronos and AutoML, parts (a)-(d); no
+    kernel of ours is launched from its start to its end."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    series = taxi_series(seed)
+    out, part_s = {}, {}
+    for part, fn in (("a", lambda: rest_mtnet(torch, seed, series)),
+                     ("b", lambda: rest_tcmf(torch, seed)),
+                     ("c", lambda: rest_host(torch, seed, series)),
+                     ("d", lambda: rest_gan(torch, seed))):
+        t1 = time.perf_counter()
+        out[part] = fn()
+        part_s[part] = time.perf_counter() - t1
+        print(f"phase 22 ({part}) in {part_s[part]:.1f} s [{card}]: "
+              + json.dumps(out[part], default=str)[:4000], flush=True)
+    out["part_seconds"] = part_s
+    counts = kernels.launch_counts()
+    check(not any(counts.values()),
+          f"phase 22 launched a kernel of ours: {counts}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    a, b, d = out["a"], out["b"], out["d"]
+    print("chronos_rest " + json.dumps(dict(
+        card=card, seconds=out["seconds"], part_seconds=part_s,
+        mtnet={k: a[k] for k in (
+            "windows", "predict_max_rel_err",
+            "memory_attention_row_sum_err", "first_step", "fit",
+            "step_profile", "params", "laps_s")}
+        | {"epoch_busy_share": a["epoch_busy"]["device_busy_share"]},
+        tcmf={k: b[k] for k in (
+            "series", "points", "first_step_rel_err", "laps_s",
+            "stage_walls_s", "factorization_recon_mse_normalized",
+            "predict", "naive_last_day_mse", "basis_windows", "basis_fit",
+            "basis_step_profile")}
+        | {"local_epoch_busy_share":
+           b["local_epoch_busy"]["device_busy_share"]},
+        host=out["c"],
+        dpgan={k: d[k] for k in ("series", "points", "attrs", "first_step",
+                                 "fit", "step_profile",
+                                 "generated_std_over_real_std")}
+        | {"epoch_busy_share": d["epoch_busy"]["device_busy_share"],
+           "cut": f"{WWT_SERIES} series of WWT's shape, "
+                  f"{GAN_EPOCHS} epochs at batch {GAN_BATCH}"},
+        left_out=REST_LEFT_OUT, launches=counts)), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -7917,6 +8560,8 @@ def main(argv=None) -> int:
     clocks("after phase 20", start)
     chronos = phase_chronos(torch, args.seed, card)
     clocks("after phase 21", start)
+    chronos_rest = phase_chronos_rest(torch, args.seed, card)
+    clocks("after phase 22", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -8093,6 +8738,9 @@ def main(argv=None) -> int:
         # nor anywhere in phase 21 (checked there: all 0)
         k["launches_by_path"]["chronos_autots"] = \
             chronos["launches"][k["name"]]
+        # nor anywhere in phase 22 (checked there: all 0)
+        k["launches_by_path"]["chronos_rest"] = \
+            chronos_rest["launches"][k["name"]]
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     print(json.dumps({"card": card, "slice": runs,
                       "generation_breadth": gen_breadth, "bert": bert_runs,
@@ -8102,11 +8750,13 @@ def main(argv=None) -> int:
                       "int8_serving": int8, "image_zoo": zoo,
                       "zoo_rest": zoo_rest, "keras": keras,
                       "importers": importers,
-                      "chronos": chronos,
+                      "chronos": chronos, "chronos_rest": chronos_rest,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,
                       "threads": threads}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

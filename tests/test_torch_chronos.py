@@ -5,7 +5,8 @@ predictions within 1e-5 x max(1, |JAX|) and the first step's
 gradients, with dropout 0, within 1e-4 of each tensor's largest;
 save / load; `AutoTSEstimator`'s trial configs and its `TSPipeline`;
 and the import path with no pandas.  One JAX program a forecaster
-gives its predictions, loss and gradients."""
+gives its predictions, loss and gradients.  The tests run at one torch
+thread (`one_torch_thread`, `_torch_chronos_cases.py`)."""
 
 import os
 import pickle
@@ -21,6 +22,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_chronos_cases import one_torch_thread  # noqa: F401
 from analytics_zoo_tpu.chronos.autots import autotsestimator as jax_autots
 from analytics_zoo_tpu.chronos.autots import AutoTSEstimator as JaxAutoTS
 from analytics_zoo_tpu.chronos.data import TSDataset as JaxTSDataset
@@ -362,13 +364,23 @@ def test_tsdataset_input_and_the_roll_cache():
 
 
 def test_xshards_input_and_no_card_refused(monkeypatch):
-    class XShardsTSDataset:
-        pass
-
-    fc = _port("tcn")
-    for call in (fc.fit, fc.predict, fc.evaluate):
-        with pytest.raises(NotImplementedError, match="XShardsTSDataset"):
-            call(XShardsTSDataset())
+    """An XShardsTSDataset streams into fit / evaluate / predict (it
+    was refused before the rest of Chronos was ported); without a card
+    the forecasters and AutoTS refuse to start."""
+    from analytics_zoo_tpu_torch.chronos.data.experimental import (
+        XShardsTSDataset,
+    )
+    df = _series_df(40, ids=["a", "b"]).drop(columns="extra")
+    ds = XShardsTSDataset.from_pandas(df, dt_col="ts", target_col="value",
+                                      id_col="id", num_shards=2)
+    ds.roll(6, 1)
+    fc = port_fc.TCNForecaster(past_seq_len=10, future_seq_len=2,
+                               num_channels=[4], device="cpu")
+    fc.fit(ds, epochs=1, batch_size=16)
+    assert set(fc.evaluate(ds)) == {"loss", "mse"}
+    assert fc.predict(ds).shape == (2 * (40 - 10 + 1), 2, 1)
+    # the forecaster's rolls leave the caller's as it was
+    assert (ds.lookback, ds.horizon) == (6, 1)
     with pytest.raises(ValueError, match="requires targets"):
         fc.fit((np.zeros((2, 10, 2), np.float32), None))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -395,9 +407,10 @@ def test_default_space_equals_jax(model):
     r1, r2 = random.Random(4), random.Random(4)
     assert [hp.sample_config(got, r1) for _ in range(20)] == \
         [jax_hp.sample_config(want, r2) for _ in range(20)]
-    if model in ("arima", "prophet"):
-        with pytest.raises(NotImplementedError, match="next Chronos slice"):
-            AutoTSEstimator(model=model, device="cpu")
+    # the classical legs take their default spaces too (they were
+    # refused before their forecasters were ported)
+    assert AutoTSEstimator(model=model, device="cpu").search_space.keys() \
+        == want.keys()
 
 
 def test_autots_trial_configs_equal_jax_and_the_pipeline_round_trips(
@@ -473,12 +486,23 @@ import sys
 sys.modules["pandas"] = None        # any import of pandas now fails
 sys.modules["sklearn"] = None
 import numpy as np
+import torch
+torch.set_num_threads(1)
 from analytics_zoo_tpu_torch.chronos.forecaster import (
-    LSTMForecaster, Seq2SeqForecaster, TCNForecaster)
+    ARIMAForecaster, LSTMForecaster, MTNetForecaster, ProphetForecaster,
+    Seq2SeqForecaster, TCMFForecaster, TCNForecaster)
 from analytics_zoo_tpu_torch.chronos.autots import (
     AutoTSEstimator, TSPipeline)
+from analytics_zoo_tpu_torch.chronos.autots.model import AutoARIMA
+from analytics_zoo_tpu_torch.chronos.detector.anomaly import (
+    AEDetector, DBScanDetector, ThresholdDetector)
+from analytics_zoo_tpu_torch.chronos.simulator import DPGANSimulator
 from analytics_zoo_tpu_torch.orca.automl import AutoEstimator, hp
+from analytics_zoo_tpu_torch.orca.automl.gbdt import (
+    GBDTRegressor, xgboost_backend)
+from analytics_zoo_tpu_torch.orca.automl.xgboost import AutoXGBRegressor
 from analytics_zoo_tpu_torch.chronos import data
+from analytics_zoo_tpu_torch.chronos.data import experimental
 rng = np.random.default_rng(0)
 series = np.sin(np.arange(200) / 6).astype(np.float32)
 idx = np.arange(24)[None] + np.arange(176)[:, None]
@@ -491,6 +515,38 @@ pipe = AutoTSEstimator(model="tcn", past_seq_len=24, device="cpu",
                                      "lr": hp.choice([1e-2, 5e-3])}).fit(
     (x, y), epochs=1, n_sampling=2)
 assert isinstance(pipe, TSPipeline)
+# the rest of Chronos and AutoML, Prophet, DBSCAN and XShards aside
+mt = MTNetForecaster(long_series_num=2, series_length=8, cnn_hid_size=4,
+                     rnn_hid_size=4, device="cpu").fit((x, y), epochs=1)
+assert mt.predict((x, None)).shape == (176, 1, 1)
+tcmf = TCMFForecaster(rank=2, tcn_lookback=6, num_channels_X=(4,),
+                      num_channels_Y=(4,), device="cpu").fit(
+    {"y": np.stack([series, np.cos(np.arange(200) / 5)])[:, :60]},
+    epochs=2)
+assert tcmf.predict(horizon=3).shape == (2, 3)
+taxi = 100 + 10 * np.sin(2 * np.pi * np.arange(200) / 7) \
+    + rng.normal(size=200)
+assert ARIMAForecaster(p=1, q=1, m=7).fit(taxi[:-14], taxi[-14:])["mse"] > 0
+best = AutoARIMA(m=7).fit(taxi[:-14], taxi[-14:], n_sampling=2)
+assert best.get_best_model().predict(14).shape == (14,)
+arima = AutoTSEstimator(model="arima", device="cpu").fit(
+    taxi[:-14], validation_data=taxi[-14:], n_sampling=2)
+assert set(arima.evaluate(taxi[-14:])) == {"mse", "mae"}
+lags = np.stack([taxi[i:i + 176] for i in range(24)], axis=1)
+xgb = AutoXGBRegressor().fit((lags, taxi[24:]), search_space={
+    "max_depth": hp.choice([2, 3])}, n_sampling=2, rounds_per_epoch=5)
+assert xgboost_backend().GBDTRegressor is GBDTRegressor
+assert xgb.predict(lags).shape == (176,)
+spiky = series.copy()
+spiky[100] = 8.0
+assert 100 in ThresholdDetector().set_params(threshold=(-2, 2)).fit(
+    spiky).anomaly_indexes()
+ae = AEDetector(roll_len=10, epochs=1, device="cpu").fit(spiky)
+assert ae.score().shape == (200,)
+sim = DPGANSimulator(seq_len=24, feature_dim=1, noise_dim=4, hidden=8,
+                     device="cpu").fit(x, epochs=1, batch_size=64)
+assert sim.generate(4)[1].shape == (4, 24, 1)
+assert ProphetForecaster()._state is None
 print("OK", sys.modules["pandas"], sys.modules["sklearn"])
 """
 
@@ -498,8 +554,12 @@ print("OK", sys.modules["pandas"], sys.modules["sklearn"])
 def test_chronos_runs_without_pandas():
     """A fresh interpreter where `import pandas` (and sklearn) fails:
     the forecasters, AutoTS and the search engine import, and a TCN and
-    a TCN search fit on numpy windows on the CPU."""
+    a TCN search fit on numpy windows on the CPU; so do MTNet, TCMF,
+    ARIMA with AutoARIMA and AutoTS's ARIMA leg, AutoXGBoost's GBDT,
+    the threshold and AE detectors and the simulator (Prophet, DBSCAN
+    and XShardsTSDataset import, and need pandas or sklearn to run)."""
     out = subprocess.run([sys.executable, "-c", _NO_PANDAS], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "OK None None"
