@@ -38,6 +38,11 @@ the part of JAX's that the ported paths read:
     critical path after one device-to-host snapshot;
   * `fault_plan` (None): the armed fault-injection plan
     (`resilience/faults.py`);
+  * the observability planes' settings (`observability/`), with JAX's
+    defaults and checks (context.py:57-87): `observability_dir` (None),
+    `goodput_sample_every` (16), `watchdog_deadline_s` (None),
+    `nonfinite_watchdog` (False), `memory_sample_interval_s` (1.0),
+    `hardware_peak_flops` (None) and `request_log_size` (256);
   * the generation engine's defaults, read where its arguments are
     "auto": `kv_cache_quantization` (None or "int8"), `prefix_caching`
     (False), `chunked_prefill` (False), `speculative_decoding` (False),
@@ -73,6 +78,13 @@ class OrcaContextMeta(type):
     _speculative_decoding = False
     _speculative_k = 4
     _kv_host_tier_bytes = 0
+    _observability_dir = None
+    _goodput_sample_every = 16
+    _watchdog_deadline_s = None
+    _nonfinite_watchdog = False
+    _memory_sample_interval_s = 1.0
+    _hardware_peak_flops = None
+    _request_log_size = 256
 
     # --- runtime state ---
     _device = None
@@ -307,6 +319,111 @@ class OrcaContextMeta(type):
         if value < 0:
             raise ValueError("kv_host_tier_bytes must be >= 0 (0 = off)")
         cls._kv_host_tier_bytes = value
+
+    @property
+    def observability_dir(cls):
+        """Directory of the structured-event sink: `log_event` and
+        completed spans append to `<dir>/events.jsonl`, and flight
+        bundles land here.  None (default) disables the sink; the
+        in-memory metrics, spans and rings work regardless."""
+        return cls._observability_dir
+
+    @observability_dir.setter
+    def observability_dir(cls, value):
+        cls._observability_dir = None if value is None else str(value)
+
+    @property
+    def goodput_sample_every(cls):
+        """Fence cadence of the goodput `StepClock`s
+        (`observability/goodput.py`): every Nth step is closed with a
+        fence (`torch.cuda.synchronize` on the card) so its wall time
+        splits exactly into compile / host-input / device-compute /
+        blocked-collective / checkpoint / overhead.  Default 16; 1
+        fences every step."""
+        return cls._goodput_sample_every
+
+    @goodput_sample_every.setter
+    def goodput_sample_every(cls, value):
+        if int(value) < 1:
+            raise ValueError("goodput_sample_every must be >= 1")
+        cls._goodput_sample_every = int(value)
+
+    @property
+    def watchdog_deadline_s(cls):
+        """Stall-watchdog deadline in seconds (None = off, the
+        default).  When set, `Estimator.fit` and the generation engine
+        arm a `Watchdog`: no step or round for this long increments
+        `watchdog_stall_total` and writes a flight bundle to
+        `observability_dir`.  Size it above the slowest step, the
+        kernels' first build included."""
+        return cls._watchdog_deadline_s
+
+    @watchdog_deadline_s.setter
+    def watchdog_deadline_s(cls, value):
+        if value is not None and float(value) <= 0:
+            raise ValueError("watchdog_deadline_s must be > 0 or None")
+        cls._watchdog_deadline_s = (None if value is None
+                                    else float(value))
+
+    @property
+    def nonfinite_watchdog(cls):
+        """Opt-in nonfinite sentinel (default False).  The train step
+        always computes its `_nan_steps` stat on the device; with the
+        sentinel on the host reads it every step (a sync with the card:
+        that is its cost) and, on a non-finite step, recomputes the
+        batch from the kept pre-step state, names the first nonfinite
+        tensors (`observability.localize_nonfinite`) and writes a
+        flight bundle.  Off, the step's launches are unchanged."""
+        return cls._nonfinite_watchdog
+
+    @nonfinite_watchdog.setter
+    def nonfinite_watchdog(cls, value):
+        cls._nonfinite_watchdog = bool(value)
+
+    @property
+    def memory_sample_interval_s(cls):
+        """Least seconds between memory samples (`observability/
+        memory.py`: host RSS, the card's allocated and reserved bytes,
+        the registered pools), taken from fenced goodput steps.  None
+        disables those samples (forced ones still work)."""
+        return cls._memory_sample_interval_s
+
+    @memory_sample_interval_s.setter
+    def memory_sample_interval_s(cls, value):
+        if value is not None and float(value) < 0:
+            raise ValueError(
+                "memory_sample_interval_s must be >= 0 or None")
+        cls._memory_sample_interval_s = (None if value is None
+                                         else float(value))
+
+    @property
+    def hardware_peak_flops(cls):
+        """The peak FLOP/s the dispatch ledger's MFU divides by
+        (`observability/profiling.py`).  None (default) falls back to
+        `profiling.DEFAULT_PEAK_FLOPS` (1 TFLOP/s, a placeholder that
+        keeps CPU numbers comparable); set the card's dense peak (an
+        H100 SXM: 989e12 in bf16) for a meaningful ratio."""
+        return cls._hardware_peak_flops
+
+    @hardware_peak_flops.setter
+    def hardware_peak_flops(cls, value):
+        if value is not None and float(value) <= 0:
+            raise ValueError("hardware_peak_flops must be > 0 or None")
+        cls._hardware_peak_flops = (None if value is None
+                                    else float(value))
+
+    @property
+    def request_log_size(cls):
+        """Capacity of the request lifecycle log's ring of finished
+        records (`observability/request_log.py`), read when the process
+        log is made (`reset_request_log()` reads it again)."""
+        return cls._request_log_size
+
+    @request_log_size.setter
+    def request_log_size(cls, value):
+        if int(value) < 1:
+            raise ValueError("request_log_size must be >= 1")
+        cls._request_log_size = int(value)
 
 
 class OrcaContext(metaclass=OrcaContextMeta):

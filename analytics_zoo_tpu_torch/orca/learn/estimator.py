@@ -54,8 +54,20 @@ never retried, and without `model_dir` a failure is raised.
 `set_tensorboard` writes both summaries as TensorBoard event files.
 `profile=True` keeps each step's host wall time in `profile_stats`, and
 `profiler_dir` captures a `torch.profiler` trace of the fit there
-(where JAX uses `jax.profiler`).  The watchdog, the flight recorder,
-the goodput clocks and the trace spans are not ported.
+(where JAX uses `jax.profiler`).
+
+Observability, as JAX's (estimator.py:278-345, :354-414, :562-573):
+`fit` arms the flight recorder (`install(signals=False)`: a library
+call leaves the process's signal handlers alone) and, with
+`OrcaContext.watchdog_deadline_s`, a stall watchdog the engine beats
+each step; it runs in an `estimator.fit` span, each epoch in an
+`estimator.epoch` span over the engine's `spmd.step` spans, and logs
+`train_epoch` and `validation_epoch` events (to
+`OrcaContext.observability_dir/events.jsonl` when set) and a
+`fit_retry` event and flight record on each retry.  A fit that fails
+for good writes a `fit_exception` bundle before the exception escapes.
+`evaluate` and `predict` run in `estimator.evaluate` and
+`estimator.predict` spans.
 """
 
 from __future__ import annotations
@@ -70,6 +82,14 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from analytics_zoo_tpu_torch.common.context import OrcaContext
+from analytics_zoo_tpu_torch.observability import (
+    annotate,
+    flight_recorder,
+    log_event,
+    maybe_watchdog,
+    now,
+    trace,
+)
 from analytics_zoo_tpu_torch.orca.learn import checkpoint as ckpt_mod
 from analytics_zoo_tpu_torch.orca.learn import losses as losses_mod
 from analytics_zoo_tpu_torch.orca.learn import metrics as metrics_mod
@@ -267,34 +287,71 @@ class Estimator:
             name="estimator_fit")
         failures = 0
         pending_restore = False
+        # the flight recorder is armed for the whole fit; a fit-fatal
+        # exception below also writes a bundle itself, so the evidence
+        # lands when a caller catches the exception (the excepthook
+        # sees only unhandled ones).  Signal handlers are left to
+        # servers and launch scripts: a library call must not take the
+        # process's SIGTERM.
+        flight_recorder.install(signals=False)
+        # the stall watchdog (OrcaContext.watchdog_deadline_s), beaten
+        # by the engine once a step
+        wd = maybe_watchdog("estimator_fit")
+        if wd is not None:
+            self._engine.watchdog = wd
+            wd.arm()
         try:
-            while self._epoch < target_epoch:
-                try:
-                    if pending_restore:
-                        # inside the try: a still-broken checkpoint or
-                        # data source consumes retry budget
-                        self._restore_latest(start_epoch, target_epoch)
-                        pending_restore = False
-                    self._fit_one_epoch(ds, val_ds, batch_size, trigger,
-                                        shuffle, nan_policy, profile, dds)
-                except (NaNLossError, KeyboardInterrupt):
-                    raise
-                except Exception as e:
-                    failures += 1
-                    if failures > budget or not self.model_dir:
+            with trace("estimator.fit", epochs=epochs,
+                       batch_size=batch_size):
+                while self._epoch < target_epoch:
+                    try:
+                        if pending_restore:
+                            # inside the try: a still-broken checkpoint
+                            # or data source consumes retry budget
+                            self._restore_latest(start_epoch,
+                                                 target_epoch)
+                            pending_restore = False
+                        self._fit_one_epoch(ds, val_ds, batch_size,
+                                            trigger, shuffle, nan_policy,
+                                            profile, dds)
+                    except (NaNLossError, KeyboardInterrupt):
                         raise
-                    self.retries += 1
-                    retry_policy.record_retry(e)
-                    logger.warning(
-                        "training failed (%s: %s); restoring the latest "
-                        "checkpoint and retrying (%d retries left)",
-                        type(e).__name__, e, budget - failures)
-                    time.sleep(retry_policy.backoff(failures))
-                    pending_restore = True
+                    except Exception as e:
+                        failures += 1
+                        if failures > budget or not self.model_dir:
+                            raise
+                        self.retries += 1
+                        retry_policy.record_retry(e)
+                        flight_recorder.record(
+                            "fit_retry",
+                            error=f"{type(e).__name__}: {e}",
+                            retries_left=budget - failures)
+                        log_event("fit_retry",
+                                  error=f"{type(e).__name__}: {e}",
+                                  retries_left=budget - failures)
+                        logger.warning(
+                            "training failed (%s: %s); restoring the "
+                            "latest checkpoint and retrying (%d retries "
+                            "left)", type(e).__name__, e,
+                            budget - failures)
+                        time.sleep(retry_policy.backoff(failures))
+                        pending_restore = True
+        except KeyboardInterrupt:
+            raise
+        except BaseException as e:
+            # the fit is over (retries spent, or not retryable): leave
+            # the post-mortem bundle before the exception escapes
+            flight_recorder.dump(
+                "fit_exception", exc=e,
+                extra={"epoch": self._epoch, "retries": self.retries})
+            raise
         finally:
             # after fit returns (or raises) every triggered save is
             # durable; a failed write was logged by the writer
             drain_background(raise_on_error=False)
+            if wd is not None:
+                wd.stop()
+                self._engine.watchdog = None
         return self
 
     def _fit_profiled(self, profiler_dir: str, data, **kwargs):
@@ -315,6 +372,15 @@ class Estimator:
 
     def _fit_one_epoch(self, ds, val_ds, batch_size, trigger, shuffle,
                        nan_policy, profile=False, dds=None):
+        # the epoch span parents the engine's spmd.step spans (same
+        # thread): fit -> epoch -> step
+        with trace("estimator.epoch", epoch=self._epoch,
+                   step_start=self._engine.host_step):
+            self._fit_one_epoch_inner(ds, val_ds, batch_size, trigger,
+                                      shuffle, nan_policy, profile, dds)
+
+    def _fit_one_epoch_inner(self, ds, val_ds, batch_size, trigger,
+                             shuffle, nan_policy, profile=False, dds=None):
         eng = self._engine
 
         def on_step(step):
@@ -324,7 +390,7 @@ class Estimator:
                     epoch=self._epoch, step=step, epoch_end=False):
                 self.save_checkpoint(step=step)
 
-        t0 = time.perf_counter()
+        t0 = now()
         if dds is not None:
             stats = eng.run_epoch_device(dds, train=True, shuffle=shuffle,
                                          seed=self._seed, epoch=self._epoch,
@@ -340,16 +406,21 @@ class Estimator:
         if trigger is not None and hasattr(trigger, "last_loss"):
             trigger.last_loss = stats.get("loss")
         step = eng.host_step
-        wall = time.perf_counter() - t0
+        wall = now() - t0
         stats.update(epoch=self._epoch, step=step, wall_s=wall,
                      samples_per_s=ds.n / max(wall, 1e-9))
         self.train_summary.append(stats)
         self._tb_log("train", stats, step)
+        # the same epoch stats TensorBoard gets, as span attrs and a
+        # machine-readable event
+        annotate(step=step, loss=stats.get("loss"))
+        log_event("train_epoch", **stats)
         if val_ds is not None:
             vstats = eng.run_epoch(val_ds.batches(batch_size), train=False)
             vstats.update(epoch=self._epoch, step=step)
             self.val_summary.append(vstats)
             self._tb_log("validation", vstats, step)
+            log_event("validation_epoch", **vstats)
         nan_msg = None
         if stats.get("nan_steps"):
             nan_msg = (f"{int(stats['nan_steps'])} training step(s) in epoch "
@@ -462,7 +533,9 @@ class Estimator:
                 "evaluate requires labels: pass {'x': ..., 'y': ...}, an "
                 "(x, y) tuple, or label_cols for DataFrame input")
         self._ensure_engine(ds, batch_size)
-        return self._engine.run_epoch(ds.batches(batch_size), train=False)
+        with trace("estimator.evaluate", n=ds.n, batch_size=batch_size):
+            return self._engine.run_epoch(ds.batches(batch_size),
+                                          train=False)
 
     def predict(self, data, batch_size: int = 32, feature_cols=None):
         """Stacked predictions (numpy, or a tuple of them), padding rows
@@ -470,7 +543,8 @@ class Estimator:
         included)."""
         ds = HostDataset.from_data(data, feature_cols, None)
         self._ensure_engine(ds, batch_size)
-        outs = self._engine.predict_all(ds.batches(batch_size))
+        with trace("estimator.predict", n=ds.n, batch_size=batch_size):
+            outs = self._engine.predict_all(ds.batches(batch_size))
         if not outs:
             return None
         if isinstance(outs[0], (tuple, list)):

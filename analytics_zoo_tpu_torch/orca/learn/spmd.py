@@ -53,21 +53,60 @@ optimizer's state dicts (the fused optimizer's device `step` tensors
 included), the schedule's step count, the dropout generator's state
 and `step`.  `profile=True` fences every step and keeps its host wall
 time (and the schedule's learning rate) in `last_profile`.
+
+Observability (JAX spmd.py:206-240, :680-762): each step runs in an
+`spmd.step` span and a goodput step record of the `spmd_train` /
+`spmd_eval` clock (laps `host_input`, `compile` on this engine's first
+dispatch of a signature, `device_compute` for the wait at a fence after
+the dispatch returned, on the sampled steps), and goes through the
+dispatch ledger's `train_step` / `eval_step` family, which counts its
+signatures; fenced steps report their wall and `6·P` (train) / `2·P`
+(eval) FLOPs per row to the ledger.  The engine's first dispatch of a
+step signature (its wrapper's `last_call_new`; predict's forward has a
+wrapper with no ledger family) is where the kernels' first launch
+builds them on the card: its span carries `jit_cold` and its duration
+goes to the `torch_first_dispatch_seconds` histogram (JAX's
+`jax_jit_compile_seconds`).  Every step leaves an `spmd_step` flight
+record and beats the `watchdog` an owner (`Estimator.fit`) assigns.
+With `OrcaContext.nonfinite_watchdog` the host reads each step's
+`_nan_steps` (one sync a step) and, on a skipped step, recomputes the
+batch's forward, loss and gradients from the kept pre-step state (the
+parameters the skipped update left, the dropout generator's state from
+before the step), names the nonfinite tensors in the order parameters
+-> predictions -> per-example loss -> loss -> gradients, and writes a
+`nonfinite_step` event and bundle.  The DEVICE store's epoch is a loop
+of steps here, so it emits these per-step spans and records too; JAX's
+one-dispatch epoch scan emits one `spmd.epoch_scan` span instead.
 """
 
 from __future__ import annotations
 
 import inspect
-import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from analytics_zoo_tpu_torch.common.context import OrcaContext
+from analytics_zoo_tpu_torch.observability import (
+    RENAMED_FROM_JAX,
+    annotate,
+    flight_recorder,
+    get_registry,
+    localize_nonfinite,
+    log_event,
+    now,
+    profiling,
+    step_clock,
+    trace,
+)
 from analytics_zoo_tpu_torch.orca.learn.optimizers import Optimizer
 from analytics_zoo_tpu_torch.resilience.faults import fault_point
+
+#: the histogram of a step signature's first dispatch
+FIRST_DISPATCH_SECONDS = RENAMED_FROM_JAX["jax_jit_compile_seconds"]
 
 
 def masked_mean(values, mask):
@@ -331,6 +370,26 @@ class TrainEngine:
         self.last_steps: List[Dict[str, float]] = []
         #: per-step host wall times of the last profiled loop
         self.last_profile: List[Dict[str, float]] = []
+        self.param_count = sum(p.numel() for p in model.parameters())
+        #: goodput step clocks (observability/goodput.py)
+        self._clock_train = step_clock("spmd_train")
+        self._clock_eval = step_clock("spmd_eval")
+        #: the stall watchdog an owner (Estimator.fit) assigns; the step
+        #: loops beat it once a step
+        self.watchdog = None
+        # the dispatch ledger's step families; the lambdas read the
+        # methods at call time, so a wrapper assigned to the instance's
+        # `train_step` is the one the ledger calls
+        self._train_step = profiling.instrument(
+            "train_step", lambda batch: self.train_step(batch),
+            argnames=("batch",))
+        self._eval_step = profiling.instrument(
+            "eval_step", lambda batch: self.eval_step(batch),
+            argnames=("batch",))
+        # predict's forward: no ledger family (as in JAX), only the
+        # wrapper's first-dispatch flag
+        self._predict_step = profiling.instrument(
+            None, lambda features: self._forward(features, False))
 
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         def put(a):
@@ -357,10 +416,11 @@ class TrainEngine:
             return self.loss_fn(preds, labels, mask=mask)
         return self.loss_fn(preds, labels)
 
-    def _forward(self, features, training: bool):
+    def _forward(self, features, training: bool, generator=None):
         self.model.train(training)
         if training and self._takes_generator:
-            return self.model(*features, generator=self.generator)
+            return self.model(*features,
+                              generator=generator or self.generator)
         return self.model(*features)
 
     def _split_aux(self, preds, mask=None):
@@ -503,48 +563,77 @@ class TrainEngine:
                     "labels": tuple(a[i] for a in data["labels"]),
                     "mask": data["mask"][i]} for i in range(dds.steps))
         return self._run(_HostPrefetcher(lambda b: b, batches, 0), train,
-                         on_step, profile)
+                         on_step, profile,
+                         kind="train_cached" if train else "eval_cached")
 
     def _fence(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _run(self, pre: _HostPrefetcher, train: bool, on_step=None,
-             profile: bool = False) -> Dict[str, float]:
+             profile: bool = False, kind: str = "") -> Dict[str, float]:
+        annotate(mesh={"dp": 1})
+        kind = kind or ("train" if train else "eval")
         keys, rows = None, []
         # the loop-local step, committed to host_step at the end
-        step = self.host_step
+        step = self.host_step if train else 0
         profiled = []
+        clock = self._clock_train if train else self._clock_eval
+        step_fn = self._train_step if train else self._eval_step
+        sentinel = train and OrcaContext.nonfinite_watchdog
         while True:
+            rec = clock.begin(force_fence=profile or sentinel)
             # with prefetch a batch staged during the previous step; at
             # depth 0 it is staged here, inside this step
             batch = pre.pop()
             if batch is None:
                 break
+            rec.lap("host_input")
             if train:
                 fault_point("train.step", step=step + 1)
             if profile:
                 self._fence()
-                t0 = time.perf_counter()
-            stats = self.train_step(batch) if train else \
-                self.eval_step(batch)
+            # the dropout draws of this step, kept for the sentinel's
+            # recompute (a host copy of the generator's seed and offset)
+            gen_state = self.generator.get_state() if sentinel else None
+            t0 = now()
+            with self._step_span(step + 1 if train else step,
+                                 train) as sp:
+                stats = step_fn(batch)
+                rec.cold = step_fn.last_call_new
+                if rec.cold:
+                    sp.attrs["jit_cold"] = True
+            rec.lap("compile" if rec.cold else None)
             if pre.depth > 0:
                 # double buffering: stage the next batch while this
                 # step runs on the card
                 pre.stage(1)
             if train:
                 step += 1
-            if profile:
+            if rec.fenced:
                 self._fence()
-                row = {"step": step,
-                       "step_time_s": time.perf_counter() - t0}
+                rec.lap("device_compute")
+                bsz = _batch_rows(batch)
+                profiling.record_work(
+                    "train_step" if train else "eval_step",
+                    now() - t0, tokens=bsz,
+                    flops=profiling.train_step_flops(
+                        self.param_count, bsz, train))
+            if profile:
+                row = {"step": step, "step_time_s": now() - t0}
                 if train and self.schedule is not None:
                     row["lr"] = float(self.schedule.lr)
                 profiled.append(row)
+            if sentinel:
+                self._sentinel_check(stats, batch, step, gen_state)
             keys = list(stats)
             rows.append(torch.stack([stats[k].float() for k in keys]))
+            flight_recorder.record("spmd_step", loop=kind, step=step)
+            if self.watchdog is not None:
+                self.watchdog.beat()
             if train and on_step is not None:
                 on_step(step)
+            rec.end()
         if train:
             self.host_step = step
         self.last_profile = profiled
@@ -558,6 +647,90 @@ class TrainEngine:
             for k, v in step.items():
                 totals[k] += v if k.startswith("_") else v * step["_count"]
         return _finalize(totals)
+
+    @contextmanager
+    def _step_span(self, step: int, train: bool):
+        """Span around one step's dispatch.  The caller marks the span
+        `jit_cold` on a signature's first dispatch, whose duration then
+        goes to the first-dispatch histogram; other dispatches return
+        before the card finishes, so their spans time the dispatch."""
+        with trace("spmd.step", step=step, train=train) as sp:
+            yield sp
+        if sp.attrs.get("jit_cold"):
+            get_registry().histogram(
+                FIRST_DISPATCH_SECONDS,
+                help="wall time of a step signature's first dispatch "
+                     "(the kernels' first launch builds them)",
+            ).record(sp.duration_s)
+
+    # ------------------------------------------------------------------
+    # nonfinite sentinel (opt-in: OrcaContext.nonfinite_watchdog)
+    # ------------------------------------------------------------------
+
+    def _sentinel_check(self, stats, batch, step: int, gen_state) -> None:
+        """Read the step's `_nan_steps` (the host read is the sentinel's
+        only cost on a finite step) and, on a trip, localize, record and
+        dump.  One bundle per offending step."""
+        if float(stats["_nan_steps"]) == 0.0:
+            return
+        found = self.localize_step_nonfinite(batch, gen_state)
+        get_registry().counter(
+            "nonfinite_steps_total",
+            help="training steps the nonfinite sentinel tripped on"
+        ).inc()
+        paths = [f["path"] for f in found]
+        flight_recorder.record("nonfinite_step", step=step,
+                               leaves=paths)
+        log_event("nonfinite_step", step=step, leaves=found)
+        flight_recorder.dump("nonfinite_step",
+                             extra={"step": step, "leaves": found})
+
+    def localize_step_nonfinite(self, batch, gen_state=None
+                                ) -> List[Dict[str, Any]]:
+        """Recompute the forward, loss and gradients of `batch` from the
+        current state (a skipped step left the parameters as they were
+        before it) with the dropout generator at `gen_state` (the state
+        before the step; None: the current one), and name the nonfinite
+        tensors in order across params -> predictions -> per-example
+        loss -> loss -> grads (JAX spmd.py:732-762).  The first entry is
+        the first nonfinite tensor.  The module's buffers are put back
+        after the recompute; no parameter or gradient is touched."""
+        model = self.model
+        gen = torch.Generator(device=self.device)
+        gen.set_state(self.generator.get_state() if gen_state is None
+                      else gen_state)
+        saved = snapshot_buffers(model)
+        mask = batch["mask"]
+        try:
+            with torch.enable_grad():
+                preds, aux = self._split_aux(
+                    self._forward(batch["features"], True, gen), mask)
+                per_ex = self._per_example_loss(preds, batch["labels"],
+                                                mask)
+                loss = masked_mean(per_ex, mask)
+                if aux is not None:
+                    loss = loss + self.aux_loss_weight * aux
+                grads = torch.autograd.grad(loss, self.params,
+                                            allow_unused=True)
+            named = dict(model.named_parameters())
+            names = {id(p): n for n, p in named.items()}
+            trees = {
+                "params": {n: p.detach() for n, p in named.items()},
+                "predictions": _detached(preds),
+                "per_example_loss": per_ex.detach(),
+                "loss": loss.detach(),
+                "grads": {names[id(p)]: g
+                          for p, g in zip(self.params, grads)
+                          if g is not None},
+            }
+        except Exception as e:  # localization must not mask the event
+            return [{"path": "<localization failed: "
+                             f"{type(e).__name__}: {e}>"}]
+        finally:
+            restore_buffers(model, saved,
+                            torch.zeros((), dtype=torch.bool,
+                                        device=self.device))
+        return localize_nonfinite(trees)
 
     def sync_host_step(self) -> int:
         """Reset the loops' mirror to the steps run (after a restore, or
@@ -605,19 +778,35 @@ class TrainEngine:
     @torch.no_grad()
     def predict_all(self, batch_iter) -> List[Any]:
         """Predictions per batch as numpy, padding rows dropped; the
-        batches staged ahead as in `run_epoch`."""
+        batches staged ahead as in `run_epoch`, each forward in an
+        `spmd.step` span."""
         put, depth = self._stager()
         pre = _HostPrefetcher(lambda hb: (int(hb["mask"].sum()), put(hb)),
                               batch_iter, depth)
         outs = []
         while (item := pre.pop()) is not None:
             n_real, batch = item
-            preds, _ = self._split_aux(self._forward(batch["features"],
-                                                     False))
-            if pre.depth > 0:
-                pre.stage(1)
-            outs.append(_strip(preds, n_real))
+            with self._step_span(len(outs), False) as sp:
+                preds, _ = self._split_aux(
+                    self._predict_step(batch["features"]))
+                if self._predict_step.last_call_new:
+                    sp.attrs["jit_cold"] = True
+                if pre.depth > 0:
+                    pre.stage(1)
+                outs.append(_strip(preds, n_real))
         return outs
+
+
+def _batch_rows(batch) -> int:
+    """A batch's rows: the leading dim of its first leaf (JAX's
+    `tree_leaves(batch)[0].shape[0]`)."""
+    return int(profiling.flatten_with_paths(batch)[0][1].shape[0])
+
+
+def _detached(preds):
+    if isinstance(preds, (tuple, list)):
+        return type(preds)(_detached(p) for p in preds)
+    return preds.detach()
 
 
 def _finalize(totals: Dict[str, float]) -> Dict[str, float]:

@@ -16,7 +16,8 @@ as `CheckpointWriteError`, and `checkpoint.wait_for_checkpoints()`
 drains the process-global writer, so `find_latest_checkpoint` and
 `load_checkpoint` read their own writes.  `last_snapshot_s` and
 `last_write_s` hold the latest save's snapshot time (critical path) and
-its writer-thread wall time.
+its writer-thread wall time; a failed write leaves a
+``checkpoint_write_failed`` flight record and event.
 """
 
 from __future__ import annotations
@@ -24,8 +25,13 @@ from __future__ import annotations
 import atexit
 import logging
 import threading
-import time
 from typing import Any, Dict, Optional
+
+from analytics_zoo_tpu_torch.observability import (
+    flight_recorder,
+    log_event,
+    now,
+)
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -63,9 +69,9 @@ class BackgroundCheckpointer:
         )
         with self._submit_lock:
             self.drain()                 # one in-flight save at most
-            t0 = time.perf_counter()
+            t0 = now()
             snapshot = host_snapshot(state)
-            self.last_snapshot_s = time.perf_counter() - t0
+            self.last_snapshot_s = now() - t0
             with self._lock:
                 self._pending = (path, snapshot, meta)
                 self._idle.clear()
@@ -91,15 +97,20 @@ class BackgroundCheckpointer:
             if job is None:
                 continue
             path, snapshot, meta = job
-            t0 = time.perf_counter()
+            t0 = now()
             try:
                 write_committed(path, snapshot, meta=meta)
-                self.last_write_s = time.perf_counter() - t0
+                self.last_write_s = now() - t0
             except BaseException as e:
                 with self._lock:
                     self._error = e
                 logger.warning("background checkpoint write of %s failed: "
                                "%s: %s", path, type(e).__name__, e)
+                flight_recorder.record(
+                    "checkpoint_write_failed", path=path,
+                    error=f"{type(e).__name__}: {e}")
+                log_event("checkpoint_write_failed", path=path,
+                          error=f"{type(e).__name__}: {e}")
             finally:
                 self._idle.set()
 

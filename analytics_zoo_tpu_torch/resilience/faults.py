@@ -189,6 +189,27 @@ def _torn_write(path: str) -> None:
             f.truncate(max(0, size // 2))
 
 
+def _record_fire(fault: Fault, ctx: Dict[str, Any]) -> None:
+    """Count a fired fault and leave it in the flight ring and the
+    event log (JAX faults.py:222-235).  Imported here, at the first
+    fire, so an unarmed process never loads the planes for it."""
+    from analytics_zoo_tpu_torch.observability import (
+        flight_recorder,
+        get_registry,
+        log_event,
+    )
+    get_registry().counter(
+        "resilience_faults_injected_total",
+        help="faults fired by the armed fault plan "
+             "(resilience/faults.py)").inc()
+    fields = {k: v for k, v in ctx.items()
+              if isinstance(v, (int, float, str, bool, list))}
+    flight_recorder.record("fault_injected", site=fault.site,
+                           action=fault.action, **fields)
+    log_event("fault_injected", site=fault.site, action=fault.action,
+              **fields)
+
+
 def fault_point(site: str, **ctx) -> Optional[str]:
     """The injection site hook.  Unarmed (no plan): one attribute read,
     returning None.  Armed: counts the hit and, when a fault fires,
@@ -203,6 +224,7 @@ def fault_point(site: str, **ctx) -> Optional[str]:
     logger.warning("fault injected at %s: %s %s", site, fault.action,
                    {k: v for k, v in ctx.items()
                     if isinstance(v, (int, float, str, bool))})
+    _record_fire(fault, ctx)
     if fault.action == "raise":
         raise SimulatedWorkerFailure(
             f"injected worker failure at {site} "

@@ -1,6 +1,8 @@
-"""Typed retry policy (a copy of analytics_zoo_tpu/resilience/retry.py
-without its trace span and metrics): max attempts, deterministic
-exponential backoff and an optional wall-clock deadline.
+"""Typed retry policy (a copy of analytics_zoo_tpu/resilience/retry.py):
+max attempts, deterministic exponential backoff and an optional
+wall-clock deadline.  Each attempt of `run` is a ``retry.attempt``
+span, linked to the attempt it retries; each retry decision ticks
+``resilience_retries_total`` and logs a ``retry`` event.
 
 Backoff is unjittered by default; ``jitter="full"`` scales it by a
 uniform draw from a PRNG seeded by ``(seed, attempt)``, so any one
@@ -11,12 +13,9 @@ restore-and-resume loop and the checkpoint I/O use it.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import random
 import time
 from typing import Callable, Optional, Tuple, Type
-
-logger = logging.getLogger("analytics_zoo_tpu_torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,12 +84,19 @@ class RetryPolicy:
         """Call `fn()` under the policy.  `on_retry(attempt, exc,
         delay)` observes each retry decision; `sleep` is injectable for
         tests.  The deadline covers sleeps and the next attempt's start
-        (elapsed + pending delay past `deadline_s` stops retrying)."""
+        (elapsed + pending delay past `deadline_s` stops retrying).
+
+        Each attempt runs in a ``retry.attempt`` span tagged with the
+        attempt number and linked (`prev_span_id`) to the attempt it
+        retries, so all attempts read as one trace."""
         start = time.monotonic()
+        prev_span_id: Optional[str] = None
         for attempt in range(1, self.max_attempts + 1):
             try:
-                return fn()
+                with self._attempt_span(attempt, prev_span_id) as sp:
+                    return fn()
             except retryable as e:
+                prev_span_id = getattr(sp, "span_id", None)
                 if attempt >= self.max_attempts:
                     raise
                 delay = self.backoff(attempt)
@@ -103,8 +109,27 @@ class RetryPolicy:
                 if delay > 0:
                     sleep(delay)
 
+    def _attempt_span(self, attempt: int,
+                      prev_span_id: Optional[str]):
+        """A trace span for one attempt."""
+        from analytics_zoo_tpu_torch.observability import trace
+        attrs = {"policy": self.name or "anonymous",
+                 "attempt": attempt}
+        if prev_span_id is not None:
+            attrs["prev_span_id"] = prev_span_id
+        return trace("retry.attempt", **attrs)
+
     def record_retry(self, exc: BaseException) -> None:
-        """Log one retry decision (also used by callers that keep their
-        own loop, as the Estimator's restore-and-resume cycle does)."""
-        logger.info("retry under policy %s: %s: %s",
-                    self.name or "anonymous", type(exc).__name__, exc)
+        """Count and log one retry decision (also used by callers that
+        keep their own loop, as the Estimator's restore-and-resume cycle
+        does)."""
+        from analytics_zoo_tpu_torch.observability import (
+            get_registry,
+            log_event,
+        )
+        get_registry().counter(
+            "resilience_retries_total",
+            help="retries taken under a RetryPolicy "
+                 "(resilience/retry.py)").inc()
+        log_event("retry", policy=self.name or "anonymous",
+                  error=f"{type(exc).__name__}: {exc}")

@@ -47,6 +47,24 @@ from the measured decode steps.  A ``poison_request`` fault at
 ``generation.decode`` fails one request before dispatch: the engine
 evicts that request alone and the other lanes decode on the next round
 (JAX engine.py:1405-1493).
+
+Observability, as JAX's (engine.py:416-430, :689-771, :957-1600): each
+request has a record in the lifecycle log (`request_log`, keyed by its
+id) with its admission, prefill, token, decode-round and finish events
+and its derived TTFT / TPOT / queue wait / e2e.  Prefill and chunk
+steps, decode steps and verify steps are split by the
+`generation_prefill` / `generation_decode` / `generation_spec_verify`
+goodput clocks (each step fenced by its own token fetch; a middle
+chunk of a chunked prefill, which fetches nothing, at the clock's
+sampled cadence on the card).  The step
+families `prefill`, `chunk_prefill`, `decode`, `spec_verify`,
+`copy_block` and `host_restore` go through the dispatch ledger, which
+counts their signatures against the budgets the geometry implies and
+their fenced work in `CausalLMFlops`.  The KV pool's occupancy is the
+`kv_pool` memory provider.  With `OrcaContext.watchdog_deadline_s` a
+`generation` watchdog is beaten once a round while the engine has work.
+An evicted request, a stuck engine and a failed step each log an event
+and write a flight bundle.
 """
 
 from __future__ import annotations
@@ -54,7 +72,6 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-import time
 from collections import deque
 from typing import List, Optional, Sequence as Seq, Tuple
 
@@ -63,9 +80,16 @@ import torch
 
 from analytics_zoo_tpu_torch.common.context import OrcaContext
 from analytics_zoo_tpu_torch.device import resolve_device
-from analytics_zoo_tpu_torch.observability.request_log import (
-    new_request_id,
-    sanitize_request_id,
+from analytics_zoo_tpu_torch.observability import (
+    flight_recorder,
+    get_registry,
+    log_event,
+    maybe_watchdog,
+    memory,
+    now,
+    profiling,
+    request_log,
+    step_clock,
 )
 from analytics_zoo_tpu_torch.resilience.faults import (
     FaultInjected,
@@ -105,17 +129,17 @@ class GenerationStream:
     they are sampled; `tokens()` drains to completion.  After the
     iterator is exhausted `finish_reason` is set ("length" | "eos" |
     "error: ...").  `submitted_at` and `token_times` are the host clock
-    (`time.perf_counter`) at submission and at each token's push."""
+    (`observability.now`) at submission and at each token's push."""
 
     def __init__(self, seq: Sequence, timeout: float = 120.0):
         self.seq = seq
         self.timeout = timeout
         self._q: "queue.Queue" = queue.Queue()
-        self.submitted_at = time.perf_counter()
+        self.submitted_at = now()
         self.token_times: List[float] = []
 
     def _put(self, token: int) -> None:
-        self.token_times.append(time.perf_counter())
+        self.token_times.append(now())
         self._q.put(int(token))
 
     def _close(self) -> None:
@@ -281,6 +305,62 @@ class GenerationEngine:
         self.prefill_seconds: deque = deque(maxlen=4096)
         self.decode_seconds: deque = deque(maxlen=4096)
         self.verify_seconds: deque = deque(maxlen=4096)
+
+        #: the analytic FLOPs model of the dispatch ledger's MFU; None
+        #: for a model without the CausalLM widths (a stand-in in tests)
+        try:
+            self._flops = profiling.CausalLMFlops.from_model(model)
+        except (AttributeError, TypeError):
+            self._flops = None
+        #: the KV pool's occupancy rides the memory telemetry
+        memory.register_provider("kv_pool", self._kv_pool_stats)
+        #: goodput of the hot loops; a step fences on its token fetch,
+        #: so every step but a middle chunk is fully split
+        self._clock_prefill = step_clock("generation_prefill")
+        self._clock_decode = step_clock("generation_decode")
+        self._clock_spec = (step_clock("generation_spec_verify")
+                            if self.speculation is not None else None)
+        #: the stall watchdog (OrcaContext.watchdog_deadline_s): armed
+        #: while the engine has work, beaten once a round
+        self.watchdog = maybe_watchdog("generation")
+        # the dispatch ledger's families; the lambdas read the methods
+        # at call time, so a test's wrapper on the instance is called.
+        # A wrapper's `last_call_new` marks this engine's first dispatch
+        # of a step variant (the kernels' first launch at a shape builds
+        # them): that step lands in the goodput "compile" bucket
+        ledger = profiling.instrument
+        self._prefill_step = ledger(
+            "prefill", lambda *a: self._prefill(*a),
+            argnames=("tokens", "length", "block_table", "temperature",
+                      "top_k"))
+        self._chunk_step = ledger(
+            "chunk_prefill", lambda *a: self._chunk(*a),
+            argnames=("tokens", "start", "length", "block_table"))
+        self._decode_step = ledger(
+            "decode", lambda *a: self._decode(*a),
+            argnames=("tokens", "block_tables", "ctx_len", "active",
+                      "temperature", "top_k"))
+        self._verify_step = ledger(
+            "spec_verify", lambda *a: self._verify(*a),
+            argnames=("tokens", "block_tables", "start", "length",
+                      "active"))
+        self._copy_block_step = ledger(
+            "copy_block", lambda *a: self._copy_block(*a),
+            argnames=("src", "dst"))
+        self._restore_block_step = ledger(
+            "host_restore", lambda *a: self._restore_block(*a),
+            argnames=("dst", "rows", "srows"))
+        # signature budgets: the variants each family's geometry implies
+        n_buckets = self.scheduler.expected_prefill_variants()
+        profiling.declare_expected("prefill", n_buckets)
+        profiling.declare_expected("chunk_prefill", n_buckets)
+        profiling.declare_expected("decode", 1)
+        profiling.declare_expected("copy_block", 1)
+        if self.host_tier is not None:
+            profiling.declare_expected("host_restore", 1)
+        if self.speculation is not None:
+            profiling.declare_expected(
+                "spec_verify", self.speculation.expected_verify_variants())
 
     def _kv_pool_stats(self) -> dict:
         """Pool occupancy: blocks used, shared (more than one reference)
@@ -491,6 +571,14 @@ class GenerationEngine:
             scl[:, :, dst * bs:(dst + 1) * bs] = \
                 scl[:, :, src * bs:(src + 1) * bs]
 
+    def _restore_block(self, dst: int, rows, srows) -> None:
+        # a host-tier restore: one block's KV rows (and int8 scales)
+        # into pool block `dst`
+        bs = self.cache.block_size
+        self.cache.kv[:, :, dst * bs:(dst + 1) * bs] = rows
+        if self._quantized:
+            self.cache.kv_scale[:, :, dst * bs:(dst + 1) * bs] = srows
+
     @torch.no_grad()
     def warmup(self) -> None:
         """Run the decode step, every prefill bucket (of the chunk step,
@@ -509,21 +597,21 @@ class GenerationEngine:
                 tokens = torch.zeros((1, b), dtype=torch.int32,
                                      device=self.device)
                 if not self._use_chunks:
-                    self._prefill(tokens, 1, table, one, onek)
+                    self._prefill_step(tokens, 1, table, one, onek)
                 elif not self.chunked_prefill or b <= self._chunk_cap:
-                    self._chunk(tokens, 0, 1, table)
-                    self._chunk(tokens, 1, 1, table)
+                    self._chunk_step(tokens, 0, 1, table)
+                    self._chunk_step(tokens, 1, 1, table)
             zi = torch.zeros(S, dtype=torch.int32, device=self.device)
             zt = torch.zeros((S, MB), dtype=torch.int32, device=self.device)
             zb = torch.zeros(S, dtype=torch.bool, device=self.device)
-            self._decode(zi, zt, zi, zb,
-                         torch.zeros(S, dtype=torch.float32,
-                                     device=self.device), zi)
+            self._decode_step(zi, zt, zi, zb,
+                              torch.zeros(S, dtype=torch.float32,
+                                          device=self.device), zi)
             if self.speculation is not None:
                 for b in self.speculation.buckets:
-                    self._verify(torch.zeros((S, 1 + b), dtype=torch.int32,
-                                             device=self.device),
-                                 zt, zi, zi, zb)
+                    self._verify_step(
+                        torch.zeros((S, 1 + b), dtype=torch.int32,
+                                    device=self.device), zt, zi, zi, zb)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -572,15 +660,6 @@ class GenerationEngine:
             raise RequestTooLarge(
                 f"request needs {self.cache.blocks_for(total)} KV "
                 f"blocks, pool holds {self.cache.allocator.capacity}")
-        rid = (sanitize_request_id(request_id)
-               if request_id is not None else new_request_id())
-        seq = Sequence(prompt, max_new_tokens=max_new_tokens,
-                       temperature=temperature, top_k=top_k,
-                       eos_id=eos_id, request_id=rid,
-                       priority=priority)
-        seq.stream = GenerationStream(seq, timeout=stream_timeout)
-        if self.keep_logits:
-            seq.logits = []
         with self._lock:
             depth = len(self.scheduler.waiting)
             if self.max_queue is not None and depth >= self.max_queue:
@@ -594,6 +673,17 @@ class GenerationEngine:
                            queue_depth=depth) == "refuse":
                 raise QueueFull("injected admission refusal (fault plan)",
                                 retry_after_s=self.retry_after_s())
+            # the record opens once the request is taken, with the id
+            # sanitized (or made) and kept through preemption
+            rid = request_log.start(request_id, prompt_len=len(prompt),
+                                    max_new_tokens=int(max_new_tokens))
+            seq = Sequence(prompt, max_new_tokens=max_new_tokens,
+                           temperature=temperature, top_k=top_k,
+                           eos_id=eos_id, request_id=rid,
+                           priority=priority)
+            seq.stream = GenerationStream(seq, timeout=stream_timeout)
+            if self.keep_logits:
+                seq.logits = []
             self.scheduler.submit(seq)
             self.n_requests += 1
         self._wake.set()
@@ -630,6 +720,7 @@ class GenerationEngine:
         if seq.logits is not None and logits is not None:
             seq.logits.append(logits.clone())
         self.n_tokens += 1
+        request_log.token(seq.request_id)
         if seq.stream is not None:
             seq.stream._put(token)
         reason = seq.should_finish()
@@ -637,7 +728,8 @@ class GenerationEngine:
             self._finish(seq, reason)
 
     def _prefill_seq(self, seq: Sequence) -> None:
-        t0 = time.perf_counter()
+        rec = self._clock_prefill.begin(force_fence=True)
+        t0 = now()
         ctx = seq.prompt + seq.generated
         L = len(ctx)
         bucket = self.scheduler.bucket_for(L)
@@ -645,15 +737,30 @@ class GenerationEngine:
         tokens[0, :L] = ctx
         table = np.zeros(self.scheduler.max_blocks_per_seq, np.int32)
         table[:len(seq.block_table)] = seq.block_table
-        nxt, last = self._prefill(
+        rec.lap("host_input")
+        t1 = now()
+        nxt, last = self._prefill_step(
             self._tensor(tokens), L, self._tensor(table),
             self._tensor(np.full(1, seq.temperature, np.float32)),
             self._tensor(np.full(1, seq.top_k, np.int32)))
+        rec.cold = self._prefill_step.last_call_new
+        rec.lap(None)
         nxt = int(nxt)            # token fetch = device fence
-        self.prefill_seconds.append((bucket, time.perf_counter() - t0))
+        rec.lap("device_compute")
+        t2 = now()
+        self.prefill_seconds.append((bucket, t2 - t0))
+        dur = t2 - t1
+        profiling.record_work(
+            "prefill", dur, tokens=L,
+            flops=self._flops.prefill(L) if self._flops else 0.0)
         self.n_prefills += 1
         self.n_prefill_tokens += L
+        request_log.attribute(seq.request_id, "prefill_compute", dur)
+        request_log.event(seq.request_id, "prefill", bucket=bucket,
+                          tokens=L, dur_s=round(dur, 6),
+                          resumed=seq.n_preempted > 0)
         self._emit(seq, nxt, last)
+        rec.end()
 
     def _prefill_round(self) -> Tuple[bool, int]:
         """Spend this round's prefill token budget on the lanes still
@@ -688,35 +795,63 @@ class GenerationEngine:
         the final chunk commits the prompt's full blocks to the prefix
         cache, samples the first new token and flips the lane to
         running."""
-        t0 = time.perf_counter()
         ctx = seq.prompt + seq.generated
         L = seq.context_len
         start = seq.prefill_pos
         real = min(bucket, L - start)
+        final = start + real >= L
+        # the final chunk fences on its token fetch.  A middle chunk
+        # samples nothing: on the card it fences only at the clock's
+        # sampled cadence, so the next chunk or decode is queued while
+        # the card works; on the CPU its work is done when the call
+        # returns, and every chunk is split as JAX splits it
+        rec = self._clock_prefill.begin(
+            force_fence=final or self.device.type != "cuda")
+        t0 = now()
         tokens = np.zeros((1, bucket), np.int32)
         tokens[0, :real] = ctx[start:start + real]
         table = np.zeros(self.scheduler.max_blocks_per_seq, np.int32)
         table[:len(seq.block_table)] = seq.block_table
-        last = self._chunk(self._tensor(tokens), start, real,
-                           self._tensor(table))
+        rec.lap("host_input")
+        t1 = now()
+        last = self._chunk_step(self._tensor(tokens), start, real,
+                                self._tensor(table))
+        rec.cold = self._chunk_step.last_call_new
+        rec.lap(None)
+        nxt = None
+        if final:
+            nxt = int(sample_tokens(
+                last[None], self._gen,
+                self._tensor(np.full(1, seq.temperature, np.float32)),
+                self._tensor(np.full(1, seq.top_k, np.int32)))[0])
+        elif rec.fenced and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = now()
+        dur = t2 - t1
+        if rec.fenced:
+            rec.lap("device_compute")
+            profiling.record_work(
+                "chunk_prefill", dur, tokens=real,
+                flops=(self._flops.prefill(real, ctx_start=start)
+                       if self._flops else 0.0))
         self.n_chunks += 1
         self.n_prefill_tokens += real
         seq.prefill_pos = start + real
-        if seq.prefill_pos < L:
-            return
-        nxt = int(sample_tokens(
-            last[None], self._gen,
-            self._tensor(np.full(1, seq.temperature, np.float32)),
-            self._tensor(np.full(1, seq.top_k, np.int32)))[0])
-        self.prefill_seconds.append((bucket, time.perf_counter() - t0))
-        if self.prefix_cache is not None:
-            # the prompt's KV is written: publish its full blocks
-            # (deduping against identical prefixes committed since
-            # this lane's lookup)
-            seq.block_table = self.prefix_cache.commit(seq.prompt,
-                                                       seq.block_table)
-        seq.status = "running"
-        self._emit(seq, nxt, last)
+        request_log.attribute(seq.request_id, "prefill_compute", dur)
+        request_log.event(seq.request_id, "prefill", bucket=bucket,
+                          tokens=real, start=start, dur_s=round(dur, 6),
+                          resumed=seq.n_preempted > 0)
+        if final:
+            self.prefill_seconds.append((bucket, t2 - t0))
+            if self.prefix_cache is not None:
+                # the prompt's KV is written: publish its full blocks
+                # (deduping against identical prefixes committed since
+                # this lane's lookup)
+                seq.block_table = self.prefix_cache.commit(
+                    seq.prompt, seq.block_table)
+            seq.status = "running"
+            self._emit(seq, nxt, last)
+        rec.end()
 
     # ------------------------------------------------------------------
     # host-tier restore (the device half; PrefixCache.restore calls it
@@ -738,7 +873,7 @@ class GenerationEngine:
                                 or tuple(entry.scale.shape)
                                 != rows_shape[:3]):
             return False
-        t0 = time.perf_counter()
+        t0 = now()
         staged = entry.staged_kv is not None
         if staged:
             rows, srows = entry.staged_kv, entry.staged_scale
@@ -755,14 +890,17 @@ class GenerationEngine:
             rows = entry.kv.to(self.device)
             srows = (entry.scale.to(self.device) if self._quantized
                      else None)
-        kv[:, :, block * bs:(block + 1) * bs] = rows
-        if self._quantized:
-            self.cache.kv_scale[:, :, block * bs:(block + 1) * bs] = srows
+        self._restore_block_step(block, rows, srows)
         entry.staged_kv = entry.staged_scale = entry.staged_event = None
         self.n_host_restores += 1
         self.n_host_restores_staged += staged
-        record_dma("host_restore", time.perf_counter() - t0, entry.nbytes,
-                   staged=staged)
+        dur = now() - t0
+        record_dma("host_restore", dur, entry.nbytes, staged=staged)
+        profiling.record_work("host_restore", dur)
+        # the scheduler names the beneficiary while the restore runs
+        request_log.attribute(
+            getattr(self.prefix_cache, "restoring_for", None),
+            "host_restore", dur)
         return True
 
     def _stage_host_restores(self) -> None:
@@ -788,7 +926,9 @@ class GenerationEngine:
         `SlotScheduler.resolve_write_conflicts`)."""
         for _seq, _idx, src, dst in \
                 self.scheduler.resolve_write_conflicts():
-            self._copy_block(src, dst)
+            t0 = now()
+            self._copy_block_step(src, dst)
+            profiling.record_work("copy_block", now() - t0)
             self.n_cow_copies += 1
 
     def _spec_round(self, budget: int) -> set:
@@ -833,6 +973,7 @@ class GenerationEngine:
         in_grid = {seq for seq, _st, _d in drafted}
         riders = [seq for seq in self.scheduler.running()
                   if seq.temperature <= 0 and seq not in in_grid]
+        rec = self._clock_spec.begin(force_fence=True)
         try:
             # an injected raise costs one round's speculation: nothing
             # was emitted or written yet, so the drafted lanes rewind
@@ -842,8 +983,9 @@ class GenerationEngine:
         except FaultInjected:
             for seq, _st, _draft in drafted:
                 self.scheduler.rollback_speculation(seq)
+            rec.end()
             return done
-        t0 = time.perf_counter()
+        t0 = now()
         S = self.max_slots
         MB = self.scheduler.max_blocks_per_seq
         W = 1 + spec.bucket_for(max(len(d) for _, _, d in drafted))
@@ -863,16 +1005,31 @@ class GenerationEngine:
             start[i] = seq.context_len - 1
             length[i] = 1 + len(draft)
             active[i] = True
-        greedy, logits = self._verify(
+        rec.lap("host_input")
+        t1 = now()
+        greedy, logits = self._verify_step(
             self._tensor(tokens), self._tensor(tables),
             self._tensor(start), self._tensor(length),
             self._tensor(active))
+        rec.cold = self._verify_step.last_call_new
+        rec.lap(None)
         greedy = greedy.cpu().numpy()   # token fetch = device fence
-        self.verify_seconds.append(time.perf_counter() - t0)
+        rec.lap("device_compute")
+        t2 = now()
+        self.verify_seconds.append(t2 - t0)
+        dur = t2 - t1
+        n_rows = len(drafted) + len(riders)
+        ctx_mean = float(np.sum(start[active])) / n_rows
+        profiling.record_work(
+            "spec_verify", dur, tokens=int(np.sum(length[active])),
+            flops=(self._flops.verify(n_rows, W, ctx_mean)
+                   if self._flops else 0.0))
         self.n_verify_steps += 1
         for seq in riders:
             # an ordinary decode in verify clothing: no speculation
             # budget, counters or rollback
+            request_log.decode_round(seq.request_id)
+            request_log.attribute(seq.request_id, "decode_active", dur)
             done.add(seq)
             self._emit(seq, int(greedy[seq.slot, 0]), logits[seq.slot, 0])
         for seq, st, draft in drafted:
@@ -884,6 +1041,21 @@ class GenerationEngine:
             self.n_spec_rounds += 1
             self.n_spec_proposed += len(draft)
             self.n_spec_accepted += m
+            n = st.rounds
+            if n & (n - 1) == 0:      # pow2-sampled, like decode
+                request_log.event(seq.request_id, "spec_propose",
+                                  round=n, proposed=len(draft))
+                request_log.event(seq.request_id, "spec_accept",
+                                  round=n, accepted=m)
+            request_log.decode_round(seq.request_id, spec=True)
+            # the verify round's wall split: the accepted prefix and
+            # the bonus token are useful decode ((m + 1) of the k + 1
+            # scored positions), the rejected rest speculation overhead
+            k1 = 1 + len(draft)
+            request_log.attribute(seq.request_id, "decode_active",
+                                  dur * (m + 1) / k1)
+            request_log.attribute(seq.request_id, "spec_verify_overhead",
+                                  dur * (len(draft) - m) / k1)
             done.add(seq)
             # the accepted prefix + the bonus token: exactly what greedy
             # single-step decode gives, stopping at eos / length
@@ -893,10 +1065,12 @@ class GenerationEngine:
                     break
             if seq.status != "finished":
                 self.scheduler.rollback_speculation(seq)
+        rec.end()
         return done
 
     def _decode_all(self, skip: frozenset = frozenset()) -> None:
-        t0 = time.perf_counter()
+        rec = self._clock_decode.begin(force_fence=True)
+        t0 = now()
         S = self.max_slots
         MB = self.scheduler.max_blocks_per_seq
         tokens = np.zeros(S, np.int32)
@@ -921,17 +1095,34 @@ class GenerationEngine:
         # nothing is written before this point: a raise here leaves every
         # lane as it was, and a poisoned request's eviction lets the
         # others decode next round
+        rec.lap("host_input")
         fault_point("generation.decode",
                     request_ids=[s.request_id for s in lanes.values()])
-        nxt, last = self._decode(
+        t1 = now()
+        nxt, last = self._decode_step(
             self._tensor(tokens), self._tensor(tables),
             self._tensor(ctx_len), self._tensor(active),
             self._tensor(temp), self._tensor(top_k))
+        rec.cold = self._decode_step.last_call_new
+        rec.lap(None)
         nxt = nxt.cpu().numpy()   # token fetch = device fence
-        self.decode_seconds.append(time.perf_counter() - t0)
+        rec.lap("device_compute")
+        t2 = now()
+        self.decode_seconds.append(t2 - t0)
+        dur = t2 - t1
+        ctx_mean = (float(np.sum(ctx_len[active])) / len(lanes)
+                    if lanes else 0.0)
+        profiling.record_work(
+            "decode", dur, tokens=len(lanes),
+            flops=(self._flops.decode(len(lanes), ctx_mean)
+                   if self._flops else 0.0))
         self.n_decode_steps += 1
         for i, seq in lanes.items():
+            request_log.decode_round(seq.request_id)
+            # every riding lane waited out the whole fenced round
+            request_log.attribute(seq.request_id, "decode_active", dur)
             self._emit(seq, nxt[i], last[i])
+        rec.end()
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -965,29 +1156,58 @@ class GenerationEngine:
                 except PoisonedRequestError as e:
                     self._evict_poisoned(e)
                 did = True
+            if self.watchdog is not None:
+                self.watchdog.beat()
             return did
 
     def _evict_poisoned(self, e: PoisonedRequestError) -> None:
         """A step failure attributable to ONE request evicts exactly that
         request (its stream ends with finish_reason "error: evicted
-        (...)"); the engine keeps serving everyone else.  Caller holds
-        the lock."""
+        (...)", its record tagged 503, a flight bundle written); the
+        engine keeps serving everyone else.  Caller holds the lock."""
         _log.warning("evicting request %s: %s", e.request_id, e)
         self.n_evictions += 1
+        get_registry().counter(
+            "resilience_evictions_total",
+            help="requests evicted individually after an attributable "
+                 "step failure (engine kept serving)").inc()
+        log_event("generation_request_evicted",
+                  request_id=e.request_id, error=str(e))
+        request_log.event(e.request_id, "evicted", code=503,
+                          error=str(e))
+        flight_recorder.dump(
+            "generation_request_evicted",
+            extra={"request_id": e.request_id, "error": str(e)})
         for seq in self.scheduler.running():
             if seq.request_id == e.request_id:
                 self._finish(seq, f"error: evicted ({e})")
                 return
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> None:
-        for _ in range(max_steps):
-            if not self.scheduler.has_work():
-                return
-            if not self.step():
-                raise RuntimeError(
-                    "generation engine stuck: waiting requests but no "
-                    "schedulable work (block pool too small?)")
-        raise RuntimeError(f"still busy after {max_steps} steps")
+        if self.watchdog is not None:
+            self.watchdog.arm()
+        try:
+            for _ in range(max_steps):
+                if not self.scheduler.has_work():
+                    return
+                if not self.step():
+                    stuck_ids = [s.request_id
+                                 for s in self.scheduler.waiting]
+                    for rid in stuck_ids:
+                        request_log.event(rid, "stuck")
+                    log_event("generation_stuck", waiting=len(stuck_ids),
+                              request_ids=stuck_ids)
+                    flight_recorder.dump(
+                        "generation_stuck",
+                        extra={"waiting": len(stuck_ids),
+                               "request_ids": stuck_ids})
+                    raise RuntimeError(
+                        "generation engine stuck: waiting requests but no "
+                        "schedulable work (block pool too small?)")
+            raise RuntimeError(f"still busy after {max_steps} steps")
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.disarm()
 
     # ------------------------------------------------------------------
     # background serving
@@ -1006,9 +1226,14 @@ class GenerationEngine:
         stuck_rounds = 0
         while not self._stop.is_set():
             if not self.scheduler.has_work():
+                if self.watchdog is not None:
+                    # idle is not a stall: disarmed until work arrives
+                    self.watchdog.disarm()
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
                 continue
+            if self.watchdog is not None:
+                self.watchdog.arm()
             try:
                 did = self.step()
                 with self._lock:
@@ -1021,12 +1246,26 @@ class GenerationEngine:
                         stuck_rounds += 1
                         if stuck_rounds >= 3:
                             stuck_rounds = 0
+                            head = self.scheduler.waiting.popleft()
+                            log_event("generation_stuck",
+                                      request_ids=[head.request_id],
+                                      waiting=len(
+                                          self.scheduler.waiting) + 1)
+                            request_log.event(head.request_id, "stuck")
+                            flight_recorder.dump(
+                                "generation_stuck",
+                                extra={"request_ids": [head.request_id]})
                             self._finish(
-                                self.scheduler.waiting.popleft(),
-                                "error: engine stuck (request cannot be "
-                                "scheduled)")
+                                head, "error: engine stuck (request "
+                                "cannot be scheduled)")
             except Exception as e:   # fail the lanes loudly, keep serving
                 _log.exception("generation step failed")
+                affected = [s.request_id for s in self.scheduler.slotted()]
+                log_event("generation_step_error",
+                          error=f"{type(e).__name__}: {e}",
+                          request_ids=affected)
+                flight_recorder.dump("generation_step_error", exc=e,
+                                     extra={"request_ids": affected})
                 with self._lock:
                     for seq in list(self.scheduler.slotted()):
                         self._finish(seq, f"error: {e}")
@@ -1035,6 +1274,8 @@ class GenerationEngine:
         """Stop the background loop and close every stream still open."""
         self._stop.set()
         self._wake.set()
+        if self.watchdog is not None:
+            self.watchdog.stop()
         if self._thread is not None:
             self._thread.join(timeout=30)
             if self._thread.is_alive():

@@ -29,6 +29,12 @@ Speculation: `grow_for_speculation` extends a lane's table for its
 draft straight from the free list; `rollback_speculation` returns the
 blocks past the lane's next write position.
 
+Every lane decision leaves a flight record (`sched_admit`,
+`sched_preempt`, `sched_cow`, `sched_release`) and a lifecycle event on
+the request's record (`admit` or `resume`, `prefix_hit`,
+`host_restore`, `preempt`); `release` finishes the record with the
+stream's reason (JAX scheduler.py:224-446).
+
 Invariant the engine relies on: a RUNNING sequence has KV written for
 exactly `context_len - 1` tokens — the newest sampled token is pending,
 and the next decode step feeds it, writes its KV, and samples its
@@ -43,6 +49,10 @@ import itertools
 from collections import deque
 from typing import Deque, List, Optional, Tuple
 
+from analytics_zoo_tpu_torch.observability import (
+    flight_recorder,
+    request_log,
+)
 from analytics_zoo_tpu_torch.serving.generation.kv_cache import (
     PagedKVCache,
 )
@@ -199,6 +209,15 @@ class SlotScheduler:
             return None
         # lowest class first, newest-admitted within a class
         victim = max(victims, key=lambda s: (s.priority, s._admit_order))
+        # the per-lane decision trail: a post-mortem shows why lanes
+        # emptied under cache pressure
+        flight_recorder.record("sched_preempt", uid=victim.uid,
+                               slot=victim.slot,
+                               blocks_freed=len(victim.block_table),
+                               context_len=victim.context_len)
+        request_log.event(victim.request_id, "preempt",
+                          slot=victim.slot,
+                          context_len=victim.context_len)
         self.cache.allocator.free(victim.block_table)
         victim.block_table = []
         self.slots[victim.slot] = None
@@ -299,6 +318,8 @@ class SlotScheduler:
             dst = got[0]
             seq.block_table[idx] = dst
             self.cache.allocator.free([src])
+            flight_recorder.record("sched_cow", uid=seq.uid,
+                                   slot=seq.slot, src=src, dst=dst)
             work.append((seq, idx, src, dst))
         return work
 
@@ -328,8 +349,21 @@ class SlotScheduler:
                 ctx = seq.prompt + seq.generated
                 cached_blocks, n_cached = self.prefix_cache.lookup(ctx)
                 if self.prefix_cache.host_tier is not None:
-                    cached_blocks, n_cached = self.prefix_cache.restore(
-                        ctx, cached_blocks, n_cached)
+                    # `restoring_for` names the beneficiary to the
+                    # engine's restore writer, which charges the copy to
+                    # this request's blame accumulators
+                    dev_cached = n_cached
+                    self.prefix_cache.restoring_for = seq.request_id
+                    try:
+                        cached_blocks, n_cached = \
+                            self.prefix_cache.restore(ctx, cached_blocks,
+                                                      n_cached)
+                    finally:
+                        self.prefix_cache.restoring_for = None
+                    if n_cached > dev_cached:
+                        request_log.event(
+                            seq.request_id, "host_restore",
+                            tokens=n_cached - dev_cached)
             if not self.chunk_mode:
                 bucket = self.bucket_for(seq.context_len - n_cached)
                 if admitted and bucket > budget:
@@ -355,11 +389,25 @@ class SlotScheduler:
             if not self.chunk_mode:
                 budget -= bucket
             admitted.append(seq)
+            flight_recorder.record("sched_admit", uid=seq.uid,
+                                   slot=seq.slot,
+                                   blocks=len(seq.block_table),
+                                   prefix_tokens=n_cached,
+                                   resumed=seq.n_preempted > 0)
+            request_log.event(
+                seq.request_id,
+                "resume" if seq.n_preempted > 0 else "admit",
+                slot=seq.slot)
+            if n_cached:
+                # how much prefill the prefix cache skipped
+                request_log.event(seq.request_id, "prefix_hit",
+                                  tokens=n_cached,
+                                  blocks=len(cached_blocks))
         return admitted
 
     def release(self, seq: Sequence, reason: str) -> None:
         """Finish: blocks back to the pool, lane freed for the next
-        admission."""
+        admission, the lifecycle record closed with `reason`."""
         if seq.block_table:
             self.cache.allocator.free(seq.block_table)
             seq.block_table = []
@@ -368,3 +416,7 @@ class SlotScheduler:
             seq.slot = None
         seq.status = "finished"
         seq.finish_reason = reason
+        flight_recorder.record("sched_release", uid=seq.uid,
+                               reason=reason,
+                               generated=len(seq.generated))
+        request_log.finish(seq.request_id, reason)

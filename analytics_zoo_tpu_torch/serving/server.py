@@ -65,10 +65,7 @@ from analytics_zoo_tpu_torch.observability.registry import (
     merged_prometheus_text,
     now,
 )
-from analytics_zoo_tpu_torch.observability.request_log import (
-    new_request_id,
-    sanitize_request_id,
-)
+from analytics_zoo_tpu_torch.observability import request_log
 from analytics_zoo_tpu_torch.serving.codec import (
     ARROW_CONTENT_TYPE,
     decode_arrow_tensors,
@@ -228,11 +225,14 @@ class ServingServer:
                     self._json(404, {"error": "no generation engine "
                                      "behind this server"})
                     return
-                rid = sanitize_request_id(self.headers.get("X-Request-Id")
-                                          or new_request_id())
+                rid = request_log.sanitize_request_id(
+                    self.headers.get("X-Request-Id")
+                    or request_log.new_request_id())
 
                 def reject(code: int, msg: str,
                            retry_after_s: Optional[float] = None):
+                    # a refused request stays findable in the log
+                    request_log.reject(rid, code, msg)
                     payload = {"error": msg, "request_id": rid}
                     headers = None
                     if code in (429, 503):

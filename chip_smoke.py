@@ -34,7 +34,11 @@ the TCN / LSTM / Seq2Seq forecasters, AutoTSEstimator and TSPipeline,
 the search engine's device and process backends) in phase 21 and the
 rest of Chronos and AutoML (MTNet, TCMF, the AE and threshold
 detectors, ARIMA with AutoARIMA through AutoTSEstimator, AutoXGBoost,
-the DoppelGANger simulator) in phase 22;
+the DoppelGANger simulator) in phase 22 and the training-side
+observability planes (spans, events, goodput, the flight recorder, the
+watchdog and the nonfinite sentinel, memory telemetry, the dispatch
+ledger with MFU, the request lifecycle log) on the fine-tune and decode
+paths in phase 23;
 each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
@@ -352,6 +356,38 @@ Phases (each one failing exits non-zero, with no result line):
      training range, save -> load -> generate bitwise.  Prophet,
      XShardsTSDataset and DBScanDetector need pandas or sklearn, which
      the card machine lacks: the CPU tests hold them;
+  23. the observability planes (after phase 22; results under
+     "observability" and on an `observability` line), the settings
+     put back to their defaults at its end: (a) BERT-base (bf16 flash)
+     fine-tuned through `Estimator.from_torch(...).fit` at 32 x 128, 2
+     epochs of 16 steps with 4 validation steps each, with the event
+     sink in a temp dir, `goodput_sample_every` 4, `watchdog_deadline_s`
+     120, the nonfinite sentinel on and `hardware_peak_flops` the card's
+     dense bf16 peak: 2 `train_epoch` and 2 `validation_epoch` events,
+     every `spmd.step` span under `estimator.epoch` under
+     `estimator.fit`, the `train_step` ledger at one signature and one
+     call a step, the goodput buckets within 5% of the clock's wall,
+     `memory_device_allocated_bytes` at least the parameters' bytes, the
+     launches exactly the fine-tune's per step (K1 25, K1b 25, K2 12, K3
+     12, K4a 12, K4b 12) and per validation forward (K1 25, K2 12, K3
+     12); the same fit again with no sink and the sampled fences at
+     10^6 steps ("off"), and with the sentinel and watchdog off too
+     ("bare"), in turns off, bare, bare, off, on (the median over its
+     fits of each setting's mean step wall in epoch 2, the goodput
+     ratio, the ledger's mfu_ratio), then one more epoch of the gated
+     fit under a device trace (the card's busy share beside that
+     epoch's goodput ratio); (b) one step with the classifier's
+     bias set to NaN: skipped, one `nonfinite_step` bundle whose first
+     named tensor is that bias and whose `torch` section names the
+     card; (c) 16 greedy requests x 32 tokens through the
+     GenerationEngine on phase 6's model, the lifecycle log on, off,
+     off, on: every finished record's queue wait <= TTFT <= e2e, its
+     tokens and finish reason the stream's, the same streams in every
+     turn, `decode` at one signature, K1 25 per forward and K6 12 per decode step exactly
+     (tokens/s of each turn); (d) `flight_recorder.dump("smoke")` read
+     back holds every key of `flight_recorder.BUNDLE_KEYS`; the host's
+     microseconds a call of a span, an event, a flight record, a
+     lifecycle token and a ledgered call, the sink off and on in turns;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -369,6 +405,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -8482,6 +8519,451 @@ def phase_chronos_rest(torch, seed: int, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 23: the training-side observability planes on the fine-tune and
+# decode paths (analytics_zoo_tpu_torch/observability/)
+# ----------------------------------------------------------------------
+
+#: BERT-base fine-tune of (a): batch x t, steps an epoch, validation steps
+OBS_BATCH, OBS_T, OBS_STEPS, OBS_VAL_STEPS = 32, 128, 16, 4
+#: the planes' settings of (a) and (b)
+OBS_ON = dict(goodput_sample_every=4, watchdog_deadline_s=120.0,
+              nonfinite_watchdog=True, hardware_peak_flops=BF16_FLOPS)
+#: the same fit with no sink and the sampled goodput fences as rare as
+#: they get ("off"), and with the sentinel and the watchdog off too
+#: ("bare"); spans, event counters, the ledger and the flight ring have
+#: no switch
+OBS_OFF = {"off": dict(OBS_ON, goodput_sample_every=10 ** 6),
+           "bare": dict(OBS_ON, goodput_sample_every=10 ** 6,
+                        watchdog_deadline_s=None, nonfinite_watchdog=False)}
+#: the timed fits after the gated one, in turns
+OBS_WALL_TURNS = ("off", "bare", "bare", "off", "on")
+#: generation of (c): requests, new tokens each, runs in turns
+OBS_REQUESTS, OBS_NEW = 16, 32
+OBS_TURNS = ("on", "off", "off", "on")
+#: the default of every setting phase 23 writes, put back at its end
+OBS_DEFAULTS = dict(observability_dir=None, goodput_sample_every=16,
+                    watchdog_deadline_s=None, nonfinite_watchdog=False,
+                    hardware_peak_flops=None)
+
+
+def fresh_planes(o) -> None:
+    """Drop what earlier phases left in the port's planes."""
+    o.flight_recorder.uninstall()
+    o.flight_recorder.clear_ring()
+    o.close_sink()
+    o.clear_spans()
+    o.reset_registry()
+    o.reset_profiling()
+    o.reset_request_log()
+    o.goodput.reset_clocks()
+    o.memory.reset()
+
+
+def set_context(ctx, **settings) -> None:
+    for k, v in settings.items():
+        setattr(ctx, k, v)
+
+
+def span_chains(spans) -> dict:
+    """{name chain from an spmd.step span to its root: count}."""
+    by_id = {s["span_id"]: s for s in spans}
+    out = {}
+    for s in spans:
+        if s["name"] != "spmd.step":
+            continue
+        chain = []
+        while s is not None:
+            chain.append(s["name"])
+            s = by_id.get(s["parent_id"])
+        out[" < ".join(chain)] = out.get(" < ".join(chain), 0) + 1
+    return out
+
+
+def read_events(directory: str) -> list:
+    with open(os.path.join(directory, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def obs_fine_tune(torch, seed: int, card: str, model, n_blk: int, data,
+                  val, directory: str) -> dict:
+    """(a): two epochs of the fine-tune with the planes at `OBS_ON` and
+    the sink in `directory`, gated; then the same fit at each of
+    `OBS_OFF`'s settings, with no sink, for the step wall beside it."""
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    def fit(settings, sink):
+        fresh_planes(o)
+        set_context(OrcaContext, observability_dir=sink, **settings)
+        est = Estimator.from_torch(
+            model, loss="sparse_categorical_crossentropy",
+            optimizer="adam", learning_rate=2e-5, metrics=["accuracy"],
+            seed=seed)
+        kernels.reset_launch_counts()
+        est.fit(data, epochs=2, batch_size=OBS_BATCH, shuffle=False,
+                validation_data=val)
+        torch.cuda.synchronize()
+        return est, kernels.launch_counts()
+
+    est, counts = fit(OBS_ON, directory)
+    steps, val_steps = 2 * OBS_STEPS, 2 * OBS_VAL_STEPS
+    fwd = dict(layer_norm_fwd=2 * n_blk + 1, fused_dense_gelu=n_blk,
+               flash_fwd=n_blk)
+    bwd = dict(layer_norm_bwd=2 * n_blk + 1, flash_bwd_dq=n_blk,
+               flash_bwd_dkv=n_blk)
+    want = {k: 0 for k in counts}
+    for k, v in fwd.items():
+        want[k] = v * (steps + val_steps)
+    for k, v in bwd.items():
+        want[k] = v * steps
+    check(counts == want, f"phase 23 (a): launches {counts}, expected "
+          f"{want}: {steps} steps at the fine-tune's per-step counts and "
+          f"{val_steps} validation forwards")
+    events = read_events(directory)
+    kinds = [e["kind"] for e in events if e["kind"] != "span"]
+    check(kinds.count("train_epoch") == 2
+          and kinds.count("validation_epoch") == 2,
+          f"phase 23 (a): events {kinds}")
+    chains = span_chains(o.recent_spans(2048))
+    check(chains == {"spmd.step < estimator.epoch < estimator.fit":
+                     steps + val_steps},
+          f"phase 23 (a): spmd.step span chains {chains}")
+    ledger = o.ledger_snapshot()
+    train = ledger["families"]["train_step"]
+    check(train["compile_count"] == 1 and train["signatures"] == 1
+          and train["calls"] == steps,
+          f"phase 23 (a): train_step ledger {train}")
+    table = o.goodput_tables()["spmd_train"]
+    bucket_sum = sum(table["buckets_s"].values())
+    check(abs(bucket_sum - table["wall_s"]) <= 0.05 * table["wall_s"],
+          f"phase 23 (a): goodput buckets sum {bucket_sum} against the "
+          f"wall {table['wall_s']}")
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    allocated = o.get_registry().gauge("memory_device_allocated_bytes").max
+    check(allocated >= param_bytes,
+          f"phase 23 (a): memory_device_allocated_bytes {allocated} < "
+          f"the parameters' {param_bytes} bytes")
+    on = dict(
+        step_ms_mean=est.train_summary[-1]["wall_s"] / OBS_STEPS * 1e3,
+        goodput=table, goodput_ratio=o.process_goodput_ratio(),
+        mfu_ratio=ledger["mfu"]["overall"], train_step_ledger=train,
+        eval_step_ledger=ledger["families"]["eval_step"],
+        memory_device_allocated_bytes_max=allocated,
+        param_bytes=param_bytes, events=len(events),
+        span_chains=chains, launches=counts)
+    # the step wall of epoch 2 at each setting, in turns after the gated
+    # run (host-bound steps swing between windows)
+    walls = {"on": [on["step_ms_mean"]], "off": [], "bare": []}
+    for label in OBS_WALL_TURNS:
+        settings = OBS_ON if label == "on" else OBS_OFF[label]
+        est_t, counts_t = fit(settings, directory if label == "on" else None)
+        check(counts_t == want, f"phase 23 (a) {label}: launches "
+              f"{counts_t}, expected {want}")
+        walls[label].append(est_t.train_summary[-1]["wall_s"] / OBS_STEPS
+                            * 1e3)
+    on["step_ms_windows"] = walls["on"]
+    # the card's busy share over one more warm epoch of the last ("on")
+    # fit, whose clock is the live one, at the planes' settings (a device
+    # trace: kernel, copy and fill time over the host wall), beside that
+    # epoch's goodput ratio, which is the host's wait after each step's
+    # dispatch
+    check(OBS_WALL_TURNS[-1] == "on", "phase 23 (a): the last turn is on")
+    set_context(OrcaContext, observability_dir=None, **OBS_ON)
+    before = o.goodput_tables()["spmd_train"]
+    busy = busy_share(torch, lambda: est_t.fit(
+        data, epochs=1, batch_size=OBS_BATCH, shuffle=False), host=False)
+    after = o.goodput_tables()["spmd_train"]
+    busy["goodput_ratio"] = (
+        (after["buckets_s"]["device_compute"]
+         - before["buckets_s"]["device_compute"])
+        / (after["fenced_wall_s"] - before["fenced_wall_s"]))
+    busy["step_ms_mean"] = (est_t.train_summary[-1]["wall_s"] / OBS_STEPS
+                            * 1e3)
+    on["card_busy"] = busy
+    off = {label: dict(settings=OBS_OFF[label], step_ms_windows=walls[label],
+                       step_ms_mean=statistics.median(walls[label]))
+           for label in OBS_OFF}
+    on["step_ms_mean"] = statistics.median(walls["on"])
+    walls_text = ", ".join(
+        f"{v['step_ms_mean']:.3f} ms {k} ({v['settings']}, no sink; "
+        f"windows {v['step_ms_windows']})" for k, v in off.items())
+    print(f"phase 23 (a) [{card}] BERT-base fine-tune {OBS_BATCH} x "
+          f"{OBS_T}, {OBS_STEPS} steps an epoch: mean step wall of epoch 2, "
+          f"median of windows, {on['step_ms_mean']:.3f} ms with the planes "
+          f"on ({OBS_ON}, sink on; windows {on['step_ms_windows']}), "
+          f"{walls_text}; goodput ratio "
+          f"{on['goodput_ratio']:.4f}; one more epoch traced: the card "
+          f"busy {busy['device_busy_share']:.4f} of "
+          f"{busy['profiled_wall_s']:.3f} s ({busy['step_ms_mean']:.3f} "
+          f"ms a step; goodput ratio {busy['goodput_ratio']:.4f}); ledger "
+          f"mfu_ratio "
+          f"{on['mfu_ratio']:.6f} (6 P FLOPs per row, JAX's count, of "
+          f"{BF16_FLOPS:.3g} FLOP/s); goodput {json.dumps(table)}",
+          flush=True)
+    return dict(on=on, off=off, est=est)
+
+
+def obs_sentinel(torch, card: str, est, batch, directory: str) -> dict:
+    """(b): one step with the classifier's bias poisoned: skipped, and
+    its nonfinite_step bundle names that bias first and the card."""
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    set_context(OrcaContext, observability_dir=directory, **OBS_ON)
+    bias = est.get_model().classifier.bias
+    saved = bias.detach().clone()
+    before = set(o.flight_recorder.find_bundles(directory))
+    with torch.no_grad():
+        bias.fill_(float("nan"))
+    try:
+        est.fit(batch, epochs=1, batch_size=OBS_BATCH, shuffle=False)
+    finally:
+        with torch.no_grad():
+            bias.copy_(saved)
+    stats = est.train_summary[-1]
+    check(stats.get("nan_steps") == 1.0,
+          f"phase 23 (b): the poisoned step was not skipped: {stats}")
+    new = sorted(set(o.flight_recorder.find_bundles(directory)) - before)
+    bundles = []
+    for path in new:
+        with open(path) as f:
+            bundles.append(json.load(f))
+    hits = [b for b in bundles if b["reason"] == "nonfinite_step"]
+    check(len(hits) == 1, "phase 23 (b): bundles "
+          f"{[b['reason'] for b in bundles]}")
+    leaves = hits[0]["extra"]["leaves"]
+    check(leaves[0]["path"] == "params:['classifier.bias']",
+          f"phase 23 (b): the first nonfinite tensor is {leaves[0]}")
+    name = torch.cuda.get_device_name(0)
+    check(name in hits[0]["torch"].get("devices", []),
+          f"phase 23 (b): the bundle's torch section {hits[0]['torch']}")
+    out = dict(first_leaves=[lf["path"] for lf in leaves],
+               torch=hits[0]["torch"], nan_steps=stats["nan_steps"])
+    print(f"phase 23 (b) [{card}] nonfinite sentinel: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+class _NoRequestLog:
+    """The lifecycle log switched off, for (c)'s comparison: every entry
+    point a no-op, `start` keeping the caller's id."""
+
+    @staticmethod
+    def start(request_id=None, **kw):
+        return request_id
+
+    def __getattr__(self, name):
+        return lambda *a, **kw: None
+
+
+def obs_generation(torch, seed: int, card: str, model) -> dict:
+    """(c): 16 greedy requests through the generation engine with the
+    lifecycle log on and off, in turns."""
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.serving.generation import GenerationEngine
+    from analytics_zoo_tpu_torch.serving.generation import engine as eng_mod
+    from analytics_zoo_tpu_torch.serving.generation import (
+        scheduler as sched_mod,
+    )
+    fresh_planes(o)
+    engine = GenerationEngine(model, max_slots=8, block_size=16,
+                              max_context=1024, device="cuda")
+    engine.warmup()
+    rng = np.random.default_rng(seed + 23)
+    prompts = [rng.integers(0, model.vocab, int(n)).tolist()
+               for n in rng.integers(32, 257, OBS_REQUESTS)]
+    runs, streams_by_turn = [], []
+    n_block = model.n_block
+    for turn, mode in enumerate(OBS_TURNS):
+        if mode == "off":
+            eng_mod.request_log = sched_mod.request_log = _NoRequestLog()
+        pre, dec = engine.n_prefills, engine.n_decode_steps
+        kernels.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            streams = [engine.submit(p, max_new_tokens=OBS_NEW,
+                                     request_id=f"t{turn}-r{i}")
+                       for i, p in enumerate(prompts)]
+            engine.ensure_started()
+            outs = [s.tokens() for s in streams]
+            wall = time.perf_counter() - t0
+        finally:
+            engine.stop()
+            eng_mod.request_log = sched_mod.request_log = o.request_log
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        n_pre = engine.n_prefills - pre
+        n_dec = engine.n_decode_steps - dec
+        want = {k: 0 for k in counts}
+        want["layer_norm_fwd"] = (2 * n_block + 1) * (n_pre + n_dec)
+        want["paged_decode"] = n_block * n_dec
+        check(counts == want, f"phase 23 (c) {mode}: launches {counts}, "
+              f"expected {want} for {n_pre} prefills and {n_dec} decode "
+              "steps")
+        for s, out in zip(streams, outs):
+            check(s.finish_reason == "length" and len(out) == OBS_NEW,
+                  f"phase 23 (c) {mode}: a request ended "
+                  f"{s.finish_reason!r} after {len(out)} tokens")
+            if mode == "on":
+                rec = o.request_log.get(s.request_id)
+                check(rec is not None and rec["status"] == "finished"
+                      and rec["n_tokens"] == len(out)
+                      and rec["finish_reason"] == s.finish_reason
+                      and rec["queue_wait_s"] <= rec["ttft_s"]
+                      <= rec["e2e_s"],
+                      f"phase 23 (c): record {rec}")
+        streams_by_turn.append(outs)
+        runs.append(dict(mode=mode, wall_s=wall,
+                         tokens_per_s=OBS_REQUESTS * OBS_NEW / wall,
+                         prefills=n_pre, decode_steps=n_dec,
+                         launches=counts))
+    check(all(o_ == streams_by_turn[0] for o_ in streams_by_turn),
+          "phase 23 (c): the token streams differ with the log on and off")
+    decode = o.ledger_snapshot()["families"]["decode"]
+    check(decode["signatures"] == 1 and not decode["over_budget"],
+          f"phase 23 (c): decode ledger {decode}")
+    recs = [o.request_log.get(f"t0-r{i}") for i in range(OBS_REQUESTS)]
+    out = dict(
+        runs=runs,
+        tokens_per_s_on=statistics.median(
+            r["tokens_per_s"] for r in runs if r["mode"] == "on"),
+        tokens_per_s_off=statistics.median(
+            r["tokens_per_s"] for r in runs if r["mode"] == "off"),
+        ttft_ms_p50=statistics.median(r["ttft_s"] for r in recs) * 1e3,
+        tpot_ms_p50=statistics.median(r["tpot_s"] for r in recs) * 1e3,
+        decode_ledger=decode, goodput=o.goodput_tables(),
+        mfu_decode=o.ledger_snapshot()["mfu"]["decode"])
+    print(f"phase 23 (c) [{card}] GPT-2 small, {OBS_REQUESTS} greedy "
+          f"requests x {OBS_NEW} tokens, turns {OBS_TURNS}: tokens/s "
+          f"{[round(r['tokens_per_s'], 1) for r in runs]}, median with the "
+          f"log on {out['tokens_per_s_on']:.1f}, off "
+          f"{out['tokens_per_s_off']:.1f}; TTFT p50 "
+          f"{out['ttft_ms_p50']:.2f} ms, TPOT p50 {out['tpot_ms_p50']:.3f} "
+          f"ms; decode ledger {json.dumps(decode)}", flush=True)
+    return out
+
+
+#: calls a host-cost timing of plane_costs averages over
+OBS_COST_CALLS = 2000
+
+
+def plane_costs(directory: str) -> dict:
+    """Host microseconds a call of each plane's hot entry point, the sink
+    off and on in turns (off, on, on, off; the median of each): a span,
+    an event, a flight record, a lifecycle record's token, a ledgered
+    call's signature of a fine-tune batch's four tensors."""
+    import torch
+
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    batch = {"features": tuple(torch.zeros(OBS_BATCH, OBS_T,
+                                           dtype=torch.int32)
+                               for _ in range(3)),
+             "labels": (torch.zeros(OBS_BATCH, dtype=torch.int64),),
+             "mask": torch.ones(OBS_BATCH)}
+    ledgered = o.instrument("eval_step", lambda b: b, argnames=("batch",))
+    o.request_log.start("cost", prompt_len=1, max_new_tokens=10 ** 9)
+
+    def span():
+        with o.trace("cost.span", step=1):
+            pass
+
+    calls = {"span": span,
+             "event": lambda: o.log_event("cost_event", step=1),
+             "flight_record": lambda: o.flight_recorder.record(
+                 "cost", step=1),
+             "request_token": lambda: o.request_log.token("cost"),
+             "ledgered_call": lambda: ledgered(batch)}
+    runs = {}
+    for sink in ("off", "on", "on", "off"):
+        OrcaContext.observability_dir = directory if sink == "on" else None
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            for _ in range(OBS_COST_CALLS):
+                fn()
+            runs.setdefault(f"{name}_sink_{sink}", []).append(
+                (time.perf_counter() - t0) / OBS_COST_CALLS * 1e6)
+    o.request_log.finish("cost", "length")
+    o.close_sink()
+    return {k: statistics.median(v) for k, v in runs.items()}
+
+
+def phase_observability(torch, seed: int, card: str, gpt2_model) -> dict:
+    """Phase 23: the observability planes on the fine-tune and decode
+    paths, parts (a)-(d)."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.convert import (
+        bert_from_flax,
+        init_bert_params,
+    )
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE, BERTClassifier
+    t0 = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="phase23-")
+    try:
+        cfg = dict(BERT_BASE, num_classes=2)
+        model = BERTClassifier(**cfg, attn_impl="flash", device="cuda")
+        model.load_state_dict(bert_from_flax(init_bert_params(cfg, seed),
+                                             cfg))
+        rng = np.random.default_rng(seed + 23)
+        inputs, y, _ = train_batch(rng, OBS_BATCH * OBS_STEPS, OBS_T,
+                                   cfg["vocab"])
+        vin, vy, _ = train_batch(rng, OBS_BATCH * OBS_VAL_STEPS, OBS_T,
+                                 cfg["vocab"])
+        data = {"x": list(inputs), "y": y}
+        val = {"x": list(vin), "y": vy}
+        out = {}
+        a = obs_fine_tune(torch, seed, card, model, cfg["n_block"], data,
+                          val, directory)
+        out["a"] = {k: v for k, v in a.items() if k != "est"}
+        batch = {"x": [x[:OBS_BATCH] for x in inputs], "y": y[:OBS_BATCH]}
+        out["b"] = obs_sentinel(torch, card, a["est"], batch, directory)
+        del a, model
+        free_card(torch)
+        out["c"] = obs_generation(torch, seed, card, gpt2_model)
+        # (d) a bundle on demand holds every key of JAX's
+        OrcaContext.observability_dir = directory
+        path = o.flight_recorder.dump("smoke")
+        check(path is not None, "phase 23 (d): no bundle was written")
+        with open(path) as f:
+            bundle = json.load(f)
+        missing = [k for k in o.flight_recorder.BUNDLE_KEYS
+                   if k not in bundle]
+        check(not missing, f"phase 23 (d): the bundle lacks {missing}")
+        out["d"] = dict(keys=sorted(bundle), ring=len(bundle["ring"]),
+                        torch=bundle["torch"],
+                        host_us_per_call=plane_costs(directory))
+        print(f"phase 23 (d) [{card}] host microseconds a call: "
+              f"{json.dumps(out['d']['host_us_per_call'])}", flush=True)
+    finally:
+        set_context(OrcaContext, **OBS_DEFAULTS)
+        fresh_planes(o)
+        shutil.rmtree(directory, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = out["a"]["on"]["launches"]
+    out["launches_generation"] = out["c"]["runs"][0]["launches"]
+    print("observability " + json.dumps(dict(
+        card=card, seconds=out["seconds"],
+        step_ms_planes_on=out["a"]["on"]["step_ms_mean"],
+        step_ms_planes_off=out["a"]["off"]["off"]["step_ms_mean"],
+        step_ms_planes_bare=out["a"]["off"]["bare"]["step_ms_mean"],
+        goodput_ratio=out["a"]["on"]["goodput_ratio"],
+        mfu_ratio=out["a"]["on"]["mfu_ratio"],
+        tokens_per_s_log_on=out["c"]["tokens_per_s_on"],
+        tokens_per_s_log_off=out["c"]["tokens_per_s_off"],
+        sentinel=out["b"]["first_leaves"][:3], bundle_keys=out["d"]["keys"],
+        host_us_per_call=out["d"]["host_us_per_call"])),
+        flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -8562,6 +9044,9 @@ def main(argv=None) -> int:
     clocks("after phase 21", start)
     chronos_rest = phase_chronos_rest(torch, args.seed, card)
     clocks("after phase 22", start)
+    observability = phase_observability(torch, args.seed, card,
+                                        engine.model)
+    clocks("after phase 23", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -8615,6 +9100,8 @@ def main(argv=None) -> int:
     int8_bert = int8["a"]["launches"]
     pretrained = zoo_rest["a"]["launches"]
     k_bert, k_gpt = keras["b"]["launches"], keras["c"]["launches"]
+    obs_fit = observability["launches"]
+    obs_gen = observability["launches_generation"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -8665,13 +9152,16 @@ def main(argv=None) -> int:
                                   "int8_bert_serving": int8_bert,
                                   "bert_pretrained_fine_tune": pretrained,
                                   "keras_bert_fit": k_bert,
-                                  "keras_transformer_layer_fit": k_gpt},
+                                  "keras_transformer_layer_fit": k_gpt,
+                                  "observed_fine_tune": obs_fit,
+                                  "observed_generation": obs_gen},
                "layer_norm_bwd": {"bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert,
                                   "bert_pretrained_fine_tune": pretrained,
                                   "keras_bert_fit": k_bert,
-                                  "keras_transformer_layer_fit": k_gpt},
+                                  "keras_transformer_layer_fit": k_gpt,
+                                  "observed_fine_tune": obs_fit},
                "fused_dense_gelu": {"bert_serving": bert,
                                     "bert_fine_tune": tr,
                                     "bert_fine_tune_remat": remat,
@@ -8680,7 +9170,8 @@ def main(argv=None) -> int:
                                     "int8_bert_serving": int8_bert,
                                     "bert_pretrained_fine_tune": pretrained,
                                     "keras_bert_fit": k_bert,
-                                    "keras_transformer_layer_fit": k_gpt},
+                                    "keras_transformer_layer_fit": k_gpt,
+                                    "observed_fine_tune": obs_fit},
                "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
                              "learnable_bias": bias_run["launches"],
                              "bert_fine_tune_remat": remat,
@@ -8688,23 +9179,27 @@ def main(argv=None) -> int:
                              "serving_bert_http": srv_bert,
                              "int8_bert_serving": int8_bert,
                              "bert_pretrained_fine_tune": pretrained,
-                             "keras_transformer_layer_fit": k_gpt},
+                             "keras_transformer_layer_fit": k_gpt,
+                             "observed_fine_tune": obs_fit},
                "flash_bwd_dq": {"bert_fine_tune": tr,
                                 "learnable_bias": bias_run["launches"],
                                 "bert_fine_tune_remat": remat,
                                 "bert_fine_tune_xshards": xs_bert,
                                 "bert_pretrained_fine_tune": pretrained,
-                                "keras_transformer_layer_fit": k_gpt},
+                                "keras_transformer_layer_fit": k_gpt,
+                                "observed_fine_tune": obs_fit},
                "flash_bwd_dkv": {"bert_fine_tune": tr,
                                  "learnable_bias": bias_run["launches"],
                                  "bert_fine_tune_remat": remat,
                                  "bert_fine_tune_xshards": xs_bert,
                                  "bert_pretrained_fine_tune": pretrained,
-                                 "keras_transformer_layer_fit": k_gpt},
+                                 "keras_transformer_layer_fit": k_gpt,
+                                 "observed_fine_tune": obs_fit},
                "paged_decode": dict(
                    {f"generation_{r['label']}": r["launches"]
                     for r in runs}, generation_breadth=breadth,
-                   serving_generate_http=srv_gen)}
+                   serving_generate_http=srv_gen,
+                   observed_generation=obs_gen)}
     for k in kernels:
         paths = by_path.get(k["name"])
         if paths:
@@ -8751,6 +9246,7 @@ def main(argv=None) -> int:
                       "zoo_rest": zoo_rest, "keras": keras,
                       "importers": importers,
                       "chronos": chronos, "chronos_rest": chronos_rest,
+                      "observability": observability,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,
