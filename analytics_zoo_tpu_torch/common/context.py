@@ -42,7 +42,13 @@ the part of JAX's that the ported paths read:
     defaults and checks (context.py:57-87): `observability_dir` (None),
     `goodput_sample_every` (16), `watchdog_deadline_s` (None),
     `nonfinite_watchdog` (False), `memory_sample_interval_s` (1.0),
-    `hardware_peak_flops` (None) and `request_log_size` (256);
+    `hardware_peak_flops` (None) and `request_log_size` (256); the
+    serving side's (context.py:64-86, :231-294, :410-591): `slo_targets`
+    (None), `blame_tolerance` (0.05), `exemplar_count` (16),
+    `exemplar_max_bytes` (64 KiB), `metrics_history_interval_s` (None),
+    `metrics_history_max_bytes` (8 MiB), `telemetry_spool_interval_s`
+    (1.0), `telemetry_spool_max_bytes` (1 MiB) and `slo_shed_attainment`
+    (None);
   * the generation engine's defaults, read where its arguments are
     "auto": `kv_cache_quantization` (None or "int8"), `prefix_caching`
     (False), `chunked_prefill` (False), `speculative_decoding` (False),
@@ -85,6 +91,15 @@ class OrcaContextMeta(type):
     _memory_sample_interval_s = 1.0
     _hardware_peak_flops = None
     _request_log_size = 256
+    _slo_targets = None
+    _blame_tolerance = 0.05
+    _exemplar_count = 16
+    _exemplar_max_bytes = 64 * 1024
+    _metrics_history_interval_s = None
+    _metrics_history_max_bytes = 8 * 1024 * 1024
+    _telemetry_spool_interval_s = 1.0
+    _telemetry_spool_max_bytes = 1024 * 1024
+    _slo_shed_attainment = None
 
     # --- runtime state ---
     _device = None
@@ -424,6 +439,171 @@ class OrcaContextMeta(type):
         if int(value) < 1:
             raise ValueError("request_log_size must be >= 1")
         cls._request_log_size = int(value)
+
+    @property
+    def slo_targets(cls):
+        """Per-request latency SLO targets (`observability/slo.py`): a
+        dict over {"ttft_s", "tpot_s", "queue_wait_s", "e2e_s"}, seconds
+        each, any subset.  Every finished generation request is judged
+        against them: misses count in ``slo_violation_total`` (and the
+        ``slo_violation_<dim>_total`` family), the rolling attainment is
+        the ``slo_attainment_ratio`` gauge and GET /slo.  A
+        ``"model:<name>"`` / ``"tenant:<name>"`` key maps to its own
+        sub-dict over the same dimensions, laid over the base for that
+        model's / tenant's requests (the tenant's wins).  None (default)
+        judges nothing."""
+        return cls._slo_targets
+
+    @slo_targets.setter
+    def slo_targets(cls, value):
+        if value is None:
+            cls._slo_targets = None
+            return
+        from analytics_zoo_tpu_torch.observability.slo import (
+            SLO_DIMENSIONS,
+        )
+
+        def _dims(d, who):
+            out = {}
+            for k, v in dict(d).items():
+                if k not in SLO_DIMENSIONS:
+                    raise ValueError(
+                        f"unknown SLO dimension {k!r}{who}; valid: "
+                        f"{SLO_DIMENSIONS}")
+                if float(v) <= 0:
+                    raise ValueError(f"SLO target {k} must be > 0")
+                out[k] = float(v)
+            return out
+
+        targets = {}
+        for k, v in dict(value).items():
+            if isinstance(k, str) and (k.startswith("model:")
+                                       or k.startswith("tenant:")):
+                if not k.split(":", 1)[1]:
+                    raise ValueError(
+                        f"keyed SLO target {k!r} names no model/tenant")
+                targets[k] = _dims(v, f" under {k!r}")
+            else:
+                targets.update(_dims({k: v}, ""))
+        cls._slo_targets = targets
+
+    @property
+    def blame_tolerance(cls):
+        """Relative slack of the phase ledger's additivity
+        (`observability/blame.py`): a finished request's phases sum to
+        its e2e within this fraction (an absolute 0.1 ms floor covers
+        sub-millisecond e2e); a miss flips the ledger's `additive_ok`
+        and ticks `blame_additivity_violations_total`."""
+        return cls._blame_tolerance
+
+    @blame_tolerance.setter
+    def blame_tolerance(cls, value):
+        if not (0.0 < float(value) <= 1.0):
+            raise ValueError("blame_tolerance must be in (0, 1]")
+        cls._blame_tolerance = float(value)
+
+    @property
+    def exemplar_count(cls):
+        """The most tail exemplars the process store holds
+        (`observability/exemplars.py`): SLO violators displace the
+        others, else the top-k slowest; 0 captures none."""
+        return cls._exemplar_count
+
+    @exemplar_count.setter
+    def exemplar_count(cls, value):
+        if int(value) < 0:
+            raise ValueError("exemplar_count must be >= 0")
+        cls._exemplar_count = int(value)
+
+    @property
+    def exemplar_max_bytes(cls):
+        """JSON bytes an exemplar may take: its span, dispatch,
+        scheduler and event tails are halved (newest kept) until it
+        fits."""
+        return cls._exemplar_max_bytes
+
+    @exemplar_max_bytes.setter
+    def exemplar_max_bytes(cls, value):
+        if int(value) < 2048:
+            raise ValueError("exemplar_max_bytes must be >= 2048")
+        cls._exemplar_max_bytes = int(value)
+
+    @property
+    def metrics_history_interval_s(cls):
+        """The metrics history recorder's cadence in seconds
+        (`observability/history.py`); None (default) leaves it disarmed.
+        When set, the generation engine's loop samples every registered
+        registry into a bounded ring and, with `observability_dir`, a
+        CRC32C-framed log under `observability_dir/history/<proc>/`;
+        each sample steps the built-in AlertEngine.  GET
+        /metrics/history takes a sample on demand either way."""
+        return cls._metrics_history_interval_s
+
+    @metrics_history_interval_s.setter
+    def metrics_history_interval_s(cls, value):
+        if value is not None and float(value) <= 0:
+            raise ValueError(
+                "metrics_history_interval_s must be > 0 or None")
+        cls._metrics_history_interval_s = (None if value is None
+                                           else float(value))
+
+    @property
+    def metrics_history_max_bytes(cls):
+        """On-disk budget of one process's history log (8 MiB): whole
+        oldest segments are dropped past it, never the append path."""
+        return cls._metrics_history_max_bytes
+
+    @metrics_history_max_bytes.setter
+    def metrics_history_max_bytes(cls, value):
+        if int(value) < 4096:
+            raise ValueError("metrics_history_max_bytes must be >= 4096")
+        cls._metrics_history_max_bytes = int(value)
+
+    @property
+    def telemetry_spool_interval_s(cls):
+        """The least seconds between telemetry spool snapshots
+        (`observability/telemetry_spool.py`): the generation engine's
+        loop rewrites `<observability_dir>/telemetry/<proc>/
+        snapshot.json` at most this often, so its last metrics and spans
+        survive a SIGKILL.  Armed only with `observability_dir`."""
+        return cls._telemetry_spool_interval_s
+
+    @telemetry_spool_interval_s.setter
+    def telemetry_spool_interval_s(cls, value):
+        if float(value) < 0:
+            raise ValueError("telemetry_spool_interval_s must be >= 0")
+        cls._telemetry_spool_interval_s = float(value)
+
+    @property
+    def telemetry_spool_max_bytes(cls):
+        """Byte cap of one spooled snapshot: the span, request and
+        exemplar tails are halved until it fits; the metric exposition
+        is kept whole."""
+        return cls._telemetry_spool_max_bytes
+
+    @telemetry_spool_max_bytes.setter
+    def telemetry_spool_max_bytes(cls, value):
+        if int(value) < 4096:
+            raise ValueError("telemetry_spool_max_bytes must be >= 4096")
+        cls._telemetry_spool_max_bytes = int(value)
+
+    @property
+    def slo_shed_attainment(cls):
+        """The generation engine's SLO shedder (None = off, the
+        default).  With it set (0 < x <= 1) and `slo_targets` set,
+        `GenerationEngine.submit` sheds a new request (QueueFull, HTTP
+        503 with Retry-After) while the rolling attainment is below it
+        and at least `slo_shed_min_queue` requests wait."""
+        return cls._slo_shed_attainment
+
+    @slo_shed_attainment.setter
+    def slo_shed_attainment(cls, value):
+        if value is not None:
+            value = float(value)
+            if not 0.0 < value <= 1.0:
+                raise ValueError(
+                    "slo_shed_attainment must be in (0, 1] or None")
+        cls._slo_shed_attainment = value
 
 
 class OrcaContext(metaclass=OrcaContextMeta):

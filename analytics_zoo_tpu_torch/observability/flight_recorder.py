@@ -19,9 +19,11 @@ blocks on I/O).  ``dump(reason)`` writes a redacted JSON bundle to
 * the Python stacks of every live thread,
 * the trigger reason plus caller-supplied context.
 
-The sections that item 6b's planes fill (``history_tail``,
-``alerts_active``, ``exemplars``, ``timeline_path``) hold what JAX
-writes when those planes are empty (``[]``, ``{}``, None).
+* the metrics history's recent samples and the firing alerts
+  (``history_tail``, ``alerts_active``; empty while the history plane
+  is disarmed), the worst tail exemplars (``exemplars``), and
+  ``timeline_path``: a Perfetto sibling ``*.trace.json`` of the merged
+  timeline, written beside the bundle (None when that write fails).
 
 ``install()`` arms the process: `sys.excepthook` is wrapped so an
 unhandled exception dumps before the traceback prints; SIGTERM and
@@ -174,16 +176,11 @@ def dump(reason: str, extra: Optional[Dict[str, Any]] = None,
             "metrics": get_registry().snapshot(),
             "goodput": _goodput_tables_safe(),
             "memory": _memory_snapshot_safe(),
-            # item 6b (history, alerts): the metrics history's recent
-            # samples and the firing alerts, empty as JAX's with those
-            # planes disarmed
-            "history_tail": [],
-            "alerts_active": {},
+            "history_tail": _history_tail_safe(),
+            "alerts_active": _alerts_active_safe(),
             "dispatch": _dispatch_safe(),
             "compile_events": _compile_events_safe(),
-            # item 6b (exemplars): the worst tail requests, none as
-            # JAX's with none captured
-            "exemplars": [],
+            "exemplars": _exemplars_safe(),
             "thread_stacks": _thread_stacks(),
         }
         if exc is not None:
@@ -198,14 +195,20 @@ def dump(reason: str, extra: Optional[Dict[str, Any]] = None,
         stem = os.path.join(
             directory,
             f"flight_{int(time.time() * 1e3)}_{os.getpid()}")
+        # the Perfetto sibling: the merged timeline around the moment
+        # of death, written FIRST so the bundle names only a trace that
+        # exists
+        trace_path = None
         try:
-            from analytics_zoo_tpu_torch.observability import memory
+            from analytics_zoo_tpu_torch.observability import (
+                memory,
+                timeline,
+            )
             memory.maybe_sample(force=True)
+            trace_path = timeline.write_timeline(stem + ".trace.json")
         except Exception:
-            pass
-        # item 6b (timeline): the Perfetto sibling written beside the
-        # bundle; None, as JAX's when the export fails
-        bundle["timeline_path"] = None
+            trace_path = None
+        bundle["timeline_path"] = trace_path
         bundle = _redact(_jsonable(bundle))
         path = stem + ".json"
         with open(path, "w", encoding="utf-8") as f:
@@ -213,6 +216,41 @@ def dump(reason: str, extra: Optional[Dict[str, Any]] = None,
         return path
     except Exception:
         return None
+
+
+def _history_tail_safe(n: int = 64) -> List[Dict[str, Any]]:
+    """The recorder's recent samples, so a post-mortem shows the
+    minutes before the crash (empty while the history plane is
+    disarmed)."""
+    try:
+        from analytics_zoo_tpu_torch.observability import history
+        rec = history.get_recorder()
+        return rec.tail(n) if rec is not None else []
+    except Exception:
+        return []
+
+
+def _alerts_active_safe() -> Dict[str, Any]:
+    try:
+        from analytics_zoo_tpu_torch.observability import history
+        rec = history.get_recorder()
+        if rec is None or rec.alerts is None:
+            return {}
+        return rec.alerts.evaluate(rec.tail()).get("active", {})
+    except Exception:
+        return {}
+
+
+def _exemplars_safe(n: int = 8) -> List[Dict[str, Any]]:
+    """The worst `n` tail exemplars (exemplars.py): a post-mortem
+    opens with the requests that were already hurting."""
+    try:
+        from analytics_zoo_tpu_torch.observability.exemplars import (
+            get_exemplar_store,
+        )
+        return get_exemplar_store().snapshot()[:n]
+    except Exception:
+        return []
 
 
 def _goodput_tables_safe() -> Dict[str, Any]:

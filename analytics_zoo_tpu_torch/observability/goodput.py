@@ -66,7 +66,7 @@ BUCKETS = ("compile", "host_input", "device_compute",
            "blocked_collective", "checkpoint", "overhead")
 
 #: bounded ring of FENCED step slices ({clock, ts (wall), dur_s,
-#: buckets, cold}) — what the timeline export (item 6b) draws as goodput
+#: buckets, cold}) — what the timeline export (timeline.py) draws as goodput
 #: tracks.  Fenced-only keeps entries meaningful (fully decomposed)
 #: and the decode loop, which fences every iteration, fully covered.
 _TIMELINE_SIZE = 1024
@@ -285,7 +285,7 @@ def step_clock(name: str) -> StepClock:
 
 def goodput_tables() -> Dict[str, Dict[str, object]]:
     """{clock_name: breakdown table} for every live clock, stable name
-    order (the server's GET /goodput comes with ROADMAP item 6b)."""
+    order (the server's GET /goodput)."""
     with _clocks_lock:
         items = sorted(_clocks.items())
     return {name: c.table() for name, c in items}
@@ -318,7 +318,7 @@ def _ensure_global_gauge() -> None:
 
 def recent_steps(n: Optional[int] = None) -> List[Dict[str, Any]]:
     """Fenced step slices from the timeline ring, oldest first (the
-    goodput tracks of the timeline export, ROADMAP item 6b)."""
+    goodput tracks of the timeline export)."""
     with _timeline_lock:
         items = list(_timeline)
     if n is not None:

@@ -485,7 +485,7 @@ def record_work(family: str, dur_s: float, tokens: int = 0,
 
 def ledger_snapshot() -> Dict[str, Any]:
     """Per-family ledger rows, the MFU block and the compile-event tail
-    (JAX's ``GET /dispatch`` payload; the port's route is item 6b's)."""
+    (the server's ``GET /dispatch`` payload)."""
     with _lock:
         fams = {name: fam.snapshot()
                 for name, fam in _families.items()}
@@ -515,7 +515,7 @@ def compile_events(n: Optional[int] = None) -> List[Dict[str, Any]]:
 def recent_calls(n: Optional[int] = None
                  ) -> List[Tuple[str, float, float, int]]:
     """(family, wall_ts, dur_s, tokens) across all family reservoirs,
-    oldest first (the timeline export's feed, item 6b)."""
+    oldest first (the timeline export's feed)."""
     with _lock:
         rows = [(fam.name, ts, dur, tok)
                 for fam in _families.values()

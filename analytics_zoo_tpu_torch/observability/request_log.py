@@ -19,11 +19,11 @@ schedulers are judged on:
 * **e2e** — `finish - enqueue`,
 
 feeding the `request_ttft_seconds` / `request_tpot_seconds` /
-`request_queue_wait_seconds` / `request_e2e_seconds` histograms.  The
-record's `blame` second-accumulators (`attribute()`) are kept exactly;
-JAX's finish also feeds them, with the four latencies, to the SLO
-tracker and the blame plane, which come with ROADMAP item 6b (one
-marked hook in `RequestLog.finish`).
+`request_queue_wait_seconds` / `request_e2e_seconds` histograms, the
+SLO tracker (slo.py) and, through `blame.observe_finished`, the latency
+blame plane (blame.py), which decomposes the e2e into an additive phase
+ledger from the record's exact `blame` second-accumulators
+(`attribute()`).
 
 Round accounting is speculation-exact: `n_rounds` counts every
 scheduling round (prefill chunks and decode participations), split into
@@ -96,7 +96,7 @@ class RequestRecord:
                  "t_first_token", "t_last_token", "t_finish", "n_tokens",
                  "n_rounds", "n_preempts", "events", "n_events_dropped",
                  "model", "tenant", "request_class",
-                 # the blame accumulators (item 6b's blame plane)
+                 # the blame accumulators (the blame plane's)
                  "blame", "replica", "t_paused", "paused_phase",
                  "n_decode_rounds", "n_spec_rounds", "n_spec_tokens",
                  "in_spec_round")
@@ -427,8 +427,9 @@ class RequestLog:
             pass
 
     def finish(self, request_id: Optional[str], reason: str) -> None:
-        """Close the record: derive latencies, feed the histograms and
-        move it to the finished ring."""
+        """Close the record: derive latencies, feed the histograms, the
+        SLO tracker and the blame plane, move it to the finished
+        ring."""
         if request_id is None:
             return
         try:
@@ -451,11 +452,21 @@ class RequestLog:
                     "queue_wait_s": rec.queue_wait_s,
                     "e2e_s": rec.e2e_s,
                 }
+                model, tenant = rec.model, rec.tenant
                 is_shadow = rec.request_class == "shadow"
-            # metric work outside the lock: nothing below touches the
-            # record again.  Shadow duplicates keep their latency OUT of
-            # the primary histograms, as JAX's
+                snap = rec.snapshot()
+            # metric, SLO and blame work outside the lock: nothing below
+            # touches the record again.  Shadow duplicates keep their
+            # latency OUT of the primary histograms, SLO window and
+            # blame rollup: the shadow tracker judges them under the
+            # shadow_ metric prefix
+            from analytics_zoo_tpu_torch.observability.slo import (
+                get_shadow_slo_tracker,
+                get_slo_tracker,
+            )
             if is_shadow:
+                get_shadow_slo_tracker().observe(
+                    measures, model=model, tenant=tenant)
                 return
             if measures["ttft_s"] is not None:
                 self._h_ttft.record(measures["ttft_s"])
@@ -465,9 +476,10 @@ class RequestLog:
                 self._h_queue.record(measures["queue_wait_s"])
             if measures["e2e_s"] is not None:
                 self._h_e2e.record(measures["e2e_s"])
-            # item 6b (slo, blame): JAX feeds `measures` (by model and
-            # tenant) to its SLO trackers, shadow ones included, and the
-            # record's snapshot to the blame plane here
+            get_slo_tracker().observe(measures, model=model,
+                                      tenant=tenant)
+            from analytics_zoo_tpu_torch.observability import blame
+            blame.observe_finished(snap)
         except Exception:
             pass
 

@@ -12,10 +12,10 @@ threads that already exist.
 Completed spans land in a bounded in-process ring (`recent_spans`), are
 recorded as a duration histogram `span_<name>_seconds` in the global
 `MetricsRegistry`, and are appended to the JSONL event sink when
-`OrcaContext.observability_dir` is set.  JAX's fallback to an ambient
-remote parent (`trace_context`, a W3C traceparent from another process)
-comes with ROADMAP item 6b; until then a span with no local parent is a
-root.
+`OrcaContext.observability_dir` is set.  A span with no local parent
+takes the ambient remote parent (`trace_context.bind`, or the
+TRACEPARENT environment variable): a W3C traceparent from another
+process.
 """
 
 from __future__ import annotations
@@ -107,12 +107,21 @@ def trace(name: str, parent: Any = _MISSING, record_metric: bool = True,
 
     parent: defaults to `current_span()`; pass an explicit Span (or
         None for a fresh root) when crossing a thread or queue boundary.
-        Anything with `.span_id` and `.trace_id` works.
+        Anything with `.span_id` and `.trace_id` works, notably a
+        `trace_context.TraceContext` received from another process.
+        With no local span open, the ambient remote parent bound by
+        `trace_context.bind` (or the TRACEPARENT environment variable)
+        is used, so the first span after a cross-process hop joins the
+        caller's trace.
     record_metric: also record the duration into the global histogram
         `span_<name>_seconds` (default on).
     Other keywords become span attributes.
     """
     p = current_span() if parent is _MISSING else parent
+    if p is None and parent is _MISSING:
+        # trace_context imports this module: imported at call time
+        from analytics_zoo_tpu_torch.observability import trace_context
+        p = trace_context.remote_parent()
     span = Span(name, parent=p, attrs=attrs)
     token = _CURRENT.set(span)
     try:

@@ -11,8 +11,12 @@ The wire is the serving server's HTTP API (either package's server):
     preds = input_q.predict(np.array(...))           # sync
     tokens = input_q.generate_tokens(prompt, max_new_tokens=32)
 
+A call made inside a span (or under `trace_context.bind`) carries its
+W3C `traceparent` header, so the server's span joins the caller's
+trace; /enqueue's body carries it as a record field too.  The
+`traceparent` a /generate response echoes lands in `last_traceparent`.
 The durable-stream side (`enqueue(stream=...)`, `OutputQueue.ack` and
-`consume`) and the `traceparent` header are not ported yet.
+`consume`) is not ported yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.observability import trace_context
 from analytics_zoo_tpu_torch.serving.codec import (
     decode_ndarray,
     encode_ndarray,
@@ -114,7 +119,8 @@ class InputQueue:
         arrays = [np.asarray(a) for a in inputs]
         if not batched:
             arrays = [a[None] for a in arrays]
-        headers = self._attribution(None, None)
+        headers = trace_context.inject_headers(
+            self._attribution(None, None))
         if self.codec == "arrow":
             from analytics_zoo_tpu_torch.serving.codec import (
                 ARROW_CONTENT_TYPE,
@@ -181,7 +187,8 @@ class InputQueue:
 
         `model` / `tenant` (or the queue's defaults) ride as
         X-Model / X-Tenant; the server's echoed X-Model lands in
-        `self.last_model`."""
+        `self.last_model`, its echoed `traceparent` in
+        `self.last_traceparent`."""
         payload = {"tokens": [int(t) for t in tokens],
                    "max_new_tokens": max_new_tokens,
                    "temperature": temperature, "top_k": top_k,
@@ -194,7 +201,12 @@ class InputQueue:
         headers.update(self._attribution(model, tenant))
         if request_id is not None:
             headers["X-Request-Id"] = str(request_id)
+        # a call from inside a span (or under trace_context.bind) stamps
+        # its context: the server's serving.generate span joins the
+        # trace, the same across retries like X-Request-Id
+        trace_context.inject_headers(headers)
         self.last_request_id = None
+        self.last_traceparent = None
         self.last_model = None
         self.last_retries = 0
         max_attempts = retry.max_attempts if retry is not None else 1
@@ -208,6 +220,8 @@ class InputQueue:
                 break
             except urllib.error.HTTPError as e:
                 self.last_request_id = e.headers.get("X-Request-Id")
+                self.last_traceparent = e.headers.get(
+                    trace_context.TRACEPARENT_HEADER)
                 retry_after = e.headers.get("Retry-After")
                 try:
                     err = json.loads(e.read()).get("error", str(e))
@@ -240,6 +254,8 @@ class InputQueue:
                 time.sleep(retry.backoff(attempt))
         self.last_request_id = resp.headers.get("X-Request-Id")
         self.last_model = resp.headers.get("X-Model")
+        self.last_traceparent = resp.headers.get(
+            trace_context.TRACEPARENT_HEADER)
         with resp:
             for raw in resp:           # http.client de-chunks for us
                 msg = json.loads(raw)
@@ -263,16 +279,18 @@ class InputQueue:
                 tenant: Optional[str] = None, **inputs) -> str:
         """Async enqueue of one record (reference InputQueue.enqueue);
         fetch via OutputQueue.dequeue(uri).  `model` / `tenant` (or the
-        queue's defaults) ride as headers.  The durable mode
+        queue's defaults) ride as headers; the trace context rides as the
+        header and as the body's record field.  The durable mode
         (``stream="name"``, with `retry`) is not ported yet and
         raises."""
         if stream is not None:
             raise NotImplementedError(_NOT_PORTED)
         arrays = [np.asarray(a)[None] for a in inputs.values()]
-        payload = {"uri": uri,
-                   "inputs": [encode_ndarray(a) for a in arrays]}
+        payload = trace_context.inject_record(
+            {"uri": uri, "inputs": [encode_ndarray(a) for a in arrays]})
         resp = _post(f"{self.base}/enqueue", payload, timeout=timeout,
-                     headers=self._attribution(model, tenant))
+                     headers=trace_context.inject_headers(
+                         self._attribution(model, tenant)))
         if resp.get("status") != "queued":
             raise RuntimeError(f"enqueue failed: {resp}")
         return resp["uri"]

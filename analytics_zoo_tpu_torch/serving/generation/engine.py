@@ -40,13 +40,16 @@ Streaming: `submit()` returns a `GenerationStream`; the engine pushes
 each sampled token as it exists.  Drive the loop with `step()` /
 `run_until_idle()`, or serve with `ensure_started()` / `stop()`.
 
-Intake: `submit` sheds with `QueueFull` when `max_queue` requests wait,
-or when a fault plan's ``refuse`` fires at the ``serving.admission``
-site; either carries `retry_after_s()`, the queue's drain time estimated
-from the measured decode steps.  A ``poison_request`` fault at
-``generation.decode`` fails one request before dispatch: the engine
-evicts that request alone and the other lanes decode on the next round
-(JAX engine.py:1405-1493).
+Intake: `submit` sheds with `QueueFull` when `max_queue` requests wait;
+when the SLO shedder is armed (`OrcaContext.slo_targets` and
+`slo_shed_attainment`) and the rolling attainment is below it with at
+least `slo_shed_min_queue` waiting (JAX control_plane/admission.py:
+204-225); or when a fault plan's ``refuse`` fires at the
+``serving.admission`` site.  Each carries `retry_after_s()`, the
+queue's drain time estimated from the measured decode steps.  A
+``poison_request`` fault at ``generation.decode`` fails one request
+before dispatch: the engine evicts that request alone and the other
+lanes decode on the next round (JAX engine.py:1405-1493).
 
 Observability, as JAX's (engine.py:416-430, :689-771, :957-1600): each
 request has a record in the lifecycle log (`request_log`, keyed by its
@@ -64,7 +67,11 @@ their fenced work in `CausalLMFlops`.  The KV pool's occupancy is the
 `kv_pool` memory provider.  With `OrcaContext.watchdog_deadline_s` a
 `generation` watchdog is beaten once a round while the engine has work.
 An evicted request, a stuck engine and a failed step each log an event
-and write a flight bundle.
+and write a flight bundle.  The engine's `registry` (the process
+registry) holds JAX's `generation_*` and `speculation_*` families; each loop round spools that registry
+(`maybe_spool`, with `OrcaContext.observability_dir`) and samples it
+into the metrics history (`maybe_record`, with
+`OrcaContext.metrics_history_interval_s`), as JAX's loop does.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import weakref
 from collections import deque
 from typing import List, Optional, Sequence as Seq, Tuple
 
@@ -83,7 +91,10 @@ from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.observability import (
     flight_recorder,
     get_registry,
+    get_slo_tracker,
     log_event,
+    maybe_record,
+    maybe_spool,
     maybe_watchdog,
     memory,
     now,
@@ -175,6 +186,8 @@ class GenerationEngine:
     `chunked_prefill`, `speculative_decoding`, `speculative_k`, and
     `kv_host_tier` its `kv_host_tier_bytes` (a byte capacity, or a
     `HostKVTier` to share; used only with prefix caching on).
+    `slo_shed_min_queue` (default `max_slots`: one waiting request a
+    lane) is the queue depth from which the SLO shedder may shed.
 
     Counters (plain integers): `n_requests`, `n_tokens`, `n_prefills`
     (whole-prompt prefills), `n_chunks` (chunk steps), `n_prefill_tokens`,
@@ -196,6 +209,7 @@ class GenerationEngine:
                  prefill_token_budget: int = 2048,
                  cache_dtype=torch.float32, seed: int = 0,
                  max_queue: Optional[int] = None,
+                 slo_shed_min_queue: Optional[int] = None,
                  kv_quantization="auto",
                  decode_attention: str = "paged",
                  prefix_caching="auto", chunked_prefill="auto",
@@ -236,6 +250,8 @@ class GenerationEngine:
         self.speculation = (Speculator(int(speculative_k))
                             if self.speculative_decoding else None)
         self.max_queue = max_queue
+        self.slo_shed_min_queue = (max_slots if slo_shed_min_queue is None
+                                   else int(slo_shed_min_queue))
         self.keep_logits = keep_logits
         if num_blocks is None:
             # every lane can hold a full context
@@ -312,6 +328,65 @@ class GenerationEngine:
             self._flops = profiling.CausalLMFlops.from_model(model)
         except (AttributeError, TypeError):
             self._flops = None
+        #: JAX's engine families (engine.py:362-414), in the process
+        #: registry (JAX's default; a replica's own registry comes with
+        #: the router)
+        reg = self.registry = get_registry()
+        #: the telemetry spool's name for this engine's loop
+        self.spool_name = "engine"
+        self._c_tokens = reg.counter(
+            "generation_tokens_total",
+            help="tokens sampled (prefill first-tokens + decode)")
+        self._c_prefill_tokens = reg.counter(
+            "generation_prefill_tokens_total",
+            help="prompt tokens prefilled (bucket-padded tokens excluded)")
+        self._c_requests = reg.counter(
+            "generation_requests_total", help="generation requests")
+        self._h_prefill = reg.histogram(
+            "generation_prefill_seconds",
+            help="per-sequence prefill latency (records = real tokens)")
+        self._h_decode = reg.histogram(
+            "generation_decode_seconds",
+            help="per-step decode latency (records = active lanes)")
+        # the gauges read the engine through a weak reference: the
+        # registry outlives it and must not keep its model and pool alive
+        reg.gauge("generation_cache_occupancy",
+                  fn=self._weak(lambda e: e.cache.allocator.occupancy()),
+                  help="fraction of KV blocks held by live sequences")
+        reg.gauge("generation_active_slots",
+                  fn=self._weak(lambda e: len(e.scheduler.running())),
+                  help="decode lanes occupied")
+        reg.gauge("generation_queue_depth",
+                  fn=self._weak(lambda e: len(e.scheduler.waiting)),
+                  help="requests waiting for a lane")
+        reg.gauge("generation_preemptions",
+                  fn=self._weak(lambda e: e.scheduler.n_preemptions),
+                  help="sequences preempted under cache pressure")
+        self._c_cow = (reg.counter(
+            "prefix_cache_cow_copies_total",
+            help="shared blocks copy-on-write un-shared before a decode "
+                 "write") if self.prefix_caching else None)
+        if self.speculation is not None:
+            self._c_spec_proposed = reg.counter(
+                "speculation_proposed_total",
+                help="drafted tokens fed to the spec-verify step")
+            self._c_spec_accepted = reg.counter(
+                "speculation_accepted_total",
+                help="drafted tokens accepted (argmax-matched); the "
+                     "free bonus tokens are NOT counted here")
+            self._c_spec_rounds = reg.counter(
+                "speculation_rounds_total",
+                help="per-lane verify rounds (one lane scored once)")
+            reg.gauge(
+                "speculation_acceptance_rate",
+                fn=self._weak(lambda e: (
+                    e._c_spec_accepted.value / e._c_spec_proposed.value
+                    if e._c_spec_proposed.value else 0.0)),
+                help="accepted / proposed drafted tokens, lifetime")
+            self._h_spec_accepted = reg.histogram(
+                "speculation_accepted_length",
+                help="accepted draft length per lane verify round "
+                     "(one record per round; 0 = fully rejected)")
         #: the KV pool's occupancy rides the memory telemetry
         memory.register_provider("kv_pool", self._kv_pool_stats)
         #: goodput of the hot loops; a step fences on its token fetch,
@@ -361,6 +436,16 @@ class GenerationEngine:
         if self.speculation is not None:
             profiling.declare_expected(
                 "spec_verify", self.speculation.expected_verify_variants())
+
+    def _weak(self, read):
+        """A gauge callback calling `read(engine)` while this engine
+        lives, 0.0 after."""
+        ref = weakref.ref(self)
+
+        def fn() -> float:
+            eng = ref()
+            return float(read(eng)) if eng is not None else 0.0
+        return fn
 
     def _kv_pool_stats(self) -> dict:
         """Pool occupancy: blocks used, shared (more than one reference)
@@ -632,19 +717,40 @@ class GenerationEngine:
             return float(min(10.0, max(0.05, (depth + 1) * mean)))
         return 0.5
 
+    def shed_reason(self, depth: int) -> Optional[str]:
+        """Why a new request should be turned away now (None = admit):
+        the `max_queue` bound, then, when `OrcaContext.slo_targets` and
+        `slo_shed_attainment` are set, the SLO shedder: attainment below
+        the threshold with at least `slo_shed_min_queue` requests
+        already waiting (JAX's `AdmissionCore.shed_reason`, its
+        messages)."""
+        if self.max_queue is not None and depth >= self.max_queue:
+            return (f"{depth} requests already waiting "
+                    f"(max_queue={self.max_queue})")
+        thr = OrcaContext.slo_shed_attainment
+        if thr is not None and OrcaContext.slo_targets:
+            att = get_slo_tracker().attainment()
+            if att == att and att < thr and \
+                    depth >= self.slo_shed_min_queue:
+                return (f"shedding under SLO pressure: attainment "
+                        f"{att:.3f} < {thr} with {depth} waiting")
+        return None
+
     def submit(self, prompt, max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0,
                eos_id: Optional[int] = None, stream_timeout: float = 120.0,
-               request_id: Optional[str] = None, priority: int = 0
-               ) -> GenerationStream:
+               request_id: Optional[str] = None, priority: int = 0,
+               tenant: Optional[str] = None) -> GenerationStream:
         """Queue one request; returns its token stream.  Raises up front
         when the request can never run: ValueError for malformed
         prompts, `RequestTooLarge` (a ValueError; HTTP 413) when prompt +
         max_new_tokens exceed max_context or the whole block pool,
-        `QueueFull` (HTTP 503) when `max_queue` requests already wait or
-        the ``serving.admission`` fault site refuses.  `request_id` is
-        sanitized (one is made when absent) and readable from the
-        returned stream's `.request_id`."""
+        `QueueFull` (HTTP 503) from `shed_reason` (the queue bound and
+        the SLO shedder) or when the ``serving.admission`` fault site
+        refuses.  `request_id` is sanitized (one is made when absent)
+        and readable from the returned stream's `.request_id`.  `tenant`
+        attributes the request in the lifecycle log, so the SLO and
+        blame planes slice by it (tenant quotas are not ported)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -662,11 +768,9 @@ class GenerationEngine:
                 f"blocks, pool holds {self.cache.allocator.capacity}")
         with self._lock:
             depth = len(self.scheduler.waiting)
-            if self.max_queue is not None and depth >= self.max_queue:
-                raise QueueFull(
-                    f"{depth} requests already waiting "
-                    f"(max_queue={self.max_queue})",
-                    retry_after_s=self.retry_after_s())
+            reason = self.shed_reason(depth)
+            if reason is not None:
+                raise QueueFull(reason, retry_after_s=self.retry_after_s())
             # "refuse" sheds this request exactly as an organic overload
             # would (JAX control_plane/admission.py:242)
             if fault_point("serving.admission",
@@ -676,7 +780,8 @@ class GenerationEngine:
             # the record opens once the request is taken, with the id
             # sanitized (or made) and kept through preemption
             rid = request_log.start(request_id, prompt_len=len(prompt),
-                                    max_new_tokens=int(max_new_tokens))
+                                    max_new_tokens=int(max_new_tokens),
+                                    tenant=tenant)
             seq = Sequence(prompt, max_new_tokens=max_new_tokens,
                            temperature=temperature, top_k=top_k,
                            eos_id=eos_id, request_id=rid,
@@ -686,6 +791,7 @@ class GenerationEngine:
                 seq.logits = []
             self.scheduler.submit(seq)
             self.n_requests += 1
+            self._c_requests.inc()
         self._wake.set()
         return seq.stream
 
@@ -720,6 +826,7 @@ class GenerationEngine:
         if seq.logits is not None and logits is not None:
             seq.logits.append(logits.clone())
         self.n_tokens += 1
+        self._c_tokens.inc()
         request_log.token(seq.request_id)
         if seq.stream is not None:
             seq.stream._put(token)
@@ -755,6 +862,8 @@ class GenerationEngine:
             flops=self._flops.prefill(L) if self._flops else 0.0)
         self.n_prefills += 1
         self.n_prefill_tokens += L
+        self._h_prefill.record(dur, L)
+        self._c_prefill_tokens.inc(L)
         request_log.attribute(seq.request_id, "prefill_compute", dur)
         request_log.event(seq.request_id, "prefill", bucket=bucket,
                           tokens=L, dur_s=round(dur, 6),
@@ -836,6 +945,8 @@ class GenerationEngine:
                        if self._flops else 0.0))
         self.n_chunks += 1
         self.n_prefill_tokens += real
+        self._h_prefill.record(dur, real)
+        self._c_prefill_tokens.inc(real)
         seq.prefill_pos = start + real
         request_log.attribute(seq.request_id, "prefill_compute", dur)
         request_log.event(seq.request_id, "prefill", bucket=bucket,
@@ -930,6 +1041,8 @@ class GenerationEngine:
             self._copy_block_step(src, dst)
             profiling.record_work("copy_block", now() - t0)
             self.n_cow_copies += 1
+            if self._c_cow is not None:
+                self._c_cow.inc()
 
     def _spec_round(self, budget: int) -> set:
         """One speculative-decoding pass over the running lanes: draft
@@ -1025,6 +1138,7 @@ class GenerationEngine:
             flops=(self._flops.verify(n_rows, W, ctx_mean)
                    if self._flops else 0.0))
         self.n_verify_steps += 1
+        self._h_decode.record(dur, n_rows)
         for seq in riders:
             # an ordinary decode in verify clothing: no speculation
             # budget, counters or rollback
@@ -1041,6 +1155,10 @@ class GenerationEngine:
             self.n_spec_rounds += 1
             self.n_spec_proposed += len(draft)
             self.n_spec_accepted += m
+            self._c_spec_rounds.inc()
+            self._c_spec_proposed.inc(len(draft))
+            self._c_spec_accepted.inc(m)
+            self._h_spec_accepted.record(m)
             n = st.rounds
             if n & (n - 1) == 0:      # pow2-sampled, like decode
                 request_log.event(seq.request_id, "spec_propose",
@@ -1117,6 +1235,7 @@ class GenerationEngine:
             flops=(self._flops.decode(len(lanes), ctx_mean)
                    if self._flops else 0.0))
         self.n_decode_steps += 1
+        self._h_decode.record(dur, len(lanes))
         for i, seq in lanes.items():
             request_log.decode_round(seq.request_id)
             # every riding lane waited out the whole fenced round
@@ -1225,6 +1344,11 @@ class GenerationEngine:
     def _loop(self) -> None:
         stuck_rounds = 0
         while not self._stop.is_set():
+            # durable telemetry: this loop's registry spooled (with
+            # observability_dir, time-gated) and sampled into the
+            # metrics history (with metrics_history_interval_s)
+            maybe_spool(self.spool_name, (self.registry,))
+            maybe_record((self.registry,))
             if not self.scheduler.has_work():
                 if self.watchdog is not None:
                     # idle is not a stall: disarmed until work arrives

@@ -29,21 +29,48 @@ Endpoints:
                    true, "n_tokens", "finish_reason", "request_id"}.  The
                    client's X-Request-Id (sanitized) or a new id is echoed
                    on every response; 400 malformed, 404 no engine, 413
-                   can never fit, 503 shed (with Retry-After and
-                   "retry_after_s" from the engine's drain estimate).  A
-                   stream that dies mid-flight ends with an {"error"} line.
+                   can never fit, 503 shed (the queue bound or the SLO
+                   shedder, `OrcaContext.slo_shed_attainment`; with
+                   Retry-After and "retry_after_s" from the engine's
+                   drain estimate).  A stream that dies mid-flight ends
+                   with an {"error"} line.  X-Tenant attributes the
+                   request for the SLO and blame planes.
   GET  /healthz  — liveness and records served
   GET  /stats    — JSON snapshot: counters, batcher queue depth, the
-                   per-op timer summaries, the engine's lanes
+                   per-op timer summaries, the goodput ratio, the
+                   engine's lanes, the dispatch ledger's rows, and with an
+                   engine the `requests` (SLO attainment) and `blame`
+                   blocks, with `observability_dir` the `fleet` block
   GET  /metrics  — Prometheus text: this server's registry (the
                    `serving_*` timers, counters and gauges) merged with
-                   the process registry
+                   the process registry; ?fleet=1 the `FleetAggregator`
+                   view (counters summed over this process and every
+                   spooled snapshot, gauges labeled by source)
+  GET  /metrics/history — the metrics history (observability/history.py):
+                   a forced sample, then the recorder's ring
+                   (?family=&since=&derive=rate|delta|quantiles&window=;
+                   ?fleet=1 every process's sample log merged; another
+                   derive is a 400)
+  GET  /spans    — the newest completed spans (?n=, default 100)
+  GET  /goodput  — the goodput step tables and the process ratio
+  GET  /slo      — the SLO snapshot (targets, attainment, violations)
+  GET  /dispatch — the dispatch ledger (families, compile events, MFU)
+  GET  /blame    — the latency blame rollup (?fleet=1: counters summed
+                   over the fleet and its worst exemplars)
+  GET  /debug/requests[/<id>] — the tail exemplars' index, or one
+                   request's dossier (404 for an unknown id)
+  GET  /timeline — the Chrome-trace timeline (?fleet=1: one pid a
+                   source, flows across shared traces)
 
-X-Model and X-Tenant are echoed on every response.  The JAX server's
-worker pool, replica router, durable streams, model registry and tenant
-quotas, and its tracing routes (/spans, /goodput, /slo, /timeline,
-/dispatch, /blame, /debug/requests, /metrics/history) are not ported
-yet; those paths answer 404 as any unknown path does.
+Tracing: a client's W3C `traceparent` on /generate, /predict and
+/enqueue parents the handler's span (`serving.generate`,
+`serving.http_request`), and a `traceparent` of that span's trace is
+echoed on the response, sheds included; the batcher's
+`serving.run_batch` span takes the first request's span as its parent
+across the queue hop.  X-Model and X-Tenant are echoed on every
+response.  The JAX server's worker pool, replica router, durable
+streams, model registry and tenant quotas are not ported yet (ROADMAP
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -56,16 +83,33 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, unquote
 
 import numpy as np
 
-from analytics_zoo_tpu_torch.observability.registry import (
+from analytics_zoo_tpu_torch.common.context import OrcaContext
+from analytics_zoo_tpu_torch.observability import (
+    FleetAggregator,
     MetricsRegistry,
+    blame_payload,
+    current_span,
+    export_timeline,
+    get_blame_tracker,
+    get_exemplar_store,
     get_registry,
+    get_slo_tracker,
+    goodput_tables,
+    history,
+    memory,
     merged_prometheus_text,
     now,
+    process_goodput_ratio,
+    profiling,
+    recent_spans,
+    request_log,
+    trace,
+    trace_context,
 )
-from analytics_zoo_tpu_torch.observability import request_log
 from analytics_zoo_tpu_torch.serving.codec import (
     ARROW_CONTENT_TYPE,
     decode_arrow_tensors,
@@ -80,14 +124,18 @@ _log = logging.getLogger(__name__)
 
 
 class _Pending:
-    __slots__ = ("inputs", "event", "outputs", "error", "t_enqueue")
+    __slots__ = ("inputs", "event", "outputs", "error", "t_enqueue",
+                 "span")
 
-    def __init__(self, inputs: Tuple[np.ndarray, ...]):
+    def __init__(self, inputs: Tuple[np.ndarray, ...], span=None):
         self.inputs = inputs
         self.event = threading.Event()
         self.outputs = None
         self.error: Optional[str] = None
         self.t_enqueue = now()
+        # the submitting side's open span: the batcher's run_batch span
+        # takes it as parent, since contextvars do not cross the queue
+        self.span = span if span is not None else current_span()
 
 
 class ServingServer:
@@ -152,6 +200,7 @@ class ServingServer:
         self._requested_addr = (host, port)
         self.host, self.port = host, port
         self._threads: List[threading.Thread] = []
+        self._fleet_agg: Optional[FleetAggregator] = None
 
     # ------------------------------------------------------------------
     # the HTTP handler
@@ -192,24 +241,97 @@ class ServingServer:
                 self.wfile.write(body)
 
             def do_GET(self):
-                path = self.path.partition("?")[0]
+                path, _, query = self.path.partition("?")
+                fleet = "fleet=1" in query
                 if path == "/healthz":
                     self._json(200, {"status": "ok",
                                      "records_served": server.records_served,
                                      "replicas": 1,
                                      "batches_run": server._batches_run})
+                elif path.startswith("/metrics/history"):
+                    self._history(parse_qs(query))
                 elif path == "/metrics":
-                    text = merged_prometheus_text(server.registry,
-                                                  get_registry())
+                    text = (server.fleet().fleet_prometheus_text() if fleet
+                            else merged_prometheus_text(server.registry,
+                                                        get_registry()))
                     self._body(200, text.encode(),
                                "text/plain; version=0.0.4")
                 elif path == "/stats":
                     self._json(200, server.stats())
+                elif path.startswith("/goodput"):
+                    self._json(200, {
+                        "goodput_ratio": round(process_goodput_ratio(), 4),
+                        "clocks": goodput_tables()})
+                elif path.startswith("/slo"):
+                    self._json(200, get_slo_tracker().snapshot())
+                elif path.startswith("/dispatch"):
+                    self._json(200, profiling.ledger_snapshot())
+                elif path.startswith("/blame"):
+                    self._json(200, server.fleet().fleet_blame() if fleet
+                               else blame_payload())
+                elif path.startswith("/debug/requests"):
+                    rid = unquote(path[len("/debug/requests"):].strip("/"))
+                    if not rid:
+                        self._json(200, get_exemplar_store().index())
+                        return
+                    doc = server.fleet().fleet_exemplar(rid)
+                    if doc is None:
+                        self._json(404, {"error": "no exemplar for "
+                                         "request id", "request_id": rid})
+                    else:
+                        self._json(200, doc)
+                elif path.startswith("/timeline"):
+                    # a fresh memory point in every export
+                    memory.maybe_sample(force=True)
+                    doc = (server.fleet().fleet_timeline() if fleet
+                           else export_timeline())
+                    self._body(200, json.dumps(doc).encode(),
+                               "application/json")
+                elif path.startswith("/spans"):
+                    try:
+                        n = int(parse_qs(query).get("n", ["100"])[0])
+                    except ValueError:
+                        n = 100
+                    self._json(200, {"spans": recent_spans(n)})
                 elif self.path.startswith("/result/"):
                     self._json(200, server._result(
                         self.path[len("/result/"):]))
                 else:
                     self._json(404, {"error": "not found"})
+
+            def _history(self, q: Dict[str, List[str]]):
+                """GET /metrics/history: a forced sample first, so the
+                answer always holds a current point; then the recorder's
+                ring, or with ?fleet=1 every process's sample log merged
+                with it.  Disarmed (no interval set, nothing recorded):
+                enabled false, no samples."""
+                def number(key):
+                    try:
+                        return float(q[key][0])
+                    except (KeyError, ValueError, IndexError):
+                        return None
+
+                family = (q.get("family") or [None])[0]
+                derive = (q.get("derive") or [None])[0]
+                if derive and derive not in history.DERIVE_KINDS:
+                    self._json(400, {
+                        "error": f"derive must be one of "
+                                 f"{list(history.DERIVE_KINDS)}"})
+                    return
+                rec = history.get_recorder(registries=(server.registry,))
+                if rec is not None:
+                    rec.sample()
+                if (q.get("fleet") or ["0"])[0] == "1":
+                    payload = server.fleet().fleet_history(
+                        family=family, since=number("since"),
+                        derive=derive, window_s=number("window"))
+                else:
+                    payload = history.history_payload(
+                        rec.tail() if rec is not None else [],
+                        family=family, since=number("since"),
+                        derive=derive, window_s=number("window"),
+                        enabled=rec is not None)
+                self._json(200, payload)
 
             def _chunk(self, text: str):
                 data = text.encode()
@@ -228,19 +350,27 @@ class ServingServer:
                 rid = request_log.sanitize_request_id(
                     self.headers.get("X-Request-Id")
                     or request_log.new_request_id())
+                tenant = self.headers.get("X-Tenant") or None
+                # a client's traceparent makes the serving.generate span
+                # a child of the caller's trace instead of a root
+                tparent = trace_context.extract_headers(self.headers)
 
                 def reject(code: int, msg: str,
                            retry_after_s: Optional[float] = None):
                     # a refused request stays findable in the log
                     request_log.reject(rid, code, msg)
                     payload = {"error": msg, "request_id": rid}
-                    headers = None
+                    headers = (
+                        {trace_context.TRACEPARENT_HEADER:
+                         tparent.traceparent()}
+                        if tparent is not None else None)
                     if code in (429, 503):
                         # every shed carries a comeback hint, which the
                         # client's RetryPolicy honours
                         ra = retry_after_s if retry_after_s else 1.0
                         payload["retry_after_s"] = round(ra, 3)
-                        headers = {"Retry-After": f"{ra:.3f}"}
+                        headers = dict(headers or {},
+                                       **{"Retry-After": f"{ra:.3f}"})
                     self._json(code, payload, request_id=rid,
                                headers=headers)
 
@@ -250,55 +380,70 @@ class ServingServer:
                 except Exception as e:
                     reject(400, f"bad request: {e}")
                     return
-                try:
-                    stream = eng.submit(
-                        tokens,
-                        max_new_tokens=int(req.get("max_new_tokens", 32)),
-                        temperature=float(req.get("temperature", 0.0)),
-                        top_k=int(req.get("top_k", 0)),
-                        eos_id=(int(req["eos_id"])
-                                if req.get("eos_id") is not None else None),
-                        request_id=rid)
-                except RequestTooLarge as e:
-                    reject(413, str(e))
-                    return
-                except QueueFull as e:
-                    reject(503, str(e), retry_after_s=e.retry_after_s)
-                    return
-                except ValueError as e:
-                    reject(400, str(e))
-                    return
-                rid = stream.request_id or rid
-                server._c_requests.inc()
-                self.send_response(200)
-                self.send_header("Content-Type", "application/x-ndjson")
-                self.send_header("Transfer-Encoding", "chunked")
-                self.send_header("X-Request-Id", rid)
-                for k, v in server._echo(self.headers, None).items():
-                    self.send_header(k, v)
-                self.end_headers()
-                n = 0
-                try:
-                    for tok in stream:
-                        self._chunk(json.dumps({"token": tok}) + "\n")
-                        n += 1
-                    self._chunk(json.dumps(
-                        {"done": True, "n_tokens": n,
-                         "finish_reason": stream.finish_reason,
-                         "request_id": rid}) + "\n")
-                except Exception as e:
-                    # the stream died mid-flight (engine stopped, stream
-                    # timeout): end the chunked body with an error line,
-                    # not a torn connection
-                    _log.warning("generate %s failed: %s: %s", rid,
-                                 type(e).__name__, e)
+                tenant = tenant or req.get("tenant") or None
+                # one span covers admission and streaming; its context
+                # goes back to the client as a traceparent
+                span_kw = ({"parent": tparent}
+                           if tparent is not None else {})
+                with trace("serving.generate", prompt=len(tokens),
+                           request_id=rid, **span_kw) as span:
                     try:
-                        self._chunk(json.dumps(
-                            {"error": f"{type(e).__name__}: {e}",
-                             "request_id": rid}) + "\n")
-                    except OSError:
+                        stream = eng.submit(
+                            tokens,
+                            max_new_tokens=int(req.get("max_new_tokens",
+                                                       32)),
+                            temperature=float(req.get("temperature", 0.0)),
+                            top_k=int(req.get("top_k", 0)),
+                            eos_id=(int(req["eos_id"])
+                                    if req.get("eos_id") is not None
+                                    else None),
+                            request_id=rid, tenant=tenant)
+                    except RequestTooLarge as e:
+                        reject(413, str(e))
                         return
-                self.wfile.write(b"0\r\n\r\n")
+                    except QueueFull as e:
+                        reject(503, str(e), retry_after_s=e.retry_after_s)
+                        return
+                    except ValueError as e:
+                        reject(400, str(e))
+                        return
+                    rid = stream.request_id or rid
+                    span.attrs["request_id"] = rid
+                    server._c_requests.inc()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "application/x-ndjson")
+                    self.send_header("Transfer-Encoding", "chunked")
+                    self.send_header("X-Request-Id", rid)
+                    for k, v in server._echo(
+                            self.headers, server._traceparent(span)).items():
+                        self.send_header(k, v)
+                    self.end_headers()
+                    n = 0
+                    try:
+                        for tok in stream:
+                            self._chunk(json.dumps({"token": tok}) + "\n")
+                            n += 1
+                        self._chunk(json.dumps(
+                            {"done": True, "n_tokens": n,
+                             "finish_reason": stream.finish_reason,
+                             "request_id": rid}) + "\n")
+                    except Exception as e:
+                        # the stream died mid-flight (engine stopped,
+                        # stream timeout): end the chunked body with an
+                        # error line, not a torn connection
+                        _log.warning("generate %s failed: %s: %s", rid,
+                                     type(e).__name__, e)
+                        request_log.event(
+                            rid, "stream_error",
+                            error=f"{type(e).__name__}: {e}")
+                        try:
+                            self._chunk(json.dumps(
+                                {"error": f"{type(e).__name__}: {e}",
+                                 "request_id": rid}) + "\n")
+                        except OSError:
+                            return
+                    self.wfile.write(b"0\r\n\r\n")
 
             def do_POST(self):
                 length = int(self.headers.get("Content-Length", 0))
@@ -335,31 +480,51 @@ class ServingServer:
                     except Exception as e:
                         self._json(400, {"error": str(e)})
                         return
-                if self.path == "/predict":
-                    out, err = server._submit(inputs)
-                    if err:
-                        self._json(500, {"error": err})
-                    elif arrow:
-                        self._body(200, encode_arrow_tensors(list(out)),
-                                   ARROW_CONTENT_TYPE)
+                if self.path not in ("/predict", "/enqueue"):
+                    self._json(404, {"error": "not found"})
+                    return
+                # a client's traceparent (the header, or the record
+                # field an /enqueue body carries) parents the handler's
+                # span; the batch it joins links back to that span
+                tparent = (trace_context.extract_headers(self.headers)
+                           or trace_context.extract_record(req))
+                with trace_context.bind(tparent), trace(
+                        "serving.http_request", path=self.path,
+                        records=len(inputs[0])) as span:
+                    echo = server._traceparent(span)
+                    if self.path == "/predict":
+                        out, err = server._submit(inputs)
                     else:
-                        self._json(200, {"outputs": [
-                            encode_ndarray(o) for o in out]})
-                    return
+                        uri = (req.get("uri")
+                               or f"req-{time.monotonic_ns()}")
+                        with server._results_lock:
+                            # a re-used uri must not inherit a stale
+                            # tombstone or a previous request's
+                            # unfetched result
+                            server._expired.pop(uri, None)
+                            server._results.pop(uri, None)
+                        threading.Thread(
+                            target=server._submit_async,
+                            args=(uri, inputs, span), daemon=True).start()
                 if self.path == "/enqueue":
-                    uri = req.get("uri") or f"req-{time.monotonic_ns()}"
-                    with server._results_lock:
-                        # a re-used uri must not inherit a stale tombstone
-                        # or a previous request's unfetched result
-                        server._expired.pop(uri, None)
-                        server._results.pop(uri, None)
-                    threading.Thread(target=server._submit_async,
-                                     args=(uri, inputs), daemon=True).start()
-                    self._json(200, {"status": "queued", "uri": uri})
-                    return
-                self._json(404, {"error": "not found"})
+                    self._json(200, {"status": "queued", "uri": uri},
+                               headers=echo)
+                elif err:
+                    self._json(500, {"error": err}, headers=echo)
+                elif arrow:
+                    self._body(200, encode_arrow_tensors(list(out)),
+                               ARROW_CONTENT_TYPE, headers=echo)
+                else:
+                    self._json(200, {"outputs": [
+                        encode_ndarray(o) for o in out]}, headers=echo)
 
         return Handler
+
+    @staticmethod
+    def _traceparent(span) -> Dict[str, str]:
+        """The `traceparent` header naming `span` in its trace."""
+        return {trace_context.TRACEPARENT_HEADER: trace_context.TraceContext(
+            span.trace_id, span.span_id).traceparent()}
 
     @staticmethod
     def _echo(request_headers, headers: Optional[Dict[str, str]]
@@ -377,16 +542,17 @@ class ServingServer:
     # the batcher
     # ------------------------------------------------------------------
 
-    def _submit(self, inputs: Tuple[np.ndarray, ...]):
+    def _submit(self, inputs: Tuple[np.ndarray, ...], span=None):
         """A single-record (or pre-batched) request joins the dynamic
-        batch; blocks until its results are ready."""
-        p = _Pending(inputs)
+        batch; blocks until its results are ready.  `span` (default the
+        current one) parents the batch's span."""
+        p = _Pending(inputs, span)
         self._queue.put(p)
         p.event.wait()
         return p.outputs, p.error
 
-    def _submit_async(self, uri: str, inputs):
-        out, err = self._submit(inputs)
+    def _submit_async(self, uri: str, inputs, span=None):
+        out, err = self._submit(inputs, span)
         payload = ({"status": "error", "error": err} if err else
                    {"status": "ok",
                     "outputs": [encode_ndarray(o) for o in out]})
@@ -491,53 +657,64 @@ class ServingServer:
                 executor.shutdown(wait=False)
 
     def _run_batch(self, batch: List[_Pending]):
-        try:
-            sizes = [len(p.inputs[0]) for p in batch]
-            # timings are recorded only on success: the mixed-shape
-            # fallback re-runs per request
-            t0 = now()
-            stacked = tuple(np.concatenate([p.inputs[i] for p in batch])
-                            for i in range(len(batch[0].inputs)))
-            t1 = now()
-            outs = self._predict(*stacked)
-            t2 = now()
-            self.timer.record(
-                "queue_wait",
-                sum(t0 - p.t_enqueue for p in batch) / len(batch),
-                sum(sizes))
-            self.timer.record("batch_assemble", t1 - t0, sum(sizes))
-            self.timer.record("predict", t2 - t1, sum(sizes))
-            self._c_records.inc(sum(sizes))
-            self._c_batches.inc()
-            with self._stats_lock:
-                self._batches_run += 1
-            if not isinstance(outs, tuple):
-                outs = (outs,)
-            off = 0
-            for p, n in zip(batch, sizes):
-                p.outputs = [o[off:off + n] for o in outs]
-                off += n
-                p.event.set()
-        except Exception as e:
-            # mixed shapes in one batch: fall back to per request
-            if len(batch) > 1:
-                for p in batch:
-                    self._run_batch([p])
-                return
-            batch[0].error = f"{type(e).__name__}: {e}"
-            _log.warning("batch of %d records failed: %s",
-                         len(batch[0].inputs[0]), batch[0].error)
-            batch[0].event.set()
+        # on the batcher or an executor thread: the span links to the
+        # first request's span explicitly, as the contextvar did not
+        # follow it across the queue
+        with trace("serving.run_batch", parent=batch[0].span,
+                   batch_size=len(batch)) as span:
+            try:
+                sizes = [len(p.inputs[0]) for p in batch]
+                span.attrs["records"] = sum(sizes)
+                # timings are recorded only on success: the mixed-shape
+                # fallback re-runs per request
+                t0 = now()
+                stacked = tuple(np.concatenate([p.inputs[i] for p in batch])
+                                for i in range(len(batch[0].inputs)))
+                t1 = now()
+                outs = self._predict(*stacked)
+                t2 = now()
+                self.timer.record(
+                    "queue_wait",
+                    sum(t0 - p.t_enqueue for p in batch) / len(batch),
+                    sum(sizes))
+                self.timer.record("batch_assemble", t1 - t0, sum(sizes))
+                self.timer.record("predict", t2 - t1, sum(sizes))
+                span.attrs["predict_s"] = round(t2 - t1, 6)
+                self._c_records.inc(sum(sizes))
+                self._c_batches.inc()
+                with self._stats_lock:
+                    self._batches_run += 1
+                if not isinstance(outs, tuple):
+                    outs = (outs,)
+                off = 0
+                for p, n in zip(batch, sizes):
+                    p.outputs = [o[off:off + n] for o in outs]
+                    off += n
+                    p.event.set()
+            except Exception as e:
+                # mixed shapes in one batch: fall back to per request
+                if len(batch) > 1:
+                    for p in batch:
+                        self._run_batch([p])
+                    return
+                batch[0].error = f"{type(e).__name__}: {e}"
+                _log.warning("batch of %d records failed: %s",
+                             len(batch[0].inputs[0]), batch[0].error)
+                batch[0].event.set()
 
     def stats(self) -> Dict[str, Any]:
         """The GET /stats payload: counters, the batcher's queue depth
-        and window, the per-op timer summaries and the engine's lanes."""
+        and window, the per-op timer summaries, the goodput ratio, the
+        engine's lanes, the dispatch ledger's rows; with an engine the
+        `requests` and `blame` blocks, with `observability_dir` the
+        `fleet` block (JAX server.py:1147-1245)."""
         out: Dict[str, Any] = {
             "records_served": self.records_served,
             "batches_run": self._batches_run,
             "queue_depth": self._queue.qsize(),
             "replicas": 1,
             "timers": self.timer.summary(),
+            "goodput_ratio": round(process_goodput_ratio(), 4),
             "batcher": {
                 "adaptive": self.adaptive_batching,
                 "window_s": self.batch_timeout_s,
@@ -554,7 +731,36 @@ class ServingServer:
                 "preemptions": eng.scheduler.n_preemptions,
                 "tokens_total": eng.n_tokens,
             }
+        ledger = profiling.ledger_snapshot()
+        if ledger["families"]:
+            # GET /dispatch's rows and MFU without the compile tail
+            ledger.pop("compile_events", None)
+            out["dispatch"] = ledger
+        if eng is not None:
+            rl = request_log.get_request_log()
+            slo = get_slo_tracker().snapshot()
+            out["requests"] = {
+                "active": rl.active_count(),
+                "finished_in_ring": rl.finished_count(),
+                "slo_attainment": slo["attainment"],
+                "slo_attainment_by_model": slo["attainment_by_model"],
+                "slo_attainment_by_tenant": slo["attainment_by_tenant"],
+                "slo_targets": slo["targets"],
+            }
+            # the full rollup is GET /blame's
+            out["blame"] = get_blame_tracker().stats_block()
+        if OrcaContext.observability_dir is not None:
+            # per-source attainment, live and spooled, and the
+            # judged-weighted fleet number
+            out["fleet"] = self.fleet().fleet_slo()
         return out
+
+    def fleet(self) -> FleetAggregator:
+        """The server's FleetAggregator (made once, so the fleet_*
+        counters tell one story)."""
+        if self._fleet_agg is None:
+            self._fleet_agg = FleetAggregator.from_server(self)
+        return self._fleet_agg
 
     # ------------------------------------------------------------------
 

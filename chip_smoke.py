@@ -38,7 +38,11 @@ the DoppelGANger simulator) in phase 22 and the training-side
 observability planes (spans, events, goodput, the flight recorder, the
 watchdog and the nonfinite sentinel, memory telemetry, the dispatch
 ledger with MFU, the request lifecycle log) on the fine-tune and decode
-paths in phase 23;
+paths in phase 23 and the serving-side planes (SLO tracking and the SLO
+shedder, latency blame and tail exemplars, W3C trace context, the
+timeline export, the metrics history with its alerts, the telemetry
+spool and the fleet view, the server's tracing routes) over /generate
+in phase 24;
 each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
@@ -388,6 +392,28 @@ Phases (each one failing exits non-zero, with no result line):
      back holds every key of `flight_recorder.BUNDLE_KEYS`; the host's
      microseconds a call of a span, an event, a flight record, a
      lifecycle token and a ledgered call, the sink off and on in turns;
+  24. the serving-side planes on phase 6's model behind ServingServer:
+     (a) SLO targets, the metrics history (0.25 s), the spool and the
+     default exemplars armed; 16 greedy requests (prompts 32-256, 32
+     new tokens) over the port's client, each under a client
+     traceparent, a third with X-Tenant: each stream = the engine's
+     greedy stream of its prompt, every finished record's blame phases
+     sum to its e2e within `blame_tolerance`, /slo judged = the
+     requests, every span of a request in the client's trace and the
+     response's traceparent of that trace, /timeline and ?fleet=1 valid
+     (`scripts/check_timeline_schema.py::validate_timeline`),
+     /debug/requests and a dossier, a rate of `generation_tokens_total`
+     in /metrics/history with >= 2 points, /metrics?fleet=1 the exact
+     sum of the local and spooled counters, `decode` at one signature,
+     K1 25 per forward and K6 12 per decode step, all `split`; (b) an
+     unmeetable TTFT target, `slo_shed_attainment` 0.99 and
+     `slo_shed_min_queue` 2: a burst of 12 gets 503s with the shedder's
+     message, Retry-After > 0 and the request's traceparent echoed; no
+     503 with it disarmed; (c) tokens/s with the planes armed and
+     disarmed (on, off, off, on), the recorder's microseconds and bytes
+     a sample (its CRC's share), a spool write's, a /timeline export's;
+     (d) a bundle on demand with a history tail, exemplars and a valid
+     timeline sibling;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -404,6 +430,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import itertools
 import json
 import os
 import statistics
@@ -8558,6 +8585,11 @@ def fresh_planes(o) -> None:
     o.reset_request_log()
     o.goodput.reset_clocks()
     o.memory.reset()
+    o.reset_slo_tracker()
+    o.reset_blame_tracker()
+    o.reset_exemplar_store()
+    o.reset_recorder()
+    o.telemetry_spool.reset_spools()
 
 
 def set_context(ctx, **settings) -> None:
@@ -8964,6 +8996,471 @@ def phase_observability(torch, seed: int, card: str, gpt2_model) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 24: the serving-side observability planes over /generate
+# (analytics_zoo_tpu_torch/observability/ slo, blame, exemplars,
+# trace_context, timeline, history, alerts, telemetry_spool, fleet)
+# ----------------------------------------------------------------------
+
+#: (a): requests, new tokens each, prompt lengths [lo, hi)
+SP_REQUESTS, SP_NEW, SP_PROMPTS = 16, 32, (32, 257)
+#: (a)'s targets, which the card meets; (b)'s TTFT, which it cannot
+SP_TARGETS = {"ttft_s": 30.0, "tpot_s": 5.0}
+SP_SHED_TARGETS = {"ttft_s": 1e-5}
+#: (b): the burst, its new tokens, the shedder's threshold and depth
+SP_BURST, SP_BURST_NEW, SP_SHED_AT, SP_SHED_DEPTH = 12, 8, 0.99, 2
+#: (c): the turns, armed and disarmed
+SP_TURNS = ("on", "off", "off", "on")
+#: the settings phase 24 writes, at their defaults
+SP_DEFAULTS = dict(observability_dir=None, slo_targets=None,
+                   metrics_history_interval_s=None, exemplar_count=16,
+                   slo_shed_attainment=None)
+
+
+def timeline_validator():
+    """`validate_timeline` of scripts/check_timeline_schema.py, whose top
+    level imports neither package."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "check_timeline_schema.py")
+    spec = importlib.util.spec_from_file_location("timeline_schema", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.validate_timeline
+
+
+def sp_launch_check(torch, label: str, n_block: int, n_pre: int,
+                    n_dec: int) -> dict:
+    """K1 25 a forward and K6 12 a decode step exactly, all `split`."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode,
+    )
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = dict({k: 0 for k in counts},
+                layer_norm_fwd=(2 * n_block + 1) * (n_pre + n_dec),
+                paged_decode=n_block * n_dec)
+    check(counts == want, f"phase 24 {label}: launches {counts}, expected "
+          f"{want} ({n_pre} prefills, {n_dec} decode steps)")
+    split = paged_decode.launches_by_body["split"]
+    check(split == want["paged_decode"], f"phase 24 {label}: {split} of "
+          f"{want['paged_decode']} K6 launches on the split body")
+    return counts
+
+
+def sp_served(torch, seed: int, card: str, engine, srv, directory: str,
+              validate) -> dict:
+    """(a): the traced requests over HTTP with every plane armed, and
+    the routes read back."""
+    import threading
+
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.serving import InputQueue
+
+    model = engine.model
+    rng = np.random.default_rng(seed + 24)
+    prompts = [rng.integers(0, model.vocab, int(n)).tolist()
+               for n in rng.integers(*SP_PROMPTS, SP_REQUESTS)]
+    traces = [o.TraceContext(rng.bytes(16).hex(), rng.bytes(8).hex())
+              for _ in prompts]
+    tenants = ["acme" if j % 3 == 0 else None for j in range(SP_REQUESTS)]
+    outs, echoed, errors = [None] * SP_REQUESTS, [None] * SP_REQUESTS, []
+
+    def client(j):
+        q = InputQueue(srv.host, srv.port, tenant=tenants[j])
+        try:
+            with o.trace_context.bind(traces[j]):
+                outs[j] = q.generate_tokens(
+                    prompts[j], max_new_tokens=SP_NEW, request_id=f"sp-{j}",
+                    timeout=HTTP_TIMEOUT_S)
+            echoed[j] = q.last_traceparent
+        except Exception as e:
+            errors.append(f"{type(e).__name__}: {e}")
+
+    pre0, dec0 = engine.n_prefills, engine.n_decode_steps
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(j,))
+               for j in range(SP_REQUESTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10 * HTTP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(not errors, f"phase 24 (a): client errors {errors[:1]}")
+    launches = sp_launch_check(torch, "(a)", model.n_block,
+                               engine.n_prefills - pre0,
+                               engine.n_decode_steps - dec0)
+    out = dict(wall_s=wall, tokens_per_s=SP_REQUESTS * SP_NEW / wall,
+               launches=launches)
+    # the SLO, blame and exemplar planes, read before any other request
+    slo = json.loads(http_call(srv, "GET", "/slo")[2])
+    check(slo["requests_judged"] == SP_REQUESTS
+          and slo["attainment_by_tenant"].keys() == {"acme"},
+          f"phase 24 (a): /slo {slo}")
+    worst_gap, n_phases = 0.0, {}
+    for j in range(SP_REQUESTS):
+        rec = o.request_log.get(f"sp-{j}")
+        check(rec is not None and rec["status"] == "finished"
+              and rec["n_tokens"] == SP_NEW,
+              f"phase 24 (a): record sp-{j} {rec}")
+        led = o.phase_ledger(rec)
+        gap = abs(sum(led["phases"].values()) - led["e2e_s"])
+        check(led["additive_ok"] and gap <= max(
+            led["tolerance"] * led["e2e_s"], 1e-4),
+              f"phase 24 (a): sp-{j}'s phases {led['phases']} against "
+              f"e2e {led['e2e_s']}")
+        worst_gap = max(worst_gap, gap / max(led["e2e_s"], 1e-9))
+        for p, v in led["phases"].items():
+            n_phases[p] = n_phases.get(p, 0.0) + v
+    blame = json.loads(http_call(srv, "GET", "/blame")[2])
+    check(blame["requests_total"] == SP_REQUESTS
+          and blame["additivity_violations"] == 0,
+          f"phase 24 (a): /blame {json.dumps(blame)[:400]}")
+    # traces: the echo, and every span a request's, in its client's trace
+    spans = o.recent_spans(2048)
+    for j, tc in enumerate(traces):
+        check(echoed[j] is not None
+              and echoed[j].split("-")[1] == tc.trace_id,
+              f"phase 24 (a): sp-{j} echoed {echoed[j]} for {tc.trace_id}")
+        mine = [s for s in spans
+                if (s["attrs"] or {}).get("request_id") == f"sp-{j}"]
+        check(mine and all(s["trace_id"] == tc.trace_id for s in mine)
+              and any(s["parent_id"] == tc.span_id for s in mine),
+              f"phase 24 (a): sp-{j}'s spans {mine}")
+    # the routes
+    docs = {}
+    for path in ("/timeline", "/timeline?fleet=1"):
+        code, _, body = http_call(srv, "GET", path)
+        docs[path] = json.loads(body)
+        problems = validate(docs[path])
+        check(code == 200 and not problems,
+              f"phase 24 (a): GET {path}: {code} {problems[:3]}")
+    index = json.loads(http_call(srv, "GET", "/debug/requests")[2])
+    check(index["count"] >= 1, f"phase 24 (a): /debug/requests {index}")
+    rid = index["exemplars"][0]["request_id"]
+    code, _, body = http_call(srv, "GET", f"/debug/requests/{rid}")
+    dossier = json.loads(body)
+    check(code == 200 and dossier["ledger"]["request_id"] == rid
+          and dossier["record"]["request_id"] == rid,
+          f"phase 24 (a): /debug/requests/{rid} {code}")
+    code, _, body = http_call(
+        srv, "GET", "/metrics/history?derive=rate&family="
+                    "generation_tokens_total")
+    hist = json.loads(body)
+    rate = hist["series"].get("generation_tokens_total", [])
+    check(code == 200 and len(rate) >= 2,
+          f"phase 24 (a): /metrics/history rate points {rate}")
+    # a dead worker's snapshot: this loop's spool, as another pid's
+    snap_path = os.path.join(directory, "telemetry", "engine",
+                             "snapshot.json")
+    with open(snap_path) as f:
+        snap = json.load(f)
+    snap["pid"], snap["proc"] = -1, "worker-1"
+    os.makedirs(os.path.join(directory, "telemetry", "worker-1"))
+    with open(os.path.join(directory, "telemetry", "worker-1",
+                           "snapshot.json"), "w") as f:
+        json.dump(snap, f)
+    spooled = o.parse_prometheus_text(snap["exposition"])[
+        "generation_tokens_total"]["value"]
+    local = o.parse_prometheus_text(http_call(srv, "GET", "/metrics")[
+        2].decode())["generation_tokens_total"]["value"]
+    fleet = o.parse_prometheus_text(http_call(
+        srv, "GET", "/metrics?fleet=1")[2].decode())
+    check(fleet["generation_tokens_total"]["value"] == local + spooled,
+          f"phase 24 (a): fleet tokens {fleet['generation_tokens_total']} "
+          f"!= local {local} + spooled {spooled}")
+    dispatch = json.loads(http_call(srv, "GET", "/dispatch")[2])
+    decode = dispatch["families"]["decode"]
+    check(decode["signatures"] == 1, f"phase 24 (a): decode ledger {decode}")
+    stats = json.loads(http_call(srv, "GET", "/stats")[2])
+    check({"requests", "blame", "fleet"} <= stats.keys(),
+          f"phase 24 (a): /stats blocks {sorted(stats)}")
+    # the streams against the engine's own greedy streams
+    streams = [engine.submit(p, max_new_tokens=SP_NEW) for p in prompts]
+    want = [s.tokens() for s in streams]
+    check(outs == want, "phase 24 (a): a served stream differs from the "
+          "engine's greedy stream of its prompt")
+    by_cat = {}
+    for e in docs["/timeline"]["traceEvents"]:
+        by_cat[e.get("cat", e["ph"])] = by_cat.get(e.get("cat", e["ph"]),
+                                                    0) + 1
+    out.update(slo_attainment=slo["attainment"],
+               blame_dominant_tail_phase=blame["dominant_tail_phase"],
+               blame_share={p: blame["rollup"][p]["share"]
+                            for p in blame["rollup"]},
+               phase_seconds_sum=n_phases, worst_additivity_gap=worst_gap,
+               exemplars=index["count"], history_rate_points=len(rate),
+               history_samples=hist["n_samples"],
+               fleet_tokens=fleet["generation_tokens_total"]["value"],
+               timeline_events_by_cat=by_cat,
+               fleet_timeline_events=len(
+                   docs["/timeline?fleet=1"]["traceEvents"]))
+    print(f"phase 24 (a) [{card}] {SP_REQUESTS} traced requests x {SP_NEW} "
+          f"tokens over /generate, every plane armed: "
+          f"{out['tokens_per_s']:.1f} tokens/s, SLO attainment "
+          f"{slo['attainment']}, blame shares {out['blame_share']}, worst "
+          f"additivity gap {worst_gap:.2e}, {index['count']} exemplars, "
+          f"{len(rate)} rate points, timeline events {by_cat}", flush=True)
+    return out
+
+
+def sp_burst(srv, headers_for):
+    """SP_BURST concurrent /generate calls, started: their answers'
+    list, (status, headers, body) each as they come, and the threads."""
+    import threading
+    got = [None] * SP_BURST
+
+    def call(j):
+        got[j] = http_call(srv, "POST", "/generate", {
+            "tokens": [1 + j, 2, 3], "max_new_tokens": SP_BURST_NEW},
+            headers_for(j))
+    threads = [threading.Thread(target=call, args=(j,))
+               for j in range(SP_BURST)]
+    for t in threads:
+        t.start()
+    return got, threads
+
+
+def sp_shed(engine, srv, card: str) -> dict:
+    """(b): the SLO shedder over HTTP, armed then disarmed."""
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+
+    OrcaContext.slo_targets = SP_SHED_TARGETS
+    o.reset_slo_tracker()
+    # one judged request misses the target: attainment 0
+    engine.generate([5, 6, 7], max_new_tokens=2)
+    att = o.get_slo_tracker().attainment()
+    check(att == 0.0, f"phase 24 (b): attainment {att} after a miss")
+    engine.slo_shed_min_queue = SP_SHED_DEPTH
+    out = {}
+    for mode in ("armed", "disarmed"):
+        OrcaContext.slo_shed_attainment = (SP_SHED_AT if mode == "armed"
+                                           else None)
+        tps = [f"00-{os.urandom(16).hex()}-{os.urandom(8).hex()}-01"
+               for _ in range(SP_BURST)]
+        # the loop stopped while the burst arrives: the queue holds it
+        engine.stop()
+        got, threads = sp_burst(srv, lambda j: {
+            "X-Request-Id": f"{mode}-{j}", "traceparent": tps[j]})
+        deadline = time.perf_counter() + HTTP_TIMEOUT_S
+        while time.perf_counter() < deadline:
+            done = sum(g is not None for g in got)
+            if done + len(engine.scheduler.waiting) >= SP_BURST:
+                break
+            time.sleep(0.01)
+        engine.ensure_started()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT_S)
+        shed = [(j, g) for j, g in enumerate(got) if g[0] == 503]
+        ok = [g for g in got if g[0] == 200]
+        check(len(shed) + len(ok) == SP_BURST,
+              f"phase 24 (b) {mode}: statuses {[g[0] for g in got]}")
+        if mode == "armed":
+            check(len(shed) >= 1, "phase 24 (b): no request was shed")
+            for j, (_code, headers, body) in shed:
+                msg = json.loads(body)
+                check(msg["error"].startswith("shedding under SLO pressure")
+                      and float(headers["Retry-After"]) > 0
+                      and msg["retry_after_s"] > 0
+                      and headers["traceparent"] == tps[j],
+                      f"phase 24 (b): shed answer {msg} {dict(headers)}")
+            out["shed_message"] = json.loads(shed[0][1][2])["error"]
+            out["retry_after_s"] = [float(g[1]["Retry-After"])
+                                    for _, g in shed]
+        else:
+            check(not shed, f"phase 24 (b): {len(shed)} sheds disarmed")
+        out[f"{mode}_503"] = len(shed)
+        out[f"{mode}_200"] = len(ok)
+    print(f"phase 24 (b) [{card}] SLO shedder, a burst of {SP_BURST} at "
+          f"slo_shed_min_queue {SP_SHED_DEPTH}: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def sp_cost(torch, seed: int, card: str, engine, directory: str) -> dict:
+    """(c): tokens/s with the planes armed and disarmed in turns, and the
+    host cost of a recorder sample, a spool write and a timeline
+    export."""
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.observability import history
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.utils.tfrecord import crc32c
+
+    model = engine.model
+    rng = np.random.default_rng(seed + 240)
+    prompts = [rng.integers(0, model.vocab, int(n)).tolist()
+               for n in rng.integers(*SP_PROMPTS, SP_REQUESTS)]
+    runs, streams_by_turn = [], []
+    for turn, mode in enumerate(SP_TURNS):
+        armed = mode == "on"
+        # a recorder keeps the cadence it was made with: dropped at each
+        # turn, so a disarmed turn has none
+        o.reset_recorder()
+        set_context(OrcaContext,
+                    slo_targets=SP_TARGETS if armed else None,
+                    metrics_history_interval_s=0.25 if armed else None,
+                    observability_dir=directory if armed else None,
+                    exemplar_count=16 if armed else 0)
+        pre, dec = engine.n_prefills, engine.n_decode_steps
+        kernels.reset_launch_counts()
+        engine.stop()
+        t0 = time.perf_counter()
+        streams = [engine.submit(p, max_new_tokens=SP_NEW,
+                                 request_id=f"c{turn}-{i}")
+                   for i, p in enumerate(prompts)]
+        engine.ensure_started()
+        outs = [s.tokens() for s in streams]
+        wall = time.perf_counter() - t0
+        counts = sp_launch_check(torch, f"(c) {mode}", model.n_block,
+                                 engine.n_prefills - pre,
+                                 engine.n_decode_steps - dec)
+        streams_by_turn.append(outs)
+        runs.append(dict(mode=mode, wall_s=wall,
+                         tokens_per_s=SP_REQUESTS * SP_NEW / wall,
+                         launches=counts))
+    check(all(s == streams_by_turn[0] for s in streams_by_turn),
+          "phase 24 (c): the streams differ with the planes on and off")
+    # host costs, the planes armed
+    set_context(OrcaContext, slo_targets=SP_TARGETS,
+                metrics_history_interval_s=0.25,
+                observability_dir=directory, exemplar_count=16)
+    rec = history.get_recorder(registries=(engine.registry,))
+    walls, sizes, crcs = [], [], []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        doc = rec.sample()
+        walls.append(time.perf_counter() - t0)
+        payload = history._encode_sample(doc)
+        sizes.append(len(payload))
+        t0 = time.perf_counter()
+        crc32c(payload)
+        crcs.append(time.perf_counter() - t0)
+    # the alert engine's pass once the ring is full: the ring's samples
+    # repeated at the cadence, RING_SIZE of them
+    ring = rec.tail()
+    full = [dict(s, ts=ring[0]["ts"] + 0.25 * k, seq=k + 1)
+            for k, s in zip(range(history.RING_SIZE),
+                            itertools.cycle(ring))]
+    t0 = time.perf_counter()
+    rec.alerts.evaluate(full)
+    full_ring_ms = (time.perf_counter() - t0) * 1e3
+    spool = o.telemetry_spool.get_spool(engine.spool_name,
+                                        (engine.registry,))
+    spool_walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        check(spool.write(), "phase 24 (c): a spool write failed")
+        spool_walls.append(time.perf_counter() - t0)
+    export_walls, export_bytes = [], 0
+    for _ in range(5):
+        t0 = time.perf_counter()
+        blob = o.timeline.timeline_json()
+        export_walls.append(time.perf_counter() - t0)
+        export_bytes = len(blob)
+    out = dict(
+        runs=runs,
+        tokens_per_s_on=statistics.median(
+            r["tokens_per_s"] for r in runs if r["mode"] == "on"),
+        tokens_per_s_off=statistics.median(
+            r["tokens_per_s"] for r in runs if r["mode"] == "off"),
+        sample_us=statistics.median(walls) * 1e6,
+        sample_bytes=statistics.median(sizes),
+        sample_crc_us=statistics.median(crcs) * 1e6,
+        ring_samples=len(ring), alert_pass_full_ring_ms=full_ring_ms,
+        spool_write_us=statistics.median(spool_walls) * 1e6,
+        spool_bytes=os.path.getsize(spool.path),
+        timeline_export_ms=statistics.median(export_walls) * 1e3,
+        timeline_bytes=export_bytes)
+    print(f"phase 24 (c) [{card}] {SP_REQUESTS} requests x {SP_NEW} tokens, "
+          f"the planes {SP_TURNS}: tokens/s "
+          f"{[round(r['tokens_per_s'], 1) for r in runs]}, median armed "
+          f"{out['tokens_per_s_on']:.1f}, disarmed "
+          f"{out['tokens_per_s_off']:.1f}; a history sample "
+          f"{out['sample_us']:.1f} us and {out['sample_bytes']} bytes (its "
+          f"CRC32C {out['sample_crc_us']:.1f} us; {len(ring)} samples in "
+          f"the ring), the alert pass over a full ring of "
+          f"{history.RING_SIZE} {full_ring_ms:.1f} ms, a spool write "
+          f"{out['spool_write_us']:.1f} us ({out['spool_bytes']} bytes), a "
+          f"timeline export {out['timeline_export_ms']:.2f} ms "
+          f"({export_bytes} bytes)", flush=True)
+    return out
+
+
+def phase_serving_planes(torch, seed: int, card: str, gpt2_model) -> dict:
+    """Phase 24: the serving-side observability planes on phase 6's model
+    behind ServingServer, parts (a)-(d)."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.serving import ServingServer
+    from analytics_zoo_tpu_torch.serving.generation import GenerationEngine
+
+    t0 = time.perf_counter()
+    validate = timeline_validator()
+    directory = tempfile.mkdtemp(prefix="phase24-")
+    fresh_planes(o)
+    set_context(OrcaContext, observability_dir=directory,
+                slo_targets=SP_TARGETS, metrics_history_interval_s=0.25)
+    engine = GenerationEngine(gpt2_model, max_slots=8, block_size=16,
+                              max_context=1024, device="cuda")
+    engine.warmup()
+    srv = ServingServer(generation_engine=engine).start()
+    out = {}
+    try:
+        out["a"] = sp_served(torch, seed, card, engine, srv, directory,
+                             validate)
+        out["b"] = sp_shed(engine, srv, card)
+        engine.slo_shed_min_queue = engine.max_slots
+        out["c"] = sp_cost(torch, seed, card, engine, directory)
+        # (d) a bundle on demand, the planes armed
+        path = o.flight_recorder.dump("smoke")
+        check(path is not None, "phase 24 (d): no bundle was written")
+        with open(path) as f:
+            bundle = json.load(f)
+        with open(bundle["timeline_path"] or "") as f:
+            problems = validate(json.load(f))
+        check(bundle["history_tail"] and bundle["exemplars"]
+              and not problems,
+              f"phase 24 (d): history tail {len(bundle['history_tail'])}, "
+              f"exemplars {len(bundle['exemplars'])}, timeline {problems[:3]}")
+        out["d"] = dict(history_tail=len(bundle["history_tail"]),
+                        exemplars=len(bundle["exemplars"]),
+                        alerts_active=sorted(bundle["alerts_active"]),
+                        timeline_bytes=os.path.getsize(
+                            bundle["timeline_path"]))
+        print(f"phase 24 (d) [{card}] bundle: {json.dumps(out['d'])}",
+              flush=True)
+    finally:
+        srv.stop()
+        set_context(OrcaContext, **SP_DEFAULTS)
+        fresh_planes(o)
+        shutil.rmtree(directory, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = out["a"]["launches"]
+    print("serving_planes " + json.dumps(dict(
+        card=card, seconds=out["seconds"],
+        tokens_per_s_served=out["a"]["tokens_per_s"],
+        tokens_per_s_planes_on=out["c"]["tokens_per_s_on"],
+        tokens_per_s_planes_off=out["c"]["tokens_per_s_off"],
+        sample_us=out["c"]["sample_us"],
+        sample_bytes=out["c"]["sample_bytes"],
+        sample_crc_us=out["c"]["sample_crc_us"],
+        alert_pass_full_ring_ms=out["c"]["alert_pass_full_ring_ms"],
+        spool_write_us=out["c"]["spool_write_us"],
+        timeline_export_ms=out["c"]["timeline_export_ms"],
+        timeline_bytes=out["c"]["timeline_bytes"],
+        shed_503=out["b"]["armed_503"],
+        blame_share=out["a"]["blame_share"])), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -9047,6 +9544,9 @@ def main(argv=None) -> int:
     observability = phase_observability(torch, args.seed, card,
                                         engine.model)
     clocks("after phase 23", start)
+    serving_planes = phase_serving_planes(torch, args.seed, card,
+                                          engine.model)
+    clocks("after phase 24", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -9102,6 +9602,7 @@ def main(argv=None) -> int:
     k_bert, k_gpt = keras["b"]["launches"], keras["c"]["launches"]
     obs_fit = observability["launches"]
     obs_gen = observability["launches_generation"]
+    planes_gen = serving_planes["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -9154,7 +9655,8 @@ def main(argv=None) -> int:
                                   "keras_bert_fit": k_bert,
                                   "keras_transformer_layer_fit": k_gpt,
                                   "observed_fine_tune": obs_fit,
-                                  "observed_generation": obs_gen},
+                                  "observed_generation": obs_gen,
+                                  "serving_planes_http": planes_gen},
                "layer_norm_bwd": {"bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert,
@@ -9199,7 +9701,8 @@ def main(argv=None) -> int:
                    {f"generation_{r['label']}": r["launches"]
                     for r in runs}, generation_breadth=breadth,
                    serving_generate_http=srv_gen,
-                   observed_generation=obs_gen)}
+                   observed_generation=obs_gen,
+                   serving_planes_http=planes_gen)}
     for k in kernels:
         paths = by_path.get(k["name"])
         if paths:
@@ -9247,6 +9750,7 @@ def main(argv=None) -> int:
                       "importers": importers,
                       "chronos": chronos, "chronos_rest": chronos_rest,
                       "observability": observability,
+                      "serving_planes": serving_planes,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,

@@ -1,6 +1,9 @@
 """What the port's observability tests share
 (tests/test_torch_observability.py, test_torch_profiling.py,
-test_torch_request_lifecycle.py, test_torch_fit_observability.py): one
+test_torch_request_lifecycle.py, test_torch_fit_observability.py and
+the serving planes' test_torch_slo_blame.py,
+test_torch_history_alerts.py, test_torch_fleet_timeline.py,
+test_torch_serving_planes.py): one
 reset of both packages' planes, and a fake clock patched into every
 module of both packages that reads the instrumentation clock `now`.
 
@@ -8,9 +11,9 @@ Both packages keep their planes in process globals (the span ring, the
 event sink, the ledger, the request log, the step clocks, the memory
 ring, the flight ring and excepthook, the metrics registry).  A test
 file resets them when it starts and when it ends, so neither a JAX test
-nor another port test in the same worker sees what it left; the JAX
-package's SLO, blame and exemplar planes are fed by its request log, so
-they are reset too."""
+nor another port test in the same worker sees what it left; the SLO,
+blame and exemplar planes fed by each request log, the metrics history
+recorders and the telemetry spools are reset too."""
 
 import contextlib
 import importlib
@@ -20,7 +23,7 @@ from analytics_zoo_tpu_torch import observability as obs
 
 #: the modules that bind `now` at import, in each package
 _CLOCK_MODULES = ("registry", "tracing", "goodput", "memory", "watchdog",
-                  "request_log", "profiling")
+                  "request_log", "profiling", "history", "telemetry_spool")
 
 
 class FakeClock:
@@ -64,6 +67,8 @@ def reset_planes():
         o.reset_request_log()
         o.goodput.reset_clocks()
         o.memory.reset()
-    jobs.reset_slo_tracker()
-    jobs.reset_blame_tracker()
-    jobs.reset_exemplar_store()
+        o.reset_slo_tracker()
+        o.reset_blame_tracker()
+        o.reset_exemplar_store()
+        o.reset_recorder()
+        o.telemetry_spool.reset_spools()

@@ -157,10 +157,13 @@ def test_scripted_planes_match_jax(tmp_path):
     assert custom[0]["secret_token"] == "<redacted>"
     assert got["bundle"]["torch"]["version"] == torch.__version__
     assert got["bundle"]["goodput"] == want["bundle"]["goodput"]
-    # item 6b's sections hold what JAX writes with those planes empty
+    # the serving planes' sections: no history recorded, no alert, no
+    # finished request, and a Perfetto sibling written beside each bundle
     for k in ("history_tail", "alerts_active", "exemplars"):
         assert got["bundle"][k] == want["bundle"][k]
-    assert got["bundle"]["timeline_path"] is None
+    for b in (got["bundle"], want["bundle"]):
+        assert b["timeline_path"].endswith(".trace.json")
+        assert os.path.isfile(b["timeline_path"])
 
 
 @pytest.mark.parametrize("pkg", ["jax", "port"])
@@ -264,4 +267,4 @@ def test_one_clock_in_the_instrumented_files():
             for lineno, line in enumerate(f, 1):
                 if "perf_counter" in line:
                     hits.append(f"{path}:{lineno}: {line.strip()}")
-    assert len(paths) == 4 + 9 and not hits, hits
+    assert len(paths) == 4 + 18 and not hits, hits

@@ -80,7 +80,9 @@ def _model(attn_impl, remat=False, policy=None, **kw):
 
 
 class _Alive(TorchDispatchMode):
-    """Every storage an op makes while the mode is on, weakly held."""
+    """Every storage an op makes while the mode is on, weakly held.  A
+    storage made where a freed one lay replaces the dead entry (the
+    allocator reuses addresses), so none is missed."""
 
     def __init__(self):
         super().__init__()
@@ -91,8 +93,10 @@ class _Alive(TorchDispatchMode):
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 st = t.untyped_storage()
-                self.storages.setdefault(
-                    st.data_ptr(), (StorageWeakRef(st), st.nbytes()))
+                seen = self.storages.get(st.data_ptr())
+                if seen is None or seen[0].expired():
+                    self.storages[st.data_ptr()] = (StorageWeakRef(st),
+                                                    st.nbytes())
         return out
 
     def alive_bytes(self):

@@ -11,8 +11,9 @@ in Arrow, /enqueue then /result (a result handed out once, then
 "pending"; an evicted one "expired"), and the error cases (bad JSON, no
 inputs, a wrong width, unknown paths, /predict on a generation-only
 server).  Concurrent single records run in fewer batches than requests,
-/metrics' `serving_*` families are JAX's, and each package's client
-works against the other's server.
+/metrics' `serving_*` families are JAX's, the tracing routes answer
+with JAX's keys, and each package's client works against the other's
+server.
 
 Every server binds port 0 and is stopped in a `finally` block; every
 HTTP call has a timeout of at most 30 s (`_clamp_timeouts` caps the
@@ -253,8 +254,11 @@ def test_errors_match_jax(servers, method, path, body, ctype):
     "/spans", "/goodput", "/slo", "/timeline", "/dispatch", "/blame",
     "/debug/requests", "/metrics/history"])
 def test_routes_not_ported_answer_404(servers, path):
-    code, _, body = _http(servers[1], "GET", path)
-    assert code == 404 and json.loads(body) == {"error": "not found"}
+    """The tracing routes, once 404 in the port, answer as JAX's do:
+    200 with the same top-level keys."""
+    (cj, _, bj), (cp, _, bp) = _both(servers, "GET", path)
+    assert cj == cp == 200
+    assert json.loads(bp).keys() == json.loads(bj).keys()
 
 
 def test_wrong_width_is_a_serving_error_in_both_clients(servers):
