@@ -100,6 +100,8 @@ class OrcaContextMeta(type):
     _telemetry_spool_interval_s = 1.0
     _telemetry_spool_max_bytes = 1024 * 1024
     _slo_shed_attainment = None
+    _tenant_quotas = None
+    _serving_replicas = 0
 
     # --- runtime state ---
     _device = None
@@ -604,6 +606,54 @@ class OrcaContextMeta(type):
                 raise ValueError(
                     "slo_shed_attainment must be in (0, 1] or None")
         cls._slo_shed_attainment = value
+
+    @property
+    def tenant_quotas(cls):
+        """Per-tenant admission quotas of the `AdmissionCore`
+        (serving/control_plane/admission.py): tenant name -> sustained
+        requests/s, or ``{"rate": r, "burst": b}`` (a token bucket of
+        depth `burst`, default max(rate, 1), refilled at `rate`).  An
+        over-quota request sheds with `TenantQuotaExceeded` (HTTP 429,
+        Retry-After the bucket's refill time); tenants not named are
+        unlimited, and None (the default) charges nothing.  Read at each
+        admission."""
+        return cls._tenant_quotas
+
+    @tenant_quotas.setter
+    def tenant_quotas(cls, value):
+        if value is None:
+            cls._tenant_quotas = None
+            return
+        quotas = {}
+        for tenant, q in dict(value).items():
+            if not str(tenant):
+                raise ValueError("tenant_quotas key must be non-empty")
+            if isinstance(q, dict):
+                rate = float(q.get("rate", 0.0))
+                burst = float(q.get("burst", max(rate, 1.0)))
+            else:
+                rate = float(q)
+                burst = max(rate, 1.0)
+            if rate <= 0 or burst <= 0:
+                raise ValueError(
+                    f"tenant_quotas[{tenant!r}]: rate and burst must "
+                    "be > 0")
+            quotas[str(tenant)] = {"rate": rate, "burst": burst}
+        cls._tenant_quotas = quotas
+
+    @property
+    def serving_replicas(cls):
+        """Engine replicas `ReplicaRouter.build` makes when its
+        `n_replicas` is "auto" (serving/distributed/router.py); 0 (the
+        default) = no router."""
+        return cls._serving_replicas
+
+    @serving_replicas.setter
+    def serving_replicas(cls, value):
+        value = int(value)
+        if value < 0:
+            raise ValueError("serving_replicas must be >= 0 (0 = off)")
+        cls._serving_replicas = value
 
 
 class OrcaContext(metaclass=OrcaContextMeta):

@@ -6,8 +6,8 @@ registries (isolation is enforced), stream consumers and elastic
 members run — and die — in other processes.  `FleetAggregator` merges
 all of it back into one pane:
 
-* **sources** = the local process, each live registry handed in
-  (`live`), and every spooled snapshot harvested from
+* **sources** = the local process, each live router replica / consumer
+  registry handed in, and every spooled snapshot harvested from
   ``<observability_dir>/telemetry/<proc>/snapshot.json``
   (observability/telemetry_spool.py).  Spooled snapshots written by the
   *current* process are skipped — the live harvest already covers it —
@@ -23,8 +23,9 @@ all of it back into one pane:
   stitching spans that share a ``trace_id`` across pids — the rendered
   form of cross-process trace propagation
   (observability/trace_context.py).
-* **SLO** (`fleet_slo`): per-source attainment snapshots and a
-  judged-request-weighted fleet rollup.
+* **SLO** (`fleet_slo`): per-source attainment snapshots, per-replica
+  attainment derived from the request log's ``replica_dispatch``
+  events, and a judged-request-weighted fleet rollup.
 * **blame** (`fleet_blame` / `fleet_exemplar`): the exact fleet sum of
   the ``blame_*_seconds_total`` counters plus every source's tail
   exemplars — a SIGKILL'd replica's worst-request forensics arrive
@@ -34,10 +35,6 @@ Served by `ServingServer` as ``GET /metrics?fleet=1``,
 ``GET /timeline?fleet=1``, ``GET /blame?fleet=1``,
 ``GET /debug/requests/<id>`` and the ``"fleet"`` block of
 ``GET /stats``.
-
-The port has no replica router yet (ROADMAP Queue 1 item 7), so its
-sources are the local process and the spooled snapshots: `router=`
-raises NotImplementedError, and `fleet_slo` has no per-replica rows.
 """
 
 from __future__ import annotations
@@ -108,8 +105,8 @@ class FleetAggregator:
     same-process sources with isolated registries (router replicas,
     in-process consumers).  The local process itself is always a source
     (named `local_name`, covering `local_registries` — default the
-    process-global registry).  `router` (live replica sources) waits
-    for the port's replica router and raises NotImplementedError.
+    process-global registry).  `router` (a `ReplicaRouter`) adds one
+    live source per replica, read at each harvest.
     """
 
     def __init__(self,
@@ -120,10 +117,6 @@ class FleetAggregator:
                  observability_dir: Optional[str] = None,
                  include_spooled: bool = True,
                  router: Optional[Any] = None):
-        if router is not None:
-            raise NotImplementedError(
-                "the replica router is not ported yet (ROADMAP Queue 1 "
-                "item 7): a fleet has no live replica sources")
         self._live = [(str(n), tuple(regs)) for n, regs in live]
         self.local_name = str(local_name)
         self._local_regs = (tuple(local_registries)
@@ -131,6 +124,7 @@ class FleetAggregator:
                             else (get_registry(),))
         self._dir = observability_dir
         self._include_spooled = include_spooled
+        self._router = router
         reg = get_registry()
         self._c_harvests = reg.counter(
             "fleet_harvests_total",
@@ -147,8 +141,9 @@ class FleetAggregator:
     @classmethod
     def from_server(cls, server: Any) -> "FleetAggregator":
         """Build over a `ServingServer`: local = server registry +
-        process-global."""
-        return cls(local_registries=(server.registry, get_registry()))
+        process-global; one live source per router replica."""
+        return cls(local_registries=(server.registry, get_registry()),
+                   router=getattr(server, "router", None))
 
     # ------------------------------------------------------------------
     # harvesting
@@ -177,7 +172,13 @@ class FleetAggregator:
             "slo": get_slo_tracker().snapshot(),
             "exemplars": get_exemplar_store().snapshot(),
         }]
-        for name, regs in self._live:
+        live = list(self._live)
+        if self._router is not None:
+            # read at harvest time: replicas may come after this
+            # aggregator was built
+            live.extend((r.name, (r.engine.registry,))
+                        for r in self._router.replicas)
+        for name, regs in live:
             srcs.append({"name": name, "kind": "live",
                          "pid": os.getpid(), "regs": regs,
                          "spans": [], "requests": [], "slo": None,
@@ -520,8 +521,11 @@ class FleetAggregator:
     # ------------------------------------------------------------------
 
     def fleet_slo(self) -> Dict[str, Any]:
-        """Per-source SLO snapshots and a judged-weighted fleet
-        rollup."""
+        """Per-source SLO snapshots, per-replica attainment (judged from
+        the request log against the current targets) and a
+        judged-weighted fleet rollup."""
+        from analytics_zoo_tpu_torch.common.context import OrcaContext
+
         srcs = self.sources()
         per_source: Dict[str, Any] = {}
         judged_total = 0
@@ -548,7 +552,43 @@ class FleetAggregator:
                 "violations_total": violations_total,
             },
         }
+        targets = OrcaContext.slo_targets
+        if self._router is not None and targets:
+            out["replicas"] = self._replica_attainment(targets)
         return out
+
+    def _replica_attainment(
+            self, targets: Dict[str, float]) -> Dict[str, Any]:
+        """Judge finished requests per dispatched replica against the
+        current targets (replicas share the process SLO tracker, so
+        per-replica attainment is re-derived from the log)."""
+        from analytics_zoo_tpu_torch.observability import request_log
+
+        per: Dict[str, Dict[str, int]] = {}
+        for rec in request_log.get_request_log().records(
+                include_active=False):
+            replica = None
+            for e in rec.get("events") or []:
+                if e.get("kind") == "replica_dispatch":
+                    replica = e.get("replica")   # the last dispatch wins
+            if replica is None:
+                continue
+            verdict = None
+            for dim, target in targets.items():
+                v = rec.get(dim)
+                if v is None:
+                    continue
+                ok = v <= float(target)
+                verdict = (verdict if verdict is not None else True) \
+                    and ok
+            if verdict is None:
+                continue
+            row = per.setdefault(str(replica), {"judged": 0, "met": 0})
+            row["judged"] += 1
+            row["met"] += 1 if verdict else 0
+        return {name: {"judged": row["judged"],
+                       "attainment": round(row["met"] / row["judged"], 4)}
+                for name, row in sorted(per.items())}
 
 
 def _is_hex(s: str) -> bool:

@@ -1,6 +1,6 @@
 """Deterministic, seeded fault injection (a trimmed copy of
-analytics_zoo_tpu/resilience/faults.py, for the sites the training path
-and the generation engine fire).
+analytics_zoo_tpu/resilience/faults.py, for the sites the training path,
+the generation engine and the serving scale-out fire).
 
 Usage::
 
@@ -30,12 +30,23 @@ site                        threaded into
 ``generation.host_spill``   `HostKVTier.put` (the spill is dropped)
 ``generation.host_restore`` `HostKVTier.fetch` (the entry is dropped,
                             the lane recomputes)
-``serving.admission``       `GenerationEngine.submit`'s queue check
+``serving.admission``       `AdmissionCore.admit`'s queue check (every
+                            door: the engine, the worker pool, /predict)
+``admission.quota``         the tenant quota gate ("refuse" sheds 429)
+``registry.swap``           `ModelRegistry.hot_swap`, before the pointer
+                            moves (a raise leaves it unmoved)
+``router.dispatch``         `ReplicaRouter.submit` ("refuse" sheds 503)
+``stream.append``           `StreamLog.append`, before the frame is
+                            written (``path`` = the segment directory)
+``stream.fsync``            `StreamLog.sync`, before the fsync
+``stream.lease``            `DurableStream.dequeue`, before any lease
+``stream.ack``              `DurableStream.ack`, before any cursor moves
 =========================== =============================================
 
 Actions: ``raise`` (SimulatedWorkerFailure), ``crash`` (SimulatedCrash,
 the checkpoint matrix's kill), ``torn_write`` (truncate the largest
-file under the site's path, then SimulatedCrash), ``poison_request``
+file under the site's path, then SimulatedCrash), ``stall`` (sleep the
+fault's ``delay_s``, default 0.5 s, and go on), ``poison_request``
 (PoisonedRequestError carrying the victim's request id: the engine
 evicts that request alone) and ``refuse``, which `fault_point` returns
 to its caller (submit then raises QueueFull, as an organic overload
@@ -52,6 +63,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 import zlib
 from typing import Any, Dict, List, Optional
 
@@ -59,7 +71,8 @@ from analytics_zoo_tpu_torch.common.context import OrcaContext
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
-ACTIONS = ("raise", "crash", "torn_write", "poison_request", "refuse")
+ACTIONS = ("raise", "crash", "torn_write", "stall", "poison_request",
+           "refuse")
 
 KNOWN_SITES = (
     "train.step", "train.epoch",
@@ -69,7 +82,9 @@ KNOWN_SITES = (
     "generation.decode", "generation.prefix_lookup",
     "generation.spec_verify",
     "generation.host_spill", "generation.host_restore",
-    "serving.admission",
+    "serving.admission", "admission.quota", "registry.swap",
+    "router.dispatch",
+    "stream.append", "stream.fsync", "stream.lease", "stream.ack",
 )
 
 
@@ -98,13 +113,14 @@ class PoisonedRequestError(FaultInjected):
 class Fault:
     """One armed fault: a site, an action, and a deterministic firing
     rule (`at`/`times`, or seeded `prob`); `request_id` names the victim
-    of ``poison_request``."""
+    of ``poison_request``, `delay_s` the sleep of ``stall``."""
 
-    __slots__ = ("site", "action", "at", "times", "request_id", "prob",
-                 "fired")
+    __slots__ = ("site", "action", "at", "times", "delay_s", "request_id",
+                 "prob", "fired")
 
     def __init__(self, site: str, action: str, at: int = 1,
-                 times: int = 1, request_id: Optional[str] = None,
+                 times: int = 1, delay_s: float = 0.5,
+                 request_id: Optional[str] = None,
                  prob: Optional[float] = None):
         if action not in ACTIONS:
             raise ValueError(
@@ -118,6 +134,7 @@ class Fault:
         self.action = action
         self.at = int(at)
         self.times = int(times)
+        self.delay_s = float(delay_s)
         self.request_id = request_id
         self.prob = None if prob is None else float(prob)
         self.fired = 0
@@ -213,8 +230,8 @@ def _record_fire(fault: Fault, ctx: Dict[str, Any]) -> None:
 def fault_point(site: str, **ctx) -> Optional[str]:
     """The injection site hook.  Unarmed (no plan): one attribute read,
     returning None.  Armed: counts the hit and, when a fault fires,
-    raises, or returns the action for the caller to interpret
-    (``refuse``)."""
+    raises, sleeps (``stall``), or returns the action for the caller to
+    interpret (``refuse``)."""
     plan = OrcaContext.fault_plan
     if plan is None:
         return None
@@ -231,6 +248,9 @@ def fault_point(site: str, **ctx) -> Optional[str]:
             f"(hit {plan.hits.get(site)})")
     if fault.action == "crash":
         raise SimulatedCrash(f"injected crash at {site}")
+    if fault.action == "stall":
+        time.sleep(fault.delay_s)
+        return fault.action
     if fault.action == "poison_request":
         # the named victim when it is among this hit's requests, else
         # the first of them

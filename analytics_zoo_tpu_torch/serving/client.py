@@ -15,8 +15,9 @@ A call made inside a span (or under `trace_context.bind`) carries its
 W3C `traceparent` header, so the server's span joins the caller's
 trace; /enqueue's body carries it as a record field too.  The
 `traceparent` a /generate response echoes lands in `last_traceparent`.
-The durable-stream side (`enqueue(stream=...)`, `OutputQueue.ack` and
-`consume`) is not ported yet (ROADMAP Queue 1 item 7).
+The durable-stream side: `enqueue(stream="name")` appends to the
+server's crash-safe stream log, and `OutputQueue.consume` /
+`OutputQueue.ack` drain a stream as a consumer group.
 """
 
 from __future__ import annotations
@@ -33,9 +34,6 @@ from analytics_zoo_tpu_torch.serving.codec import (
     decode_ndarray,
     encode_ndarray,
 )
-
-_NOT_PORTED = ("durable streams (serving/streaming/) are not ported yet "
-               "(ROADMAP Queue 1 item 7)")
 
 
 def _post(url: str, payload: Dict[str, Any], timeout: float = 60.0,
@@ -89,9 +87,10 @@ class InputQueue:
         Arrow serialization, smaller and faster on big payloads).
 
         `model` / `tenant` attribute every request this queue sends: they
-        ride as X-Model / X-Tenant headers, which the server echoes (the
-        JAX server also routes X-Model through its model registry and
-        charges X-Tenant's quota).  Both can be overridden per call."""
+        ride as X-Model / X-Tenant headers (and as record fields on the
+        durable-stream path); the server resolves X-Model through its
+        ModelRegistry's A/B and shadow policies and charges X-Tenant's
+        quota bucket.  Both can be overridden per call."""
         if codec not in ("json", "arrow"):
             raise ValueError("codec must be 'json' or 'arrow'")
         self.base = f"http://{host}:{port}"
@@ -280,20 +279,63 @@ class InputQueue:
         """Async enqueue of one record (reference InputQueue.enqueue);
         fetch via OutputQueue.dequeue(uri).  `model` / `tenant` (or the
         queue's defaults) ride as headers; the trace context rides as the
-        header and as the body's record field.  The durable mode
-        (``stream="name"``, with `retry`) is not ported yet and
-        raises."""
-        if stream is not None:
-            raise NotImplementedError(_NOT_PORTED)
+        header and as the body's record field.
+
+        Durable mode: ``stream="name"`` appends the record to the
+        server's crash-safe stream log (POST /streams/<name>/enqueue):
+        the 200 means the frame is in the log, so a crash after it
+        replays the record instead of losing it.  The record id lands in
+        `self.last_record_id`.  `model` / `tenant` also ride as fields of
+        the record document, so whichever consumer leases it carries the
+        same attribution.  When the consumer groups cannot keep up the
+        server sheds with 429 and Retry-After; `retry` (a
+        `resilience.RetryPolicy`) backs off by that hint (jittered by
+        `retry.spread` when the policy says so) and sends again."""
+        attribution = self._attribution(model, tenant)
         arrays = [np.asarray(a)[None] for a in inputs.values()]
         payload = trace_context.inject_record(
             {"uri": uri, "inputs": [encode_ndarray(a) for a in arrays]})
-        resp = _post(f"{self.base}/enqueue", payload, timeout=timeout,
-                     headers=trace_context.inject_headers(
-                         self._attribution(model, tenant)))
-        if resp.get("status") != "queued":
-            raise RuntimeError(f"enqueue failed: {resp}")
-        return resp["uri"]
+        if stream is None:
+            resp = _post(f"{self.base}/enqueue", payload, timeout=timeout,
+                         headers=trace_context.inject_headers(attribution))
+            if resp.get("status") != "queued":
+                raise RuntimeError(f"enqueue failed: {resp}")
+            return resp["uri"]
+        self.last_record_id = None
+        if attribution.get("X-Model"):
+            payload["model"] = attribution["X-Model"]
+        if attribution.get("X-Tenant"):
+            payload["tenant"] = attribution["X-Tenant"]
+        stream_headers = trace_context.inject_headers(
+            dict({"Content-Type": "application/json"}, **attribution))
+        max_attempts = retry.max_attempts if retry is not None else 1
+        for attempt in range(1, max_attempts + 1):
+            req = urllib.request.Request(
+                f"{self.base}/streams/{stream}/enqueue",
+                data=json.dumps(payload).encode(), headers=stream_headers)
+            try:
+                with urllib.request.urlopen(req, timeout=timeout) as r:
+                    resp = json.loads(r.read())
+                self.last_record_id = resp.get("record_id")
+                return uri
+            except urllib.error.HTTPError as e:
+                retry_after = e.headers.get("Retry-After")
+                try:
+                    err = json.loads(e.read()).get("error", str(e))
+                except Exception:
+                    err = str(e)
+                if retry is None or e.code not in (429, 503) or \
+                        attempt >= max_attempts:
+                    raise RuntimeError(f"enqueue failed: {err}") from None
+                delay = retry.backoff(attempt)
+                if retry_after:
+                    try:
+                        delay = retry.spread(float(retry_after), attempt)
+                    except ValueError:
+                        pass
+                retry.record_retry(e)
+                time.sleep(delay)
+        raise RuntimeError("enqueue failed: retries exhausted")
 
 
 class OutputQueue:
@@ -316,13 +358,46 @@ class OutputQueue:
         raise TimeoutError(f"no result for {uri} within {timeout}s")
 
     def ack(self, stream: str, group: str, record_ids) -> int:
-        """Ack leased durable-stream records: not ported yet, raises."""
-        raise NotImplementedError(_NOT_PORTED)
+        """Ack leased records (POST /streams/<s>/ack); `consume` does
+        this itself, this is for callers driving the dequeue route."""
+        resp = _post(f"{self.base}/streams/{stream}/ack",
+                     {"group": group,
+                      "record_ids": [int(r) for r in record_ids]})
+        if "error" in resp:
+            raise RuntimeError(f"serving error: {resp['error']}")
+        return int(resp.get("acked", 0))
 
     def consume(self, stream: str, group: str = "default",
                 consumer: str = "consumer-0", n: Optional[int] = None,
                 block_s: float = 1.0, decode: bool = True,
                 timeout: float = 30.0):
-        """Consume a durable stream as a consumer group: not ported yet,
-        raises."""
-        raise NotImplementedError(_NOT_PORTED)
+        """Consumer-group generator over a durable stream: long-poll
+        dequeue (POST /streams/<s>/dequeue) as `group` / `consumer`,
+        yielding ``(record_id, doc)`` pairs, each acked only when the
+        caller comes back for the next one: a loop body that raises (or
+        a consumer that dies mid-record) leaves its record unacked, and
+        the stream replays it after the lease expires, under the same
+        id.  `n` bounds the records consumed; ``n=None`` drains until a
+        `block_s` long poll comes back empty.  ``decode=True`` runs each
+        doc through `codec.decode_record` (base64 ndarrays -> arrays)."""
+        from analytics_zoo_tpu_torch.serving.codec import decode_record
+
+        yielded = 0
+        while n is None or yielded < n:
+            resp = _post(f"{self.base}/streams/{stream}/dequeue",
+                         {"group": group, "consumer": consumer,
+                          "max_records": 1, "block_s": block_s},
+                         timeout=timeout + block_s)
+            if "error" in resp:
+                raise RuntimeError(f"serving error: {resp['error']}")
+            recs = resp.get("records", [])
+            if not recs:
+                if n is None:
+                    return           # drained
+                continue             # a bounded consume keeps waiting
+            for r in recs:
+                doc = decode_record(r["doc"]) if decode else r["doc"]
+                yield r["record_id"], doc
+                # the caller came back: the record is processed
+                yielded += 1
+                self.ack(stream, group, [r["record_id"]])

@@ -3,9 +3,10 @@ analytics_zoo_tpu/serving/codec.py): base64-JSON (reference: the base64
 ndarray encoding of `pyzoo/zoo/serving/client.py:157`
 InputQueue.enqueue), base64 images, and Arrow IPC (reference:
 `serving/serialization/ArrowDeserializer.scala`).  PIL and `pyarrow`
-are imported when an image or an Arrow body is coded, not before.  The
-durable streams' record encoding (`encode_record` / `decode_record`) is
-not ported yet."""
+are imported when an image or an Arrow body is coded, not before.
+`encode_record` / `decode_record` are the durable streams' record
+payloads (JAX codec.py:65, :97): JSON whose ndarrays are the base64
+encoding."""
 
 from __future__ import annotations
 
@@ -97,3 +98,50 @@ def decode_arrow_tensors(blob: bytes) -> List[np.ndarray]:
         a = np.frombuffer(data, dtype=np.dtype(dtype))
         out.append(a.reshape(shape).copy())
     return out
+
+
+def encode_record(doc: Dict[str, Any]) -> bytes:
+    """One durable-stream record payload: a JSON document whose ndarray
+    values (at any depth) become base64 ndarray encodings.  Inside a
+    trace (an open span, or a context under `trace_context.bind`) a
+    `"traceparent"` field is stamped on the top-level document, so the
+    record carries its trace to whoever leases it; an existing field is
+    kept."""
+    import json
+
+    def enc(v):
+        if isinstance(v, np.ndarray):
+            return encode_ndarray(v)
+        if isinstance(v, dict):
+            return {k: enc(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [enc(x) for x in v]
+        if isinstance(v, (np.integer, np.floating)):
+            return v.item()
+        return v
+
+    out = enc(doc)
+    if isinstance(out, dict):
+        from analytics_zoo_tpu_torch.observability import trace_context
+        trace_context.inject_record(out)
+    return json.dumps(out, separators=(",", ":")).encode()
+
+
+def decode_record(blob: Any) -> Dict[str, Any]:
+    """Inverse of `encode_record`; takes an already parsed document too
+    (the HTTP dequeue path hands the handler parsed JSON)."""
+    import json
+
+    if isinstance(blob, (bytes, bytearray)):
+        blob = json.loads(blob)
+
+    def dec(v):
+        if isinstance(v, dict):
+            if "b64" in v and "dtype" in v or "image_b64" in v:
+                return decode_ndarray(v)
+            return {k: dec(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [dec(x) for x in v]
+        return v
+
+    return dec(blob)

@@ -10,15 +10,17 @@ the JAX package's:
                        batcher's max batch
   quantize          -> int8 weights (InferenceModel.load_model's
                        quantize=True, serving/quantize.py)
-  protocol          -> "http" ("grpc" and "both" are not ported yet)
+  protocol          -> "http" | "grpc" | "both" (the HTTP front end,
+                       the gRPC one, grpc_frontend.py, or both over one
+                       batcher)
   host/port/grpcPort-> bind addresses
   batchTimeoutMs    -> the batcher's window
   modelClass        -> the saved class name's override
   decryptKeyEnv     -> encrypted weights (not ported yet: raises)
-  replicas          -> replica worker processes (not ported yet: > 1
-                       raises)
+  replicas          -> > 1: that many worker processes
+                       (serving/worker_pool.py) behind the batcher
 `start_serving` / `stop_serving` bring the server up and down; the model
-is built on the CUDA card.
+(or each worker's copy) is built on the CUDA card.
 """
 
 from __future__ import annotations
@@ -102,19 +104,17 @@ class ServingConfig:
                 "replicas": self.replicas}
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 7)")
-
-
 def start_serving(config: "ServingConfig | str", block: bool = False,
                   model_cls=None, device=None):
     """Bring up serving from a config (path or object) — the
-    `cluster-serving-start` analog.  Returns {"http": ServingServer,
-    "model": InferenceModel}.  The model is built on `device` (None =
-    the CUDA card).  Replica processes (`replicas` > 1) and the gRPC
-    front end (`protocol` "grpc" or "both") are not ported yet: they
-    raise rather than start a lone HTTP server."""
+    `cluster-serving-start` analog.  Returns the started front ends:
+    {"http": ServingServer?, "grpc": GrpcServingFrontend?, "model":
+    InferenceModel or None, "pool": WorkerPool?} ("_batcher" holds the
+    server of a gRPC-only config, which binds no HTTP port).  The model,
+    or each of `replicas` > 1 worker processes' copies, is built on
+    `device` (None = the CUDA card).  Encrypted weights
+    (`decryptKeyEnv`) are not ported yet and raise before anything
+    starts."""
     from analytics_zoo_tpu_torch.serving.inference_model import (
         InferenceModel,
         find_zoo_model_class,
@@ -123,33 +123,65 @@ def start_serving(config: "ServingConfig | str", block: bool = False,
 
     if isinstance(config, str):
         config = ServingConfig.load(config)
-    if config.replicas > 1:
-        _not_ported("serving with replicas > 1 (serving/worker_pool.py)")
-    if config.protocol != "http":
-        _not_ported(f"protocol {config.protocol!r} (the gRPC front end, "
-                    "serving/grpc_frontend.py)")
+    if config.decrypt_key_env:
+        raise NotImplementedError(
+            "weights encrypted at rest need serving/encrypt.py, which is "
+            "not ported yet (ROADMAP Queue 1 item 7b)")
     cls = model_cls
     if cls is None and config.model_class:
         cls = find_zoo_model_class(config.model_class)
-    decrypt_key = None
-    if config.decrypt_key_env:
-        import os
-        decrypt_key = os.environ.get(config.decrypt_key_env)
-        if not decrypt_key:
-            raise ValueError(
-                f"config names decryptKeyEnv={config.decrypt_key_env!r} "
-                "but that environment variable is unset")
-    model = InferenceModel(
-        supported_concurrent_num=config.model_parallelism,
-        max_batch_size=config.max_batch_size)
-    model.load_model(config.model_path, model_cls=cls,
-                     quantize=config.quantize, decrypt_key=decrypt_key,
-                     device=device)
-    srv = ServingServer(model, host=config.host, port=config.port,
-                        max_batch_size=config.max_batch_size,
-                        batch_timeout_ms=config.batch_timeout_ms)
-    srv.start(block=False)
-    out: Dict[str, Any] = {"model": model, "http": srv}
+    pool = model = None
+    if config.replicas > 1:
+        # N worker processes each load their own copy; the parent holds
+        # no model.  A caller's model_cls goes by name (the workers
+        # resolve it as they resolve config.modelClass)
+        from analytics_zoo_tpu_torch.serving.worker_pool import WorkerPool
+        cls_name = config.model_class
+        if cls is not None:
+            cls_name = getattr(cls, "__name__", str(cls))
+        pool = WorkerPool(config.model_path, n_workers=config.replicas,
+                          model_cls=cls_name, quantize=config.quantize,
+                          max_batch_size=config.max_batch_size,
+                          model_parallelism=config.model_parallelism,
+                          device=None if device is None else str(device))
+    else:
+        model = InferenceModel(
+            supported_concurrent_num=config.model_parallelism,
+            max_batch_size=config.max_batch_size)
+        model.load_model(config.model_path, model_cls=cls,
+                         quantize=config.quantize, device=device)
+    serve_http = config.protocol in ("http", "both")
+    try:
+        srv = ServingServer(model, host=config.host,
+                            port=config.port if serve_http else 0,
+                            max_batch_size=config.max_batch_size,
+                            batch_timeout_ms=config.batch_timeout_ms,
+                            worker_pool=pool)
+        srv.start(block=False, http=serve_http)
+    except Exception:
+        # no live worker processes left behind when the server cannot
+        # come up (a port already bound)
+        if pool is not None:
+            pool.stop()
+        raise
+    out: Dict[str, Any] = {"model": model}
+    if pool is not None:
+        out["pool"] = pool
+    if serve_http:
+        out["http"] = srv
+    else:
+        out["_batcher"] = srv          # still needs stop()
+    if config.protocol in ("grpc", "both"):
+        try:
+            from analytics_zoo_tpu_torch.serving.grpc_frontend import (
+                GrpcServingFrontend,
+            )
+            out["grpc"] = GrpcServingFrontend(
+                srv, host=config.host, port=config.grpc_port).start()
+        except Exception:
+            # the batcher, the HTTP port and the workers already up
+            stop_serving(out)
+            raise
     if block:
         try:
             while True:
@@ -162,6 +194,7 @@ def start_serving(config: "ServingConfig | str", block: bool = False,
 
 
 def stop_serving(servers: Dict[str, Any]) -> None:
-    srv = servers.get("http")
-    if srv is not None:
-        srv.stop()
+    for key in ("http", "grpc", "_batcher", "pool"):
+        srv = servers.get(key)
+        if srv is not None:
+            srv.stop()

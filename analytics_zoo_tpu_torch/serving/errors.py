@@ -4,10 +4,7 @@ analytics_zoo_tpu/serving/errors.py).
 
 Keyed by CLASS NAME (not class object) so this table imports with zero
 dependencies: a client-only process and the HTTP layer read the same
-dict.  Some classes named here belong to parts of the JAX package the
-port does not have yet (the worker pool, the control plane, durable
-streams); their rows stay so that both packages answer the same status
-for the same name.
+dict, and both packages answer the same status for the same name.
 """
 
 from __future__ import annotations

@@ -40,13 +40,18 @@ Streaming: `submit()` returns a `GenerationStream`; the engine pushes
 each sampled token as it exists.  Drive the loop with `step()` /
 `run_until_idle()`, or serve with `ensure_started()` / `stop()`.
 
-Intake: `submit` sheds with `QueueFull` when `max_queue` requests wait;
-when the SLO shedder is armed (`OrcaContext.slo_targets` and
-`slo_shed_attainment`) and the rolling attainment is below it with at
-least `slo_shed_min_queue` waiting (JAX control_plane/admission.py:
-204-225); or when a fault plan's ``refuse`` fires at the
-``serving.admission`` site.  Each carries `retry_after_s()`, the
-queue's drain time estimated from the measured decode steps.  A
+Intake: `submit` asks the engine's `AdmissionCore` (serving/
+control_plane/admission.py, as JAX's engine.py:322-329 does), which sheds
+with `QueueFull` when `max_queue` requests wait; when the SLO shedder is
+armed (`OrcaContext.slo_targets` and `slo_shed_attainment`) and the
+rolling attainment is below it with at least `slo_shed_min_queue`
+waiting; or when a fault plan's ``refuse`` fires at the
+``serving.admission`` site; and with `TenantQuotaExceeded` (429) when
+the request's tenant is over its quota (`OrcaContext.tenant_quotas`).
+Each carries a Retry-After hint: `retry_after_s()`, the queue's drain
+time estimated from the measured decode steps, or the tenant bucket's
+refill time.  The request class ("interactive", "batch", "shadow") is
+the scheduler priority.  A
 ``poison_request`` fault at ``generation.decode`` fails one request
 before dispatch: the engine evicts that request alone and the other
 lanes decode on the next round (JAX engine.py:1405-1493).
@@ -81,7 +86,7 @@ import queue
 import threading
 import weakref
 from collections import deque
-from typing import List, Optional, Sequence as Seq, Tuple
+from typing import Dict, List, Optional, Sequence as Seq, Tuple
 
 import numpy as np
 import torch
@@ -91,7 +96,6 @@ from analytics_zoo_tpu_torch.device import resolve_device
 from analytics_zoo_tpu_torch.observability import (
     flight_recorder,
     get_registry,
-    get_slo_tracker,
     log_event,
     maybe_record,
     maybe_spool,
@@ -107,7 +111,13 @@ from analytics_zoo_tpu_torch.resilience.faults import (
     PoisonedRequestError,
     fault_point,
 )
-from analytics_zoo_tpu_torch.serving.errors import QueueFull, RequestTooLarge
+from analytics_zoo_tpu_torch.serving.control_plane.admission import (
+    AdmissionCore,
+)
+from analytics_zoo_tpu_torch.serving.errors import (  # noqa: F401
+    QueueFull,
+    RequestTooLarge,
+)
 from analytics_zoo_tpu_torch.serving.generation.host_tier import (
     HostKVTier,
     record_dma,
@@ -215,7 +225,7 @@ class GenerationEngine:
                  prefix_caching="auto", chunked_prefill="auto",
                  speculative_decoding="auto", speculative_k="auto",
                  kv_host_tier="auto",
-                 keep_logits: bool = False, device=None):
+                 keep_logits: bool = False, registry=None, device=None):
         if model.max_position_len < max_context:
             raise ValueError(
                 f"model.max_position_len {model.max_position_len} < "
@@ -249,9 +259,17 @@ class GenerationEngine:
         self.speculative_decoding = bool(speculative_decoding)
         self.speculation = (Speculator(int(speculative_k))
                             if self.speculative_decoding else None)
-        self.max_queue = max_queue
-        self.slo_shed_min_queue = (max_slots if slo_shed_min_queue is None
-                                   else int(slo_shed_min_queue))
+        #: the door policy (serving/control_plane/admission.py): the
+        #: queue bound, the SLO shedder and the tenant quota gate;
+        #: `max_queue` / `slo_shed_min_queue` read and write it
+        self.admission = AdmissionCore(
+            max_queue=max_queue,
+            slo_shed_min_queue=(max_slots if slo_shed_min_queue is None
+                                else int(slo_shed_min_queue)),
+            retry_after=self.retry_after_s)
+        #: "model@version" on this engine's request records, set by a
+        #: ModelRegistry; None outside one
+        self.model_label: Optional[str] = None
         self.keep_logits = keep_logits
         if num_blocks is None:
             # every lane can hold a full context
@@ -328,10 +346,12 @@ class GenerationEngine:
             self._flops = profiling.CausalLMFlops.from_model(model)
         except (AttributeError, TypeError):
             self._flops = None
-        #: JAX's engine families (engine.py:362-414), in the process
-        #: registry (JAX's default; a replica's own registry comes with
-        #: the router)
-        reg = self.registry = get_registry()
+        #: JAX's engine families (engine.py:362-414), in `registry`:
+        #: the process registry by default; each router replica has its
+        #: own (a shared one would bind every replica's gauges to the
+        #: last engine built)
+        reg = self.registry = (registry if registry is not None
+                               else get_registry())
         #: the telemetry spool's name for this engine's loop
         self.spool_name = "engine"
         self._c_tokens = reg.counter(
@@ -717,40 +737,45 @@ class GenerationEngine:
             return float(min(10.0, max(0.05, (depth + 1) * mean)))
         return 0.5
 
-    def shed_reason(self, depth: int) -> Optional[str]:
-        """Why a new request should be turned away now (None = admit):
-        the `max_queue` bound, then, when `OrcaContext.slo_targets` and
-        `slo_shed_attainment` are set, the SLO shedder: attainment below
-        the threshold with at least `slo_shed_min_queue` requests
-        already waiting (JAX's `AdmissionCore.shed_reason`, its
-        messages)."""
-        if self.max_queue is not None and depth >= self.max_queue:
-            return (f"{depth} requests already waiting "
-                    f"(max_queue={self.max_queue})")
-        thr = OrcaContext.slo_shed_attainment
-        if thr is not None and OrcaContext.slo_targets:
-            att = get_slo_tracker().attainment()
-            if att == att and att < thr and \
-                    depth >= self.slo_shed_min_queue:
-                return (f"shedding under SLO pressure: attainment "
-                        f"{att:.3f} < {thr} with {depth} waiting")
-        return None
+    # the queue-bound knobs live on the AdmissionCore
+    @property
+    def max_queue(self) -> Optional[int]:
+        return self.admission.max_queue
+
+    @max_queue.setter
+    def max_queue(self, value: Optional[int]) -> None:
+        self.admission.max_queue = value
+
+    @property
+    def slo_shed_min_queue(self) -> int:
+        return self.admission.slo_shed_min_queue
+
+    @slo_shed_min_queue.setter
+    def slo_shed_min_queue(self, value: int) -> None:
+        self.admission.slo_shed_min_queue = int(value)
 
     def submit(self, prompt, max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0,
                eos_id: Optional[int] = None, stream_timeout: float = 120.0,
-               request_id: Optional[str] = None, priority: int = 0,
-               tenant: Optional[str] = None) -> GenerationStream:
+               request_id: Optional[str] = None,
+               priority: Optional[int] = None,
+               tenant: Optional[str] = None,
+               request_class: str = "interactive",
+               blame_seed: Optional[Dict[str, float]] = None
+               ) -> GenerationStream:
         """Queue one request; returns its token stream.  Raises up front
         when the request can never run: ValueError for malformed
         prompts, `RequestTooLarge` (a ValueError; HTTP 413) when prompt +
         max_new_tokens exceed max_context or the whole block pool,
-        `QueueFull` (HTTP 503) from `shed_reason` (the queue bound and
-        the SLO shedder) or when the ``serving.admission`` fault site
-        refuses.  `request_id` is sanitized (one is made when absent)
-        and readable from the returned stream's `.request_id`.  `tenant`
-        attributes the request in the lifecycle log, so the SLO and
-        blame planes slice by it (tenant quotas are not ported)."""
+        `QueueFull` (HTTP 503) / `TenantQuotaExceeded` (HTTP 429) from
+        the `AdmissionCore`'s queue, SLO and quota gates.  `request_id`
+        is sanitized (one is made when absent) and readable from the
+        returned stream's `.request_id`.  `tenant` charges its quota
+        bucket and slices the SLO and blame planes; `request_class`
+        ("interactive" | "batch" | "shadow") sets the scheduler priority
+        (`priority`, when given, overrides it).  `blame_seed` ({phase:
+        seconds}) records wait the request served before this submit (a
+        router's re-queue after a replica died)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -767,21 +792,18 @@ class GenerationEngine:
                 f"request needs {self.cache.blocks_for(total)} KV "
                 f"blocks, pool holds {self.cache.allocator.capacity}")
         with self._lock:
-            depth = len(self.scheduler.waiting)
-            reason = self.shed_reason(depth)
-            if reason is not None:
-                raise QueueFull(reason, retry_after_s=self.retry_after_s())
-            # "refuse" sheds this request exactly as an organic overload
-            # would (JAX control_plane/admission.py:242)
-            if fault_point("serving.admission",
-                           queue_depth=depth) == "refuse":
-                raise QueueFull("injected admission refusal (fault plan)",
-                                retry_after_s=self.retry_after_s())
+            cls_priority = self.admission.admit(
+                len(self.scheduler.waiting), tenant=tenant,
+                request_class=request_class)
+            if priority is None:
+                priority = cls_priority
             # the record opens once the request is taken, with the id
             # sanitized (or made) and kept through preemption
             rid = request_log.start(request_id, prompt_len=len(prompt),
                                     max_new_tokens=int(max_new_tokens),
-                                    tenant=tenant)
+                                    model=self.model_label, tenant=tenant,
+                                    request_class=request_class,
+                                    blame_seed=blame_seed)
             seq = Sequence(prompt, max_new_tokens=max_new_tokens,
                            temperature=temperature, top_k=top_k,
                            eos_id=eos_id, request_id=rid,
@@ -1393,6 +1415,19 @@ class GenerationEngine:
                 with self._lock:
                     for seq in list(self.scheduler.slotted()):
                         self._finish(seq, f"error: {e}")
+
+    def consume_stream(self, stream, out_stream=None, **kw):
+        """Attach this engine to a durable stream as a consumer-group
+        member: each leased record's prompt is submitted under the
+        stable id ``strm-<stream>-<record id>``, its tokens land in
+        `out_stream`, and only then is the record acked (a replica dying
+        mid-record leaves the lease to expire and the record replays
+        under the same id).  Returns the started `StreamConsumer`."""
+        from analytics_zoo_tpu_torch.serving.streaming.consumer import (
+            generation_consumer,
+        )
+        return generation_consumer(stream, self, out_stream=out_stream,
+                                   **kw)
 
     def stop(self) -> None:
         """Stop the background loop and close every stream still open."""

@@ -104,7 +104,7 @@ class InferenceModel:
         if decrypt_key is not None:
             raise NotImplementedError(
                 "weights encrypted at rest need serving/encrypt.py, which "
-                "is not ported yet (ROADMAP Queue 1 item 7)")
+                "is not ported yet (ROADMAP Queue 1 item 7b)")
         from analytics_zoo_tpu_torch.models.common.zoo_model import (
             _CONFIG,
             _WEIGHTS,

@@ -32,20 +32,48 @@ Endpoints:
                    can never fit, 503 shed (the queue bound or the SLO
                    shedder, `OrcaContext.slo_shed_attainment`; with
                    Retry-After and "retry_after_s" from the engine's
-                   drain estimate).  A stream that dies mid-flight ends
-                   with an {"error"} line.  X-Tenant attributes the
-                   request for the SLO and blame planes.
+                   drain estimate; 429 with Retry-After for a tenant over
+                   its quota).  A stream that dies mid-flight ends with
+                   an {"error"} line.  X-Tenant (or "tenant") charges the
+                   tenant's quota bucket (`OrcaContext.tenant_quotas`)
+                   and slices the SLO and blame planes; "request_class"
+                   ("interactive" | "batch" | "shadow") sets the
+                   scheduler priority.  With `router=` the request goes
+                   through the ReplicaRouter's least-loaded admission;
+                   with `model_registry=` X-Model (or "model") resolves a
+                   registered model through its A/B and shadow policies,
+                   and the response's X-Model is the model@version that
+                   served it (404 for an unknown model).
+  POST /streams/<name>/enqueue — durable ingest (needs a `stream_hub`):
+                   the JSON body is appended as one CRC-framed record of
+                   the stream's log before the 200 ({"status": "queued",
+                   "uri", "stream", "record_id"}); a full backlog is a
+                   429 StreamBacklogFull with Retry-After from the
+                   groups' drain rate.
+  POST /streams/<name>/dequeue — a consumer group's long-poll lease:
+                   {"group", "consumer", "max_records", "block_s"} ->
+                   {"records": [{"record_id", "attempts", "doc"}]}; a
+                   record not acked within the visibility timeout
+                   replays to another consumer.
+  POST /streams/<name>/ack — {"group", "record_ids"} advances the
+                   group's durable cursor ({"acked": n}).
   GET  /healthz  — liveness and records served
   GET  /stats    — JSON snapshot: counters, batcher queue depth, the
-                   per-op timer summaries, the goodput ratio, the
-                   engine's lanes, the dispatch ledger's rows, and with an
-                   engine the `requests` (SLO attainment) and `blame`
-                   blocks, with `observability_dir` the `fleet` block
+                   replica count, the per-op timer summaries, the goodput
+                   ratio, the engine's lanes, the worker pool's, the
+                   router's per-replica rows, the streams' backlog and
+                   lag, the registry's table and the shadow SLO, the
+                   tenant ledger, the dispatch ledger's rows, and with a
+                   generation target the `requests` (SLO attainment) and
+                   `blame` blocks, with a router or `observability_dir`
+                   the `fleet` block
   GET  /metrics  — Prometheus text: this server's registry (the
                    `serving_*` timers, counters and gauges) merged with
-                   the process registry; ?fleet=1 the `FleetAggregator`
-                   view (counters summed over this process and every
-                   spooled snapshot, gauges labeled by source)
+                   the process registry, and each router replica's
+                   registry under a replica="<name>" label (?fleet=0
+                   leaves them out); ?fleet=1 the `FleetAggregator` view
+                   (counters summed over this process, the replicas and
+                   every spooled snapshot, gauges labeled by source)
   GET  /metrics/history — the metrics history (observability/history.py):
                    a forced sample, then the recorder's ring
                    (?family=&since=&derive=rate|delta|quantiles&window=;
@@ -68,13 +96,21 @@ Tracing: a client's W3C `traceparent` on /generate, /predict and
 echoed on the response, sheds included; the batcher's
 `serving.run_batch` span takes the first request's span as its parent
 across the queue hop.  X-Model and X-Tenant are echoed on every
-response.  The JAX server's worker pool, replica router, durable
-streams, model registry and tenant quotas are not ported yet (ROADMAP
-Queue 1 item 7).
+response.  /predict and /enqueue charge X-Tenant at the door (the
+worker pool's `AdmissionCore`, or the server's own), 429 with
+Retry-After when over quota.
+
+Back ends: `model` (an `InferenceModel`) or `worker_pool` (a
+`WorkerPool` of model processes) serves /predict and /enqueue;
+`generation_engine`, `router` (a `ReplicaRouter`) or `model_registry`
+(a `ModelRegistry`) serves /generate; `stream_hub` (a `StreamHub`) the
+/streams routes.  `start(http=False)` runs the batcher alone, for a gRPC
+front end (grpc_frontend.py) that is the only ingress.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
 import queue
@@ -97,9 +133,11 @@ from analytics_zoo_tpu_torch.observability import (
     get_blame_tracker,
     get_exemplar_store,
     get_registry,
+    get_shadow_slo_tracker,
     get_slo_tracker,
     goodput_tables,
     history,
+    labeled_prometheus_text,
     memory,
     merged_prometheus_text,
     now,
@@ -117,7 +155,18 @@ from analytics_zoo_tpu_torch.serving.codec import (
     encode_arrow_tensors,
     encode_ndarray,
 )
-from analytics_zoo_tpu_torch.serving.errors import QueueFull, RequestTooLarge
+from analytics_zoo_tpu_torch.serving.control_plane.admission import (
+    AdmissionCore,
+    get_tenant_ledger,
+)
+from analytics_zoo_tpu_torch.serving.errors import (
+    ModelNotFound,
+    QueueFull,
+    ReplicaStopped,
+    RequestTooLarge,
+    TenantQuotaExceeded,
+    http_status_for,
+)
 from analytics_zoo_tpu_torch.serving.timer import Timer
 
 _log = logging.getLogger(__name__)
@@ -141,23 +190,54 @@ class _Pending:
 class ServingServer:
     """start() serves until stop(); thread-safe for concurrent clients.
 
-    `model` (an `InferenceModel`) serves /predict and /enqueue;
-    `generation_engine` (a `GenerationEngine`) serves /generate, its loop
-    started and stopped with the server.  The batcher waits for
-    stragglers min(`batch_timeout_ms`, `adaptive_k` x the EMA of the
-    request gaps) when `adaptive_batching`, the full window otherwise,
-    and never when the batch is already full."""
+    `model` (an `InferenceModel`) or `worker_pool` (a `WorkerPool`)
+    serves /predict and /enqueue; `generation_engine` (a
+    `GenerationEngine`), `router` (a `ReplicaRouter`) or `model_registry`
+    (a `ModelRegistry`) serves /generate, started and stopped with the
+    server; `stream_hub` (a `StreamHub`, whose lifetime is its
+    creator's: stop() leaves it open) serves /streams.  The batcher
+    waits for stragglers min(`batch_timeout_ms`, `adaptive_k` x the EMA
+    of the request gaps) when `adaptive_batching`, the full window
+    otherwise, and never when the batch is already full."""
 
     def __init__(self, model=None, host: str = "127.0.0.1", port: int = 0,
                  max_batch_size: int = 32, batch_timeout_ms: float = 5.0,
                  result_ttl_s: float = 600.0, max_results: int = 10_000,
-                 generation_engine=None, adaptive_batching: bool = True,
-                 adaptive_k: float = 2.0):
-        if model is None and generation_engine is None:
-            raise ValueError("need a model or a generation_engine")
+                 worker_pool=None, generation_engine=None, router=None,
+                 stream_hub=None, model_registry=None,
+                 adaptive_batching: bool = True, adaptive_k: float = 2.0):
+        if model is None and worker_pool is None and \
+                generation_engine is None and router is None and \
+                stream_hub is None and model_registry is None:
+            raise ValueError("need a model, a worker_pool, a "
+                             "generation_engine, a router, a "
+                             "stream_hub or a model_registry")
+        if router is not None and generation_engine is not None:
+            raise ValueError("pass either generation_engine= or "
+                             "router=, not both — the router owns its "
+                             "own engine replicas")
+        if model_registry is not None and (
+                generation_engine is not None or router is not None):
+            raise ValueError("pass either model_registry= or a bare "
+                             "generation_engine=/router= — register "
+                             "the engine as a version instead")
         self.model = model
+        self.worker_pool = worker_pool
         self.generation_engine = generation_engine
-        self._predict = model.predict if model is not None else None
+        self.router = router
+        self.stream_hub = stream_hub
+        self.model_registry = model_registry
+        self._predict = (worker_pool.predict if worker_pool is not None
+                         else model.predict if model is not None else None)
+        # the tenant gate of /predict and /enqueue: the pool's
+        # AdmissionCore (its max_queue applies too), else the door's own
+        # over the shared ledger; /generate charges in the engine
+        if worker_pool is not None:
+            self._door_admission = worker_pool.admission
+        elif self._predict is not None:
+            self._door_admission = AdmissionCore()
+        else:
+            self._door_admission = None
         self.max_batch_size = max_batch_size
         self.batch_timeout_s = batch_timeout_ms / 1e3
         self.adaptive_batching = bool(adaptive_batching)
@@ -194,9 +274,21 @@ class ServingServer:
             "serving_queue_depth", fn=self._queue.qsize,
             help="requests waiting in the dynamic batcher queue")
         self.registry.gauge(
-            "serving_replicas", fn=lambda: 1,
+            "serving_replicas", fn=self.replicas,
             help="model replicas behind this server")
+        if worker_pool is not None:
+            self.registry.gauge(
+                "serving_worker_utilization", fn=worker_pool.utilization,
+                help="fraction of worker-pool replicas busy")
+        if stream_hub is not None:
+            # the server's registry: a second server with its own hub
+            # must not inherit this one's callback
+            self.registry.gauge(
+                "stream_backlog_depth", fn=stream_hub.total_backlog,
+                help="unconsumed records across this server's durable "
+                     "streams (slowest consumer group per stream)")
         self._httpd = None
+        self._http_started = False
         self._requested_addr = (host, port)
         self.host, self.port = host, port
         self._threads: List[threading.Thread] = []
@@ -246,14 +338,23 @@ class ServingServer:
                 if path == "/healthz":
                     self._json(200, {"status": "ok",
                                      "records_served": server.records_served,
-                                     "replicas": 1,
+                                     "replicas": server.replicas(),
                                      "batches_run": server._batches_run})
                 elif path.startswith("/metrics/history"):
                     self._history(parse_qs(query))
                 elif path == "/metrics":
-                    text = (server.fleet().fleet_prometheus_text() if fleet
-                            else merged_prometheus_text(server.registry,
-                                                        get_registry()))
+                    if fleet:
+                        text = server.fleet().fleet_prometheus_text()
+                    else:
+                        text = merged_prometheus_text(server.registry,
+                                                      get_registry())
+                        if (server.router is not None
+                                and "fleet=0" not in query):
+                            # each replica's own registry, labeled
+                            for r in server.router.replicas:
+                                text += labeled_prometheus_text(
+                                    r.engine.registry.prometheus_text(),
+                                    {"replica": r.name})
                     self._body(200, text.encode(),
                                "text/plain; version=0.0.4")
                 elif path == "/stats":
@@ -342,7 +443,7 @@ class ServingServer:
             def _generate(self, body: bytes):
                 """Streamed generation: each sampled token goes out as
                 its own chunk as the engine emits it."""
-                eng = server.generation_engine
+                eng = server._generation_target()
                 if eng is None:
                     self._json(404, {"error": "no generation engine "
                                      "behind this server"})
@@ -350,6 +451,7 @@ class ServingServer:
                 rid = request_log.sanitize_request_id(
                     self.headers.get("X-Request-Id")
                     or request_log.new_request_id())
+                model = self.headers.get("X-Model") or None
                 tenant = self.headers.get("X-Tenant") or None
                 # a client's traceparent makes the serving.generate span
                 # a child of the caller's trace instead of a root
@@ -380,29 +482,44 @@ class ServingServer:
                 except Exception as e:
                     reject(400, f"bad request: {e}")
                     return
+                model = model or req.get("model") or None
                 tenant = tenant or req.get("tenant") or None
-                # one span covers admission and streaming; its context
+                # one span covers admission and streaming (the router's
+                # dispatch and re-queue spans nest under it); its context
                 # goes back to the client as a traceparent
                 span_kw = ({"parent": tparent}
                            if tparent is not None else {})
                 with trace("serving.generate", prompt=len(tokens),
                            request_id=rid, **span_kw) as span:
+                    kw = dict(
+                        max_new_tokens=int(req.get("max_new_tokens", 32)),
+                        temperature=float(req.get("temperature", 0.0)),
+                        top_k=int(req.get("top_k", 0)),
+                        eos_id=(int(req["eos_id"])
+                                if req.get("eos_id") is not None else None),
+                        request_id=rid, tenant=tenant)
+                    if req.get("request_class") is not None:
+                        kw["request_class"] = str(req["request_class"])
+                    if server.model_registry is not None:
+                        kw["model"] = model
                     try:
-                        stream = eng.submit(
-                            tokens,
-                            max_new_tokens=int(req.get("max_new_tokens",
-                                                       32)),
-                            temperature=float(req.get("temperature", 0.0)),
-                            top_k=int(req.get("top_k", 0)),
-                            eos_id=(int(req["eos_id"])
-                                    if req.get("eos_id") is not None
-                                    else None),
-                            request_id=rid, tenant=tenant)
+                        stream = eng.submit(tokens, **kw)
                     except RequestTooLarge as e:
                         reject(413, str(e))
                         return
-                    except QueueFull as e:
-                        reject(503, str(e), retry_after_s=e.retry_after_s)
+                    except (QueueFull, TenantQuotaExceeded) as e:
+                        # 503 from the queue and SLO gates, 429 from a
+                        # tenant bucket: the router must not shop an
+                        # over-quota request around (the ledger is
+                        # process-wide)
+                        reject(http_status_for(e), str(e),
+                               retry_after_s=e.retry_after_s)
+                        return
+                    except ModelNotFound as e:
+                        reject(404, str(e))
+                        return
+                    except ReplicaStopped as e:
+                        reject(503, str(e))
                         return
                     except ValueError as e:
                         reject(400, str(e))
@@ -415,8 +532,15 @@ class ServingServer:
                                      "application/x-ndjson")
                     self.send_header("Transfer-Encoding", "chunked")
                     self.send_header("X-Request-Id", rid)
-                    for k, v in server._echo(
-                            self.headers, server._traceparent(span)).items():
+                    # the registry stamps the model@version that serves
+                    served = dict(server._traceparent(span))
+                    served_model = getattr(stream, "model_label",
+                                           None) or model
+                    if served_model:
+                        served["X-Model"] = served_model
+                    if tenant:
+                        served["X-Tenant"] = tenant
+                    for k, v in server._echo(self.headers, served).items():
                         self.send_header(k, v)
                     self.end_headers()
                     n = 0
@@ -445,16 +569,136 @@ class ServingServer:
                             return
                     self.wfile.write(b"0\r\n\r\n")
 
+            def _streams(self, body: bytes):
+                """POST /streams/<name>/{enqueue,dequeue,ack}.  A
+                record's lifecycle is logged under the id
+                ``strm-<stream>-<record id>``, the id the in-process
+                generation consumer uses, so one trail covers enqueue ->
+                lease -> ack whichever side consumed it."""
+                from analytics_zoo_tpu_torch.serving.streaming import (
+                    StreamBacklogFull,
+                )
+                if server.stream_hub is None:
+                    self._json(404, {"error": "no stream hub behind "
+                                     "this server"})
+                    return
+                parts = self.path.strip("/").split("/")
+                if len(parts) != 3 or parts[2] not in (
+                        "enqueue", "dequeue", "ack"):
+                    self._json(404, {"error": "use /streams/<name>/"
+                                     "{enqueue,dequeue,ack}"})
+                    return
+                _, name, verb = parts
+                try:
+                    req = json.loads(body) if body else {}
+                except Exception as e:
+                    self._json(400, {"error": f"bad json: {e}"})
+                    return
+                try:
+                    stream = server.stream_hub.get(name)
+                except ValueError as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                group = str(req.get("group", "default"))
+                try:
+                    if verb == "enqueue":
+                        self._stream_enqueue(stream, name, req, body)
+                    elif verb == "dequeue":
+                        recs = stream.dequeue(
+                            group, str(req.get("consumer", "consumer-0")),
+                            max_records=int(req.get("max_records", 1)),
+                            block_s=min(float(req.get("block_s", 0.0)),
+                                        30.0))
+                        out = []
+                        for r in recs:
+                            try:
+                                doc = json.loads(r.payload)
+                            except ValueError:
+                                # a payload enqueued through the
+                                # in-process API: shipped opaque
+                                doc = {"payload_b64": base64.b64encode(
+                                    r.payload).decode("ascii")}
+                            request_log.event(
+                                f"strm-{name}-{r.record_id}",
+                                "stream_lease", stream=name, group=group,
+                                attempts=r.attempts)
+                            out.append({"record_id": r.record_id,
+                                        "attempts": r.attempts, "doc": doc})
+                        self._json(200, {"records": out, "group": group})
+                    else:
+                        ids = [int(r) for r in req.get("record_ids", [])]
+                        n = stream.ack(group, ids)
+                        for r in ids:
+                            request_log.event(f"strm-{name}-{r}",
+                                              "stream_ack", stream=name,
+                                              group=group)
+                        self._json(200, {"acked": n, "group": group})
+                except StreamBacklogFull as e:
+                    ra = e.retry_after_s
+                    self._json(http_status_for(e),
+                               {"error": str(e),
+                                "retry_after_s": round(ra, 3)},
+                               headers={"Retry-After": f"{ra:.3f}"})
+                except ValueError as e:
+                    self._json(400, {"error": str(e)})
+                except Exception as e:
+                    # injected faults (the stream.* sites) and I/O
+                    # errors: the taxonomy's status, never a torn
+                    # connection
+                    self._json(http_status_for(e),
+                               {"error": f"{type(e).__name__}: {e}"})
+
+            def _stream_enqueue(self, stream, name: str, req, body: bytes):
+                """Append the body as one record; a traceparent header
+                (or the ambient context) is stamped on the record
+                document, so whoever leases it, now or after a crash
+                replay, continues the trace."""
+                tparent = trace_context.extract_headers(self.headers)
+                if (body and isinstance(req, dict)
+                        and trace_context.RECORD_FIELD not in req):
+                    trace_context.inject_record(req, tparent)
+                    if trace_context.RECORD_FIELD in req:
+                        body = json.dumps(req).encode()
+                record_id = stream.enqueue(body)
+                rid = f"strm-{name}-{record_id}"
+                fields = dict(stream=name, record_id=record_id)
+                if tparent is not None:
+                    fields["traceparent"] = tparent.traceparent()
+                request_log.event(rid, "stream_enqueue", **fields)
+                self._json(200, {"status": "queued", "uri": req.get("uri"),
+                                 "stream": name, "record_id": record_id},
+                           request_id=rid,
+                           headers=({trace_context.TRACEPARENT_HEADER:
+                                     tparent.traceparent()}
+                                    if tparent is not None else None))
+
             def do_POST(self):
                 length = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(length)
                 if self.path == "/generate":
                     self._generate(body)
                     return
+                if self.path.startswith("/streams/"):
+                    self._streams(body)
+                    return
                 if server._predict is None:
                     self._json(400, {"error": "this server has no "
                                      "predict model (generation-only)"})
                     return
+                tenant = self.headers.get("X-Tenant") or None
+                if tenant is not None:
+                    # the tenant's bucket is charged once, here at the
+                    # door: the batcher mixes tenants in one batch
+                    try:
+                        server._door_admission.admit(
+                            server._queue.qsize(), tenant=tenant)
+                    except (QueueFull, TenantQuotaExceeded) as e:
+                        ra = e.retry_after_s or 1.0
+                        self._json(http_status_for(e),
+                                   {"error": str(e),
+                                    "retry_after_s": round(ra, 3)},
+                                   headers={"Retry-After": f"{ra:.3f}"})
+                        return
                 arrow = (self.headers.get("Content-Type", "")
                          .startswith(ARROW_CONTENT_TYPE))
                 if arrow:
@@ -520,6 +764,22 @@ class ServingServer:
 
         return Handler
 
+    def _generation_target(self):
+        """What /generate submits to: the registry, the router or the
+        engine (None without one)."""
+        return (self.model_registry if self.model_registry is not None
+                else self.router if self.router is not None
+                else self.generation_engine)
+
+    def replicas(self) -> int:
+        """Model replicas behind the server: the pool's workers, the
+        router's engines, else 1."""
+        if self.worker_pool is not None:
+            return self.worker_pool.n_workers
+        if self.router is not None:
+            return len(self.router.replicas)
+        return 1
+
     @staticmethod
     def _traceparent(span) -> Dict[str, str]:
         """The `traceparent` header naming `span` in its trace."""
@@ -584,16 +844,21 @@ class ServingServer:
 
     @property
     def records_served(self) -> int:
+        if self.worker_pool is not None:
+            return self.worker_pool.records_served
         return self.model.records_served if self.model is not None else 0
 
     def _batcher(self):
         """Drain the queue into batches.  Batches run concurrently, up
-        to the model's `supported_concurrent_num` on an executor, with a
-        semaphore of twice that bounding the batches in flight (so the
-        executor's queue cannot grow without bound under overload)."""
+        to the pool's workers or the model's `supported_concurrent_num`
+        on an executor, with a semaphore of twice that bounding the
+        batches in flight (so the executor's queue cannot grow without
+        bound under overload).  A pool gets an executor even at one
+        worker: its batch runs in another process."""
         executor = gate = None
-        n_conc = getattr(self.model, "supported_concurrent_num", 1)
-        if n_conc > 1:
+        n_conc = (self.worker_pool.n_workers if self.worker_pool is not None
+                  else getattr(self.model, "supported_concurrent_num", 1))
+        if self.worker_pool is not None or n_conc > 1:
             executor = ThreadPoolExecutor(max_workers=n_conc)
             gate = threading.Semaphore(2 * n_conc)
         # adaptive deadline state: EMA of the gaps between the requests'
@@ -704,15 +969,17 @@ class ServingServer:
 
     def stats(self) -> Dict[str, Any]:
         """The GET /stats payload: counters, the batcher's queue depth
-        and window, the per-op timer summaries, the goodput ratio, the
-        engine's lanes, the dispatch ledger's rows; with an engine the
-        `requests` and `blame` blocks, with `observability_dir` the
-        `fleet` block (JAX server.py:1147-1245)."""
+        and window, the replica count, the per-op timer summaries, the
+        goodput ratio, the engine's lanes, the pool's and the router's
+        rows, the streams, the registry and the tenant ledger, the
+        dispatch ledger's rows; with a generation target the `requests`
+        and `blame` blocks, with a router or `observability_dir` the
+        `fleet` block (JAX server.py:1151-1245)."""
         out: Dict[str, Any] = {
             "records_served": self.records_served,
             "batches_run": self._batches_run,
             "queue_depth": self._queue.qsize(),
-            "replicas": 1,
+            "replicas": self.replicas(),
             "timers": self.timer.summary(),
             "goodput_ratio": round(process_goodput_ratio(), 4),
             "batcher": {
@@ -721,6 +988,15 @@ class ServingServer:
                 "ema_interarrival_s": round(self._ema_gap_s, 6),
             },
         }
+        if self.worker_pool is not None:
+            out["worker_pool"] = {
+                "n_workers": self.worker_pool.n_workers,
+                "busy": self.worker_pool.busy_workers,
+                "utilization": self.worker_pool.utilization(),
+                "per_worker_served": self.worker_pool.per_worker_served(),
+            }
+        if self.router is not None:
+            out["router"] = self.router.stats()
         eng = self.generation_engine
         if eng is not None:
             out["generation"] = {
@@ -736,7 +1012,16 @@ class ServingServer:
             # GET /dispatch's rows and MFU without the compile tail
             ledger.pop("compile_events", None)
             out["dispatch"] = ledger
-        if eng is not None:
+        if self.stream_hub is not None:
+            out["streams"] = self.stream_hub.stats()
+        if self.model_registry is not None:
+            out["registry"] = self.model_registry.stats()
+            # shadow traffic judged apart: a slow candidate never dents
+            # the primary attainment below
+            out["shadow"] = get_shadow_slo_tracker().snapshot()
+        if OrcaContext.tenant_quotas is not None:
+            out["tenants"] = get_tenant_ledger().stats()
+        if self._generation_target() is not None:
             rl = request_log.get_request_log()
             slo = get_slo_tracker().snapshot()
             out["requests"] = {
@@ -749,9 +1034,10 @@ class ServingServer:
             }
             # the full rollup is GET /blame's
             out["blame"] = get_blame_tracker().stats_block()
-        if OrcaContext.observability_dir is not None:
-            # per-source attainment, live and spooled, and the
-            # judged-weighted fleet number
+        if (self.router is not None
+                or OrcaContext.observability_dir is not None):
+            # per-source attainment, live and spooled, per-replica
+            # attainment, and the judged-weighted fleet number
             out["fleet"] = self.fleet().fleet_slo()
         return out
 
@@ -764,36 +1050,44 @@ class ServingServer:
 
     # ------------------------------------------------------------------
 
-    def start(self, block: bool = False):
-        """Start the batcher, the engine's loop and the HTTP listener;
-        with `block`, serve until stop()."""
+    def start(self, block: bool = False, http: bool = True):
+        """Start the batcher, the generation target's loops and, with
+        `http`, the HTTP listener (`http=False` runs the batcher alone,
+        for a gRPC front end that is the only ingress: no port is
+        bound); with `block`, serve until stop()."""
         self._stop.clear()
         t1 = threading.Thread(target=self._batcher, daemon=True,
                               name="serving-batcher")
         t1.start()
         self._threads = [t1]
-        if self.generation_engine is not None:
-            self.generation_engine.ensure_started()
-        if self._httpd is None:
-            self._httpd = _HTTPServer(self._requested_addr,
-                                      self._handler_class())
-            self.host, self.port = self._httpd.server_address[:2]
-        t2 = threading.Thread(target=self._httpd.serve_forever, daemon=True,
-                              name="serving-http")
-        t2.start()
-        self._threads.append(t2)
+        target = self._generation_target()
+        if target is not None:
+            target.ensure_started()
+        if http:
+            if self._httpd is None:
+                self._httpd = _HTTPServer(self._requested_addr,
+                                          self._handler_class())
+                self.host, self.port = self._httpd.server_address[:2]
+            t2 = threading.Thread(target=self._httpd.serve_forever,
+                                  daemon=True, name="serving-http")
+            t2.start()
+            self._http_started = True
+            self._threads.append(t2)
         if block:
-            t2.join()
+            self._threads[-1].join()
         return self
 
     def stop(self):
         self._stop.set()
-        if self.generation_engine is not None:
-            self.generation_engine.stop()
+        target = self._generation_target()
+        if target is not None:
+            target.stop()
         if self._httpd is not None:
-            self._httpd.shutdown()
+            if self._http_started:
+                self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+            self._http_started = False
         # wake requests still queued behind the stopped batcher: their
         # handler threads wait on event.wait() with no timeout
         try:

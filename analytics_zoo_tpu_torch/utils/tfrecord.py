@@ -6,8 +6,10 @@ analytics_zoo_tpu/utils/tfrecord.py that TensorBoard event files need):
     bytes     data[length]
     uint32le  masked_crc32c(data)
 
-CRC32C (Castagnoli) is table-driven and reflected, in Python: event
-records are small.
+CRC32C (Castagnoli) dispatches to the native slicing-by-8 kernel
+(`analytics_zoo_tpu_torch.native`, built with g++ at first use) when it
+loads, else runs the table-driven reflected version in Python
+(`py_crc32c`), as JAX's utils/tfrecord.py:39-55 does.
 """
 
 from __future__ import annotations
@@ -25,11 +27,34 @@ for _i in range(256):
     _TABLE.append(_c)
 
 
-def crc32c(data: bytes, crc: int = 0) -> int:
+def py_crc32c(data: bytes, crc: int = 0) -> int:
+    """The plain CRC32C: one table step a byte."""
     crc ^= 0xFFFFFFFF
     for b in data:
         crc = _TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+_native_crc = None
+_native_checked = False
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC32C through the native kernel when its library loads, else
+    `py_crc32c`.  Inputs under 4 KiB stay in Python until the library is
+    loaded: the first native call may run g++, which must not land in
+    the path of a small record."""
+    global _native_crc, _native_checked
+    if _native_crc is None and len(data) < 4096:
+        return py_crc32c(data, crc)
+    if not _native_checked:
+        _native_checked = True
+        from analytics_zoo_tpu_torch import native
+        if native.available():
+            _native_crc = native.crc32c
+    if _native_crc is not None:
+        return _native_crc(data, crc)
+    return py_crc32c(data, crc)
 
 
 def masked_crc32c(data: bytes) -> int:

@@ -42,7 +42,9 @@ paths in phase 23 and the serving-side planes (SLO tracking and the SLO
 shedder, latency blame and tail exemplars, W3C trace context, the
 timeline export, the metrics history with its alerts, the telemetry
 spool and the fleet view, the server's tracing routes) over /generate
-in phase 24;
+in phase 24 and serving scale-out (native CRC32C, the worker pool, the
+replica router, durable streams with consumers, the control plane, the
+gRPC front end) in phase 25;
 each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
@@ -414,6 +416,37 @@ Phases (each one failing exits non-zero, with no result line):
      a sample (its CRC's share), a spool write's, a /timeline export's;
      (d) a bundle on demand with a history tail, exemplars and a valid
      timeline sibling;
+  25. serving scale-out and the durable data plane: (a) the native
+     library (`native/`, g++) built and loaded, crc32c's known answer,
+     crc32c of 1 MiB, tfrecord_scan and csv_to_f32 equal to their plain
+     versions, and a metrics-history sample's CRC32C native and plain;
+     (b) phase 7's BERT-base saved and served from `WorkerPool` worker
+     processes on the card behind ServingServer over /predict, with 1
+     worker and with 2 (sequences/s, p50/p99), the logits within 0.05
+     of the in-process model's, each worker's K1 25 / K2 12 / K3 12 a
+     forward read back over its pipe, its CUDA context (nvidia-smi, or
+     the worker's own bytes on the card), a worker killed under its
+     batch failing that batch alone; (c) two GPT-2 small engines behind
+     `ReplicaRouter` over /generate: streams equal to one engine's,
+     served skew <= 0.3, K1 25 / K6 12 (split) per step summed over the
+     replicas, one decode signature, replica-labeled /metrics rows and
+     per-replica SLO rows, a drained router's 503 with Retry-After, a
+     replica stopped mid-stream re-queuing its request under its id,
+     tokens/s with 1 and 2 replicas; (d) records through
+     `enqueue(stream=)` drained by `predict_consumer` over the pool and
+     `generation_consumer` over an engine, each consumer killed holding
+     leases: every record out once under its id, the outputs equal the
+     back end's; a full backlog's 429 with Retry-After; a torn fsync
+     truncated at the last good frame; (e) a `ModelRegistry` of two
+     GPT-2 small versions (the second registered from a committed
+     checkpoint, an uncommitted one refused): a hot swap under load with
+     no request dropped, rollback, an A/B split within 4 sigma of its
+     weights (JAX's picks), 0.25 shadow judged on the shadow side only,
+     and two tenants under `run_open_loop` at twice the measured
+     capacity, the free one (a bucket at a fifth of its offered rate)
+     shed with 429 and Retry-After, the gold one's attainment recorded;
+     (f) where `grpc` imports, protocol "both" answering over gRPC what
+     it answers over HTTP (else printed as not run); a `scale_out` line;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -9461,6 +9494,1081 @@ def phase_serving_planes(torch, seed: int, card: str, gpt2_model) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 25: serving scale-out and the durable data plane (native CRC32C,
+# the worker pool, the replica router, durable streams with consumers,
+# the control plane, the gRPC front end)
+# ----------------------------------------------------------------------
+
+#: (a): random bytes of the CRC comparison, TFRecord records, CSV shape
+SC_CRC_BYTES, SC_RECORDS, SC_CSV = 1 << 20, 64, (2000, 16)
+#: (b): client threads x pre-batched requests of rows x t tokens; the
+#: served logits against the in-process model (phase 7's bf16 bound),
+#: and the rows of the batch a worker is killed under
+WP_CLIENTS, WP_REQS, WP_ROWS, WP_T = 8, 6, 8, 128
+WP_TOL = 0.05
+WP_KILL_ROWS, WP_KILL_T = 256, 512
+#: (c): requests x new tokens over /generate, prompt lengths [lo, hi),
+#: bench.py's served-skew bound between two replicas
+RT_REQUESTS, RT_NEW, RT_PROMPTS = 32, 32, (16, 129)
+RT_SKEW = 0.3
+#: (d): records through each stream, new tokens a generation record,
+#: the lease a killed consumer's records wait out, the full stream's bound
+ST_PREDICT, ST_GENERATE, ST_NEW, ST_VISIBILITY_S = 24, 8, 16, 2.0
+ST_BACKLOG = 32
+#: (e): A/B draws and weights, the shadow fraction and requests, the
+#: open loop's seconds, SLO and new tokens, the free tenant's quota as a
+#: share of its offered rate
+CP_AB_DRAWS, CP_AB = 400, {"v1": 0.8, "v2": 0.2}
+CP_SHADOW, CP_SHADOW_REQS = 0.25, 40
+CP_LOAD_CLIENTS, CP_LOAD_REQS, CP_NEW = 8, 3, 16
+CP_LOOP_S, CP_SLO_S, CP_FREE_SHARE = 6.0, 30.0, 0.2
+#: (f): AnomalyDetector windows (the gRPC wire carries f32 tensors)
+GR_ROWS, GR_UNROLL = 64, 24
+GR_TOL = 1e-6
+
+
+def sc_native(seed: int, card: str) -> dict:
+    """(a): the native library against its plain versions."""
+    import io
+
+    from analytics_zoo_tpu_torch import native
+    from analytics_zoo_tpu_torch.utils import tfrecord
+
+    t0 = time.perf_counter()
+    check(native.available(), "phase 25 (a): the native library did not "
+          "build or load (g++ on this machine?)")
+    load_s = time.perf_counter() - t0
+    check(native.crc32c(b"123456789") == 0xE3069283,
+          "phase 25 (a): crc32c(b'123456789') != 0xE3069283")
+    rng = np.random.default_rng(seed + 250)
+    blob = rng.integers(0, 256, SC_CRC_BYTES, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    got = native.crc32c(blob)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = tfrecord.py_crc32c(blob)
+    plain_s = time.perf_counter() - t0
+    check(got == want, f"phase 25 (a): crc32c of 1 MiB {got:#x} != the "
+          f"table's {want:#x}")
+    buf = io.BytesIO()
+    for n in rng.integers(0, 4096, SC_RECORDS):
+        tfrecord.write_record(buf, rng.integers(0, 256, int(n),
+                                                dtype=np.uint8).tobytes())
+    scan = native.tfrecord_scan(buf.getvalue())
+    check(scan == native.py_tfrecord_scan(buf.getvalue())
+          and len(scan) == SC_RECORDS,
+          "phase 25 (a): tfrecord_scan differs from its plain version")
+    vals = rng.standard_normal(SC_CSV).astype(np.float32)
+    text = "\n".join(",".join(repr(float(v)) for v in row)
+                     for row in vals).encode()
+    csv = native.csv_to_f32(text, SC_CSV[1])
+    check(np.array_equal(csv, native.py_csv_to_f32(text, SC_CSV[1]))
+          and np.array_equal(csv, vals),
+          "phase 25 (a): csv_to_f32 differs from its plain version")
+    out = dict(available=True, library=native.library_path().name,
+               load_s=load_s, crc_1mib_native_ms=native_s * 1e3,
+               crc_1mib_plain_ms=plain_s * 1e3, tfrecord_records=len(scan),
+               csv_rows=len(csv))
+    print(f"phase 25 (a) [{card}] native library {out['library']} (built "
+          f"or loaded in {load_s:.2f} s): crc32c of 1 MiB "
+          f"{native_s * 1e3:.3f} ms native, {plain_s * 1e3:.1f} ms plain; "
+          f"tfrecord_scan of {len(scan)} records and csv_to_f32 of "
+          f"{SC_CSV} equal their plain versions", flush=True)
+    return out
+
+
+def sc_history_crc(card: str, registries) -> dict:
+    """(a): CRC32C of a metrics-history sample of the router's replicas,
+    through the native path (what `utils.tfrecord.crc32c` now takes) and
+    the plain table (what it took before)."""
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.observability import history
+    from analytics_zoo_tpu_torch.utils import tfrecord
+
+    o.reset_recorder()
+    set_context(OrcaContext, metrics_history_interval_s=0.25)
+    try:
+        rec = history.get_recorder(registries=registries)
+        native_us, plain_us, sizes = [], [], []
+        for _ in range(50):
+            payload = history._encode_sample(rec.sample())
+            sizes.append(len(payload))
+            t0 = time.perf_counter()
+            a = tfrecord.crc32c(payload)
+            native_us.append((time.perf_counter() - t0) * 1e6)
+            t0 = time.perf_counter()
+            b = tfrecord.py_crc32c(payload)
+            plain_us.append((time.perf_counter() - t0) * 1e6)
+            check(a == b, "phase 25 (a): a history sample's CRC differs")
+    finally:
+        set_context(OrcaContext, metrics_history_interval_s=None)
+        o.reset_recorder()
+    out = dict(sample_bytes=statistics.median(sizes),
+               sample_crc_us_native=statistics.median(native_us),
+               sample_crc_us_plain=statistics.median(plain_us))
+    print(f"phase 25 (a) [{card}] a metrics-history sample of "
+          f"{out['sample_bytes']} bytes: CRC32C "
+          f"{out['sample_crc_us_native']:.1f} us native, "
+          f"{out['sample_crc_us_plain']:.1f} us through the plain table",
+          flush=True)
+    return out
+
+
+def save_bert(torch, model, path: str) -> str:
+    """`ZooModel.save_model`'s format for phase 7's BERTClassifier: its
+    weights and constructor fields, resolved by class name at load."""
+    import pickle
+
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE
+    from analytics_zoo_tpu_torch.models.common.zoo_model import (
+        _CONFIG,
+        _WEIGHTS,
+    )
+    os.makedirs(path, exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               os.path.join(path, _WEIGHTS))
+    with open(os.path.join(path, _CONFIG), "wb") as f:
+        pickle.dump({"class": "BERTClassifier",
+                     "config": dict(BERT_BASE, num_classes=2,
+                                    attn_impl="flash")}, f)
+    return path
+
+
+def compute_apps() -> dict:
+    """{pid: used MiB} of the card's compute processes, as nvidia-smi
+    lists them (its pids are the host's where the container has a pid
+    namespace of its own)."""
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()
+    out = {}
+    for line in lines:
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            out[int(pid)] = float(mem.strip() or 0)
+    return out
+
+
+def wp_traffic(torch, srv, rng, vocab: int) -> dict:
+    """WP_CLIENTS threads x WP_REQS pre-batched requests over /predict;
+    (wall, latencies, the requests with their served logits)."""
+    import threading
+
+    from analytics_zoo_tpu_torch.serving import InputQueue
+
+    plans = [[bert_request(rng, WP_ROWS, WP_T, vocab)[0]
+              for _ in range(WP_REQS)] for _ in range(WP_CLIENTS)]
+    done, lat, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(plan):
+        q = InputQueue(srv.host, srv.port)
+        for inputs in plan:
+            t0 = time.perf_counter()
+            try:
+                out = q.predict(*inputs, batched=True)
+            except Exception as e:
+                errors.append(f"{type(e).__name__}: {e}")
+                return
+            with lock:
+                lat.append(time.perf_counter() - t0)
+                done.append((inputs, out))
+
+    threads = [threading.Thread(target=client, args=(p,)) for p in plans]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10 * HTTP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(not errors, f"phase 25 (b): client errors {errors[:1]}")
+    n = WP_CLIENTS * WP_REQS
+    return dict(wall_s=wall, sequences_per_s=n * WP_ROWS / wall,
+                latency_ms_p50=float(np.percentile(lat, 50)) * 1e3,
+                latency_ms_p99=float(np.percentile(lat, 99)) * 1e3,
+                requests=n, done=done)
+
+
+def wp_gate(torch, im, done, label: str) -> float:
+    """Served logits against the in-process model's on the same rows."""
+    worst = 0.0
+    for inputs, out in done:
+        want = im.predict(*inputs)
+        worst = max(worst, float(np.abs(np.asarray(out, np.float32)
+                                        - want).max()))
+    check(worst <= WP_TOL, f"phase 25 (b) {label}: served logits differ "
+          f"from the in-process model's by {worst} > {WP_TOL}")
+    return worst
+
+
+def sc_worker_pool(torch, seed: int, card: str, bert_model, directory: str
+                   ) -> tuple:
+    """(b): phase 7's BERT-base classifier saved and served from worker
+    processes on the card, behind ServingServer over /predict."""
+    import signal
+    import threading
+
+    from analytics_zoo_tpu_torch.serving import (
+        InferenceModel,
+        ServingServer,
+        WorkerPool,
+    )
+    from analytics_zoo_tpu_torch.serving.errors import ReplicaDiedMidPredict
+
+    vocab = bert_model.bert.token_embed.num_embeddings
+    path = save_bert(torch, bert_model, os.path.join(directory, "bert"))
+    im = InferenceModel(supported_concurrent_num=4,
+                        max_batch_size=WP_KILL_ROWS).load_module(bert_model)
+    t0 = time.perf_counter()
+    pools = {}
+
+    def spawn(n):
+        pools[n] = WorkerPool(path, n_workers=n)
+
+    spawners = [threading.Thread(target=spawn, args=(n,)) for n in (1, 2)]
+    for t in spawners:
+        t.start()
+    for t in spawners:
+        t.join()
+    check(set(pools) == {1, 2}, "phase 25 (b): a worker pool did not start")
+    spawn_s = time.perf_counter() - t0
+    out = dict(spawn_s=spawn_s, runs={})
+    try:
+        rng = np.random.default_rng(seed + 251)
+        for n in (1, 2):
+            pool = pools[n]
+            srv = ServingServer(worker_pool=pool, max_batch_size=32,
+                                batch_timeout_ms=2.0).start()
+            try:
+                # warm: each worker's first forward builds the Triton
+                # LayerNorm (from the shared cache after the first)
+                wp_traffic(torch, srv, np.random.default_rng(seed), vocab)
+                pool.reset_launch_counts()
+                b0 = srv._batches_run
+                run = wp_traffic(torch, srv, rng, vocab)
+                batches = srv._batches_run - b0
+                reports = pool.launch_counts()
+                stats = json.loads(http_call(srv, "GET", "/stats")[2])
+            finally:
+                srv.stop()
+            run["max_abs_err"] = wp_gate(torch, im, run.pop("done"),
+                                         f"{n} workers")
+            forwards = []
+            for r in reports:
+                c = r["counts"]
+                f = c["fused_dense_gelu"] // 12
+                check(f >= 1 and c == dict(
+                    {k: 0 for k in c}, layer_norm_fwd=25 * f,
+                    fused_dense_gelu=12 * f, flash_fwd=12 * f),
+                    f"phase 25 (b): worker {r['pid']} launches {c}, "
+                    "expected K1 25, K2 12 and K3 12 a forward")
+                check(r["device"].startswith("cuda")
+                      and r["allocated_bytes"] > 0,
+                      f"phase 25 (b): worker {r['pid']} runs on "
+                      f"{r['device']} with {r['allocated_bytes']} bytes")
+                forwards.append(f)
+            check(sum(forwards) == batches, f"phase 25 (b): {forwards} "
+                  f"worker forwards for {batches} batches")
+            check(stats["replicas"] == n
+                  and stats["worker_pool"]["n_workers"] == n,
+                  f"phase 25 (b): /stats {stats.get('worker_pool')}")
+            run.update(batches=batches, forwards_by_worker=forwards,
+                       launches_by_worker=[r["counts"] for r in reports],
+                       worker_bytes=[r["allocated_bytes"] for r in reports])
+            out["runs"][n] = run
+            print(f"phase 25 (b) [{card}] BERT-base over /predict from {n} "
+                  f"worker process(es): {run['requests']} requests of "
+                  f"{WP_ROWS} x {WP_T} = {run['sequences_per_s']:.1f} "
+                  f"sequences/s, p50 {run['latency_ms_p50']:.1f} ms, p99 "
+                  f"{run['latency_ms_p99']:.1f} ms; {batches} batches, "
+                  f"forwards by worker {forwards}, launches by worker "
+                  f"{run['launches_by_worker']}; logits max abs err "
+                  f"{run['max_abs_err']:.3e} (tol {WP_TOL})", flush=True)
+        pool = pools[2]
+        # each worker holds a CUDA context of its own
+        apps = compute_apps()
+        pids = pool.pids()
+        listed = [p for p in pids if p in apps]
+        out["compute_apps"] = {str(p): apps[p] for p in listed}
+        out["context_evidence"] = ("nvidia-smi" if len(listed) == len(pids)
+                                   else "worker-reported")
+        print(f"phase 25 (b) [{card}] worker pids {pids}; nvidia-smi "
+              f"compute apps {apps} (MiB); each worker's context shown by "
+              f"{out['context_evidence']}", flush=True)
+        # a worker killed under its batch: that batch alone fails
+        kill_inputs = bert_request(rng, WP_KILL_ROWS, WP_KILL_T, vocab)[0]
+        results = [None, None]
+
+        def call(k):
+            try:
+                results[k] = ("ok", pool.predict(*kill_inputs))
+            except ReplicaDiedMidPredict as e:
+                results[k] = ("died", str(e))
+
+        threads = [threading.Thread(target=call, args=(k,))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        while pool.busy_workers < 2:
+            check(time.perf_counter() - t0 < 60,
+                  "phase 25 (b): the two batches never ran together")
+            time.sleep(0.001)
+        victim = pids[0]
+        os.kill(victim, signal.SIGKILL)
+        for t in threads:
+            t.join(timeout=300)
+        kinds = sorted(r[0] for r in results)
+        check(kinds == ["died", "ok"], f"phase 25 (b): killing worker "
+              f"{victim} under its batch gave {kinds}")
+        ok = next(r[1] for r in results if r[0] == "ok")
+        err = float(np.abs(ok - im.predict(*kill_inputs)).max())
+        check(err <= WP_TOL, f"phase 25 (b): the surviving batch's "
+              f"logits are {err} off")
+        check(victim not in pool.pids() and len(pool.pids()) == 2,
+              f"phase 25 (b): the pool did not respawn: {pool.pids()}")
+        after = pool.predict(*bert_request(rng, WP_ROWS, WP_T, vocab)[0])
+        check(after.shape == (WP_ROWS, 2), "phase 25 (b): no service "
+              "after the respawn")
+        out["kill"] = dict(victim=victim, outcomes=kinds,
+                           survivor_max_abs_err=err,
+                           respawned_pid=pool.pids()[0])
+        print(f"phase 25 (b) [{card}] worker {victim} killed under a "
+              f"{WP_KILL_ROWS} x {WP_KILL_T} batch: {kinds}, respawned as "
+              f"{pool.pids()[0]}, serving on", flush=True)
+    except BaseException:
+        for p in pools.values():
+            p.stop()
+        raise
+    pools[1].stop()
+    launches = {}
+    for r in out["runs"][2]["launches_by_worker"]:
+        for k, v in r.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out, pools[2], im
+
+
+def rt_engines(torch, model, n: int, **geom):
+    from analytics_zoo_tpu_torch.observability.registry import (
+        MetricsRegistry,
+    )
+    from analytics_zoo_tpu_torch.serving.generation import GenerationEngine
+    geom = dict(dict(max_slots=8, block_size=16, max_context=1024), **geom)
+    engines = [GenerationEngine(model, registry=MetricsRegistry(),
+                                device="cuda", **geom) for _ in range(n)]
+    for e in engines:
+        e.warmup()
+    return engines
+
+
+def rt_served(srv, prompts, new: int, headers_for=None) -> tuple:
+    """Every prompt over /generate from its own client thread: (wall,
+    the streams, the served model of each)."""
+    import threading
+
+    from analytics_zoo_tpu_torch.serving import InputQueue
+
+    outs, models, errors = [None] * len(prompts), [None] * len(prompts), []
+
+    def client(j):
+        q = InputQueue(srv.host, srv.port,
+                       **(headers_for(j) if headers_for else {}))
+        try:
+            outs[j] = q.generate_tokens(prompts[j], max_new_tokens=new,
+                                        timeout=HTTP_TIMEOUT_S)
+            models[j] = q.last_model
+        except Exception as e:
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(j,))
+               for j in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10 * HTTP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(not errors, f"phase 25: client errors {errors[:1]}")
+    return wall, outs, models
+
+
+def sc_router(torch, seed: int, card: str, gpt2_model) -> dict:
+    """(c): two GPT-2 small engines behind ReplicaRouter over /generate."""
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode,
+    )
+    from analytics_zoo_tpu_torch.serving import ServingServer
+    from analytics_zoo_tpu_torch.serving.distributed import ReplicaRouter
+    from analytics_zoo_tpu_torch.serving.errors import QueueFull
+
+    model = gpt2_model
+    rng = np.random.default_rng(seed + 252)
+    prompts = [rng.integers(0, model.vocab, int(n)).tolist()
+               for n in rng.integers(*RT_PROMPTS, RT_REQUESTS)]
+    single, = rt_engines(torch, model, 1)
+    streams = [single.submit(p, max_new_tokens=RT_NEW) for p in prompts]
+    single.run_until_idle()
+    want = [s.tokens() for s in streams]
+    set_context(OrcaContext, slo_targets=SP_TARGETS)
+    out = {}
+    # one replica
+    srv = ServingServer(router=ReplicaRouter([single])).start()
+    try:
+        wall1, outs, _ = rt_served(srv, prompts, RT_NEW)
+    finally:
+        srv.stop()
+    check(outs == want, "phase 25 (c): a stream through a one-replica "
+          "router differs from the engine's")
+    # two replicas
+    engines = rt_engines(torch, model, 2)
+    router = ReplicaRouter(engines)
+    srv = ServingServer(router=router).start()
+    try:
+        pre = [(e.n_prefills, e.n_decode_steps) for e in engines]
+        kernels.reset_launch_counts()
+        wall2, outs, _ = rt_served(srv, prompts, RT_NEW)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        split = paged_decode.launches_by_body["split"]
+        steps = [(e.n_prefills - p, e.n_decode_steps - d)
+                 for e, (p, d) in zip(engines, pre)]
+        check(outs == want, "phase 25 (c): a routed stream differs from "
+              "one engine's greedy stream")
+        n_block = model.n_block
+        want_counts = dict({k: 0 for k in counts},
+                           layer_norm_fwd=sum((2 * n_block + 1) * (a + b)
+                                              for a, b in steps),
+                           paged_decode=sum(n_block * b for _, b in steps))
+        check(counts == want_counts and split == counts["paged_decode"]
+              and all(b > 0 for _, b in steps),
+              f"phase 25 (c): launches {counts} ({split} split) for "
+              f"(prefills, decode steps) {steps} by replica, expected "
+              f"{want_counts}")
+        served = [r.served for r in router.replicas]
+        skew = abs(served[0] - served[1]) / max(1, sum(served))
+        check(skew <= RT_SKEW, f"phase 25 (c): served {served}, skew "
+              f"{skew:.2f} > {RT_SKEW}")
+        # the three engines of one geometry (each replica and the one
+        # that gave the reference streams) share one decode signature
+        decode = o.ledger_snapshot()["families"]["decode"]
+        check(decode["signatures"] == 1,
+              f"phase 25 (c): decode ledger {decode}")
+        stats = json.loads(http_call(srv, "GET", "/stats")[2])
+        text = http_call(srv, "GET", "/metrics")[2].decode()
+        check(stats["replicas"] == 2 and all(
+            f'generation_requests_total{{replica="{r.name}"}}' in text
+            for r in router.replicas)
+            and set(stats["fleet"].get("replicas", {})) == {
+                r.name for r in router.replicas},
+            f"phase 25 (c): /stats replicas {stats['replicas']}, fleet "
+            f"rows {stats['fleet'].get('replicas')}")
+        out["history_crc"] = sc_history_crc(
+            card, tuple(r.engine.registry for r in router.replicas))
+        # a fully drained router sheds, with a comeback hint
+        router.drain()
+        code, headers, _ = http_call(srv, "POST", "/generate",
+                                     {"tokens": prompts[0]})
+        try:
+            router.submit(prompts[0], max_new_tokens=2)
+            shed = None
+        except QueueFull as e:
+            shed = e.retry_after_s
+        router.undrain()
+        check(code == 503 and float(headers["Retry-After"]) > 0
+              and shed is not None and shed > 0,
+              f"phase 25 (c): a drained router answered {code}, "
+              f"retry_after_s {shed}")
+    finally:
+        srv.stop()
+        set_context(OrcaContext, slo_targets=None)
+    # a replica stopped mid-stream: the request re-queued under its id
+    small = rt_engines(torch, model, 2, max_slots=2, max_context=256)
+    router = ReplicaRouter(small)
+    try:
+        rs = router.submit(prompts[0], max_new_tokens=RT_NEW,
+                           request_id="requeue-0")
+        victim = next(r for r in router.replicas
+                      if r.name == rs.replica_name)
+        survivor = next(r for r in router.replicas if r is not victim)
+        for _ in range(4):
+            victim.engine.step()
+        victim.engine.stop()
+        survivor.engine.ensure_started()
+        got = list(rs)
+    finally:
+        router.stop()
+    check(got == want[0] and rs.request_id == "requeue-0"
+          and rs.replica_name == survivor.name
+          and router.stats()["requeues"] == 1,
+          f"phase 25 (c): the re-queued stream (on {rs.replica_name}, id "
+          f"{rs.request_id}) differs from the single engine's")
+    out.update(tokens_per_s_1=RT_REQUESTS * RT_NEW / wall1,
+               tokens_per_s_2=RT_REQUESTS * RT_NEW / wall2,
+               served=served, skew=skew, steps_by_replica=steps,
+               launches=counts, drained_retry_after_s=shed,
+               requeued_to=rs.replica_name)
+    print(f"phase 25 (c) [{card}] {RT_REQUESTS} requests x {RT_NEW} tokens "
+          f"over /generate: {out['tokens_per_s_1']:.1f} tokens/s with 1 "
+          f"replica, {out['tokens_per_s_2']:.1f} with 2 (one card: no "
+          f"scale gate); served {served} (skew {skew:.3f}); launches "
+          f"{counts}; streams equal one engine's; drained: 503, "
+          f"retry_after_s {shed:.3f}; a replica stopped mid-stream "
+          f"re-queued the request to {rs.replica_name} under its id",
+          flush=True)
+    return out
+
+
+class GatedCall:
+    """Calls `fn`; the `park_at`-th call waits for `release` first (set
+    `parked` when it does), so a test can kill its caller while it holds
+    leased records."""
+
+    def __init__(self, fn, park_at: int):
+        import threading
+        self.fn, self.park_at, self.calls = fn, park_at, 0
+        self.parked, self.release = threading.Event(), threading.Event()
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        if self.calls == self.park_at:
+            self.parked.set()
+            self.release.wait(60)
+        return self.fn(*args, **kw)
+
+
+def wait_for(cond, what: str, timeout: float = 120.0) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"phase 25: {what}")
+        time.sleep(0.01)
+
+
+def sc_streams(torch, seed: int, card: str, pool, im, vocab: int,
+               gpt2_model, directory: str) -> dict:
+    """(d): records through enqueue(stream=) drained by predict_consumer
+    (the worker pool) and generation_consumer (an engine), each consumer
+    killed mid-backlog; a full backlog's 429; a torn fsync's recovery."""
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.observability import get_registry
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.resilience.faults import SimulatedCrash
+    from analytics_zoo_tpu_torch.serving import InputQueue, ServingServer
+    from analytics_zoo_tpu_torch.serving.streaming import (
+        DurableStream,
+        StreamHub,
+        generation_consumer,
+        predict_consumer,
+    )
+    from analytics_zoo_tpu_torch.serving.streaming.log import encode_frame
+
+    rng = np.random.default_rng(seed + 253)
+    hub = StreamHub(os.path.join(directory, "hub"),
+                    visibility_timeout_s=ST_VISIBILITY_S,
+                    max_backlog=ST_BACKLOG)
+    srv = ServingServer(stream_hub=hub).start()
+    replays = get_registry().counter("stream_redeliveries_total")
+    r0 = replays.value
+    out = {}
+    try:
+        iq = InputQueue(srv.host, srv.port)
+        rows = [bert_request(rng, 1, WP_T, vocab)[0]
+                for _ in range(ST_PREDICT)]
+        for k, (ids, seg, mask) in enumerate(rows):
+            iq.enqueue(f"bert-{k}", stream="bert-in", ids=ids[0],
+                       seg=seg[0], mask=mask[0])
+            check(iq.last_record_id == k + 1, "phase 25 (d): record ids")
+        gate = GatedCall(pool.predict, park_at=3)
+        c1 = predict_consumer(hub.get("bert-in"), gate,
+                              out_stream=hub.get("bert-out"),
+                              consumer="p1", batch_size=4, poll_s=0.01)
+        check(gate.parked.wait(120), "phase 25 (d): the predict consumer "
+              "never reached its third batch")
+        c1.kill()
+        gate.release.set()
+        c1.stop(timeout=60)
+        c2 = predict_consumer(hub.get("bert-in"), pool.predict,
+                              out_stream=hub.get("bert-out"),
+                              consumer="p2", batch_size=4, poll_s=0.01)
+        wait_for(lambda: hub.get("bert-in").lag("predict") == 0,
+                 "the predict stream never drained")
+        c2.stop(timeout=60)
+        docs = {}
+        for rid in hub.get("bert-out").log.ids():
+            doc = json.loads(hub.get("bert-out").log.read(rid))
+            docs.setdefault(doc["record_id"], doc)
+        check(sorted(docs) == list(range(1, ST_PREDICT + 1)),
+              f"phase 25 (d): predict records out {sorted(docs)}")
+        from analytics_zoo_tpu_torch.serving.codec import decode_ndarray
+        worst = 0.0
+        for rid, doc in docs.items():
+            want = im.predict(*rows[rid - 1])
+            worst = max(worst, float(np.abs(
+                decode_ndarray(doc["outputs"][0]) - want).max()))
+            check(doc["uri"] == f"bert-{rid - 1}", "phase 25 (d): a "
+                  "replayed record changed its id")
+        check(worst <= WP_TOL, f"phase 25 (d): stream predictions off "
+              f"by {worst}")
+        out["predict"] = dict(records=ST_PREDICT, handled_by_killed=(
+            c1.records_handled), handled_by_survivor=c2.records_handled,
+            max_abs_err=worst)
+        # generation: records posted to the stream route, an engine
+        # consuming them under stable ids
+        prompts = [rng.integers(0, gpt2_model.vocab, int(n)).tolist()
+                   for n in rng.integers(16, 65, ST_GENERATE)]
+        for k, p in enumerate(prompts):
+            code, _, _ = http_call(srv, "POST", "/streams/gen-in/enqueue",
+                                   {"uri": f"gen-{k}", "tokens": p,
+                                    "max_new_tokens": ST_NEW})
+            check(code == 200, f"phase 25 (d): enqueue answered {code}")
+        eng, = rt_engines(torch, gpt2_model, 1)
+        ref = [eng.generate(p, max_new_tokens=ST_NEW) for p in prompts]
+        eng.ensure_started()
+        proxy = type("Gated", (), {})()
+        proxy.submit = GatedCall(eng.submit, park_at=3)
+        g1 = generation_consumer(hub.get("gen-in"), proxy,
+                                 out_stream=hub.get("gen-out"),
+                                 consumer="g1", poll_s=0.01)
+        check(proxy.submit.parked.wait(120), "phase 25 (d): the "
+              "generation consumer never reached its third record")
+        pre, dec = eng.n_prefills, eng.n_decode_steps
+        kernels.reset_launch_counts()
+        g1.kill()
+        proxy.submit.release.set()
+        g1.stop(timeout=60)
+        g2 = generation_consumer(hub.get("gen-in"), eng,
+                                 out_stream=hub.get("gen-out"),
+                                 consumer="g2", poll_s=0.01)
+        wait_for(lambda: hub.get("gen-in").lag("generate") == 0,
+                 "the generation stream never drained")
+        g2.stop(timeout=60)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        n_pre, n_dec = eng.n_prefills - pre, eng.n_decode_steps - dec
+        eng.stop()
+        nb = gpt2_model.n_block
+        check(counts == dict({k: 0 for k in counts},
+                             layer_norm_fwd=(2 * nb + 1) * (n_pre + n_dec),
+                             paged_decode=nb * n_dec) and n_dec > 0,
+              f"phase 25 (d): generation consumer launches {counts} for "
+              f"{n_pre} prefills and {n_dec} decode steps")
+        gens = {}
+        for rid in hub.get("gen-out").log.ids():
+            doc = json.loads(hub.get("gen-out").log.read(rid))
+            gens.setdefault(doc["record_id"], doc)
+        check(sorted(gens) == list(range(1, ST_GENERATE + 1)),
+              f"phase 25 (d): generation records out {sorted(gens)}")
+        for rid, doc in gens.items():
+            check(doc["request_id"] == f"strm-gen-in-{rid}"
+                  and doc["tokens"] == ref[rid - 1],
+                  f"phase 25 (d): generation record {rid}: "
+                  f"{doc['request_id']}, stream equal "
+                  f"{doc['tokens'] == ref[rid - 1]}")
+        replayed = replays.value - r0
+        check(replayed >= 2, f"phase 25 (d): {replayed} redeliveries after "
+              "two consumers were killed holding leases")
+        out["generate"] = dict(records=ST_GENERATE, launches=counts,
+                               prefills=n_pre, decode_steps=n_dec)
+        out["redeliveries"] = replayed
+        # a full backlog: 429 with Retry-After
+        for k in range(ST_BACKLOG):
+            code, _, _ = http_call(srv, "POST", "/streams/full/enqueue",
+                                   {"uri": f"f{k}"})
+            check(code == 200, f"phase 25 (d): enqueue {k} answered {code}")
+        code, headers, body = http_call(srv, "POST",
+                                        "/streams/full/enqueue", {"uri": "x"})
+        check(code == 429 and float(headers["Retry-After"]) > 0,
+              f"phase 25 (d): a full backlog answered {code}")
+        out["full_backlog"] = dict(code=code,
+                                   retry_after=headers["Retry-After"])
+    finally:
+        srv.stop()
+        hub.close()
+    # a torn fsync: recovery truncates at the last good frame
+    d = os.path.join(directory, "torn")
+    s = DurableStream(d, name="torn", fsync_every_n=7)
+    for i in range(6):
+        s.enqueue(b"payload-%02d" % i)
+    set_context(OrcaContext, fault_plan={"faults": [
+        {"site": "stream.fsync", "action": "torn_write"}]})
+    try:
+        s.enqueue(b"payload-06")
+        torn = False
+    except SimulatedCrash:
+        torn = True
+    finally:
+        set_context(OrcaContext, fault_plan=None)
+    s.close()
+    s2 = DurableStream(d, name="torn")
+    seg = os.path.join(d, "segments", os.listdir(os.path.join(
+        d, "segments"))[0])
+    frame = len(encode_frame(1, b"payload-00"))
+    ids, tf = s2.log.ids(), s2.log.torn_frames
+    check(torn and ids == [1, 2, 3] and tf == 1
+          and os.path.getsize(seg) == 3 * frame
+          and s2.enqueue(b"after") == 4,
+          f"phase 25 (d): after a torn fsync: ids {ids}, torn frames {tf}")
+    s2.close()
+    out["torn_fsync"] = dict(kept=ids, torn_frames=tf)
+    print(f"phase 25 (d) [{card}] {ST_PREDICT} BERT records through "
+          f"enqueue(stream=) and predict_consumer over the pool, "
+          f"{ST_GENERATE} prompts through generation_consumer, each "
+          f"consumer killed holding leases: every record out once under "
+          f"its id ({out['redeliveries']} redeliveries), predictions max "
+          f"abs err {out['predict']['max_abs_err']:.3e}, streams equal the "
+          f"engine's; a full backlog 429 Retry-After "
+          f"{out['full_backlog']['retry_after']}; a torn fsync kept ids "
+          f"{ids}", flush=True)
+    return out
+
+
+def sc_control_plane(torch, seed: int, card: str, gpt2_model,
+                     directory: str) -> dict:
+    """(e): two GPT-2 small versions from two seeds in a ModelRegistry
+    behind ServingServer: hot swap under load, rollback, the A/B split,
+    shadow traffic, and two tenants under an open loop at twice the
+    measured capacity."""
+    import threading
+
+    from analytics_zoo_tpu_torch import observability as o
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.convert import (
+        causal_lm_from_flax,
+        init_causal_lm_params,
+    )
+    from analytics_zoo_tpu_torch.observability.registry import (
+        MetricsRegistry,
+    )
+    from analytics_zoo_tpu_torch.orca.learn.checkpoint import (
+        save_checkpoint,
+    )
+    from analytics_zoo_tpu_torch.serving import ServingServer
+    from analytics_zoo_tpu_torch.serving.control_plane import (
+        ModelRegistry,
+        ShadowSampler,
+        WeightedAB,
+        reset_tenant_ledger,
+    )
+    from analytics_zoo_tpu_torch.serving.errors import (
+        UncommittedCheckpointError,
+    )
+    from analytics_zoo_tpu_torch.serving.generation import (
+        GPT2_SMALL,
+        CausalLM,
+    )
+    from analytics_zoo_tpu_torch.serving.streaming import (
+        poisson_trace,
+        run_open_loop,
+    )
+
+    v2_model = CausalLM(**GPT2_SMALL, device="cuda")
+    v2_model.load_state_dict(causal_lm_from_flax(
+        init_causal_lm_params(GPT2_SMALL, seed=seed + 1), GPT2_SMALL))
+    v2_model.eval()
+    ckpt = os.path.join(directory, "ckpt-v2")
+    save_checkpoint(ckpt, {"model": v2_model.state_dict()}, block=True)
+    torn = os.path.join(directory, "ckpt-torn")
+    os.makedirs(torn)
+    e1, = rt_engines(torch, gpt2_model, 1)
+    e2, = rt_engines(torch, v2_model, 1)
+    reg = ModelRegistry(metrics_registry=MetricsRegistry())
+    try:
+        reg.register("chat", "v-torn", e2, checkpoint=torn, warm=False)
+        refused = False
+    except UncommittedCheckpointError:
+        refused = True
+    check(refused, "phase 25 (e): a checkpoint with no commit marker "
+          "was registered")
+    reg.register("chat", "v1", e1)
+    reg.register("chat", "v2", e2, checkpoint=ckpt)
+    rng = np.random.default_rng(seed + 254)
+    prompts = [rng.integers(0, gpt2_model.vocab, int(n)).tolist()
+               for n in rng.integers(16, 65, CP_LOAD_CLIENTS * CP_LOAD_REQS)]
+    refs = {}
+    for name, eng in (("chat@v1", e1), ("chat@v2", e2)):
+        streams = [eng.submit(p, max_new_tokens=CP_NEW) for p in prompts]
+        eng.run_until_idle()
+        refs[name] = [s.tokens() for s in streams]
+    srv = ServingServer(model_registry=reg).start()
+    out = {}
+    try:
+        # hot swap under load
+        from analytics_zoo_tpu_torch.serving import InputQueue
+        got, labels, errors = {}, {}, []
+        started = threading.Semaphore(0)
+
+        def client(c):
+            q = InputQueue(srv.host, srv.port, model="chat")
+            for r in range(CP_LOAD_REQS):
+                j = c * CP_LOAD_REQS + r
+                started.release()
+                try:
+                    got[j] = q.generate_tokens(prompts[j],
+                                               max_new_tokens=CP_NEW,
+                                               timeout=HTTP_TIMEOUT_S)
+                    labels[j] = q.last_model
+                except Exception as e:
+                    errors.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CP_LOAD_CLIENTS)]
+        for t in threads:
+            t.start()
+        for _ in range(CP_LOAD_CLIENTS + 2):
+            started.acquire()
+        reg.hot_swap("chat", "v2")
+        for t in threads:
+            t.join(timeout=10 * HTTP_TIMEOUT_S)
+        n = CP_LOAD_CLIENTS * CP_LOAD_REQS
+        check(not errors and len(got) == n,
+              f"phase 25 (e): across the swap {len(got)} of {n} requests "
+              f"finished, errors {errors[:1]}")
+        for j, toks in got.items():
+            check(toks == refs[labels[j]][j], f"phase 25 (e): request {j} "
+                  f"served by {labels[j]} differs from that version's "
+                  "stream")
+        by_version = {v: sum(1 for x in labels.values() if x == v)
+                      for v in refs}
+        check(min(by_version.values()) > 0, f"phase 25 (e): versions "
+              f"served {by_version}")
+        reg.rollback("chat")
+        q = InputQueue(srv.host, srv.port, model="chat")
+        toks = q.generate_tokens(prompts[0], max_new_tokens=CP_NEW)
+        check(reg.serving_version("chat") == "v1"
+              and q.last_model == "chat@v1" and toks == refs["chat@v1"][0],
+              f"phase 25 (e): after rollback {reg.serving_version('chat')}, "
+              f"served {q.last_model}")
+        out["swap"] = dict(requests=n, served_by=by_version,
+                           stats={k: reg.stats()[k] for k in
+                                  ("swaps", "rollbacks", "swap_refused")})
+        # the A/B split, within a binomial bound, and JAX's picks
+        reg.set_ab("chat", CP_AB, seed=seed)
+        streams = [reg.submit(prompts[k % len(prompts)], max_new_tokens=1)
+                   for k in range(CP_AB_DRAWS)]
+        check(all(len(s.tokens()) == 1 for s in streams),
+              "phase 25 (e): an A/B request did not finish")
+        picks = [s.model_label for s in streams]
+        p = CP_AB["v2"]
+        n_v2 = picks.count("chat@v2")
+        bound = 4 * (CP_AB_DRAWS * p * (1 - p)) ** 0.5
+        replay = WeightedAB(CP_AB, seed=seed)
+        check(abs(n_v2 - CP_AB_DRAWS * p) <= bound
+              and picks == [f"chat@{replay.choose()}"
+                            for _ in range(CP_AB_DRAWS)],
+              f"phase 25 (e): {n_v2} of {CP_AB_DRAWS} on v2, expected "
+              f"{CP_AB_DRAWS * p} +- {bound:.1f}")
+        reg.set_ab("chat", None)
+        out["ab"] = dict(draws=CP_AB_DRAWS, v2=n_v2,
+                         expected=CP_AB_DRAWS * p, bound=bound)
+        # shadow traffic: verdicts on the shadow tracker alone
+        set_context(OrcaContext, slo_targets={"e2e_s": CP_SLO_S})
+        primary = o.reset_slo_tracker()
+        shadow = o.get_shadow_slo_tracker()
+        s0 = shadow.snapshot()["requests_judged"]
+        reg.set_shadow("chat", "v2", CP_SHADOW, seed=seed)
+        wall, outs, models = rt_served(
+            srv, [prompts[k % len(prompts)]
+                  for k in range(CP_SHADOW_REQS)], CP_NEW,
+            lambda j: {"model": "chat"})
+        sampler = ShadowSampler("v2", CP_SHADOW, seed=seed)
+        n_shadow = sum(sampler.sample() for _ in range(CP_SHADOW_REQS))
+        wait_for(lambda: shadow.snapshot()["requests_judged"] - s0
+                 >= n_shadow, "the shadow copies were never judged")
+        judged = primary.snapshot()["requests_judged"]
+        check(judged == CP_SHADOW_REQS and all(
+            m == "chat@v1" for m in models)
+            and shadow.snapshot()["requests_judged"] - s0 == n_shadow,
+              f"phase 25 (e): primary judged {judged} of "
+              f"{CP_SHADOW_REQS}, shadow "
+              f"{shadow.snapshot()['requests_judged'] - s0} of {n_shadow}")
+        reg.set_shadow("chat", None)
+        out["shadow"] = dict(requests=CP_SHADOW_REQS, shadowed=n_shadow,
+                             primary_judged=judged)
+        # two tenants at twice the measured capacity
+        cap_wall, _, _ = rt_served(srv, prompts[:16], CP_NEW,
+                                   lambda j: {"model": "chat"})
+        capacity = 16 / cap_wall
+        free_rate = capacity * CP_FREE_SHARE
+        reset_tenant_ledger()
+        set_context(OrcaContext, tenant_quotas={
+            "free": {"rate": free_rate, "burst": 2.0}})
+        arrivals = poisson_trace(2 * capacity, CP_LOOP_S, seed=seed)
+
+        def submit(i):
+            tenant = "free" if i % 2 == 0 else "gold"
+            code, headers, body = http_call(
+                srv, "POST", "/generate",
+                {"tokens": prompts[i % len(prompts)],
+                 "max_new_tokens": CP_NEW},
+                {"X-Model": "chat", "X-Tenant": tenant})
+            status = ("ok" if code == 200 and b'"done"' in body
+                      else "shed" if code in (429, 503) else "error")
+            return {"status": status, "code": code, "tenant": tenant,
+                    "retry_after": "Retry-After" in headers}
+
+        loop = run_open_loop(submit, arrivals, slo_s=CP_SLO_S)
+        res = loop["results"]
+        free = [r for r in res if r["tenant"] == "free"]
+        gold = [r for r in res if r["tenant"] == "gold"]
+        free_shed = [r for r in free if r["status"] == "shed"]
+        gold_ok = [r for r in gold if r["status"] == "ok"]
+        admitted_cap = 2.0 + free_rate * (max(arrivals) + 1.0)
+        check(all(r["code"] == 429 and r["retry_after"] for r in free_shed)
+              and sum(1 for r in free if r["status"] == "ok")
+              <= admitted_cap and free_shed
+              and not any(r["status"] == "error" for r in res)
+              and all(r["status"] == "ok" for r in gold),
+              f"phase 25 (e): free {len(free)} offered, "
+              f"{len(free_shed)} shed (codes "
+              f"{sorted({r['code'] for r in free_shed})}), gold "
+              f"{len(gold_ok)} of {len(gold)} served")
+        gold_att = (sum(1 for r in gold_ok if r["e2e_s"] <= CP_SLO_S)
+                    / max(1, len(gold_ok)))
+        out["tenants"] = dict(
+            capacity_rps=capacity, offered_rps=loop["offered_rate_hz"],
+            free_offered=len(free), free_shed=len(free_shed),
+            free_quota_rps=free_rate, gold_offered=len(gold),
+            gold_attainment_admitted=gold_att,
+            gold_p99_s=float(np.percentile([r["e2e_s"] for r in gold_ok],
+                                           99)),
+            time_to_shed_p50_s=loop["time_to_shed_p50_s"])
+    finally:
+        srv.stop()
+        set_context(OrcaContext, slo_targets=None, tenant_quotas=None)
+        reset_tenant_ledger()
+        o.reset_slo_tracker()
+    print(f"phase 25 (e) [{card}] registry: {out['swap']['requests']} "
+          f"requests across a hot swap, none dropped, served by "
+          f"{out['swap']['served_by']}, rollback to v1; A/B "
+          f"{out['ab']['v2']} of {CP_AB_DRAWS} on v2 (expected "
+          f"{out['ab']['expected']:.0f} +- {out['ab']['bound']:.1f}); "
+          f"shadow {out['shadow']['shadowed']} of {CP_SHADOW_REQS} judged "
+          f"on the shadow side only; open loop at "
+          f"{out['tenants']['offered_rps']:.1f} requests/s (2 x "
+          f"{out['tenants']['capacity_rps']:.1f}): free "
+          f"{out['tenants']['free_shed']} of "
+          f"{out['tenants']['free_offered']} shed with 429 and "
+          f"Retry-After, gold attainment of admitted "
+          f"{out['tenants']['gold_attainment_admitted']:.3f} (p99 "
+          f"{out['tenants']['gold_p99_s']:.2f} s)", flush=True)
+    return out
+
+
+def sc_grpc(torch, seed: int, card: str, directory: str) -> dict:
+    """(f): protocol "both" answers the same over gRPC as over HTTP, on a
+    machine where `grpc` imports."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        print(f"phase 25 (f) [{card}] grpc does not import on this "
+              "machine: the gRPC leg was not run", flush=True)
+        return dict(run=False)
+    from analytics_zoo_tpu_torch.models.anomalydetection import (
+        AnomalyDetector,
+    )
+    from analytics_zoo_tpu_torch.serving import (
+        InputQueue,
+        ServingConfig,
+        start_serving,
+        stop_serving,
+    )
+    from analytics_zoo_tpu_torch.serving.grpc_frontend import GrpcInputQueue
+
+    torch.manual_seed(seed + 255)
+    path = AnomalyDetector(feature_dim=1, device="cuda").save_model(
+        os.path.join(directory, "anomaly"))
+    x = np.random.default_rng(seed + 255).standard_normal(
+        (GR_ROWS, GR_UNROLL, 1)).astype(np.float32)
+    servers = start_serving(ServingConfig(
+        modelPath=path, port=0, grpcPort=0, protocol="both",
+        batchTimeoutMs=1.0))
+    try:
+        srv = servers["http"]
+        http = InputQueue(srv.host, srv.port).predict(x, batched=True)
+        g = GrpcInputQueue(srv.host, servers["grpc"].port)
+        try:
+            over_grpc = g.predict(x, batched=True)
+        finally:
+            g.close()
+    finally:
+        stop_serving(servers)
+    err = float(np.abs(np.asarray(over_grpc) - np.asarray(http)).max())
+    check(np.asarray(over_grpc).shape == (GR_ROWS, 1) and err <= GR_TOL,
+          f"phase 25 (f): gRPC and HTTP differ by {err} > {GR_TOL}")
+    print(f"phase 25 (f) [{card}] protocol both: AnomalyDetector on "
+          f"{GR_ROWS} windows, gRPC equal to HTTP (max abs diff {err:.1e}, "
+          f"tol {GR_TOL})", flush=True)
+    return dict(run=True, max_abs_diff=err)
+
+
+def phase_scale_out(torch, seed: int, card: str, gpt2_model,
+                    bert_model) -> dict:
+    """Phase 25: serving scale-out and the durable data plane, parts
+    (a)-(f), on phase 6's GPT-2 small and phase 7's BERT-base."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch import observability as o
+
+    t0 = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="phase25-")
+    fresh_planes(o)
+    out = {}
+    pool = None
+    try:
+        out["a"] = sc_native(seed, card)
+        out["b"], pool, im = sc_worker_pool(torch, seed, card, bert_model,
+                                            directory)
+        out["c"] = sc_router(torch, seed, card, gpt2_model)
+        out["a"]["history"] = out["c"].pop("history_crc")
+        out["d"] = sc_streams(
+            torch, seed, card, pool, im,
+            bert_model.bert.token_embed.num_embeddings, gpt2_model,
+            directory)
+        pool.stop()
+        pool = None
+        out["e"] = sc_control_plane(torch, seed, card, gpt2_model,
+                                    directory)
+        out["f"] = sc_grpc(torch, seed, card, directory)
+    finally:
+        if pool is not None:
+            pool.stop()
+        fresh_planes(o)
+        shutil.rmtree(directory, ignore_errors=True)
+        free_card(torch)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {"worker_pool_bert": out["b"]["launches"],
+                       "router_generate_http": out["c"]["launches"],
+                       "generation_consumer": out["d"]["generate"][
+                           "launches"]}
+    b = out["b"]["runs"]
+    print("scale_out " + json.dumps(dict(
+        card=card, seconds=out["seconds"],
+        history_sample_bytes=out["a"]["history"]["sample_bytes"],
+        history_crc_us_native=out["a"]["history"]["sample_crc_us_native"],
+        history_crc_us_plain=out["a"]["history"]["sample_crc_us_plain"],
+        crc_1mib_native_ms=out["a"]["crc_1mib_native_ms"],
+        worker_sequences_per_s={n: b[n]["sequences_per_s"] for n in b},
+        worker_latency_ms_p50={n: b[n]["latency_ms_p50"] for n in b},
+        worker_latency_ms_p99={n: b[n]["latency_ms_p99"] for n in b},
+        worker_spawn_s=out["b"]["spawn_s"],
+        router_tokens_per_s={1: out["c"]["tokens_per_s_1"],
+                             2: out["c"]["tokens_per_s_2"]},
+        router_skew=out["c"]["skew"],
+        stream_redeliveries=out["d"]["redeliveries"],
+        capacity_rps=out["e"]["tenants"]["capacity_rps"],
+        gold_attainment=out["e"]["tenants"]["gold_attainment_admitted"],
+        free_shed=out["e"]["tenants"]["free_shed"],
+        grpc=out["f"])), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
@@ -9547,6 +10655,9 @@ def main(argv=None) -> int:
     serving_planes = phase_serving_planes(torch, args.seed, card,
                                           engine.model)
     clocks("after phase 24", start)
+    scale_out = phase_scale_out(torch, args.seed, card, engine.model,
+                                bert_model)
+    clocks("after phase 25", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -9603,6 +10714,7 @@ def main(argv=None) -> int:
     obs_fit = observability["launches"]
     obs_gen = observability["launches_generation"]
     planes_gen = serving_planes["launches"]
+    scale = scale_out["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -9656,7 +10768,13 @@ def main(argv=None) -> int:
                                   "keras_transformer_layer_fit": k_gpt,
                                   "observed_fine_tune": obs_fit,
                                   "observed_generation": obs_gen,
-                                  "serving_planes_http": planes_gen},
+                                  "serving_planes_http": planes_gen,
+                                  "worker_pool_bert_http":
+                                      scale["worker_pool_bert"],
+                                  "router_generate_http":
+                                      scale["router_generate_http"],
+                                  "generation_stream_consumer":
+                                      scale["generation_consumer"]},
                "layer_norm_bwd": {"bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert,
@@ -9669,6 +10787,8 @@ def main(argv=None) -> int:
                                     "bert_fine_tune_remat": remat,
                                     "bert_fine_tune_xshards": xs_bert,
                                     "serving_bert_http": srv_bert,
+                                    "worker_pool_bert_http":
+                                        scale["worker_pool_bert"],
                                     "int8_bert_serving": int8_bert,
                                     "bert_pretrained_fine_tune": pretrained,
                                     "keras_bert_fit": k_bert,
@@ -9679,6 +10799,8 @@ def main(argv=None) -> int:
                              "bert_fine_tune_remat": remat,
                              "bert_fine_tune_xshards": xs_bert,
                              "serving_bert_http": srv_bert,
+                             "worker_pool_bert_http":
+                                 scale["worker_pool_bert"],
                              "int8_bert_serving": int8_bert,
                              "bert_pretrained_fine_tune": pretrained,
                              "keras_transformer_layer_fit": k_gpt,
@@ -9702,7 +10824,10 @@ def main(argv=None) -> int:
                     for r in runs}, generation_breadth=breadth,
                    serving_generate_http=srv_gen,
                    observed_generation=obs_gen,
-                   serving_planes_http=planes_gen)}
+                   serving_planes_http=planes_gen,
+                   router_generate_http=scale["router_generate_http"],
+                   generation_stream_consumer=scale[
+                       "generation_consumer"])}
     for k in kernels:
         paths = by_path.get(k["name"])
         if paths:
@@ -9751,6 +10876,7 @@ def main(argv=None) -> int:
                       "chronos": chronos, "chronos_rest": chronos_rest,
                       "observability": observability,
                       "serving_planes": serving_planes,
+                      "scale_out": scale_out,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,

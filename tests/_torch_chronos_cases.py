@@ -6,7 +6,9 @@ microseconds of work; at torch's default thread count each op also
 pays a parallel region, and with the suite's xdist workers on the same
 cores those regions wait for each other (an AutoTS search took 93 s in
 six concurrent processes at 8 threads, 2.3 s at 1).  `one_torch_thread`
-runs a module's tests at one thread and restores the count after."""
+runs a module's tests at one thread and restores the count after;
+`two_torch_threads` at two.  Import one of them into a test module to
+apply it there."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,17 @@ GRAD_TOL = 1e-4
 def one_torch_thread():
     prev = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """For a module whose comparisons need torch's parallel reductions:
+    test_torch_imageclassification.py's ragged fits against JAX's fast
+    variance sit near their tolerance at one thread, and hold at 2."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(2, prev))
     yield
     torch.set_num_threads(prev)
 

@@ -36,6 +36,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from _torch_chronos_cases import one_torch_thread  # noqa: F401
 from analytics_zoo_tpu import init_orca_context
 from analytics_zoo_tpu.keras.layers.self_attention import (
     TransformerEncoder as JaxEncoder,

@@ -263,7 +263,7 @@ def test_retry_policy_matches_the_jax_policy():
 def test_fault_plan_validates_and_fires_deterministically():
     from analytics_zoo_tpu_torch.resilience import FaultPlan
     with pytest.raises(ValueError, match="unknown fault site"):
-        FaultPlan([{"site": "stream.append", "action": "raise"}])
+        FaultPlan([{"site": "eval.step", "action": "raise"}])
     with pytest.raises(ValueError, match="unknown fault action"):
         FaultPlan([{"site": "train.step", "action": "nan"}])
     plan = FaultPlan([{"site": "train.step", "at": 2, "action": "raise",

@@ -16,8 +16,9 @@ timeline.py) against the JAX package's, on the CPU.
   `scripts/check_timeline_schema.py::validate_timeline`, with the same
   event counts by category and phase as JAX's; the fleet timeline
   passes it too.
-* `FleetAggregator(router=...)` raises until the replica router is
-  ported."""
+* `FleetAggregator(router=...)` reads each replica's registry as a live
+  source, at every harvest (tests/test_torch_router.py holds it over a
+  real router)."""
 
 import collections
 import importlib.util
@@ -151,8 +152,23 @@ def test_jax_and_port_spools_merge_exactly(tmp_path):
 
 
 def test_router_waits_for_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        obs.FleetAggregator(router=object())
+    """Named for the refusal it replaced: a router's replicas are live
+    sources, read when the fleet is harvested."""
+    class Replica:
+        def __init__(self, name, value):
+            self.name = name
+            self.engine = type("E", (), {})()
+            self.engine.registry = obs.MetricsRegistry()
+            self.engine.registry.counter("generation_tokens_total").inc(value)
+
+    router = type("R", (), {"replicas": [Replica("replica-0", 3.0)]})()
+    agg = obs.FleetAggregator(local_registries=(obs.MetricsRegistry(),),
+                              include_spooled=False, router=router)
+    router.replicas.append(Replica("replica-1", 4.0))
+    names = [s["name"] for s in agg.sources()]
+    assert names == ["local", "replica-0", "replica-1"]
+    fleet = obs.parse_prometheus_text(agg.fleet_prometheus_text())
+    assert fleet["generation_tokens_total"]["value"] == 7.0
 
 
 def _scene(name, tmp_path, clock):

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_chronos_cases import two_torch_threads  # noqa: F401
 from analytics_zoo_tpu import init_orca_context
 from analytics_zoo_tpu.models.image import imageclassification as jic
 from analytics_zoo_tpu.orca.learn.estimator import Estimator as JaxEstimator

@@ -32,6 +32,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_chronos_cases import one_torch_thread  # noqa: F401
 from analytics_zoo_tpu.keras import engine as jax_engine
 from analytics_zoo_tpu.keras import layers as JL
 from analytics_zoo_tpu.keras.models import Model as JaxModel

@@ -25,6 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from _torch_chronos_cases import one_torch_thread  # noqa: F401
 from analytics_zoo_tpu import init_orca_context
 from analytics_zoo_tpu.common.context import OrcaContext as JaxContext
 from analytics_zoo_tpu.models import recommendation as jrec

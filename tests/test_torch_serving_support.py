@@ -4,8 +4,10 @@ package's on the CPU:
 * the codec: base64 ndarrays, base64 images and Arrow tensors encode to
   the same bytes, and each package decodes the other's;
 * `ServingConfig`: the same keys, defaults, errors and YAML loading;
-  `start_serving` refuses what is not ported (replicas, gRPC) instead
-  of starting a lone HTTP server;
+  `start_serving` refuses what is not ported (encrypted weights, in
+  each of the worker-pool, gRPC and both-protocol setups) before it
+  starts anything (tests/test_torch_stream_serving.py serves those
+  setups);
 * `start_serving` / `stop_serving` and `python -m
   analytics_zoo_tpu_torch.serving.start -c ... --no-block` serve a saved
   port NeuralCF, whose /predict equals `ZooModel.predict` to 1e-5, and
@@ -133,10 +135,12 @@ def test_config_defaults_and_yaml_match_jax(tmp_path):
 
 @pytest.mark.parametrize("cfg", [{"replicas": 2}, {"protocol": "grpc"},
                                  {"protocol": "both"}])
-def test_start_serving_refuses_what_is_not_ported(cfg):
+def test_start_serving_refuses_what_is_not_ported(cfg, monkeypatch):
+    monkeypatch.setenv("ZOO_TEST_MODEL_KEY", "k")
     with pytest.raises(NotImplementedError, match="item 7"):
-        start_serving(ServingConfig(modelPath="unused", port=0, **cfg),
-                      device="cpu")
+        start_serving(ServingConfig(modelPath="unused", port=0,
+                                    decryptKeyEnv="ZOO_TEST_MODEL_KEY",
+                                    **cfg), device="cpu")
 
 
 @pytest.fixture(scope="module")

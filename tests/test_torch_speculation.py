@@ -17,6 +17,7 @@ from hypothesis import given, settings, strategies as st
 
 import jax.numpy as jnp
 
+from _torch_chronos_cases import one_torch_thread  # noqa: F401
 from _torch_generation_cases import (
     CFG,
     VOCAB,

@@ -18,6 +18,7 @@ import torch
 import jax
 import optax
 
+from _torch_chronos_cases import one_torch_thread  # noqa: F401
 from analytics_zoo_tpu.models.anomalydetection import (
     AnomalyDetector as JaxAnomalyDetector,
     detect_anomalies as jax_detect_anomalies,
