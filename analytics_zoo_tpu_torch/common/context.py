@@ -9,13 +9,24 @@ until `stop_orca_context`; an explicit call replaces the implicit local
 start made by reading `OrcaContext.device`; an unknown mode raises
 JAX's ValueError; `cores` sets `OMP_NUM_THREADS` unless it is set; an
 atexit hook stops the runtime.  JAX returns the global device `Mesh`;
-the port trains on one device and returns it, the `torch.device` that
-`resolve_device(device)` gives (None: the CUDA card, or a raise).
-"tpu_pod" and "distributed", and any `mesh_shape` but None or
-{"dp": 1}, raise NotImplementedError: multi-device runs come with the
-parallel axes (ROADMAP Queue 1 item 8).  `OrcaContext.initialized`,
-`cluster_mode`, `device` (JAX's `mesh`), `num_devices` and `devices`
-read the runtime's state.
+the port returns this process's device, the `torch.device` that
+`resolve_device(device)` gives (None: the CUDA card, or a raise), and
+keeps its `ProcessMesh` as `OrcaContext.mesh`.
+
+"distributed" (and JAX's alias "tpu_pod") starts a
+`torch.distributed` process group, one process a rank: the rendezvous
+is `coordinator_address` ("host:port"), `num_processes` and
+`process_id`, each read from the usual torch environment variables
+(`MASTER_ADDR` / `MASTER_PORT`, `WORLD_SIZE`, `RANK`) where not given.
+A rank on the card takes card `LOCAL_RANK` (else its rank) modulo the
+cards it sees.  The backend is "nccl" when every rank has a card of its
+own, and "gloo" on the CPU or where ranks share a card (NCCL runs one
+rank a device); `stop_orca_context` destroys the group.  `mesh_shape`
+may hold "sp" (sequence parallelism, `parallel/ring_attention.py`)
+beside "dp": 1; every other axis, and dp > 1, raises
+NotImplementedError (ROADMAP Queue 1 item 8b).  `OrcaContext.initialized`,
+`cluster_mode`, `device`, `mesh`, `num_devices` and `devices` read the
+runtime's state.
 
 The settings user code reads and writes as `OrcaContext.<setting>` are
 the part of JAX's that the ported paths read:
@@ -61,12 +72,62 @@ import atexit
 import logging
 import os
 import threading
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
-#: where the multi-device modes and meshes are queued
-_LATER = "multi-device runs are not ported yet (ROADMAP Queue 1 item 8)"
+#: where the other parallel axes are queued
+_LATER = ("only the 'sp' axis (with 'dp': 1) is ported; the other "
+          "parallel axes come with ROADMAP Queue 1 item 8b")
+
+#: JAX's mesh axes, in its order (context.py:38), and the data axes
+MESH_AXES = ("dp", "fsdp", "pp", "ep", "sp", "tp")
+DATA_AXES = ("dp", "fsdp")
+#: the axes a torch.distributed mesh may hold, and dp's one size
+_PORTED_AXES = ("dp", "sp")
+
+
+class ProcessMesh:
+    """The port's counterpart of JAX's `jax.sharding.Mesh`: the ranks of
+    a `torch.distributed` job laid out over named axes (JAX's order),
+    with this process's coordinate on each axis and a process group for
+    each (none in local mode, where the axes hold one process).
+
+    `axis_names`, `shape` (axis -> size) and `size` read as JAX's do;
+    `rank`, `coords` (axis -> index), `groups` (axis -> group) and
+    `backend` say where this process sits."""
+
+    def __init__(self, shape: Dict[str, int], device, rank: int = 0,
+                 groups: Optional[Dict[str, Any]] = None,
+                 backend: Optional[str] = None):
+        self.axis_names = tuple(a for a in MESH_AXES if a in shape)
+        self.shape = {a: int(shape[a]) for a in self.axis_names}
+        self.size = 1
+        for a in self.axis_names:
+            self.size *= self.shape[a]
+        self.device = device
+        self.rank = int(rank)
+        self.backend = backend
+        self.groups = dict(groups or {})
+        self.coords = {}
+        rest = self.rank
+        for a in reversed(self.axis_names):
+            self.coords[a] = rest % self.shape[a]
+            rest //= self.shape[a]
+
+    def group_ranks(self, axis: str) -> List[int]:
+        """The global ranks of this process's group along `axis`, in
+        axis order."""
+        names = self.axis_names
+        stride = 1
+        for a in names[names.index(axis) + 1:]:
+            stride *= self.shape[a]
+        base = self.rank - self.coords[axis] * stride
+        return [base + i * stride for i in range(self.shape[axis])]
+
+    def __repr__(self):
+        return (f"ProcessMesh({self.shape}, rank={self.rank}, "
+                f"device={self.device}, backend={self.backend})")
 
 
 class OrcaContextMeta(type):
@@ -102,9 +163,11 @@ class OrcaContextMeta(type):
     _slo_shed_attainment = None
     _tenant_quotas = None
     _serving_replicas = 0
+    _router_phase_aware = False
 
     # --- runtime state ---
     _device = None
+    _mesh = None
     _cluster_mode = None
     _initialized = False
     _auto_initialized = False
@@ -133,9 +196,16 @@ class OrcaContextMeta(type):
         return cls._initialized
 
     @property
+    def mesh(cls):
+        """The runtime's `ProcessMesh` (JAX's `mesh`); reading it, as
+        reading `device`, starts local mode when nothing has started."""
+        cls.device
+        return cls._mesh
+
+    @property
     def num_devices(cls):
-        """The devices the runtime spans: one (JAX: the mesh's size)."""
-        return len(cls.devices)
+        """The devices the runtime spans (the mesh's size, as JAX's)."""
+        return cls.mesh.size
 
     @property
     def devices(cls):
@@ -642,6 +712,26 @@ class OrcaContextMeta(type):
         cls._tenant_quotas = quotas
 
     @property
+    def router_phase_aware(cls):
+        """Prefill/decode phase-aware routing in the `ReplicaRouter`
+        (serving/distributed/router.py), JAX's setting (context.py:701).
+        False (the default) keeps least-loaded admission.  True, with
+        two or more replicas: the first replica is tagged "prefill" and
+        the rest "decode"; each submit is classified by how much of its
+        prompt is cached on any replica or in the shared host tier
+        (`kv_host_tier_bytes`), a prefill-heavy request prefers the
+        prefill replica, whose prefix cache writes its blocks through
+        to the shared tier, and a decode-heavy one the decode replicas,
+        which adopt those blocks on lookup.  A phase mismatch is a
+        penalty on the load score, not a pin.  Read when a router is
+        built."""
+        return cls._router_phase_aware
+
+    @router_phase_aware.setter
+    def router_phase_aware(cls, value):
+        cls._router_phase_aware = bool(value)
+
+    @property
     def serving_replicas(cls):
         """Engine replicas `ReplicaRouter.build` makes when its
         `n_replicas` is "auto" (serving/distributed/router.py); 0 (the
@@ -660,6 +750,67 @@ class OrcaContext(metaclass=OrcaContextMeta):
     pass
 
 
+def _check_mesh_shape(mesh_shape, world: int) -> Dict[str, int]:
+    """The mesh's axis sizes: None is all "dp"; JAX's checks (context.py
+    :870-903) for unknown axes and a product that misses the process
+    count, then the port's for what is not ported yet (dp > 1 too, so
+    several ranks never train unsynchronised on the default shape)."""
+    sizes = ({"dp": world} if not mesh_shape
+             else {a: int(n) for a, n in dict(mesh_shape).items()})
+    unknown = set(sizes) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {unknown}; valid: {MESH_AXES}")
+    if any(a not in _PORTED_AXES for a in sizes) \
+            or sizes.get("dp", 1) != 1:
+        raise NotImplementedError(f"mesh_shape {mesh_shape}: {_LATER}")
+    prod = 1
+    for n in sizes.values():
+        prod *= n
+    if prod != world:
+        raise ValueError(
+            f"mesh_shape {mesh_shape} covers {prod} of {world} "
+            "process(es); make the axis sizes multiply to the process "
+            "count")
+    return sizes
+
+
+def _start_process_group(coordinator_address, num_processes, process_id,
+                         device):
+    """Start `torch.distributed` (module docstring's rules); returns
+    (world size, rank, this rank's device, backend)."""
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.device import resolve_device
+
+    env = os.environ
+    world = int(num_processes if num_processes is not None
+                else env.get("WORLD_SIZE", 1))
+    rank = int(process_id if process_id is not None
+               else env.get("RANK", 0))
+    if not 0 <= rank < world:
+        raise ValueError(f"process_id {rank} not in [0, {world})")
+    if coordinator_address is None:
+        if "MASTER_ADDR" not in env or "MASTER_PORT" not in env:
+            raise ValueError(
+                "cluster_mode 'distributed' needs coordinator_address "
+                "('host:port') or MASTER_ADDR and MASTER_PORT")
+        coordinator_address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        local = int(env.get("LOCAL_RANK", rank))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    own_card = (dev.type == "cuda"
+                and world <= torch.cuda.device_count())
+    backend = "nccl" if own_card else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=world, rank=rank)
+    return world, rank, dev, backend
+
+
 def init_orca_context(cluster_mode: str = "local",
                       cores: Optional[int] = None,
                       num_nodes: int = 1,
@@ -669,8 +820,12 @@ def init_orca_context(cluster_mode: str = "local",
                       process_id: Optional[int] = None,
                       device=None, **kwargs):
     """Start the runtime (JAX context.py:906): `cluster_mode` "local"
-    runs on `device` (None: the CUDA card; without one this raises).
-    `cores` caps the host's OpenMP threads.  Returns the device."""
+    runs on `device` (None: the CUDA card; without one this raises);
+    "distributed" / "tpu_pod" starts a process group of
+    `num_processes` ranks meeting at `coordinator_address`, this one
+    rank `process_id` (the module docstring's rules).  `mesh_shape`
+    lays the ranks out over named axes.  `cores` caps the host's OpenMP
+    threads.  Returns this process's device."""
     from analytics_zoo_tpu_torch.device import resolve_device
 
     cluster_mode = cluster_mode.lower()
@@ -691,27 +846,66 @@ def init_orca_context(cluster_mode: str = "local",
                     "stop_orca_context() before re-initializing with a "
                     "different configuration")
 
-        if cluster_mode in ("tpu_pod", "distributed"):
-            raise NotImplementedError(
-                f"cluster_mode '{cluster_mode}': {_LATER}")
-        if cluster_mode not in ("local",):
+        distributed = cluster_mode in ("tpu_pod", "distributed")
+        if not distributed and cluster_mode != "local":
             raise ValueError(
                 f"unsupported cluster_mode '{cluster_mode}'; the TPU build "
                 "supports 'local' and 'tpu_pod' (Spark modes like "
                 "'yarn'/'k8s' do not apply — hosts are provisioned by the "
                 "TPU platform)")
-        if mesh_shape is not None and dict(mesh_shape) != {"dp": 1}:
-            raise NotImplementedError(f"mesh_shape {mesh_shape}: {_LATER}")
-
-        dev = resolve_device(device)
+        if distributed:
+            # the axes are checked before any rendezvous starts
+            world = int(num_processes if num_processes is not None
+                        else os.environ.get("WORLD_SIZE", 1))
+            shape = _check_mesh_shape(mesh_shape, world)
+            world, rank, dev, backend = _start_process_group(
+                coordinator_address, num_processes, process_id, device)
+            mesh = ProcessMesh(shape, dev, rank, backend=backend)
+            mesh.groups = _axis_groups(mesh)
+        else:
+            shape = _check_mesh_shape(mesh_shape, 1)
+            dev = resolve_device(device)
+            mesh = ProcessMesh(shape, dev)
         if cores is not None:
             os.environ.setdefault("OMP_NUM_THREADS", str(cores))
         OrcaContextMeta._device = dev
+        OrcaContextMeta._mesh = mesh
         OrcaContextMeta._cluster_mode = cluster_mode
         OrcaContextMeta._initialized = True
         atexit.register(stop_orca_context)
-        logger.info("init_orca_context: %s", dev)
+        logger.info("init_orca_context: %s", mesh)
         return dev
+
+
+def _axis_groups(mesh: ProcessMesh) -> Dict[str, Any]:
+    """One process group for each axis: the ranks that differ from this
+    one on that axis alone.  Every rank makes every group (the
+    collective rule of `new_group`), in the same order; an axis that
+    spans every rank takes the default group."""
+    import torch.distributed as dist
+
+    groups = {}
+    for axis in mesh.axis_names:
+        if mesh.shape[axis] == mesh.size:
+            groups[axis] = dist.group.WORLD
+            continue
+        mine = mesh.group_ranks(axis)
+        seen = set()
+        for r in range(mesh.size):
+            ranks = tuple(ProcessMesh(mesh.shape, None, r).group_ranks(axis))
+            if ranks in seen:
+                continue
+            seen.add(ranks)
+            g = dist.new_group(list(ranks))
+            if list(ranks) == mine:
+                groups[axis] = g
+    return groups
+
+
+def current_mesh() -> Optional[ProcessMesh]:
+    """The started runtime's mesh, or None; unlike `OrcaContext.mesh`,
+    never starts one."""
+    return OrcaContextMeta._mesh
 
 
 def init_nncontext(*args, **kwargs):
@@ -722,7 +916,12 @@ def init_nncontext(*args, **kwargs):
 def _stop_locked():
     if not OrcaContextMeta._initialized:
         return
+    if OrcaContextMeta._cluster_mode in ("tpu_pod", "distributed"):
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
     OrcaContextMeta._device = None
+    OrcaContextMeta._mesh = None
     OrcaContextMeta._cluster_mode = None
     OrcaContextMeta._initialized = False
     OrcaContextMeta._auto_initialized = False

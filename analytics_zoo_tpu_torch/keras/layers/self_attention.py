@@ -60,7 +60,7 @@ from analytics_zoo_tpu_torch.ops.attention import (
 from analytics_zoo_tpu_torch.ops.dense import DenseGelu
 from analytics_zoo_tpu_torch.ops.normalization import LayerNorm
 
-_ATTN_IMPLS = ("auto", "einsum", "flash")
+_ATTN_IMPLS = ("auto", "einsum", "flash", "ring")
 _REMAT_POLICIES = (None, "dots", "dots_all")
 
 
@@ -125,8 +125,10 @@ def dropout(x, rate: float, training: bool, generator=None):
 
 class MultiHeadAttention(nn.Module):
     """attn_impl: "einsum" (`dot_product_attention`), "flash"
-    (`flash_attention`: the CUDA kernels on the card) or "auto" (flash
-    at t >= 4096, else einsum, the JAX rule).  `mask` is a [b, t]
+    (`flash_attention`: the CUDA kernels on the card), "ring"
+    (`parallel.ring_self_attention` over the runtime's "sp" axis, its
+    impl "auto": flash without one) or "auto" (flash at t >= 4096,
+    else einsum, the JAX rule).  `mask` is a [b, t]
     key-validity mask (1 = attend) or a pre-built additive
     [1|b, 1|h, t, t] bias (differentiable: a learnable bias trains
     through flash's dbias pass)."""
@@ -135,11 +137,6 @@ class MultiHeadAttention(nn.Module):
                  causal: bool = False, compute_dtype=torch.bfloat16,
                  attn_impl: str = "auto", device=None):
         super().__init__()
-        if attn_impl == "ring":
-            raise NotImplementedError(
-                "attn_impl='ring' (sequence-parallel ring attention) is "
-                "ported with the parallel-axes slice (ROADMAP Queue 1); "
-                "use 'einsum' or 'flash'")
         if attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}; use one of "
                              f"{_ATTN_IMPLS}")
@@ -170,7 +167,17 @@ class MultiHeadAttention(nn.Module):
         attn = self.attn_impl
         if attn == "auto":
             attn = "flash" if t >= 4096 else "einsum"
-        if attn == "flash":
+        if attn == "ring":
+            from analytics_zoo_tpu_torch.parallel.ring_attention import (
+                ring_self_attention,
+            )
+            # the factored [b, t] mask travels with its k/v shard; the
+            # generator draws the one seed flash would (same keep mask)
+            out = ring_self_attention(
+                q, k, v, causal=self.causal, kv_mask=key_mask,
+                bias=None if key_mask is not None else mask,
+                dropout_rate=rate, dropout_rng=generator, impl="auto")
+        elif attn == "flash":
             # the factored [b, t] mask, not the additive form made from it
             out = flash_attention(
                 q, k, v, causal=self.causal, kv_mask=key_mask,

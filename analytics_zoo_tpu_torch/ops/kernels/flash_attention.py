@@ -46,13 +46,27 @@ def _fn():
     return fn
 
 
+def kernel_strides(x):
+    """x's strides as the kernels take them: a size-1 dimension's stride
+    enters no address, so it is read as the dense layout's, and views
+    that differ only there (a slice of a batch of one) share a layout."""
+    out, step = [], 1
+    for n, s in zip(reversed(x.shape), reversed(x.stride())):
+        out.append(step if n == 1 else s)
+        step *= n
+    return tuple(reversed(out))
+
+
 def kernel_layout_ok(q, k, v) -> bool:
     """Whether the kernel reads q, k, v as they are: one set of strides
-    with unit stride in d and, for bf16, 16-byte aligned rows."""
-    if not (q.stride() == k.stride() == v.stride()) or q.stride(3) != 1:
+    (`kernel_strides`) with unit stride in d and, for bf16, 16-byte
+    aligned rows."""
+    strides = kernel_strides(q)
+    if not (strides == kernel_strides(k) == kernel_strides(v)) \
+            or strides[3] != 1:
         return False
     if q.dtype == torch.bfloat16:
-        return (all(s % 8 == 0 for s in q.stride()[:3])
+        return (all(s % 8 == 0 for s in strides[:3])
                 and all(x.data_ptr() % 16 == 0 for x in (q, k, v)))
     return True
 
@@ -150,7 +164,7 @@ def flash_fwd(q, k, v, kv_mask=None, bias=None, seed3=None,
     lse = torch.empty((b * h, t), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out, lse
-    sb, sh, st = q.stride(0), q.stride(2), q.stride(1)
+    sb, st, sh, _ = kernel_strides(q)
     fn = _fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -198,6 +212,7 @@ def _bwd_launch(kind, wrapper, q, k, v, dout, lse, delta, kv_mask, bias,
     if q.numel() == 0:
         return
     lead, reps, mul_l, mul_r = bias_split or (0, 0, 0, 0)
+    sb, st, sh, _ = kernel_strides(q)
     dq, dk, dv = outs
     fn = _bwd_fn()
     with torch.cuda.device(q.device):
@@ -209,7 +224,7 @@ def _bwd_launch(kind, wrapper, q, k, v, dout, lse, delta, kv_mask, bias,
                 seed3.data_ptr() if dropout > 0.0 else None,
                 *(None if x is None else x.data_ptr()
                   for x in (dq, dk, dv, dbias)),
-                b, h, t, d, q.stride(0), q.stride(2), q.stride(1),
+                b, h, t, d, sb, sh, st,
                 _DTYPES[q.dtype], int(causal), bias_mode,
                 *_dropout_args(dropout), 1.0 / (d ** 0.5), lead, reps, mul_l,
                 mul_r, stream)

@@ -556,8 +556,7 @@ class TrainEngine:
         """`run_epoch` over a `DeviceDataset`: step i indexes data[i] on
         the device, with no host-to-device copy; with `shuffle`, one
         device-side permutation of all rows per epoch."""
-        if train:
-            fault_point("train.epoch", epoch=epoch)
+        fault_point("train.epoch" if train else "eval.epoch", epoch=epoch)
         data = dds.shuffled(seed, epoch) if shuffle else dds.data
         batches = ({"features": tuple(a[i] for a in data["features"]),
                     "labels": tuple(a[i] for a in data["labels"]),
@@ -589,8 +588,14 @@ class TrainEngine:
             if batch is None:
                 break
             rec.lap("host_input")
-            if train:
-                fault_point("train.step", step=step + 1)
+            # "raise" / "crash" kill the worker here, "stall" wedges the
+            # loop for the watchdogs, "nan" poisons this host batch
+            # (JAX spmd.py:808-815; the DEVICE store's steps, as JAX's
+            # cached loop, fire the site and poison nothing)
+            act = fault_point("train.step" if train else "eval.step",
+                              step=step + 1 if train else step)
+            if act == "nan" and train and kind == "train":
+                batch = _poison_batch_nan(batch)
             if profile:
                 self._fence()
             # the dropout draws of this step, kept for the sentinel's
@@ -795,6 +800,19 @@ class TrainEngine:
                     pre.stage(1)
                 outs.append(_strip(preds, n_real))
         return outs
+
+
+def _poison_batch_nan(batch):
+    """The fault plan's "nan" action on one staged batch (JAX
+    spmd.py:85): its float feature and label tensors multiplied by NaN,
+    new tensors of the same shapes, so the step's finiteness check sees
+    the poison as it would an organic NaN and skips the step."""
+    def poison(a):
+        return a * float("nan") if a.is_floating_point() else a
+    out = dict(batch)
+    out["features"] = tuple(poison(a) for a in batch["features"])
+    out["labels"] = tuple(poison(a) for a in batch["labels"])
+    return out
 
 
 def _batch_rows(batch) -> int:

@@ -114,6 +114,10 @@ class BackgroundCheckpointer:
             finally:
                 self._idle.set()
 
+    def busy(self) -> bool:
+        """Whether a save is queued or being written."""
+        return not self._idle.is_set()
+
     def drain(self, raise_on_error: bool = True) -> None:
         """Block until the in-flight save committed (or failed).  A
         failed write raises `CheckpointWriteError` here, once, unless

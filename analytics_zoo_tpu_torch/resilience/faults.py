@@ -14,7 +14,9 @@ site                        threaded into
 =========================== =============================================
 ``train.step``              `TrainEngine`'s per-step loops (host batches
                             and the DEVICE store)
+``eval.step``               the same loops, evaluating
 ``train.epoch``             the top of `TrainEngine.run_epoch_device`
+``eval.epoch``              the same, evaluating
 ``checkpoint.before_write`` commit protocol, before any byte is written
 ``checkpoint.mid_write``    after the temp-dir write, before rename
 ``checkpoint.before_rename`` temp dir complete, rename not yet executed
@@ -28,8 +30,8 @@ site                        threaded into
 ``generation.spec_verify``  the speculative verify round, before
                             dispatch (the lanes decode instead)
 ``generation.host_spill``   `HostKVTier.put` (the spill is dropped)
-``generation.host_restore`` `HostKVTier.fetch` (the entry is dropped,
-                            the lane recomputes)
+``generation.host_restore`` `HostKVTier.fetch` (a raise or "nan" drops
+                            the entry as corrupt; the lane recomputes)
 ``serving.admission``       `AdmissionCore.admit`'s queue check (every
                             door: the engine, the worker pool, /predict)
 ``admission.quota``         the tenant quota gate ("refuse" sheds 429)
@@ -48,9 +50,10 @@ the checkpoint matrix's kill), ``torn_write`` (truncate the largest
 file under the site's path, then SimulatedCrash), ``stall`` (sleep the
 fault's ``delay_s``, default 0.5 s, and go on), ``poison_request``
 (PoisonedRequestError carrying the victim's request id: the engine
-evicts that request alone) and ``refuse``, which `fault_point` returns
-to its caller (submit then raises QueueFull, as an organic overload
-would).
+evicts that request alone), and two that `fault_point` returns to its
+caller: ``nan`` (the train loop poisons the batch's float leaves, so
+the step is non-finite and skipped) and ``refuse`` (submit then raises
+QueueFull, as an organic overload would).
 
 Determinism: a fault fires when its site's hit counter reaches ``at``
 (1-based), for ``times`` firings (default 1); ``prob`` instead draws
@@ -72,10 +75,10 @@ from analytics_zoo_tpu_torch.common.context import OrcaContext
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
 ACTIONS = ("raise", "crash", "torn_write", "stall", "poison_request",
-           "refuse")
+           "nan", "refuse")
 
 KNOWN_SITES = (
-    "train.step", "train.epoch",
+    "train.step", "eval.step", "train.epoch", "eval.epoch",
     "checkpoint.before_write", "checkpoint.mid_write",
     "checkpoint.before_rename", "checkpoint.before_commit",
     "checkpoint.after_commit", "checkpoint.load",
@@ -139,6 +142,10 @@ class Fault:
         self.prob = None if prob is None else float(prob)
         self.fired = 0
 
+    def describe(self) -> Dict[str, Any]:
+        return {"site": self.site, "action": self.action, "at": self.at,
+                "times": self.times, "fired": self.fired}
+
 
 class FaultPlan:
     """A seeded set of faults plus per-site hit counters.  Built from a
@@ -187,6 +194,10 @@ class FaultPlan:
                 return f
         return None
 
+    def snapshot(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return [f.describe() for f in self.faults]
+
 
 def _torn_write(path: str) -> None:
     """Truncate the largest regular file under `path` to half: a torn
@@ -231,7 +242,7 @@ def fault_point(site: str, **ctx) -> Optional[str]:
     """The injection site hook.  Unarmed (no plan): one attribute read,
     returning None.  Armed: counts the hit and, when a fault fires,
     raises, sleeps (``stall``), or returns the action for the caller to
-    interpret (``refuse``)."""
+    interpret (``nan``, ``refuse``)."""
     plan = OrcaContext.fault_plan
     if plan is None:
         return None
@@ -261,7 +272,7 @@ def fault_point(site: str, **ctx) -> Optional[str]:
         raise PoisonedRequestError(
             f"injected decode failure poisoning request {rid!r}",
             request_id=rid)
-    if fault.action == "refuse":
+    if fault.action in ("nan", "refuse"):
         return fault.action
     path = ctx.get("path")
     if path and os.path.isdir(path):

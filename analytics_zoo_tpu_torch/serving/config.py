@@ -16,7 +16,7 @@ the JAX package's:
   host/port/grpcPort-> bind addresses
   batchTimeoutMs    -> the batcher's window
   modelClass        -> the saved class name's override
-  decryptKeyEnv     -> encrypted weights (not ported yet: raises)
+  decryptKeyEnv     -> the env var holding the key of encrypted weights
   replicas          -> > 1: that many worker processes
                        (serving/worker_pool.py) behind the batcher
 `start_serving` / `stop_serving` bring the server up and down; the model
@@ -25,6 +25,7 @@ the JAX package's:
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict
 
@@ -112,9 +113,10 @@ def start_serving(config: "ServingConfig | str", block: bool = False,
     InferenceModel or None, "pool": WorkerPool?} ("_batcher" holds the
     server of a gRPC-only config, which binds no HTTP port).  The model,
     or each of `replicas` > 1 worker processes' copies, is built on
-    `device` (None = the CUDA card).  Encrypted weights
-    (`decryptKeyEnv`) are not ported yet and raise before anything
-    starts."""
+    `device` (None = the CUDA card).  `decryptKeyEnv` names the
+    environment variable that holds the key of weights saved encrypted
+    at rest (unset: ValueError before anything starts); the workers
+    read the same variable."""
     from analytics_zoo_tpu_torch.serving.inference_model import (
         InferenceModel,
         find_zoo_model_class,
@@ -123,10 +125,13 @@ def start_serving(config: "ServingConfig | str", block: bool = False,
 
     if isinstance(config, str):
         config = ServingConfig.load(config)
+    decrypt_key = None
     if config.decrypt_key_env:
-        raise NotImplementedError(
-            "weights encrypted at rest need serving/encrypt.py, which is "
-            "not ported yet (ROADMAP Queue 1 item 7b)")
+        decrypt_key = os.environ.get(config.decrypt_key_env)
+        if not decrypt_key:
+            raise ValueError(
+                f"config names decryptKeyEnv={config.decrypt_key_env!r} "
+                "but that environment variable is unset")
     cls = model_cls
     if cls is None and config.model_class:
         cls = find_zoo_model_class(config.model_class)
@@ -141,6 +146,7 @@ def start_serving(config: "ServingConfig | str", block: bool = False,
             cls_name = getattr(cls, "__name__", str(cls))
         pool = WorkerPool(config.model_path, n_workers=config.replicas,
                           model_cls=cls_name, quantize=config.quantize,
+                          decrypt_key_env=config.decrypt_key_env,
                           max_batch_size=config.max_batch_size,
                           model_parallelism=config.model_parallelism,
                           device=None if device is None else str(device))
@@ -149,7 +155,8 @@ def start_serving(config: "ServingConfig | str", block: bool = False,
             supported_concurrent_num=config.model_parallelism,
             max_batch_size=config.max_batch_size)
         model.load_model(config.model_path, model_cls=cls,
-                         quantize=config.quantize, device=device)
+                         quantize=config.quantize, decrypt_key=decrypt_key,
+                         device=device)
     serve_http = config.protocol in ("http", "both")
     try:
         srv = ServingServer(model, host=config.host,

@@ -27,8 +27,20 @@ re-queues the request once on a healthy replica, continuing from the
 tokens already delivered (greedy decoding makes the continuation exact),
 under the same request id, with `resilience_retries_total` counted.
 
-JAX's phase-aware routing (`OrcaContext.router_phase_aware`: a prefill
-replica writing through the shared host tier) is not ported.
+Replicas built by `build` share one host KV tier of
+`OrcaContext.kv_host_tier_bytes` (JAX router.py:284-293): the tier is
+keyed by tokens, so a block one replica spilled restores on another.
+
+Phase-aware routing (`OrcaContext.router_phase_aware`, off by default):
+with two or more replicas, replica-0 is tagged ``prefill`` and the rest
+``decode``; each submit is classified by how much of its prompt any
+replica's radix tree or the shared tier already holds.  A prefill-heavy
+request (long prompt, little cached) prefers the prefill replica, whose
+prefix cache writes its committed blocks through to the shared tier,
+and a decode-heavy one prefers the decode replicas, which adopt those
+blocks on lookup.  The preference is a load-score penalty
+(`PHASE_PENALTY`), not a pin: a saturated preferred replica sheds to
+the other phase.
 """
 
 from __future__ import annotations
@@ -62,7 +74,7 @@ REPLICA_STATES = ("active", "draining", "dead")
 class _Replica:
     """One engine plus its router-side state."""
 
-    __slots__ = ("name", "engine", "state", "served", "pending")
+    __slots__ = ("name", "engine", "state", "served", "pending", "phase")
 
     def __init__(self, name: str, engine: GenerationEngine):
         self.name = name
@@ -71,6 +83,8 @@ class _Replica:
         self.served = 0
         #: submits placed here that the engine has not taken yet
         self.pending = 0
+        #: "prefill" / "decode" under phase-aware routing, else None
+        self.phase: Optional[str] = None
         # each replica loop spools under its own name, so the fleet
         # aggregator can tell replica-0's last snapshot from replica-1's
         engine.spool_name = name
@@ -170,9 +184,14 @@ class ReplicaRouter:
     `stop()`, `retry_after_s()`, plus `stats()` for the per-replica
     /stats rows."""
 
+    #: load-score penalty of a phase-mismatched replica under phase-aware
+    #: routing: more than any occupancy or lane term, about a few queued
+    #: requests, so load still wins over a saturated preferred replica
+    PHASE_PENALTY = 8.0
+
     def __init__(self, engines: List[GenerationEngine], *,
                  registry=None, occupancy_weight: float = 4.0,
-                 max_requeues: int = 1):
+                 max_requeues: int = 1, phase_aware="auto"):
         if not engines:
             raise ValueError("ReplicaRouter needs at least one engine")
         regs = {id(e.registry) for e in engines}
@@ -227,6 +246,29 @@ class ReplicaRouter:
             reg.counter("replica_" + r.name.replace("-", "_")
                         + "_served_total",
                         help=f"requests dispatched to {r.name}")
+        # "auto" reads OrcaContext.router_phase_aware; it arms only with
+        # two or more replicas
+        if phase_aware == "auto":
+            from analytics_zoo_tpu_torch.common.context import OrcaContext
+            phase_aware = OrcaContext.router_phase_aware
+        self.phase_aware = bool(phase_aware) and len(self.replicas) >= 2
+        self._c_phase_prefill = reg.counter(
+            "router_phase_prefill_total",
+            help="submits classified prefill-heavy (phase-aware "
+                 "routing; 0 while router_phase_aware is off)")
+        self._c_phase_decode = reg.counter(
+            "router_phase_decode_total",
+            help="submits classified decode-heavy (phase-aware "
+                 "routing; 0 while router_phase_aware is off)")
+        if self.phase_aware:
+            self.replicas[0].phase = "prefill"
+            for r in self.replicas[1:]:
+                r.phase = "decode"
+            pc = self.replicas[0].engine.prefix_cache
+            if pc is not None and pc.host_tier is not None:
+                # the prefill replica publishes its committed blocks to
+                # the shared tier at once, for the decode replicas
+                pc.host_write_through = True
 
     # -- construction --------------------------------------------------
 
@@ -238,7 +280,9 @@ class ReplicaRouter:
         with its own KV pool and a fresh `MetricsRegistry`).
         ``n_replicas="auto"`` reads `OrcaContext.serving_replicas`;
         `engine_kwargs` go to every `GenerationEngine` (`device` among
-        them: None = the CUDA card)."""
+        them: None = the CUDA card).  Without a `kv_host_tier` among
+        them and with `OrcaContext.kv_host_tier_bytes` above 0, every
+        replica gets one shared `HostKVTier` of that capacity."""
         from analytics_zoo_tpu_torch.common.context import OrcaContext
         if n_replicas == "auto":
             n_replicas = OrcaContext.serving_replicas
@@ -247,6 +291,15 @@ class ReplicaRouter:
             raise ValueError(
                 f"n_replicas must be >= 1, got {n} (set "
                 "OrcaContext.serving_replicas or pass n_replicas)")
+        if "kv_host_tier" not in engine_kwargs \
+                and OrcaContext.kv_host_tier_bytes > 0:
+            # one tier for every replica: a tier each would hold the
+            # bytes N times, and no replica could restore another's
+            # spills
+            from analytics_zoo_tpu_torch.serving.generation.host_tier \
+                import HostKVTier
+            engine_kwargs["kv_host_tier"] = HostKVTier(
+                OrcaContext.kv_host_tier_bytes)
         engines = []
         for _ in range(n):
             eng = GenerationEngine(model, registry=MetricsRegistry(),
@@ -310,17 +363,44 @@ class ReplicaRouter:
         return [r for r in self.replicas
                 if r.state == "active" and self._alive(r)]
 
-    def _ordered(self, candidates: List[_Replica]) -> List[_Replica]:
+    def _classify(self, prompt) -> str:
+        """A request's phase: "decode" when the prompt is short or most
+        of it is cached somewhere (a replica's radix tree or the shared
+        tier), else "prefill".  Read-only probes: nothing pinned, no
+        counter ticked."""
+        tokens = list(prompt)
+        best = 0
+        for r in self.replicas:
+            pc = r.engine.prefix_cache
+            if pc is None:
+                continue
+            best = max(best, pc.peek(tokens))
+            if pc.host_tier is not None:
+                best = max(best, pc.host_tier.match_tokens(tokens))
+        bs = self.replicas[0].engine.cache.block_size
+        if len(tokens) < 2 * bs or 2 * best >= len(tokens):
+            return "decode"
+        return "prefill"
+
+    def _ordered(self, candidates: List[_Replica],
+                 phase: Optional[str] = None) -> List[_Replica]:
         """Ascending load score; equal scores rotate round-robin, so an
-        idle fleet does not pile onto replica-0."""
+        idle fleet does not pile onto replica-0.  Under phase-aware
+        routing a replica of the other phase pays `PHASE_PENALTY`."""
         n = len(self.replicas)
         rr = self._rr
         self._rr += 1
         idx = {id(r): i for i, r in enumerate(self.replicas)}
-        return sorted(
-            candidates,
-            key=lambda r: (r.load_score(self.occupancy_weight),
-                           (idx[id(r)] - rr) % n))
+
+        def score(r: _Replica) -> float:
+            s = r.load_score(self.occupancy_weight)
+            if phase is not None and r.phase is not None \
+                    and r.phase != phase:
+                s += self.PHASE_PENALTY
+            return s
+
+        return sorted(candidates,
+                      key=lambda r: (score(r), (idx[id(r)] - rr) % n))
 
     def _dispatched(self, replica: _Replica, request_id: str) -> None:
         replica.served += 1
@@ -368,8 +448,13 @@ class ReplicaRouter:
                       temperature=temperature, top_k=top_k,
                       eos_id=eos_id, stream_timeout=stream_timeout,
                       tenant=tenant, request_class=request_class)
+        phase = None
+        if self.phase_aware:
+            phase = self._classify(prompt)
+            (self._c_phase_prefill if phase == "prefill"
+             else self._c_phase_decode).inc()
         with self._lock:
-            candidates = self._ordered(self._candidates())
+            candidates = self._ordered(self._candidates(), phase=phase)
             if candidates:
                 # reserved in the same critical section as the choice
                 candidates[0].pending += 1
@@ -527,7 +612,7 @@ class ReplicaRouter:
                 "served": r.served,
                 "tokens_total": int(eng._c_tokens.value),
                 "tensor_parallel": 0,
-                "phase": None,
+                "phase": r.phase,
             })
         return {
             "replicas": rows,

@@ -33,6 +33,8 @@ restores, with their bytes and host seconds) for a caller to read.
 
 from __future__ import annotations
 
+import functools
+import threading
 import time
 from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -65,6 +67,15 @@ def reset_dma() -> None:
     _DMA_RING.clear()
 
 
+def _locked(method):
+    """Run a `HostKVTier` method under the tier's lock."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+    return run
+
+
 class _HostEntry:
     """One spilled block: the token-id prefix it ends, its KV rows
     [L, 2, block_size, heads, head_dim] at the pool's dtype (int8 when
@@ -90,8 +101,10 @@ class _HostEntry:
 
 class HostKVTier:
     """Bounded-bytes host LRU of spilled KV blocks, keyed by full
-    token-id prefixes.  Serialized by the engine's lock when private to
-    one engine.
+    token-id prefixes.  One tier may serve several engines (a router's
+    replicas, `ReplicaRouter.build`), each from its own loop thread: its
+    lock makes each put, fetch, staging and clear whole, so a lost race
+    is a miss (a recompute), never a torn entry.
 
     Counters (plain integers): `n_spilled`, `n_restored`,
     `n_restore_failed`, `n_evictions`, `n_staged`."""
@@ -108,6 +121,7 @@ class HostKVTier:
         #: the pinned sources live at least as long as their copies
         self._inflight: List[tuple] = []
         self._side_stream = None
+        self._lock = threading.RLock()
         self.n_spilled = 0
         self.n_restored = 0
         self.n_restore_failed = 0
@@ -147,6 +161,7 @@ class HostKVTier:
 
     # ------------------------------------------------------------------
 
+    @_locked
     def put(self, key: Sequence[int], kv: torch.Tensor,
             scale: Optional[torch.Tensor], dur_s: float = 0.0) -> bool:
         """Admit one spilled block (host tensors) under the bounded-bytes
@@ -178,14 +193,19 @@ class HostKVTier:
         record_dma("host_spill", dur_s, entry.nbytes)
         return True
 
+    @_locked
     def fetch(self, key: Sequence[int]) -> Optional[_HostEntry]:
         """The entry for `key`, None on a miss.  The restore fault site
-        fires here: an injected fault counts `n_restore_failed`, drops
-        the entry (it is suspect) and reports a miss."""
+        fires here: an injected fault (or a "nan" corruption action)
+        counts `n_restore_failed`, drops the entry (it is suspect) and
+        reports a miss."""
         key = tuple(int(t) for t in key)
         try:
-            fault_point("generation.host_restore", key_blocks=len(key))
+            action = fault_point("generation.host_restore",
+                                 key_blocks=len(key))
         except FaultInjected:
+            action = "nan"
+        if action == "nan":
             self.n_restore_failed += 1
             entry = self._entries.pop(key, None)
             if entry is not None:
@@ -219,6 +239,7 @@ class HostKVTier:
     def _retire_copies(self) -> None:
         self._inflight = [c for c in self._inflight if not c[0].query()]
 
+    @_locked
     def stage_prefix(self, tokens: Sequence[int], n_matched: int,
                      depth: int = 2, device=None) -> int:
         """Start the copies to `device` of up to `depth` entries
@@ -268,6 +289,7 @@ class HostKVTier:
             j += 1
         return staged
 
+    @_locked
     def clear(self) -> int:
         """Drop every entry (only future restores are lost).  Returns
         how many were dropped."""

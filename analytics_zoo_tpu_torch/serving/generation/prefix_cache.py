@@ -87,6 +87,10 @@ class PrefixCache:
         #: ``restore_writer(block, entry) -> bool`` lands a host entry's
         #: rows in pool block `block` (False = recompute instead)
         self.restore_writer = None
+        #: the router's prefill replica: `commit` also copies each newly
+        #: inserted block to the host tier, so replicas sharing the tier
+        #: adopt it without waiting for an eviction
+        self.host_write_through = False
         self._root = _Node((), -1, None)
         self._n_blocks = 0
         #: monotonic use counter: LRU recency without wall time
@@ -162,6 +166,8 @@ class PrefixCache:
                 node.children[chunk] = child
                 self.allocator.share([child.block])
                 self._n_blocks += 1
+                if self.host_write_through and self.host_tier is not None:
+                    self._spill_block(child)
             elif child.block != table[j]:
                 # a duplicate prefill of a cached chunk: adopt the
                 # cached block (the KV of the same token prefix)

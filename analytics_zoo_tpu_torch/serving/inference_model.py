@@ -99,15 +99,11 @@ class InferenceModel:
         overrides the saved class name, which is otherwise resolved in
         the port's model namespaces.  `config.pkl` is unpickled: load
         only what this program saved.  `quantize=True` serves int8
-        weights (the model is quantized as it is loaded).  Encrypted
-        weights (`decrypt_key`) are not ported yet and raise."""
-        if decrypt_key is not None:
-            raise NotImplementedError(
-                "weights encrypted at rest need serving/encrypt.py, which "
-                "is not ported yet (ROADMAP Queue 1 item 7b)")
+        weights (the model is quantized as it is loaded); `decrypt_key`
+        unlocks weights saved encrypted at rest."""
         from analytics_zoo_tpu_torch.models.common.zoo_model import (
             _CONFIG,
-            _WEIGHTS,
+            read_state,
         )
         from analytics_zoo_tpu_torch.device import resolve_device
         with open(os.path.join(path, _CONFIG), "rb") as f:
@@ -115,9 +111,7 @@ class InferenceModel:
         if model_cls is None:
             model_cls = find_zoo_model_class(meta["class"])
         module = model_cls(**meta["config"], device=resolve_device(device))
-        state = torch.load(os.path.join(path, _WEIGHTS),
-                           map_location=module.device_, weights_only=True)
-        module.load_state_dict(state)
+        module.load_state_dict(read_state(path, decrypt_key, module.device_))
         if quantize:
             from analytics_zoo_tpu_torch.serving.quantize import (
                 quantize_module,

@@ -44,7 +44,10 @@ timeline export, the metrics history with its alerts, the telemetry
 spool and the fleet view, the server's tracing routes) over /generate
 in phase 24 and serving scale-out (native CRC32C, the worker pool, the
 replica router, durable streams with consumers, the control plane, the
-gRPC front end) in phase 25;
+gRPC front end) in phase 25 and resilience and long context (encrypted
+models, the elastic training driver, ring attention over two ranks at
+t = 16384, the router's shared host tier and phase-aware routing) in
+phase 26;
 each path's
 outputs (or first gradients,
 or training steps) are checked against a recompute through the plain
@@ -447,6 +450,43 @@ Phases (each one failing exits non-zero, with no result line):
      shed with 429 and Retry-After, the gold one's attainment recorded;
      (f) where `grpc` imports, protocol "both" answering over gRPC what
      it answers over HTTP (else printed as not run); a `scale_out` line;
+  26. resilience and long context: (a) phase 7's BERT-base saved
+     encrypted (`write_model(encrypt_key=)`; the format, AZTE3 or
+     AZTE2, printed), loaded through `InferenceModel.load_model(
+     decrypt_key=)` with outputs bitwise those of the model saved in the
+     clear and K1 25 / K2 12 / K3 12 a forward, a wrong key raising
+     JAX's error, and `start_serving` with `decryptKeyEnv` and 2 worker
+     processes on the card serving it over /predict within 0.05 of the
+     in-process model; (b) `ElasticTrainingDriver` over a process
+     member (this script, `--elastic-member`) fine-tuning BERT-base at
+     32 x 128 for 3 epochs of 8 steps under deterministic algorithms,
+     a committed checkpoint an epoch: an uninterrupted run, then one
+     whose member is SIGKILLed after step 11, crashes in the middle of
+     the epoch-2 checkpoint's write (the torn save skipped), stalls at
+     step 18 (found past its 10 s heartbeat deadline) and ends: weights
+     and every epoch's per-step losses bitwise the uninterrupted run's,
+     the attempt ledger as stated, "nan" at step 5 skipped with the
+     weights unchanged, the member's K1 25, K1b 25, K2 12, K3 12, K4a 12
+     and K4b 12 a step, and a spent restart budget raising
+     `ElasticRestartExceeded`; (c) two ranks sharing the card (this
+     script, `--ring-rank`, gloo with a host-staged exchange) under
+     `init_orca_context(cluster_mode="distributed", mesh_shape={"sp":
+     2})` at b 1, h 8, d 64, bf16, t 16384: `ring_self_attention`
+     forward and backward non-causal, causal, with a kv_mask padding the
+     last 1000 keys, and with dropout 0.1 and a learnable [1, 1, t, t]
+     bias, each within 0.03 of the largest magnitude of the unsharded
+     kernels' result on the same card, K3 (and K4a, K4b, K5 with the
+     bias) once a live ring step, dropout moving the output; one SGD
+     step of a MultiHeadAttention with attn_impl "ring" against "flash"
+     (losses within 1e-3); then the unsharded K3, K4a, K4b and K5 at
+     t = 16384 with the kv_mask and the bias against their plain
+     versions one head at a time under phase 5's and 5c's gates, and
+     timed beside their bounds and SDPA's; (d) two GPT-2 small replicas
+     from `ReplicaRouter.build` with `kv_host_tier_bytes` 1 GiB and
+     phase-aware routing: one host tier object, replica 1 restoring the
+     6 blocks of a prompt replica 0 spilled with its stream one
+     engine's, K6 12 a decode step, all `split`, and 16 routed greedy
+     streams equal to one engine's; a `resilience` line;
   10. device times of phases 2-5c (profiler), one decode step, one BERT
      forward, one fine-tune step (t = 512, batch 32), one
      learnable-bias step and one batch-32 step of each of phase 12's
@@ -1169,10 +1209,14 @@ def phase_layer_norm_bwd(torch, gen):
 # ----------------------------------------------------------------------
 
 def bwd_magnitudes(torch, q, k, v, dout, lse, delta, kv_mask=None, bias=None,
-                   seed3=None, causal=False, dropout=0.0):
+                   seed3=None, causal=False, dropout=0.0, bh0=0,
+                   out_mag=False):
     """Sums of |terms| of each backward product in f32 (dq: |ds||k| scale,
     dk: |ds||q| scale, dv: |p~||dO|, dbias: |ds| over the replicas), for
-    the bf16 gates."""
+    the bf16 gates.  `bh0` is the first row's b*h index in the call the
+    inputs were sliced from (one head of a larger call: the dropout hash
+    reads it); with `out_mag`, returns (the forward's |p~||v|, the
+    list)."""
     from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
         drop_keep_mask,
     )
@@ -1197,9 +1241,10 @@ def bwd_magnitudes(torch, q, k, v, dout, lse, delta, kv_mask=None, bias=None,
     pv = p
     if dropout > 0.0:
         ar = torch.arange(t, device="cuda")
-        kd = drop_keep_mask(seed3[0].long(), torch.arange(
-            b * h, device="cuda")[:, None, None], seed3[1].long() + ar[:, None],
-            seed3[2].long() + ar[None], dropout)
+        bhs = bh0 + torch.arange(b * h, device="cuda")
+        kd = drop_keep_mask(seed3[0].long(), bhs[:, None, None],
+                            seed3[1].long() + ar[:, None],
+                            seed3[2].long() + ar[None], dropout)
         pv = torch.where(kd, p / (1 - dropout), 0.0)
         dp = torch.where(kd, dp / (1 - dropout), 0.0)
         dp_abs = torch.where(kd, dp_abs / (1 - dropout), 0.0)
@@ -1219,6 +1264,8 @@ def bwd_magnitudes(torch, q, k, v, dout, lse, delta, kv_mask=None, bias=None,
         full = ds.reshape(b, h, t, t)
         dims = [i for i in (0, 1) if bias.shape[i] == 1]
         mags.append(full.sum(dim=dims, keepdim=True) if dims else full)
+    if out_mag:
+        return back(torch.einsum("bts,bsd->btd", pv.abs(), vf.abs())), mags
     return mags
 
 
@@ -9616,24 +9663,15 @@ def sc_history_crc(card: str, registries) -> dict:
     return out
 
 
-def save_bert(torch, model, path: str) -> str:
-    """`ZooModel.save_model`'s format for phase 7's BERTClassifier: its
-    weights and constructor fields, resolved by class name at load."""
-    import pickle
-
+def save_bert(torch, model, path: str, encrypt_key=None) -> str:
+    """`ZooModel.save_model`'s format (`write_model`) for phase 7's
+    BERTClassifier: its weights, encrypted at rest with `encrypt_key`,
+    and constructor fields, resolved by class name at load."""
     from analytics_zoo_tpu_torch.models.bert import BERT_BASE
-    from analytics_zoo_tpu_torch.models.common.zoo_model import (
-        _CONFIG,
-        _WEIGHTS,
-    )
-    os.makedirs(path, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               os.path.join(path, _WEIGHTS))
-    with open(os.path.join(path, _CONFIG), "wb") as f:
-        pickle.dump({"class": "BERTClassifier",
-                     "config": dict(BERT_BASE, num_classes=2,
-                                    attn_impl="flash")}, f)
-    return path
+    from analytics_zoo_tpu_torch.models.common.zoo_model import write_model
+    return write_model(path, model.state_dict(), "BERTClassifier",
+                       dict(BERT_BASE, num_classes=2, attn_impl="flash"),
+                       encrypt_key)
 
 
 def compute_apps() -> dict:
@@ -10569,16 +10607,1054 @@ def phase_scale_out(torch, seed: int, card: str, gpt2_model,
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 26: resilience and long context (encrypted models, the elastic
+# training driver, ring attention over two ranks sharing the card, the
+# router's shared host tier and phase-aware routing)
+# ----------------------------------------------------------------------
+
+#: (a): the key, the environment variable `decryptKeyEnv` names, the
+#: served traffic's gate (phase 7's bf16 bound, as phase 25 (b))
+EN_KEY, EN_ENV = "phase 26 key", "ZOO_PHASE26_MODEL_KEY"
+#: (b): the member's fine-tune (BERT-base at 32 x 128 with a one-logit
+#: head under binary cross-entropy: float labels, which the "nan"
+#: action poisons; it poisons float leaves only, as JAX's, and BERT's
+#: inputs are ids): epochs of steps, the step "nan" poisons, the step
+#: attempt 1 is
+#: SIGKILLed after, the `train.step` hit attempt 3 stalls at (counted
+#: from its resume at step 9: step 18), the heartbeat deadline
+EL_BATCH, EL_T, EL_EPOCHS, EL_STEPS = 32, 128, 3, 8
+EL_NAN_STEP, EL_KILL_STEP, EL_STALL_HIT = 5, 11, 10
+EL_HEARTBEAT_S = 10.0
+#: (c): bench.py:432's long-context shape (b 1, h 8, d 64, bf16, t
+#: 16384), the keys the mask pads, the dropout rate and seed; a ring
+#: result against the unsharded kernels', element by element, within
+#: RG_GATE (|unsharded| + m + e) + e + 2e-6, m the sum of |terms| of the
+#: element's product (`bwd_magnitudes`) and e what the two calls'
+#: deltas, rowsum(dO O), can move it by (`rg_shares`): the unsharded
+#: call and each ring block are within 2^-7 (|x| + m) of the exact
+#: value (the kernels' bf16 gate, held at this shape by `rg_kernels`),
+#: the blocks' |x| and m sum to at most m, and the ring's last bf16
+#: rounding adds 2^-9 |x|, so the two differ by at most 3 x 2^-7 (|x| +
+#: m) besides e; and, over each whole result, within RG_TOL of its
+#: largest unsharded magnitude (each ring block rounds its partial to
+#: bf16 once and the merge casts once: at most three bf16 roundings, 3 x
+#: 2^-8, of a partial no larger than about the whole), which a fault
+#: that moves every element of dq a little fails where no one element
+#: does; the Keras step's losses within RG_LOSS_TOL of each other,
+#: relative
+RG_B, RG_T, RG_H, RG_D = 1, 16384, 8, 64
+RG_PAD, RG_DROPOUT, RG_SEED = 1000, 0.1, 26
+RG_GATE, RG_TOL, RG_LOSS_TOL = 3 * 2.0 ** -7, 0.03, 1e-3
+RG_CASES = {"non-causal": {}, "causal": dict(causal=True),
+            "kv_mask": dict(kv_mask=True),
+            "dropout-bias": dict(dropout=True, bias=True)}
+#: (d): the shared tier's bytes, the long prompt's tokens (6 blocks of
+#: 16), requests and new tokens through the phase-aware router
+RO_TIER_BYTES, RO_PROMPT, RO_REQUESTS, RO_NEW = 1 << 30, 96, 16, 16
+#: BERT-base's blocks: the member's launches a step are counted in them
+BERT_BASE_BLOCKS = 12
+
+
+def rs_encrypted(torch, seed: int, card: str, bert_model,
+                 directory: str) -> dict:
+    """(a): phase 7's BERT-base saved encrypted, loaded and served."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.serving import (
+        InferenceModel,
+        ServingConfig,
+        start_serving,
+        stop_serving,
+    )
+    from analytics_zoo_tpu_torch.serving.encrypt import format_of
+
+    plain = save_bert(torch, bert_model, os.path.join(directory, "plain"))
+    t0 = time.perf_counter()
+    locked = save_bert(torch, bert_model, os.path.join(directory, "locked"),
+                       encrypt_key=EN_KEY)
+    save_s = time.perf_counter() - t0
+    with open(os.path.join(locked, "weights.pt.enc"), "rb") as f:
+        fmt = format_of(f.read())
+    vocab = bert_model.bert.token_embed.num_embeddings
+    rng = np.random.default_rng(seed + 261)
+    (ids, seg, mask), _ = bert_request(rng, WP_ROWS, WP_T, vocab)
+    t0 = time.perf_counter()
+    im = InferenceModel().load_model(locked, decrypt_key=EN_KEY)
+    load_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    got = im.predict(ids, seg, mask)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = InferenceModel().load_model(plain).predict(ids, seg, mask)
+    check(np.array_equal(got, want),
+          "phase 26 (a): the decrypted model's outputs differ from the "
+          "model saved in the clear")
+    n_block = bert_model.bert.n_block
+    check(counts == dict({k: 0 for k in counts},
+                         layer_norm_fwd=2 * n_block + 1,
+                         fused_dense_gelu=n_block, flash_fwd=n_block),
+          f"phase 26 (a): launches {counts} for one forward")
+    try:
+        InferenceModel().load_model(locked, decrypt_key="wrong")
+        wrong = None
+    except ValueError as e:
+        wrong = str(e)
+    check(wrong == "decryption failed: wrong key or corrupted file "
+          "(integrity tag mismatch)",
+          f"phase 26 (a): a wrong key gave {wrong!r}, not JAX's error")
+    # two worker processes on the card, the key from the environment
+    os.environ[EN_ENV] = EN_KEY
+    t0 = time.perf_counter()
+    servers = start_serving(ServingConfig(
+        modelPath=locked, port=0, replicas=2, maxBatchSize=32,
+        batchTimeoutMs=2.0, decryptKeyEnv=EN_ENV))
+    try:
+        spawn_s = time.perf_counter() - t0
+        pool = servers["pool"]
+        wp_traffic(torch, servers["http"], np.random.default_rng(seed),
+                   vocab)
+        pool.reset_launch_counts()
+        run = wp_traffic(torch, servers["http"], rng, vocab)
+        reports = pool.launch_counts()
+    finally:
+        stop_serving(servers)
+        del os.environ[EN_ENV]
+    im_plain = InferenceModel(supported_concurrent_num=4).load_module(
+        bert_model)
+    err = wp_gate(torch, im_plain, run.pop("done"), "phase 26 (a)")
+    served = []
+    for r in reports:
+        c = r["counts"]
+        fwd = c["fused_dense_gelu"] // n_block
+        check(fwd > 0 and c == dict({k: 0 for k in c},
+                                    layer_norm_fwd=(2 * n_block + 1) * fwd,
+                                    fused_dense_gelu=n_block * fwd,
+                                    flash_fwd=n_block * fwd),
+              f"phase 26 (a): a worker's launches {c} for {fwd} forwards")
+        served.append(fwd)
+    out = dict(format=fmt, save_s=save_s, load_s=load_s, spawn_s=spawn_s,
+               launches=counts, worker_forwards=served, served_err=err,
+               sequences_per_s=run["sequences_per_s"])
+    print(f"phase 26 (a) [{card}] BERT-base saved encrypted as {fmt} in "
+          f"{save_s:.2f} s, loaded with its key in {load_s:.2f} s: "
+          f"outputs bitwise the model saved in the clear; a wrong key "
+          f"raises JAX's error; start_serving(decryptKeyEnv, replicas=2) "
+          f"up in {spawn_s:.2f} s, {run['sequences_per_s']:.1f} sequences/s "
+          f"over /predict, logits within {err:.3g} of the in-process model, "
+          f"worker forwards {served}", flush=True)
+    return out
+
+
+def el_plan(scenario: str, attempt: int):
+    """The fault plan of one elastic member: the reference's "nan" at
+    step 5; the faulted run's attempts 1 ("nan" at step 5, then a
+    SIGKILL after step 11 from the member's trigger), 2 (a crash in the
+    middle of the epoch-2 checkpoint's write), 3 (a stall at step 18)
+    and 4 (none)."""
+    nan = {"site": "train.step", "at": EL_NAN_STEP, "action": "nan"}
+    if scenario == "reference" or attempt == 1:
+        return {"faults": [nan]}
+    if attempt == 2:
+        return {"faults": [{"site": "checkpoint.mid_write", "at": 1,
+                            "action": "crash"}]}
+    if attempt == 3:
+        return {"faults": [{"site": "train.step", "at": EL_STALL_HIT,
+                            "action": "stall", "delay_s": 3600.0}]}
+    return None
+
+
+def el_heartbeat(hb_dir: str):
+    """Start an elastic member's heartbeat before anything slow (the
+    import of torch included): the file `touch_heartbeat` writes, touched
+    at once and each second until the first step ends and while a
+    checkpoint is written.  Returns the (first step ended, writing a
+    checkpoint) events the member sets and the time it started."""
+    import threading
+
+    started, saving = threading.Event(), threading.Event()
+    path = os.path.join(hb_dir, "heartbeat-0")
+
+    def touch():
+        os.makedirs(hb_dir, exist_ok=True)
+        with open(path, "a"):
+            os.utime(path, None)
+
+    def beat_outside_steps():
+        # the trigger beats after each step, so a stall inside a step
+        # stops every beat
+        while True:
+            time.sleep(1.0)
+            if saving.is_set() or not started.is_set():
+                touch()
+
+    touch()
+    threading.Thread(target=beat_outside_steps, daemon=True).start()
+    return started, saving, time.time()
+
+
+def el_member(torch, argv, seed: int, beats) -> int:
+    """One process member of (b) (`--elastic-member`): BERT-base with a
+    one-logit head fine-tuned through `Estimator.fit` on the card, resumed
+    from the newest commit, under `el_plan`; it writes the per-step
+    losses of each epoch it ends, the nan step's check, its launches a
+    step and, at the end, its weights."""
+    import signal
+
+    ckpt_dir, out_dir, attempt, resume, hb_dir, scenario, init = argv
+    attempt = int(attempt)
+    from analytics_zoo_tpu_torch.resilience import touch_heartbeat
+    started, saving, t_start = beats
+    stages = {"torch_imported": time.time()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.orca.learn import (
+        Estimator,
+        EveryEpoch,
+        optimizers,
+    )
+    from analytics_zoo_tpu_torch.orca.learn.checkpoint import (
+        async_save_enabled,
+    )
+
+    cfg = dict(BERT_BASE, num_classes=1)
+    model = fit_surface_model(torch, cfg, torch.load(
+        init, map_location="cuda", weights_only=True))
+    stages["model_built"] = time.time()
+    est = Estimator.from_torch(model, loss="binary_crossentropy",
+                               optimizer=optimizers.Adam(2e-5), seed=seed,
+                               model_dir=ckpt_dir)
+    rng = np.random.default_rng(seed + 262)
+    inputs, y, _ = train_batch(rng, EL_BATCH * EL_STEPS, EL_T, cfg["vocab"])
+    y = y.astype(np.float32)
+    out = dict(attempt=attempt, scenario=scenario, losses={},
+               resumed=est.resume_latest() if resume else None,
+               start_epoch=est.epoch,
+               async_saves=async_save_enabled(torch.device("cuda")))
+    stages["resumed"] = time.time()
+    OrcaContext.fault_plan = el_plan(scenario, attempt)
+    OrcaContext.nonfinite_watchdog = True
+    capture = {}
+    save = est.save_checkpoint
+
+    def save_beating(*args, **kwargs):
+        saving.set()
+        t = time.perf_counter()
+        try:
+            return save(*args, **kwargs)
+        finally:
+            out.setdefault("save_s", []).append(time.perf_counter() - t)
+            saving.clear()
+
+    est.save_checkpoint = save_beating
+
+    class Hook(EveryEpoch):
+        """Beats, records, checks; fires at each epoch's end."""
+
+        def __call__(self, *, epoch, step, epoch_end):
+            if not started.is_set():
+                started.set()
+                stages["first_step"] = out["first_step_at"] = time.time()
+                since = {k: round(t - t_start, 2) for k, t in stages.items()}
+                print(f"phase 26 (b) {scenario} attempt {attempt}: seconds "
+                      f"since the interpreter's start {since}", flush=True)
+            touch_heartbeat(hb_dir, 0)
+            if epoch_end:
+                out["losses"][str(epoch)] = [
+                    s["loss"] for s in est.engine.last_steps]
+            elif step == EL_NAN_STEP - 1:
+                capture["before"] = params_of(model)
+            elif step == EL_NAN_STEP and "before" in capture:
+                out["nan_step_unchanged"] = all(
+                    torch.equal(p, capture["before"][n])
+                    for n, p in model.named_parameters())
+                capture.clear()
+            if scenario == "faulted" and attempt == 1 \
+                    and step == EL_KILL_STEP and not epoch_end:
+                # preempted: no goodbye, no flush
+                os.kill(os.getpid(), signal.SIGKILL)
+            return epoch_end
+
+    name = os.path.join(out_dir, f"{scenario}-{attempt}")
+    try:
+        first = est.engine.host_step if est.engine is not None else 0
+        kernels.reset_launch_counts()
+        with deterministic(torch):
+            est.fit({"x": list(inputs), "y": y},
+                    epochs=EL_EPOCHS - est.epoch, batch_size=EL_BATCH,
+                    checkpoint_trigger=Hook(), max_failures=0)
+        torch.cuda.synchronize()
+        steps = est.engine.host_step - first
+        out["steps"] = steps
+        out["launches_per_step"] = {k: c / steps for k, c in
+                                    kernels.launch_counts().items()}
+        torch.save({n: p.detach().cpu() for n, p in
+                    model.named_parameters()}, name + ".pt")
+    finally:
+        with open(name + ".json", "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+def el_run(torch, scenario: str, directory: str, attempts: int,
+           seed: int, init: str):
+    """One `ElasticTrainingDriver` over a process member of `scenario`:
+    (the driver, the seconds since the last heartbeat at each fence,
+    each attempt's spawn time)."""
+    from analytics_zoo_tpu_torch.resilience import (
+        ElasticTrainingDriver,
+        RetryPolicy,
+    )
+
+    ckpt, hb = (os.path.join(directory, scenario, d) for d in ("ckpt", "hb"))
+    os.makedirs(ckpt)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    if scenario == "faulted":
+        # synchronous saves: the crash at `checkpoint.mid_write` must end
+        # the member inside its write, as a host lost mid-save does; in
+        # the background writer it would surface only at the next drain.
+        # The reference keeps the card's default, asynchronous saves
+        env["ZOO_ASYNC_CHECKPOINT"] = "0"
+    else:
+        env.pop("ZOO_ASYNC_CHECKPOINT", None)
+    spawned = []
+
+    def spawn(wid, resume, attempt):
+        spawned.append(time.time())
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--elastic-member",
+             ckpt, directory, str(attempt), resume or "", hb, scenario,
+             init, "--seed", str(seed)], env=env)
+
+    class Timed(ElasticTrainingDriver):
+        fenced = []
+
+        def _teardown(self, members):
+            # the seconds since the member's last heartbeat when the
+            # driver fences the gang
+            beat = os.path.join(hb, "heartbeat-0")
+            self.fenced.append(time.time() - os.path.getmtime(beat)
+                               if os.path.exists(beat) else None)
+            print(f"phase 26 (b) {scenario}: attempt {len(self.history) + 1} "
+                  f"fenced {self.fenced[-1]} s after the member's last "
+                  f"heartbeat", flush=True)
+            super()._teardown(members)
+
+    drv = Timed(1, spawn=spawn, checkpoint_dir=ckpt, heartbeat_dir=hb,
+                heartbeat_timeout_s=EL_HEARTBEAT_S,
+                restart=RetryPolicy(max_attempts=attempts, backoff_s=0.0,
+                                    name=f"phase26_{scenario}"))
+    drv.run()
+    return drv, Timed.fenced, spawned
+
+
+def rs_elastic(torch, seed: int, card: str, directory: str) -> dict:
+    """(b): the elastic driver over process members on the card."""
+    from analytics_zoo_tpu_torch.resilience import (
+        ElasticRestartExceeded,
+        ElasticTrainingDriver,
+        RetryPolicy,
+    )
+
+    from analytics_zoo_tpu_torch.convert import (
+        bert_from_flax,
+        init_bert_params,
+    )
+    from analytics_zoo_tpu_torch.models.bert import BERT_BASE
+
+    # the members' initial weights, drawn once
+    cfg = dict(BERT_BASE, num_classes=1)
+    init = os.path.join(directory, "init.pt")
+    torch.save(bert_from_flax(init_bert_params(cfg, seed=seed), cfg), init)
+    # the uninterrupted run beside the faulted one: two members on the
+    # card at once, each deterministic
+    import threading
+    done = {}
+
+    def reference():
+        t = time.perf_counter()
+        done["ref"] = el_run(torch, "reference", directory, 1, seed,
+                             init)[0]
+        done["ref_s"] = time.perf_counter() - t
+
+    ref_thread = threading.Thread(target=reference)
+    ref_thread.start()
+    t0 = time.perf_counter()
+    try:
+        drv, fenced, spawned = el_run(torch, "faulted", directory, 4,
+                                      seed, init)
+    finally:
+        ref_thread.join()
+    faulted_s = time.perf_counter() - t0
+    check("ref" in done, "phase 26 (b): the uninterrupted run failed")
+    ref, ref_s = done["ref"], done["ref_s"]
+    hist = drv.history
+    check(ref.restarts == 0 and drv.restarts == 3
+          and [h["ok"] for h in hist] == [False, False, False, True]
+          and [h.get("dead") for h in hist[:3]] == [[0], [0], []]
+          and hist[2].get("stalled") == [0]
+          and "rc=-9" in hist[0]["errors"][0]
+          and hist[0]["resume"] is None
+          and [os.path.basename(h["resume"]) for h in hist[1:]]
+          == [f"ckpt-{EL_STEPS}"] * 2 + [f"ckpt-{2 * EL_STEPS}"],
+          f"phase 26 (b): the attempt ledger {hist}")
+
+    def report(scenario, attempt):
+        with open(os.path.join(directory, f"{scenario}-{attempt}.json")) \
+                as f:
+            return json.load(f)
+
+    want = report("reference", 1)
+    # attempt 1's and 3's members were SIGKILLed: no report
+    reports = [report("faulted", a) for a in (2, 4)]
+    check(want["async_saves"] and not any(r["async_saves"] for r in reports),
+          "phase 26 (b): the reference must save in the background and "
+          "the faulted run synchronously")
+    losses = {}
+    for r in reports:
+        losses.update(r["losses"])
+    check(want["nan_step_unchanged"] and len(want["losses"]) == EL_EPOCHS
+          and all(losses[e] == want["losses"][e] for e in losses)
+          and set(losses) == {"2", "3"},
+          f"phase 26 (b): per-step losses {losses} against the "
+          f"uninterrupted run's {want['losses']}; the nan step left the "
+          f"weights: {want.get('nan_step_unchanged')}")
+    a = torch.load(os.path.join(directory, "reference-1.pt"),
+                   weights_only=True)
+    b = torch.load(os.path.join(directory, "faulted-4.pt"),
+                   weights_only=True)
+    check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+          "phase 26 (b): the resumed run's weights differ from the "
+          "uninterrupted run's")
+    launches = reports[-1]["launches_per_step"]
+    n_block = BERT_BASE_BLOCKS
+    check(launches == dict({k: 0 for k in launches},
+                           layer_norm_fwd=2 * n_block + 1,
+                           layer_norm_bwd=2 * n_block + 1,
+                           fused_dense_gelu=n_block, flash_fwd=n_block,
+                           flash_bwd_dq=n_block, flash_bwd_dkv=n_block),
+          f"phase 26 (b): the member's launches a step {launches}")
+    # the budget: a member that always fails
+    budget = ElasticTrainingDriver(
+        1, spawn=lambda w, r, a: subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.exit(3)"]),
+        restart=RetryPolicy(max_attempts=2, backoff_s=0.0))
+    try:
+        budget.run()
+        raised = None
+    except ElasticRestartExceeded as e:
+        raised = str(e)
+    check(raised is not None and budget.restarts == 1,
+          f"phase 26 (b): a spent budget gave {raised!r}")
+    out = dict(reference_s=ref_s, faulted_s=faulted_s,
+               stall_detected_after_beat_s=fenced[2],
+               fence_after_beat_s=fenced,
+               restart_first_step_s=reports[-1]["first_step_at"]
+               - spawned[-1],
+               save_s=dict(reference=want.get("save_s"),
+                           faulted=reports[-1].get("save_s")),
+               attempts=len(hist), launches_per_step=launches)
+    out["launches"] = {k: int(c * reports[-1]["steps"])
+                       for k, c in launches.items()}
+    print(f"phase 26 (b) [{card}] ElasticTrainingDriver over a process "
+          f"member fine-tuning BERT-base at {EL_BATCH} x {EL_T} "
+          f"({EL_EPOCHS} epochs of {EL_STEPS}): SIGKILL after step "
+          f"{EL_KILL_STEP}, a crash in the epoch-2 checkpoint's write "
+          f"(its torn save skipped: attempt 3 resumed from ckpt-"
+          f"{EL_STEPS}), a stall found "
+          f"{fenced[2]:.2f} s after the last heartbeat (deadline "
+          f"{EL_HEARTBEAT_S} s); 4 attempts in {faulted_s:.1f} s "
+          f"(synchronous saves) against {ref_s:.1f} s uninterrupted "
+          f"(asynchronous saves, the default); weights and per-step losses "
+          f"bitwise; the nan step {EL_NAN_STEP} skipped with the weights "
+          f"unchanged; a restarted member's first step "
+          f"{out['restart_first_step_s']:.2f} s after its spawn; a save's "
+          f"call took {out['save_s']} s; launches a "
+          f"step {launches}; a spent budget raised ElasticRestartExceeded",
+          flush=True)
+    return out
+
+
+def rg_inputs(torch, seed: int):
+    """(c)'s global inputs, the same on every rank: q, k, v and the
+    cotangent [b, t, h, d] bf16, the kv_mask padding the last RG_PAD
+    keys, a [1, 1, t, t] bf16 bias."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (RG_B, RG_T, RG_H, RG_D)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda",
+                                 dtype=torch.bfloat16) for _ in range(4))
+    mask = torch.ones(RG_B, RG_T, dtype=torch.int32, device="cuda")
+    mask[:, RG_T - RG_PAD:] = 0
+    bias = torch.randn(1, 1, RG_T, RG_T, generator=gen, device="cuda",
+                       dtype=torch.bfloat16).mul_(0.5)
+    return q, k, v, dout, mask, bias
+
+
+def rg_run(torch, fn, q, k, v, dout, bias=None):
+    """fn(q, k, v, bias) forward and backward from fresh leaves: (out,
+    grads, forward ms, backward ms, forward launches, backward
+    launches)."""
+    from analytics_zoo_tpu_torch.ops import kernels
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    b = None if bias is None else bias.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*leaves, b)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    out.backward(dout)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = [x.grad for x in leaves] + ([] if b is None else [b.grad])
+    return (out.detach(), grads, 1e3 * (t1 - t0), 1e3 * (t2 - t1), fwd,
+            kernels.launch_counts())
+
+
+def rg_keras_step(torch, seed: int) -> dict:
+    """One SGD step of a MultiHeadAttention at (c)'s shape (hidden 512,
+    8 heads, dropout 0.1, bf16) with attn_impl "ring" and "flash" from
+    the same weights and generator: their losses before and after."""
+    from analytics_zoo_tpu_torch.keras.layers.self_attention import (
+        MultiHeadAttention,
+    )
+    hid = RG_H * RG_D
+    torch.manual_seed(seed)
+    layers = {impl: MultiHeadAttention(hid, RG_H, attn_dropout=RG_DROPOUT,
+                                       attn_impl=impl, device="cuda")
+              for impl in ("ring", "flash")}
+    layers["flash"].load_state_dict(layers["ring"].state_dict())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn(RG_B, RG_T, hid, generator=gen, device="cuda")
+    losses = {}
+    for impl, layer in layers.items():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + 1)
+        opt = torch.optim.SGD(layer.parameters(), lr=0.1)
+        layer.train()
+        loss = layer(x, generator=g).float().pow(2).mean()
+        loss.backward()
+        opt.step()
+        layer.eval()
+        with torch.no_grad():
+            after = layer(x).float().pow(2).mean()
+        losses[impl] = (float(loss), float(after))
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses["ring"], losses["flash"]))
+    check(rel <= RG_LOSS_TOL, f"phase 26 (c): the ring layer's losses "
+          f"{losses['ring']} against flash's {losses['flash']}")
+    return dict(losses=losses, rel_err=rel)
+
+
+def rg_shares(torch, q, k, v, dout, kv_mask, bias, causal, rate, got,
+              want) -> dict:
+    """The largest share of the per-element gate (RG_GATE) each of the
+    ring's results (out, dq, dk, dv[, dbias]) takes against the
+    unsharded call's, one head at a time: a head's magnitudes take a few
+    [t, t] f32 planes."""
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_fwd_reference,
+    )
+    labels = ("out", "dq", "dk", "dv", "dbias")[:len(got)]
+    shares = dict.fromkeys(labels, 0.0)
+    bias32 = None if bias is None else bias.float()
+    seed3 = (torch.tensor([RG_SEED, 0, 0], dtype=torch.int32,
+                          device="cuda") if rate > 0.0 else None)
+
+    def share(g, w, mag, moved):
+        w = w.float()
+        return float(((g.float() - w).abs()
+                      / (RG_GATE * (w.abs() + mag + moved) + moved + 2e-6))
+                     .max())
+
+    db = [0.0, 0.0]
+    for j in range(RG_H):
+        qj, kj, vj, gj, oj, rj = (x[:, :, j:j + 1].contiguous()
+                                  for x in (q, k, v, dout, want[0], got[0]))
+        _, lse = flash_fwd_reference(qj, kj, vj, kv_mask=kv_mask,
+                                     bias=bias32, causal=causal)
+        delta = (gj.float() * oj.float()).sum(-1).reshape(1, RG_T)
+        # the two deltas, rowsum(dO O), differ by at most eps: the ring's
+        # O is its f32 merge, within 2^-8 of its bf16 output, and that
+        # output is within |ring - unsharded| of the unsharded one
+        eps = (gj.float().abs() * ((rj.float() - oj.float()).abs()
+                                   + 2.0 ** -8 * rj.float().abs())) \
+            .sum(-1).reshape(1, RG_T) * (1 + 2.0 ** -16)
+        o_mag, mags = bwd_magnitudes(
+            torch, qj, kj, vj, gj, lse, delta, kv_mask=kv_mask,
+            bias=bias32, seed3=seed3, causal=causal, dropout=rate, bh0=j,
+            out_mag=True)
+        # what eps moves each result by: the magnitudes with p eps for
+        # |ds| (dO = 0, delta = eps); zero for out and dv
+        moved = bwd_magnitudes(
+            torch, qj, kj, vj, torch.zeros_like(gj), lse, eps,
+            kv_mask=kv_mask, bias=bias32, seed3=seed3, causal=causal,
+            dropout=rate, bh0=j)
+        for i, (mag, mv) in enumerate(zip([o_mag] + mags[:3],
+                                          [0.0] + moved[:3])):
+            shares[labels[i]] = max(shares[labels[i]], share(
+                got[i][:, :, j:j + 1], want[i][:, :, j:j + 1], mag, mv))
+        if bias is not None:
+            db = [db[0] + mags[3], db[1] + moved[3]]
+        del lse, o_mag, mags, moved, eps
+    if bias is not None:
+        shares["dbias"] = share(got[4], want[4], *db)
+    del db
+    free_card(torch)
+    return shares
+
+
+def rg_rank(torch, argv, seed: int) -> int:
+    """One rank of (c) (`--ring-rank`): every case through the ring and
+    through one unsharded flash call on the same card; the errors, walls
+    and launches to a JSON file."""
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.common.context import (
+        OrcaContext,
+        init_orca_context,
+        stop_orca_context,
+    )
+    from analytics_zoo_tpu_torch.ops.attention import flash_attention
+    from analytics_zoo_tpu_torch.parallel import ring_self_attention
+
+    rank, port, out_path = int(argv[0]), int(argv[1]), argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_orca_context(cluster_mode="distributed",
+                            mesh_shape={"sp": 2},
+                            coordinator_address=f"localhost:{port}",
+                            num_processes=2, process_id=rank)
+    res = dict(rank=rank, backend=OrcaContext.mesh.backend, device=str(dev),
+               cases={})
+    try:
+        q, k, v, dout, mask, bias = rg_inputs(torch, seed)
+        plain_out = None
+        for name, kw in RG_CASES.items():
+            causal = kw.get("causal", False)
+            m = mask if kw.get("kv_mask") else None
+            rate = RG_DROPOUT if kw.get("dropout") else 0.0
+            bb = bias if kw.get("bias") else None
+
+            def ring(q, k, v, b):
+                return ring_self_attention(
+                    q, k, v, causal=causal, kv_mask=m, bias=b,
+                    dropout_rate=rate, dropout_rng=RG_SEED, impl="auto")
+
+            def whole(q, k, v, b):
+                return flash_attention(
+                    q, k, v, causal=causal, kv_mask=m, bias=b,
+                    dropout_rate=rate, dropout_seed=RG_SEED)
+
+            dist.barrier()
+            r_out, r_grads, f_ms, b_ms, f_l, b_l = rg_run(
+                torch, ring, q, k, v, dout, bb)
+            u_out, u_grads, u_f_ms, u_b_ms, _, _ = rg_run(
+                torch, whole, q, k, v, dout, bb)
+            errs = {label: float((got.float() - want.float()).abs().max())
+                    for label, got, want in zip(
+                        ("out", "dq", "dk", "dv", "dbias"),
+                        [r_out] + r_grads, [u_out] + u_grads)}
+            shares = rg_shares(torch, q, k, v, dout, m, bb, causal, rate,
+                               [r_out] + r_grads, [u_out] + u_grads)
+            tensor_shares = {
+                label: errs[label] / (RG_TOL * float(want.float().abs().max()))
+                for label, want in zip(errs, [u_out] + u_grads)}
+            check(max(shares.values()) <= 1.0
+                  and max(tensor_shares.values()) <= 1.0,
+                  f"phase 26 (c) rank {rank} {name}: the ring against the "
+                  f"unsharded kernels {errs} ({shares} of the per-element "
+                  f"tolerance, {tensor_shares} of the whole-tensor one)")
+            live = 2 if not causal else rank + 1
+            zero = {k: 0 for k in f_l}
+            check(f_l == dict(zero, flash_fwd=live)
+                  and b_l == dict(zero, flash_bwd_dq=live,
+                                  flash_bwd_dkv=live,
+                                  flash_bwd_dbias=live if bb is not None
+                                  else 0),
+                  f"phase 26 (c) rank {rank} {name}: launches {f_l} "
+                  f"forward, {b_l} backward, {live} live steps")
+            case = dict(errors=errs, shares=shares,
+                        whole_shares=tensor_shares, ring_fwd_ms=f_ms,
+                        ring_bwd_ms=b_ms, whole_fwd_ms=u_f_ms,
+                        whole_bwd_ms=u_b_ms, launches_fwd=f_l,
+                        launches_bwd=b_l)
+            if plain_out is None:
+                plain_out = r_out
+            elif rate > 0.0:
+                # the mask dropped something: far from the no-dropout
+                # output, while within the gates of the unsharded call's
+                case["dropout_moved"] = float(
+                    (r_out.float() - plain_out.float()).abs().max())
+                check(case["dropout_moved"] > 10 * errs["out"],
+                      f"phase 26 (c) rank {rank}: dropout moved the output "
+                      f"by {case['dropout_moved']}")
+            res["cases"][name] = case
+            del r_grads, u_grads, r_out, u_out
+        dist.barrier()
+        res["keras"] = rg_keras_step(torch, seed)
+    finally:
+        stop_orca_context()
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    return 0
+
+
+def rg_kernels(torch, seed: int, card: str) -> dict:
+    """(c)'s unsharded kernels at t = 16384 with the kv_mask and the
+    bias: K3, K4a, K4b and K5 against their plain versions one head at a
+    time (phase 5's and 5c's per-element bf16 gates; a head's plain
+    scores alone take 1.07 GB in f32), then their device times beside
+    their bounds and SDPA's."""
+    import torch.nn.functional as F
+
+    from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
+        flash_bwd_dbias,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_bwd_reference,
+        flash_fwd,
+        flash_fwd_reference,
+    )
+    q, k, v, dout, mask, bias = rg_inputs(torch, seed)
+    kw = dict(kv_mask=mask, bias=bias.float().contiguous())
+    del bias
+    out, lse = flash_fwd(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(RG_B * RG_H, RG_T).contiguous()
+    args = (q, k, v, dout, lse, delta)
+    got = [flash_bwd_dq(*args, **kw), *flash_bwd_dkv(*args, **kw),
+           flash_bwd_dbias(*args, **kw)]
+    shares = dict(out=0.0, dq=0.0, dk=0.0, dv=0.0)
+    lse_err = 0.0
+    db_want = torch.zeros_like(got[3])
+    db_tol = torch.zeros_like(got[3])
+    for j in range(RG_H):
+        qj, kj, vj, gj = (x[:, :, j:j + 1].contiguous()
+                          for x in (q, k, v, dout))
+        rout, rlse = flash_fwd_reference(qj, kj, vj, **kw)
+        mag, _ = flash_fwd_reference(qj.float(), kj.float(),
+                                     vj.float().abs(), **kw)
+        tol = 2.0 ** -7 * (rout.float().abs() + mag) + 1e-6
+        shares["out"] = max(shares["out"], float(
+            ((out[:, :, j:j + 1].float() - rout.float()).abs() / tol).max()))
+        lse_err = max(lse_err, float((lse[j] - rlse[0]).abs().max()))
+        del rout, rlse, mag, tol
+        hl, hd = lse[j:j + 1].contiguous(), delta[j:j + 1].contiguous()
+        want = flash_bwd_reference(qj, kj, vj, gj, hl, hd, **kw,
+                                   bias_grad=True)
+        mags = bwd_magnitudes(torch, qj, kj, vj, gj, hl, hd, **kw)
+        for label, g, w, mg in zip(("dq", "dk", "dv"), got, want, mags):
+            tol = 2.0 ** -7 * (w.float().abs() + mg) + 1e-6
+            shares[label] = max(shares[label], float(
+                ((g[:, :, j:j + 1].float() - w.float()).abs() / tol).max()))
+        db_want += want[3]
+        db_tol += 2.0 ** -7 * (want[3].abs() + mags[3])
+        del want, mags
+        free_card(torch)
+    shares["dbias"] = float(((got[3] - db_want).abs() / (db_tol + 1e-6))
+                            .max())
+    del db_want, db_tol
+    padded = mask[0] == 0
+    check(max(shares.values()) <= 1.0 and lse_err <= 1e-4
+          and bool((got[1][:, padded] == 0).all())
+          and bool((got[2][:, padded] == 0).all()),
+          f"phase 26 (c): K3/K4a/K4b/K5 at t = {RG_T} against their plain "
+          f"versions head by head: shares of the tolerance {shares}, lse "
+          f"err {lse_err}")
+    del got
+    # device times, bounds (the valid keys' work), SDPA's
+    tv = RG_T - RG_PAD
+    unit = 2.0 * RG_B * RG_H * RG_D * RG_T * tv      # one product's FLOPs
+    elt = RG_B * RG_T * RG_H * RG_D * 2              # one bf16 [b,t,h,d]
+    row = RG_B * RG_H * RG_T * 4                     # lse / delta
+    bias_b = RG_T * RG_T * 4
+    ms = dict(
+        flash_fwd=cuda_ms(lambda: flash_fwd(q, k, v, **kw), iters=10),
+        flash_bwd_dq=cuda_ms(lambda: flash_bwd_dq(*args, **kw), iters=10),
+        flash_bwd_dkv=cuda_ms(lambda: flash_bwd_dkv(*args, **kw),
+                              iters=10),
+        flash_bwd_dbias=cuda_ms(lambda: flash_bwd_dbias(*args, **kw),
+                                iters=10))
+    bounds = dict(
+        flash_fwd=bound(4 * elt + row + bias_b, 2 * unit, BF16_FLOPS),
+        flash_bwd_dq=bound(5 * elt + 2 * row + bias_b, 3 * unit,
+                           BF16_FLOPS),
+        flash_bwd_dkv=bound(6 * elt + 2 * row + bias_b, 4 * unit,
+                            BF16_FLOPS),
+        flash_bwd_dbias=bound(4 * elt + 2 * row + 2 * bias_b, 2 * unit,
+                              BF16_FLOPS))
+    add = (kw["bias"] + torch.where(mask[:, None, None, :] != 0, 0.0,
+                                    float("-inf"))).to(torch.bfloat16)
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=add), iters=5)
+
+    def sdpa_step():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add)
+        o.backward(dout.transpose(1, 2))
+
+    sdpa_bwd = cuda_ms(sdpa_step, iters=5) - sdpa_fwd
+    # K5's: the same step with the mask needing its gradient (dq, dk,
+    # dv, dbias together, whichever backend SDPA takes), forward
+    # subtracted, as phase 5c's K5 row
+    add_g = add.detach().requires_grad_(True)
+
+    def sdpa_bias_step():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add_g)
+        o.backward(dout.transpose(1, 2))
+
+    sdpa_dbias = cuda_ms(sdpa_bias_step, iters=5) - sdpa_fwd
+    del add, add_g, qs, ks, vs
+    free_card(torch)
+    library = dict(flash_fwd=sdpa_fwd, flash_bwd_dq=sdpa_bwd,
+                   flash_bwd_dkv=sdpa_bwd, flash_bwd_dbias=sdpa_dbias)
+    times = {n: dict(ms=ms[n], bound_ms=bounds[n][0],
+                     bound_by=bounds[n][1], library_ms=library[n])
+             for n in ms}
+    for n, t in times.items():
+        print(f"{n} t={RG_T} b={RG_B} h={RG_H} d={RG_D} bf16 kv_mask + "
+              f"[1, 1, t, t] bias, device time per call [{card}]: "
+              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), library "
+              + (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
+                 else "none") + " (SDPA, float mask"
+              + (" needing its gradient)" if n == "flash_bwd_dbias"
+                 else ")"), flush=True)
+    return dict(shares=shares, lse_err=lse_err, times=times)
+
+
+def rs_ring(torch, seed: int, card: str, directory: str) -> dict:
+    """(c): two ranks sharing the card, as fresh interpreters."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(directory, f"ring-{r}.json") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--ring-rank", str(r), str(port), outs[r],
+                               "--seed", str(seed)]) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    check(rcs == [0, 0], f"phase 26 (c): the ring ranks exited {rcs}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    check(all(r["backend"] == "gloo" for r in ranks),
+          f"phase 26 (c): backends {[r['backend'] for r in ranks]}")
+    kernels_ = rg_kernels(torch, seed, card)
+    out = dict(wall_s=wall, backend=ranks[0]["backend"], ranks=ranks,
+               kernels=kernels_)
+    out["launches"] = {f"rank{r['rank']}": {
+        k: sum(c["launches_fwd"][k] + c["launches_bwd"][k]
+               for c in r["cases"].values())
+        for k in r["cases"]["causal"]["launches_fwd"]} for r in ranks}
+    for r in ranks:
+        walls = {n: (round(c["ring_fwd_ms"], 2), round(c["ring_bwd_ms"], 2))
+                 for n, c in r["cases"].items()}
+        shares = {n: (round(max(c["shares"].values()), 4),
+                      round(max(c["whole_shares"].values()), 4))
+                  for n, c in r["cases"].items()}
+        print(f"phase 26 (c) [{card}] rank {r['rank']} of 2 on one card "
+              f"({r['backend']}, host-staged exchange) t = {RG_T}: ring "
+              f"(forward, backward) ms {walls}; against the unsharded "
+              f"kernels, shares of the (per-element, whole-tensor) "
+              f"gates {shares}; "
+              f"Keras ring step losses {r['keras']['losses']['ring']} vs "
+              f"flash {r['keras']['losses']['flash']}", flush=True)
+    return out
+
+
+def rs_router(torch, seed: int, card: str, gpt2_model) -> dict:
+    """(d): two GPT-2 small replicas from `ReplicaRouter.build`, one
+    shared host tier, phase-aware routing on."""
+    from analytics_zoo_tpu_torch.common.context import OrcaContext
+    from analytics_zoo_tpu_torch.ops import kernels
+    from analytics_zoo_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode,
+    )
+    from analytics_zoo_tpu_torch.serving.distributed import ReplicaRouter
+
+    model = gpt2_model
+    n_block = model.n_block
+    geom = dict(max_slots=8, block_size=16, max_context=1024)
+    rng = np.random.default_rng(seed + 264)
+    long = rng.integers(0, model.vocab, RO_PROMPT).tolist()
+
+    def prompt(j):
+        # cached prefixes of the long prompt and short prompts (decode
+        # heavy), and fresh long prompts (prefill heavy)
+        extra = rng.integers(0, model.vocab, 8).tolist()
+        if j % 4 == 0:
+            return long[:RO_PROMPT - 16 * (j % 3)] + extra
+        if j % 4 == 1:
+            return rng.integers(0, model.vocab, 64).tolist()
+        return extra[:4 + j % 4]
+
+    prompts = [prompt(j) for j in range(RO_REQUESTS)]
+    single, = rt_engines(torch, model, 1)
+    streams = [single.submit(p, max_new_tokens=RO_NEW)
+               for p in [long + [1, 2]] + prompts]
+    single.run_until_idle()
+    want = [s.tokens() for s in streams]
+    set_context(OrcaContext, kv_host_tier_bytes=RO_TIER_BYTES,
+                router_phase_aware=True)
+    try:
+        router = ReplicaRouter.build(model, n_replicas=2, device="cuda",
+                                     prefix_caching=True, **geom)
+    finally:
+        set_context(OrcaContext, kv_host_tier_bytes=0,
+                    router_phase_aware=False)
+    engines = [r.engine for r in router.replicas]
+    tier = engines[0].host_tier
+    check(tier is not None and all(e.host_tier is tier for e in engines)
+          and router.phase_aware
+          and engines[0].prefix_cache.host_write_through,
+          "phase 26 (d): the replicas do not share one host tier")
+    # replica 0 prefills the long prompt (its blocks written through to
+    # the tier) and evicts them; replica 1 restores them
+    s0 = engines[0].submit(long, max_new_tokens=2)
+    engines[0].run_until_idle()
+    s0.tokens()
+    spilled = tier.n_spilled
+    engines[0].prefix_cache.evict(RO_PROMPT // geom["block_size"])
+    before = engines[1].n_host_restores
+    pre = (engines[1].n_prefills, engines[1].n_decode_steps)
+    kernels.reset_launch_counts()
+    split0 = paged_decode.launches_by_body["split"]
+    s1 = engines[1].submit(long + [1, 2], max_new_tokens=RO_NEW)
+    engines[1].run_until_idle()
+    got1 = s1.tokens()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    restored = engines[1].n_host_restores - before
+    steps = engines[1].n_decode_steps - pre[1]
+    check(got1 == want[0] and restored == RO_PROMPT // geom["block_size"]
+          and spilled > 0,
+          f"phase 26 (d): replica 1 restored {restored} blocks of what "
+          f"replica 0 spilled ({spilled}); its stream equal to one "
+          f"engine's: {got1 == want[0]}")
+    check(counts["paged_decode"] == n_block * steps and steps > 0
+          and paged_decode.launches_by_body["split"] - split0
+          == counts["paged_decode"],
+          f"phase 26 (d): K6 launches {counts['paged_decode']} for "
+          f"{steps} decode steps")
+    # phase-aware routing: the streams are one engine's
+    pre = [(e.n_prefills, e.n_decode_steps) for e in engines]
+    kernels.reset_launch_counts()
+    split0 = paged_decode.launches_by_body["split"]
+    rstreams = [router.submit(p, max_new_tokens=RO_NEW) for p in prompts]
+    router.run_until_idle()
+    got = [s.tokens() for s in rstreams]
+    torch.cuda.synchronize()
+    counts2 = kernels.launch_counts()
+    steps2 = [(e.n_prefills - p, e.n_decode_steps - d)
+              for e, (p, d) in zip(engines, pre)]
+    phases = (router.registry.counter("router_phase_prefill_total").value,
+              router.registry.counter("router_phase_decode_total").value)
+    check(got == want[1:], "phase 26 (d): a phase-aware routed stream "
+          "differs from one engine's greedy stream")
+    check(counts2["paged_decode"] == n_block * sum(d for _, d in steps2)
+          and paged_decode.launches_by_body["split"] - split0
+          == counts2["paged_decode"] and min(phases) > 0,
+          f"phase 26 (d): K6 {counts2['paged_decode']} for (prefills, "
+          f"decode steps) {steps2}; phases {phases}")
+    served = [r.served for r in router.replicas]
+    router.stop()
+    single.stop()
+    out = dict(spilled=spilled, restored=restored, steps=steps,
+               launches=counts, routed_launches=counts2, served=served,
+               phases=phases, tier_bytes=tier.bytes_used)
+    print(f"phase 26 (d) [{card}] two GPT-2 small replicas, one host tier "
+          f"of {RO_TIER_BYTES >> 20} MiB ({tier.bytes_used} bytes held): "
+          f"replica 1 restored {restored} blocks replica 0 spilled "
+          f"({spilled} spills), its stream one engine's, K6 "
+          f"{counts['paged_decode']} = {n_block} x {steps} decode steps, "
+          f"all split; phase-aware: {RO_REQUESTS} streams equal one "
+          f"engine's, prefill/decode {phases}, served {served}",
+          flush=True)
+    return out
+
+
+def phase_resilience(torch, seed: int, card: str, gpt2_model,
+                     bert_model) -> dict:
+    """Phase 26: (a) encrypted models, (b) the elastic driver, (c) ring
+    attention at t = 16384 on two ranks, (d) the router's shared host
+    tier and phase-aware routing."""
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch import observability as o
+
+    t0 = time.perf_counter()
+    directory = tempfile.mkdtemp(prefix="phase26-")
+    fresh_planes(o)
+    out = {}
+    try:
+        out["a"] = rs_encrypted(torch, seed, card, bert_model, directory)
+        free_card(torch)
+        out["b"] = rs_elastic(torch, seed, card, directory)
+        out["c"] = rs_ring(torch, seed, card, directory)
+        free_card(torch)
+        out["d"] = rs_router(torch, seed, card, gpt2_model)
+    finally:
+        fresh_planes(o)
+        shutil.rmtree(directory, ignore_errors=True)
+        free_card(torch)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {
+        "encrypted_bert": out["a"]["launches"],
+        "elastic_member_fine_tune": out["b"]["launches"],
+        "ring_rank0": out["c"]["launches"]["rank0"],
+        "ring_rank1": out["c"]["launches"]["rank1"],
+        "router_shared_tier": out["d"]["launches"],
+        "router_phase_aware": out["d"]["routed_launches"]}
+    print("resilience " + json.dumps(dict(
+        card=card, seconds=out["seconds"], format=out["a"]["format"],
+        stall_detected_after_beat_s=out["b"]["stall_detected_after_beat_s"],
+        restart_first_step_s=out["b"]["restart_first_step_s"],
+        ring_wall_s=out["c"]["wall_s"],
+        long_context=out["c"]["kernels"]["times"],
+        restored=out["d"]["restored"])), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
+    # phase 26's children: a member of the elastic driver, a ring rank
+    ap.add_argument("--elastic-member", nargs=7, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ring-rank", nargs=3, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    beats = (el_heartbeat(args.elastic_member[4]) if args.elastic_member
+             else None)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.elastic_member:
+        return el_member(torch, args.elastic_member, args.seed, beats)
+    if args.ring_rank:
+        return rg_rank(torch, args.ring_rank, args.seed)
     from analytics_zoo_tpu_torch.ops.kernels import _build
 
     # phase 1: setup
@@ -10658,6 +11734,9 @@ def main(argv=None) -> int:
     scale_out = phase_scale_out(torch, args.seed, card, engine.model,
                                 bert_model)
     clocks("after phase 25", start)
+    resilience = phase_resilience(torch, args.seed, card, engine.model,
+                                  bert_model)
+    clocks("after phase 26", start)
 
     # phase 10: device times from the profiler, after the timed serving
     # (a profiler session may leave tracing costs behind on the host)
@@ -10715,6 +11794,7 @@ def main(argv=None) -> int:
     obs_gen = observability["launches_generation"]
     planes_gen = serving_planes["launches"]
     scale = scale_out["launches"]
+    res = resilience["launches"]
     kernels = [
         kernel_entry("layer_norm_fwd", "triton",
                      "analytics_zoo_tpu_torch/ops/kernels/layer_norm.py",
@@ -10774,14 +11854,24 @@ def main(argv=None) -> int:
                                   "router_generate_http":
                                       scale["router_generate_http"],
                                   "generation_stream_consumer":
-                                      scale["generation_consumer"]},
+                                      scale["generation_consumer"],
+                                  "encrypted_bert_serving":
+                                      res["encrypted_bert"],
+                                  "elastic_member_fine_tune":
+                                      res["elastic_member_fine_tune"],
+                                  "router_shared_tier":
+                                      res["router_shared_tier"],
+                                  "router_phase_aware":
+                                      res["router_phase_aware"]},
                "layer_norm_bwd": {"bert_fine_tune": tr,
                                   "bert_fine_tune_remat": remat,
                                   "bert_fine_tune_xshards": xs_bert,
                                   "bert_pretrained_fine_tune": pretrained,
                                   "keras_bert_fit": k_bert,
                                   "keras_transformer_layer_fit": k_gpt,
-                                  "observed_fine_tune": obs_fit},
+                                  "observed_fine_tune": obs_fit,
+                                  "elastic_member_fine_tune":
+                                      res["elastic_member_fine_tune"]},
                "fused_dense_gelu": {"bert_serving": bert,
                                     "bert_fine_tune": tr,
                                     "bert_fine_tune_remat": remat,
@@ -10793,7 +11883,11 @@ def main(argv=None) -> int:
                                     "bert_pretrained_fine_tune": pretrained,
                                     "keras_bert_fit": k_bert,
                                     "keras_transformer_layer_fit": k_gpt,
-                                    "observed_fine_tune": obs_fit},
+                                    "observed_fine_tune": obs_fit,
+                                    "encrypted_bert_serving":
+                                        res["encrypted_bert"],
+                                    "elastic_member_fine_tune":
+                                        res["elastic_member_fine_tune"]},
                "flash_fwd": {"bert_serving": bert, "bert_fine_tune": tr,
                              "learnable_bias": bias_run["launches"],
                              "bert_fine_tune_remat": remat,
@@ -10804,21 +11898,40 @@ def main(argv=None) -> int:
                              "int8_bert_serving": int8_bert,
                              "bert_pretrained_fine_tune": pretrained,
                              "keras_transformer_layer_fit": k_gpt,
-                             "observed_fine_tune": obs_fit},
+                             "observed_fine_tune": obs_fit,
+                             "encrypted_bert_serving":
+                                 res["encrypted_bert"],
+                             "elastic_member_fine_tune":
+                                 res["elastic_member_fine_tune"],
+                             "ring_attention_rank0": res["ring_rank0"],
+                             "ring_attention_rank1": res["ring_rank1"]},
                "flash_bwd_dq": {"bert_fine_tune": tr,
                                 "learnable_bias": bias_run["launches"],
                                 "bert_fine_tune_remat": remat,
                                 "bert_fine_tune_xshards": xs_bert,
                                 "bert_pretrained_fine_tune": pretrained,
                                 "keras_transformer_layer_fit": k_gpt,
-                                "observed_fine_tune": obs_fit},
+                                "observed_fine_tune": obs_fit,
+                                "elastic_member_fine_tune":
+                                    res["elastic_member_fine_tune"],
+                                "ring_attention_rank0": res["ring_rank0"],
+                                "ring_attention_rank1": res["ring_rank1"]},
                "flash_bwd_dkv": {"bert_fine_tune": tr,
                                  "learnable_bias": bias_run["launches"],
                                  "bert_fine_tune_remat": remat,
                                  "bert_fine_tune_xshards": xs_bert,
                                  "bert_pretrained_fine_tune": pretrained,
                                  "keras_transformer_layer_fit": k_gpt,
-                                 "observed_fine_tune": obs_fit},
+                                 "observed_fine_tune": obs_fit,
+                                 "elastic_member_fine_tune":
+                                     res["elastic_member_fine_tune"],
+                                 "ring_attention_rank0": res["ring_rank0"],
+                                 "ring_attention_rank1": res["ring_rank1"]},
+               "flash_bwd_dbias": {"learnable_bias": bias_run["launches"],
+                                   "ring_attention_rank0":
+                                       res["ring_rank0"],
+                                   "ring_attention_rank1":
+                                       res["ring_rank1"]},
                "paged_decode": dict(
                    {f"generation_{r['label']}": r["launches"]
                     for r in runs}, generation_breadth=breadth,
@@ -10827,7 +11940,9 @@ def main(argv=None) -> int:
                    serving_planes_http=planes_gen,
                    router_generate_http=scale["router_generate_http"],
                    generation_stream_consumer=scale[
-                       "generation_consumer"])}
+                       "generation_consumer"],
+                   router_shared_tier=res["router_shared_tier"],
+                   router_phase_aware=res["router_phase_aware"])}
     for k in kernels:
         paths = by_path.get(k["name"])
         if paths:
@@ -10877,6 +11992,7 @@ def main(argv=None) -> int:
                       "observability": observability,
                       "serving_planes": serving_planes,
                       "scale_out": scale_out,
+                      "resilience": resilience,
                       "flash_fwd_boundary": fa_edges,
                       "flash_bwd_ragged_t": fab_ragged,
                       "flash_bh_past_65535": wide,

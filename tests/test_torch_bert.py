@@ -206,7 +206,16 @@ def test_conversion_rejects_bad_trees():
 
 
 def test_ring_and_unknown_attn_impl_raise():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        MultiHeadAttention(64, 4, attn_impl="ring", device="cpu")
+    """"ring" is ported (tests/test_torch_ring_attention.py): without an
+    "sp" axis it is flash attention, as in JAX; an unknown impl
+    raises."""
+    torch.manual_seed(0)
+    ring = MultiHeadAttention(64, 4, attn_impl="ring",
+                              compute_dtype=torch.float32, device="cpu")
+    flash = MultiHeadAttention(64, 4, attn_impl="flash",
+                               compute_dtype=torch.float32, device="cpu")
+    flash.load_state_dict(ring.state_dict())
+    x = torch.randn(2, 16, 64)
+    assert torch.equal(ring(x), flash(x))
     with pytest.raises(ValueError, match="unknown attn_impl"):
         MultiHeadAttention(64, 4, attn_impl="xla", device="cpu")

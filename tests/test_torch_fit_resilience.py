@@ -37,6 +37,10 @@ from analytics_zoo_tpu_torch.orca.learn import (
     SeveralIteration,
 )
 from analytics_zoo_tpu_torch.resilience import SimulatedWorkerFailure
+# one torch thread: the bitwise resume gate then compares two fits whose
+# CPU reductions cannot split differently between them, whatever the
+# other workers of the run are doing
+from _torch_chronos_cases import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-5
 
@@ -263,9 +267,9 @@ def test_retry_policy_matches_the_jax_policy():
 def test_fault_plan_validates_and_fires_deterministically():
     from analytics_zoo_tpu_torch.resilience import FaultPlan
     with pytest.raises(ValueError, match="unknown fault site"):
-        FaultPlan([{"site": "eval.step", "action": "raise"}])
+        FaultPlan([{"site": "train.batch", "action": "raise"}])
     with pytest.raises(ValueError, match="unknown fault action"):
-        FaultPlan([{"site": "train.step", "action": "nan"}])
+        FaultPlan([{"site": "train.step", "action": "explode"}])
     plan = FaultPlan([{"site": "train.step", "at": 2, "action": "raise",
                        "times": 2}])
     fired = [plan.hit("train.step") is not None for _ in range(5)]

@@ -37,6 +37,7 @@ from analytics_zoo_tpu_torch.ops.kernels.flash_attention import (
     drop_keep_mask,
     flash_fwd,
     flash_fwd_reference,
+    kernel_strides,
 )
 
 TOL, BF16_TOL = 1e-5, 2e-2
@@ -263,6 +264,26 @@ def test_kernel_checks_take_bh_past_65535():
                                                2 ** 16, h, d)
     with pytest.raises(ValueError, match="2\\^31"):
         check_args(big, big, big)
+
+
+def test_kernel_checks_ignore_the_strides_of_size_one_dimensions():
+    """A slice of a batch of one keeps the global tensor's batch stride,
+    which enters no address: the checks take it beside dense k and v and
+    the kernels get the dense layout's strides; a real layout mismatch
+    still raises."""
+    t, h, d = 64, 2, 32
+    full = torch.empty(1, 2 * t, h, d, dtype=torch.bfloat16)
+    q = full[:, t:]
+    k, v = (torch.empty(1, t, h, d, dtype=torch.bfloat16)
+            for _ in range(2))
+    assert q.stride(0) == 2 * t * h * d and q.is_contiguous()
+    assert kernel_strides(q) == kernel_strides(k) == (t * h * d, h * d, d, 1)
+    assert check_args(q, k, v) == 0
+    fused = torch.empty(2, t, 3, h, d, dtype=torch.bfloat16)[:, :, 0]
+    assert kernel_strides(fused) == fused.stride()
+    with pytest.raises(ValueError, match="share strides"):
+        check_args(fused, torch.empty_like(fused, memory_format=torch
+                                          .contiguous_format), fused)
 
 
 @pytest.mark.parametrize("shape", ["1xh", "bx1", "bxh", "1x1"])

@@ -16,7 +16,15 @@ weights through `convert.causal_lm_from_flax`
   `retry_after_s`;
 * `FleetAggregator(router=)` gives one live source and one SLO row per
   replica, and the server's /stats, /metrics (replica-labeled rows) and
-  /generate front the router.
+  /generate front the router;
+* `ReplicaRouter.build` gives every replica one shared host KV tier of
+  `OrcaContext.kv_host_tier_bytes` (JAX router.py:284-293), and replica
+  1 restores from it a prefix that replica 0 spilled, with the stream a
+  single engine's and the restore count JAX's;
+* phase-aware routing (`OrcaContext.router_phase_aware`): the replicas'
+  phases, the prefill replica's write-through, the placements, the
+  phase counters and the streams equal JAX's router's on the same
+  submissions.
 
 Token streams are compared exactly; the engines run at one torch
 thread."""
@@ -34,8 +42,15 @@ from _torch_generation_cases import (
     port_engine,
     port_model,
 )
+from analytics_zoo_tpu.common.context import OrcaContext as JaxContext
+from analytics_zoo_tpu.observability.registry import (
+    MetricsRegistry as JaxRegistry,
+)
 from analytics_zoo_tpu.serving.distributed import (
     ReplicaRouter as JaxRouter,
+)
+from analytics_zoo_tpu.serving.generation.host_tier import (
+    HostKVTier as JaxTier,
 )
 from analytics_zoo_tpu_torch import observability as obs
 from analytics_zoo_tpu_torch.common.context import OrcaContext
@@ -44,6 +59,7 @@ from analytics_zoo_tpu_torch.serving import ServingServer
 from analytics_zoo_tpu_torch.serving.distributed import ReplicaRouter
 from analytics_zoo_tpu_torch.serving.errors import QueueFull
 from analytics_zoo_tpu_torch.serving.generation import GenerationEngine
+from analytics_zoo_tpu_torch.serving.generation.host_tier import HostKVTier
 
 GEOM = dict(max_slots=2, block_size=8, max_context=64)
 PROMPTS = [[(7 * i + j) % VOCAB for j in range(3 + i % 5)]
@@ -215,3 +231,118 @@ def test_the_fleet_and_the_server_front_the_router(lm):
         srv.stop()
         OrcaContext.slo_targets = None
         obs.reset_slo_tracker()
+
+
+# ---------------------------------------- the shared host tier, phases
+
+TIER_BYTES = 1 << 20
+#: a prompt of three whole blocks, and one that extends it
+LONG = [(5 * j + 1) % VOCAB for j in range(24)]
+
+
+@pytest.fixture
+def knobs():
+    """Sets context knobs through their setters and restores them after:
+    a setter stores its value on the class itself, where it shadows the
+    metaclass's default, so patching that default would not hold."""
+    saved = (OrcaContext.kv_host_tier_bytes,
+             OrcaContext.router_phase_aware, JaxContext.router_phase_aware)
+    yield
+    (OrcaContext.kv_host_tier_bytes, OrcaContext.router_phase_aware,
+     JaxContext.router_phase_aware) = saved
+
+
+def test_build_shares_one_host_tier(lm, knobs):
+    OrcaContext.kv_host_tier_bytes = TIER_BYTES
+    r = ReplicaRouter.build(lm, n_replicas=2, warmup=False, device="cpu",
+                            prefix_caching=True, **GEOM)
+    tiers = [x.engine.host_tier for x in r.replicas]
+    assert tiers[0] is not None and tiers[0] is tiers[1]
+    assert tiers[0].capacity_bytes == TIER_BYTES
+    # a caller's own tier (or none) is left as given
+    mine = HostKVTier(TIER_BYTES)
+    r = ReplicaRouter.build(lm, n_replicas=2, warmup=False, device="cpu",
+                            prefix_caching=True, kv_host_tier=mine, **GEOM)
+    assert all(x.engine.host_tier is mine for x in r.replicas)
+
+
+def _spill_then_restore(engines, restored):
+    """Replica 0 serves LONG and evicts its cached blocks into the shared
+    tier; replica 1 then serves LONG + 2 tokens.  Returns replica 1's
+    stream and its restores."""
+    first = engines[0].submit(LONG, max_new_tokens=2)
+    engines[0].run_until_idle()
+    first.tokens()
+    assert engines[0].prefix_cache.evict(10) == 3
+    before = restored()
+    s = engines[1].submit(LONG + [3, 4], max_new_tokens=4)
+    engines[1].run_until_idle()
+    return s.tokens(), restored() - before
+
+
+def test_replica_one_restores_what_replica_zero_spilled(lm, params):
+    kw = dict(GEOM, prefix_caching=True)
+    tier = HostKVTier(TIER_BYTES)
+    engines = [port_engine(lm, registry=MetricsRegistry(), kv_host_tier=tier,
+                           **kw) for _ in range(2)]
+    ReplicaRouter(engines)
+    got, n = _spill_then_restore(
+        engines, lambda: engines[1].n_host_restores)
+    jreg = JaxRegistry()
+    jtier = JaxTier(TIER_BYTES, registry=jreg)
+    jengines = [jax_engine(params, kv_host_tier=jtier, **kw)
+                for _ in range(2)]
+    JaxRouter(jengines)
+    want, jn = _spill_then_restore(
+        jengines,
+        lambda: jreg.counter("kv_host_restored_total").value)
+    assert n == jn == 3 and tier.n_spilled == 3
+    assert got == want
+    assert got == port_engine(lm, **GEOM).generate(LONG + [3, 4],
+                                                   max_new_tokens=4)
+
+
+def _phase_run(router):
+    """Long prompts (prefill-heavy), short ones (decode-heavy) and a
+    long prompt again once it is cached: the replica of each, the
+    streams and the phase counters."""
+    prompts = [LONG, [1, 2, 3], LONG[:20] + [9], [4, 5], LONG + [7],
+               [6, 7, 8, 9]]
+    placed, streams = [], []
+    for p in prompts:
+        s = router.submit(p, max_new_tokens=3)
+        placed.append(s.replica_name)
+        streams.append(s)
+        router.run_until_idle()
+    reg = router.registry
+    counts = (reg.counter("router_phase_prefill_total").value,
+              reg.counter("router_phase_decode_total").value)
+    return placed, [s.tokens() for s in streams], counts
+
+
+def test_phase_aware_routing_equals_jax(lm, params, knobs):
+    OrcaContext.router_phase_aware = True
+    JaxContext.router_phase_aware = True
+    kw = dict(GEOM, prefix_caching=True)
+    tier = HostKVTier(TIER_BYTES)
+    router = ReplicaRouter(
+        [port_engine(lm, registry=MetricsRegistry(), kv_host_tier=tier,
+                     **kw) for _ in range(2)], registry=MetricsRegistry())
+    jtier = JaxTier(TIER_BYTES, registry=JaxRegistry())
+    jrouter = JaxRouter([jax_engine(params, kv_host_tier=jtier, **kw)
+                         for _ in range(2)], registry=JaxRegistry())
+    assert router.phase_aware and jrouter.phase_aware
+    assert [r.phase for r in router.replicas] == \
+        [r.phase for r in jrouter.replicas] == ["prefill", "decode"]
+    assert router.replicas[0].engine.prefix_cache.host_write_through
+    assert not router.replicas[1].engine.prefix_cache.host_write_through
+    got, want = _phase_run(router), _phase_run(jrouter)
+    assert got == want
+    assert got[2][0] > 0 and got[2][1] > 0
+    assert [row["phase"] for row in router.stats()["replicas"]] == \
+        ["prefill", "decode"]
+    # the prefill replica's blocks reached the shared tier without an
+    # eviction
+    assert tier.n_spilled > 0
+    # one replica: nothing to split
+    assert not ReplicaRouter(port_engines(lm, 1)).phase_aware

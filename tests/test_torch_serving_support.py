@@ -4,10 +4,10 @@ package's on the CPU:
 * the codec: base64 ndarrays, base64 images and Arrow tensors encode to
   the same bytes, and each package decodes the other's;
 * `ServingConfig`: the same keys, defaults, errors and YAML loading;
-  `start_serving` refuses what is not ported (encrypted weights, in
-  each of the worker-pool, gRPC and both-protocol setups) before it
+  `start_serving` refuses a `decryptKeyEnv` naming an unset variable in
+  each of the worker-pool, gRPC and both-protocol setups before it
   starts anything (tests/test_torch_stream_serving.py serves those
-  setups);
+  setups, tests/test_torch_encrypt.py encrypted weights);
 * `start_serving` / `stop_serving` and `python -m
   analytics_zoo_tpu_torch.serving.start -c ... --no-block` serve a saved
   port NeuralCF, whose /predict equals `ZooModel.predict` to 1e-5, and
@@ -136,8 +136,11 @@ def test_config_defaults_and_yaml_match_jax(tmp_path):
 @pytest.mark.parametrize("cfg", [{"replicas": 2}, {"protocol": "grpc"},
                                  {"protocol": "both"}])
 def test_start_serving_refuses_what_is_not_ported(cfg, monkeypatch):
-    monkeypatch.setenv("ZOO_TEST_MODEL_KEY", "k")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """Encrypted weights are served now (tests/test_torch_encrypt.py);
+    what each configuration still refuses, before anything starts, is
+    a `decryptKeyEnv` naming an unset variable (JAX config.py:116-123)."""
+    monkeypatch.delenv("ZOO_TEST_MODEL_KEY", raising=False)
+    with pytest.raises(ValueError, match="environment variable is unset"):
         start_serving(ServingConfig(modelPath="unused", port=0,
                                     decryptKeyEnv="ZOO_TEST_MODEL_KEY",
                                     **cfg), device="cpu")
@@ -219,8 +222,11 @@ def test_load_model_predicts_as_the_saved_model(saved_ncf):
                                     device="cpu").predict(u, i),
         InferenceModel().load_module(direct._module, quantize=True
                                      ).predict(u, i))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        InferenceModel().load_model(path, decrypt_key="k", device="cpu")
+    # a key given for weights saved in the clear is not needed, as in JAX
+    np.testing.assert_allclose(
+        InferenceModel().load_model(path, decrypt_key="k",
+                                    device="cpu").predict(u, i),
+        want, atol=TOL)
 
 
 def test_load_estimator_predicts_as_the_estimator():

@@ -196,13 +196,18 @@ def test_load_checks_the_class(tmp_path):
 
 
 def test_encryption_is_not_ported_yet(tmp_path):
+    """Encryption at rest is ported now (tests/test_torch_encrypt.py
+    holds the bytes against JAX's): an encrypted save leaves no weights
+    in the clear, and its load needs the key (JAX's ValueError)."""
     model = rec.NeuralCF(**NCF_KW, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.save_model(str(tmp_path / "m"), encrypt_key="secret")
-    assert not os.path.exists(tmp_path / "m")
-    path = model.save_model(str(tmp_path / "m"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rec.NeuralCF.load_model(path, decrypt_key="secret", device="cpu")
+    path = model.save_model(str(tmp_path / "m"), encrypt_key="secret")
+    assert not os.path.exists(os.path.join(path, "weights.pt"))
+    with pytest.raises(ValueError, match="pass decrypt_key"):
+        rec.NeuralCF.load_model(path, device="cpu")
+    back = rec.NeuralCF.load_model(path, decrypt_key="secret", device="cpu")
+    for (name, a), b in zip(back.state_dict().items(),
+                            model.state_dict().values()):
+        assert torch.equal(a, b), name
 
 
 def test_models_are_zoo_models_and_raise_without_a_card(monkeypatch):
